@@ -1,0 +1,15 @@
+from vcagan_torch.dsp.audio import deemphasis
+from vcagan_torch.dsp.griffin_lim import griffin_lim
+from vcagan_torch.dsp.mel import mel_filterbank
+from vcagan_torch.dsp.pipeline import MelPipeline
+from vcagan_torch.dsp.stft import STFTParams, istft_complex, stft
+
+__all__ = [
+    "MelPipeline",
+    "STFTParams",
+    "deemphasis",
+    "griffin_lim",
+    "istft_complex",
+    "mel_filterbank",
+    "stft",
+]

@@ -1,0 +1,57 @@
+"""Inverse mel pipeline: linear or normalised-mel spectrogram -> waveform.
+
+Port of the inverse half of ``vcagan/dsp/pipeline.py:23-131``
+(``compress_mel``, ``mel_to_linear``, ``inverse_mel``, ``inverse_spec``),
+time-major (B, T, bins).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vcagan_torch.configs import AudioConfig
+from vcagan_torch.dsp import audio as audio_ops
+from vcagan_torch.dsp.griffin_lim import griffin_lim
+from vcagan_torch.dsp.mel import mel_filterbank
+from vcagan_torch.dsp.stft import STFTParams
+
+
+class MelPipeline:
+    """Stateless apart from the constant mel basis (n_mels, n_linear)."""
+
+    def __init__(self, config: AudioConfig | None = None):
+        self.config = config or AudioConfig()
+        c = self.config
+        self.stft_params = STFTParams(c.n_fft, c.hop_length, c.win_length)
+        self.mel_basis = torch.from_numpy(
+            mel_filterbank(c.sample_rate, c.n_fft, c.n_mels, c.f_min, c.f_max)
+        )
+
+    def _basis(self, like: torch.Tensor) -> torch.Tensor:
+        if self.mel_basis.device != like.device or self.mel_basis.dtype != like.dtype:
+            self.mel_basis = self.mel_basis.to(like.device, like.dtype)
+        return self.mel_basis
+
+    def compress_mel(self, mag: torch.Tensor) -> torch.Tensor:
+        """Linear magnitudes (B, T, n_linear) -> log-mel (B, T, n_mels)."""
+        return audio_ops.dynamic_range_compression(mag @ self._basis(mag).T)
+
+    def mel_to_linear(self, mel_norm: torch.Tensor) -> torch.Tensor:
+        """Normalised log-mel (B, T, n_mels) -> approximate linear magnitudes:
+        denormalise, exp, the transposed basis as pseudo-inverse, x1000."""
+        mel = audio_ops.dynamic_range_decompression(audio_ops.mel_denormalize(mel_norm))
+        return (mel @ self._basis(mel)) * self.config.mel_inversion_scale
+
+    def inverse_mel(self, mel_norm, init_phase=None, generator=None) -> torch.Tensor:
+        """Normalised log-mel (B, T, n_mels) -> waveform (B, L), clipped."""
+        return self.inverse_spec(self.mel_to_linear(mel_norm), init_phase, generator)
+
+    def inverse_spec(self, spec, init_phase=None, generator=None) -> torch.Tensor:
+        """Linear magnitudes (B, T, n_linear) -> waveform (B, hop*(T-1)):
+        Griffin-Lim, de-emphasis, clip to [-1, 1].  ``init_phase`` (B, T,
+        n_linear) replaces the random phase drawn from ``generator``."""
+        wav = griffin_lim(
+            spec, self.stft_params, self.config.griffin_lim_iters, init_phase, generator
+        )
+        wav = audio_ops.deemphasis(wav, self.config.preemphasis)
+        return torch.clamp(wav, -1.0, 1.0)

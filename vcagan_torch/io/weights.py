@@ -1,0 +1,176 @@
+"""Weights from the JAX package's formats into the port's state dicts.
+
+``from_jax`` maps numpy flax trees of the generator side (``v_front``,
+``gen``, ``post``) onto the port's modules, whose state-dict keys are the
+reference PyTorch names that ``tools/convert_torch_ckpt.py`` reads; the
+converter's ``convert_visual_front/decoder/postnet`` are its exact inverse.
+Layouts: conv HWIO/DHWIO/WIO -> OIHW/OIDHW/OIW, dense (in, out) -> (out, in),
+GRU (in, 3H) -> (3H, in), BatchNorm scale/bias + mean/var -> weight/bias +
+running stats, and the attention ``q`` input rows from the JAX f-major to
+the reference c-major flatten order.
+
+``load_serving_npz`` reads the flat ``params/<mod>/...`` and
+``stats/<mod>/...`` file of ``vcagan/io/serving_npz.py`` (fp16 leaves, or
+int8 ``q8:`` leaves with fp32 per-output-channel ``q8s:`` scales).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+Tree = Dict[str, Any]
+
+
+def _conv(w) -> np.ndarray:  # (spatial..., I, O) -> (O, I, spatial...)
+    w = np.asarray(w)
+    return w.transpose(w.ndim - 1, w.ndim - 2, *range(w.ndim - 2))
+
+
+def _linear(w) -> np.ndarray:  # (in, out) -> (out, in)
+    return np.asarray(w).T
+
+
+def _perm_cf_to_fc(c: int, f: int) -> np.ndarray:
+    """perm[f*C + c] = c*F + f: the reference (c-major) row of each JAX
+    (f-major) row of a flattened (F, C) input."""
+    idx = np.arange(c * f)
+    return (idx % c) * f + idx // c
+
+
+def _bn(sd: Dict, prefix: str, p: Tree, s: Tree) -> None:
+    sd[f"{prefix}.weight"] = p["scale"]
+    sd[f"{prefix}.bias"] = p["bias"]
+    sd[f"{prefix}.running_mean"] = s["mean"]
+    sd[f"{prefix}.running_var"] = s["var"]
+    sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _conv_bias(sd: Dict, prefix: str, p: Tree) -> None:
+    sd[f"{prefix}.weight"] = _conv(p["kernel"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = p["bias"]
+
+
+def _dense(sd: Dict, prefix: str, p: Tree, rows=None) -> None:
+    kernel = np.asarray(p["kernel"])
+    sd[f"{prefix}.weight"] = _linear(kernel if rows is None else kernel[rows])
+    sd[f"{prefix}.bias"] = p["bias"]
+
+
+def _gen_res_blk(sd: Dict, prefix: str, p: Tree, s: Tree) -> None:
+    for conv in ("conv1", "conv2", "conv1x1"):
+        if conv in p:
+            _conv_bias(sd, f"{prefix}.{conv}", p[conv])
+    for norm in ("norm1", "norm2"):
+        _bn(sd, f"{prefix}.{norm}", p[norm], s[norm])
+
+
+def visual_front_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    sd["frontend.0.weight"] = _conv(p["stem_conv"]["kernel"])
+    _bn(sd, "frontend.1", p["stem_bn"], s["stem_bn"])
+    sd["frontend.2.weight"] = p["stem_act"]["alpha"]
+    for name, bp in p["resnet"].items():  # layer{stage}_{block}
+        bs = s["resnet"][name]
+        prefix = "resnet." + name.replace("_", ".")
+        for i in (1, 2):
+            sd[f"{prefix}.conv{i}.weight"] = _conv(bp[f"conv{i}"]["kernel"])
+            _bn(sd, f"{prefix}.bn{i}", bp[f"bn{i}"], bs[f"bn{i}"])
+            sd[f"{prefix}.relu{i}.weight"] = bp[f"act{i}"]["alpha"]
+        if "down_conv" in bp:
+            sd[f"{prefix}.downsample.0.weight"] = _conv(bp["down_conv"]["kernel"])
+            _bn(sd, f"{prefix}.downsample.1", bp["down_bn"], bs["down_bn"])
+    for layer, lp in p["sentence_encoder"].items():  # l{k}
+        k = layer[1:]
+        for ours, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            sd[f"sentence_encoder.weight_ih_l{k}{suffix}"] = _linear(lp[f"{ours}_w_i"])
+            sd[f"sentence_encoder.weight_hh_l{k}{suffix}"] = _linear(lp[f"{ours}_w_h"])
+            sd[f"sentence_encoder.bias_ih_l{k}{suffix}"] = lp[f"{ours}_b_i"]
+            sd[f"sentence_encoder.bias_hh_l{k}{suffix}"] = lp[f"{ours}_b_h"]
+    _dense(sd, "fc", p["fc"])
+    return sd
+
+
+def attention_state(p: Tree, f_dim: int) -> Dict[str, np.ndarray]:
+    """One AVAttention: k, v, mel as they are, q's input rows from the JAX
+    f-major to the reference c-major order."""
+    sd: Dict[str, np.ndarray] = {}
+    c_dim = np.asarray(p["q"]["kernel"]).shape[0] // f_dim
+    _dense(sd, "q", p["q"], rows=np.argsort(_perm_cf_to_fc(c_dim, f_dim)))
+    for dense in ("k", "v", "mel"):
+        _dense(sd, dense, p[dense])
+    return sd
+
+
+def decoder_state(p: Tree, s: Tree, base_bins: int = 20) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    for stage in ("decode", "g1", "g2", "g3"):
+        for i in range(3):
+            name = f"{stage}_{i}"
+            _gen_res_blk(sd, f"{stage}.{i}", p[name], s[name])
+    for att, f_dim in (("att1", base_bins), ("att2", 2 * base_bins)):
+        sd.update({f"{att}.{k}": v for k, v in attention_state(p[att], f_dim).items()})
+    for i in (1, 2):
+        _conv_bias(sd, f"attconv{i}", p[f"attconv{i}"])
+    for i in (1, 2, 3):
+        head = f"to_mel{i}"
+        _bn(sd, f"{head}.0", p[head]["norm"], s[head]["norm"])
+        _conv_bias(sd, f"{head}.2", p[head]["conv"])
+    return sd
+
+
+def postnet_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    _conv_bias(sd, "postnet.0", p["conv_in"])
+    _bn(sd, "postnet.1", p["bn_in"], s["bn_in"])
+    for i, idx in enumerate((3, 4, 5), start=1):
+        for conv in ("conv1", "conv2", "conv1x1"):
+            if conv in p[f"res{i}"]:
+                _conv_bias(sd, f"postnet.{idx}.{conv}", p[f"res{i}"][conv])
+    sd["postnet.6.weight"] = _conv(p["conv_out"]["kernel"])
+    return sd
+
+
+def from_jax(params: Tree, batch_stats: Tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{v_front, gen, post} numpy flax trees -> the port's state dicts."""
+    states = {
+        "v_front": visual_front_state(params["v_front"], batch_stats["v_front"]),
+        "gen": decoder_state(params["gen"], batch_stats["gen"]),
+        "post": postnet_state(params["post"], batch_stats["post"]),
+    }
+    return {mod: as_tensors(sd) for mod, sd in states.items()}
+
+
+def as_tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """numpy state dict -> contiguous CPU tensors, for ``load_state_dict``."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def read_serving_npz(path: str) -> Tuple[Tree, Tree]:
+    """The serving npz as fp32 numpy (params, stats) trees of v_front, gen
+    and post, int8 leaves dequantised as ``q * scale``."""
+    trees: Dict[str, Tree] = {"params": {}, "stats": {}}
+    with np.load(path) as z:
+        for key in z.files:
+            if key.startswith("q8s:"):
+                continue
+            if key.startswith("q8:"):
+                name = key[3:]
+                arr = z[key].astype(np.float32) * z["q8s:" + name]
+            else:
+                name = key
+                arr = z[key].astype(np.float32)
+            kind, *path_parts = name.split("/")
+            node = trees[kind]
+            for part in path_parts[:-1]:
+                node = node.setdefault(part, {})
+            node[path_parts[-1]] = arr
+    return trees["params"], trees["stats"]
+
+
+def load_serving_npz(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The serving npz as the port's state dicts."""
+    return from_jax(*read_serving_npz(path))

@@ -1,0 +1,17 @@
+from vcagan_torch.nn.attention import AVAttention
+from vcagan_torch.nn.generator import Decoder, GenResBlk, Postnet, ResBlk1D
+from vcagan_torch.nn.gru import BiGRU
+from vcagan_torch.nn.resnet import BasicBlock, ResNetTrunk
+from vcagan_torch.nn.visual_front import VisualFront
+
+__all__ = [
+    "AVAttention",
+    "BasicBlock",
+    "BiGRU",
+    "Decoder",
+    "GenResBlk",
+    "Postnet",
+    "ResBlk1D",
+    "ResNetTrunk",
+    "VisualFront",
+]

@@ -1,0 +1,159 @@
+"""Mel generator (Decoder), Postnet, and their residual blocks, NCHW.
+
+Port of ``vcagan/nn/generator.py:30-234`` in eval mode.  Inside, the
+spectrogram maps are (B, C, F, T); the public layouts are the JAX ones:
+``noise`` (B, 20, T, 128), mels (B, F, T'), postnet output (B, 321, T').
+Attribute names follow the reference state dict (``decode.0``, ``g1.2``,
+``att1.q``, ``attconv1``, ``to_mel1.2``, ``postnet.0`` ... ``postnet.6``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from vcagan_torch.configs import ModelConfig
+from vcagan_torch.nn.attention import AVAttention
+from vcagan_torch.nn.common import INV_SQRT2, batch_norm, leaky_relu
+
+
+def _nearest_up2(x: torch.Tensor) -> torch.Tensor:
+    """x2 nearest-neighbour upsample of (B, C, F, T) in F and T."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+class GenResBlk(nn.Module):
+    """BN-LReLU-conv5x5 twice, optional x2 nearest upsample, 1x1 shortcut
+    on a channel change, output scaled by 1/sqrt(2)."""
+
+    def __init__(self, in_channels: int, out_channels: int, upsample: bool = False):
+        super().__init__()
+        self.upsample = upsample
+        self.norm1 = batch_norm(in_channels)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 5, padding=2)
+        self.norm2 = batch_norm(out_channels)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 5, padding=2)
+        self.conv1x1 = None
+        if in_channels != out_channels:
+            self.conv1x1 = nn.Conv2d(in_channels, out_channels, 1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = leaky_relu(self.norm1(x))
+        if self.upsample:
+            h = _nearest_up2(h)
+        h = self.conv2(leaky_relu(self.norm2(self.conv1(h))))
+        sc = _nearest_up2(x) if self.upsample else x
+        if self.conv1x1 is not None:
+            sc = self.conv1x1(sc)
+        return (h + sc) * INV_SQRT2
+
+
+class ResBlk1D(nn.Module):
+    """LReLU-conv5 twice + 1x1 shortcut, 1/sqrt(2) scaling, on (B, C, T)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv1 = nn.Conv1d(in_channels, in_channels, 5, padding=2)
+        self.conv2 = nn.Conv1d(in_channels, out_channels, 5, padding=2)
+        self.conv1x1 = None
+        if in_channels != out_channels:
+            self.conv1x1 = nn.Conv1d(in_channels, out_channels, 1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv2(leaky_relu(self.conv1(leaky_relu(x))))
+        sc = x if self.conv1x1 is None else self.conv1x1(x)
+        return (h + sc) * INV_SQRT2
+
+
+def _to_mel(channels: int) -> nn.Sequential:
+    """BN -> LReLU -> 1x1 conv -> tanh head."""
+    return nn.Sequential(
+        batch_norm(channels), nn.LeakyReLU(0.2), nn.Conv2d(channels, 1, 1), nn.Tanh()
+    )
+
+
+def _blocks(plan, upsample_first: bool = False) -> nn.Sequential:
+    return nn.Sequential(
+        *(
+            GenResBlk(cin, cout, upsample=upsample_first and i == 0)
+            for i, (cin, cout) in enumerate(plan)
+        )
+    )
+
+
+class Decoder(nn.Module):
+    """Normalised log-mels at three scales, with visual-context attention
+    after the first two stages.  PHON is tiled over the 20 coarse bins as
+    the synthesis input; SENT feeds the attention keys and values."""
+
+    def __init__(self, config: ModelConfig | None = None):
+        super().__init__()
+        m = config or ModelConfig()
+        self.base_bins = m.mel_base_bins
+        self.noise_dim = m.noise_dim
+        c_in = m.feature_dim + m.noise_dim
+        self.decode = _blocks([(c_in, 512), (512, 256), (256, 256)])
+        self.g1 = _blocks([(256, 128), (128, 128), (128, 128)])
+        self.g2 = _blocks([(128, 64), (64, 64), (64, 64)], upsample_first=True)
+        self.g3 = _blocks([(64, 32), (32, 32), (32, 32)], upsample_first=True)
+        f1, f2 = m.mel_base_bins, 2 * m.mel_base_bins
+        inner = m.attention_inner
+        self.att1 = AVAttention(128 * f1, m.attention_dim, inner, m.feature_dim)
+        self.att2 = AVAttention(64 * f2, m.attention_dim, inner, m.feature_dim)
+        self.attconv1 = nn.Conv2d(128 + inner // f1, 128, 5, padding=2)
+        self.attconv2 = nn.Conv2d(64 + inner // f2, 64, 5, padding=2)
+        self.to_mel1 = _to_mel(128)
+        self.to_mel2 = _to_mel(64)
+        self.to_mel3 = _to_mel(32)
+
+    def forward(
+        self,
+        sent: torch.Tensor,
+        phon: torch.Tensor,
+        lengths: torch.Tensor,
+        noise: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """sent, phon (B, T, 512); lengths (B,) int32; ``noise`` (B, 20, T,
+        128) in the JAX layout, or drawn from ``generator`` when None."""
+        b, t, c = phon.shape
+        f = self.base_bins
+        if noise is None:
+            noise = torch.randn(
+                (b, f, t, self.noise_dim), generator=generator, device=phon.device,
+                dtype=phon.dtype,
+            )
+        x = torch.cat(
+            [phon.transpose(1, 2)[:, :, None, :].expand(b, c, f, t),
+             noise.to(phon.dtype).permute(0, 3, 1, 2)],
+            dim=1,
+        )
+        g1 = self.g1(self.decode(x))
+        x = self.attconv1(torch.cat([g1, self.att1(sent, g1, lengths)], dim=1))
+        g2 = self.g2(x)
+        x = self.attconv2(torch.cat([g2, self.att2(sent, g2, lengths)], dim=1))
+        g3 = self.g3(x)
+        return self.to_mel1(g1)[:, 0], self.to_mel2(g2)[:, 0], self.to_mel3(g3)[:, 0]
+
+
+class Postnet(nn.Module):
+    """Normalised mel (B, 80, T) -> linear magnitudes (B, 321, T)."""
+
+    def __init__(self, config: ModelConfig | None = None, n_mels: int = 80):
+        super().__init__()
+        m = config or ModelConfig()
+        ch = m.postnet_channels
+        self.postnet = nn.Sequential(
+            nn.Conv1d(n_mels, 128, 7, padding=3),
+            batch_norm(128, dims=1),
+            nn.LeakyReLU(0.2),
+            ResBlk1D(128, ch),
+            ResBlk1D(ch, ch),
+            ResBlk1D(ch, ch),
+            nn.Conv1d(ch, m.linear_bins, 1, bias=False),
+        )
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return self.postnet(mel)
