@@ -5,8 +5,8 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. print the card's name and power limit (nvidia-smi); require CUDA;
-  2. build every kernel from ``vcagan_torch/csrc`` (one nvcc each, all
-     started together) and print the build time and ptxas report;
+  2. build the kernel from ``vcagan_torch/csrc`` and print the build time
+     and ptxas report;
   3. hold each kernel to its plain PyTorch version on the card at the
      serving path's shapes and at edge cases; time kernel, plain version
      and, as a yardstick only, one PyTorch library call;
@@ -58,18 +58,21 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, runs: int = 30, warmup: int = 3) -> float:
-    """Median over ``runs`` of CUDA-event times of single calls."""
+def time_ms(fn, samples: int = 20, calls: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: median over ``samples`` of the CUDA-event
+    time of ``calls`` back-to-back calls, divided by ``calls`` (so the host's
+    per-call work overlaps the queued launches instead of being timed)."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(runs):
+    for _ in range(samples):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -87,8 +90,11 @@ def attention_work(b, t, s, d):
     return 4 * (2 * b * t * d + 2 * b * s * d + b), 4 * b * t * s * d
 
 
-def sdpa(q, k, v, lengths):
-    mask = torch.arange(k.shape[1], device=q.device)[None, :] < lengths[:, None].long()
+def key_mask(k, lengths):
+    return torch.arange(k.shape[1], device=k.device)[None, :] < lengths[:, None].long()
+
+
+def sdpa(q, k, v, mask):
     return F.scaled_dot_product_attention(
         q[:, None], k[:, None], v[:, None], attn_mask=mask[:, None, None, :]
     )[:, 0]
@@ -130,7 +136,8 @@ def phase_kernel_vs_plain():
         q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=7)
         ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
         plain = time_ms(lambda: attn.masked_attention_reference(q, k, v, lens))
-        lib = time_ms(lambda: sdpa(q, k, v, lens))
+        mask = key_mask(k, lens)
+        lib = time_ms(lambda: sdpa(q, k, v, mask))
         nbytes, flops = attention_work(b, t, s, d)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
         print(f"attention {name} time B={b} T={t} S={s} D={d}: kernel {ms:.4f} ms, "
@@ -238,12 +245,12 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
-    for name, log in logs.items():
-        for line in log.splitlines():
+    _build.load("masked_attention")
+    print(f"build: {time.perf_counter() - t0:.1f} s for masked_attention")
+    with open(_build.log_path("masked_attention")) as f:
+        for line in f:
             if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  masked_attention: {line.strip()}")
 
     totals, worst = phase_kernel_vs_plain()
     states = load_serving_npz(SERVING_NPZ)

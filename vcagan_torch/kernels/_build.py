@@ -40,46 +40,30 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
-def kernel_names() -> list[str]:
-    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
-
-
 def library_path(name: str) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 
-def _start(name: str):
-    """Start nvcc for one source; returns (process, temp path, final path),
-    or None when the library is already built."""
+def log_path(name: str) -> str:
+    """The compiler's log (ptxas register and spill report) of the build."""
+    return library_path(name)[:-3] + ".log"
+
+
+def _build(name: str) -> None:
     final = library_path(name)
     if os.path.exists(final):
-        return None
-    compiler = nvcc()
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{final}.{os.getpid()}.tmp"
-    cmd = [compiler, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, final
-
-
-def _finish(name: str, job) -> str:
-    proc, tmp, final = job
-    log, _ = proc.communicate()
-    with open(final[:-3] + ".log", "w") as f:
-        f.write(log)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    with open(log_path(name), "w") as f:
+        f.write(proc.stdout)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, final)
-    return log
-
-
-def build_all() -> dict[str, str]:
-    """Build every kernel source at once, one nvcc each, all started
-    together.  Returns each kernel's compiler log ('' if already built)."""
-    jobs = {name: _start(name) for name in kernel_names()}
-    return {name: _finish(name, job) if job else "" for name, job in jobs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -87,8 +71,6 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            job = _start(name)
-            if job:
-                _finish(name, job)
+            _build(name)
             lib = _LIBS[name] = ctypes.CDLL(library_path(name))
         return lib

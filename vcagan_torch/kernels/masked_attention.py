@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -26,10 +27,7 @@ def masked_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
 ) -> torch.Tensor:
     """Plain version: (B,T,D), (B,S,D), (B,S,D), (B,) -> (B,T,D)."""
-    d = q.shape[-1]
-    scores = torch.einsum("btd,bsd->bts", q, k) / torch.sqrt(
-        torch.tensor(d, dtype=q.dtype, device=q.device)
-    )
+    scores = torch.einsum("btd,bsd->bts", q, k) / math.sqrt(q.shape[-1])
     key_idx = torch.arange(k.shape[1], device=q.device)[None, None, :]
     mask = key_idx < lengths.to(q.device)[:, None, None]
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))

@@ -28,15 +28,9 @@ def _tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 class Synthesizer:
     """Lip video -> waveform.  Runs on CUDA unless ``device="cpu"`` is
     passed; without weights the modules hold PyTorch's random init drawn
-    from ``seed``."""
+    from seed 0."""
 
-    def __init__(
-        self,
-        config: ModelConfig | None = None,
-        audio: AudioConfig | None = None,
-        device=None,
-        seed: int = 0,
-    ):
+    def __init__(self, config: ModelConfig | None = None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_fp32()
@@ -44,14 +38,14 @@ class Synthesizer:
         if self.config.use_bfloat16:
             raise NotImplementedError("bf16 serving is not ported yet; fp32 only")
         with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
+            torch.manual_seed(0)
             self.v_front = VisualFront(self.config)
             self.gen = Decoder(self.config)
-            self.post = Postnet(self.config, n_mels=(audio or AudioConfig()).n_mels)
+            self.post = Postnet(self.config, n_mels=AudioConfig().n_mels)
         for m in self.modules():
             m.to(self.device).eval()
-        self.pipe = MelPipeline(audio)
-        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.pipe = MelPipeline()
+        self.generator = torch.Generator(self.device).manual_seed(0)
 
     def modules(self):
         return (self.v_front, self.gen, self.post)
@@ -62,14 +56,14 @@ class Synthesizer:
         return self
 
     @classmethod
-    def from_jax(cls, params, batch_stats, config=None, audio=None, device=None):
+    def from_jax(cls, params, batch_stats, config=None, device=None):
         """Weights from the JAX package's {v_front, gen, post} trees."""
-        return cls(config, audio, device).load_state_dicts(from_jax(params, batch_stats))
+        return cls(config, device).load_state_dicts(from_jax(params, batch_stats))
 
     @classmethod
-    def from_serving_npz(cls, path: str, config=None, audio=None, device=None):
+    def from_serving_npz(cls, path: str, config=None, device=None):
         """Weights from a serving npz (``vcagan/io/serving_npz.py`` format)."""
-        return cls(config, audio, device).load_state_dicts(load_serving_npz(path))
+        return cls(config, device).load_state_dicts(load_serving_npz(path))
 
     @torch.inference_mode()
     def __call__(
