@@ -5,17 +5,20 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. print the card's name and power limit (nvidia-smi); require CUDA;
-  2. build the kernel from ``vcagan_torch/csrc`` and print the build time
-     and ptxas report;
-  3. hold each kernel to its plain PyTorch version on the card at the
-     serving path's shapes and at edge cases; time kernel, plain version
-     and, as a yardstick only, one PyTorch library call;
-  4. run the serving path (trained weights from data/soak_serving_q8.npz,
+  2. build the kernels from ``vcagan_torch/csrc`` (one nvcc each, started
+     together) and print the build time and ptxas report;
+  3. hold each kernel (masked attention, fused ResNet block) to its plain
+     PyTorch version and to a float64 evaluation on the card at the serving
+     paths' shapes and at edge cases; time kernel, plain version and, where
+     one PyTorch call computes the same function, that call as a yardstick;
+  4. run both serving paths (trained weights from data/soak_serving_q8.npz,
      B=2, T=75, 112x112) on the card and on the CPU with the same noise and
-     Griffin-Lim phase, and compare;
-  5. serve B=48 x 75 frames at full width, fp32, 2 warm-ups then 8 batches
-     with one sync; count the kernel launches of that run; then time the
-     stages of one more forward with CUDA events;
+     Griffin-Lim phase, and compare: the unfolded path, and the folded-BN
+     path with fused blocks, which is also held to the unfolded one;
+  5. serve B=48 x 75 frames at full width, fp32, on each path: 2 warm-ups,
+     then counted batches with one sync (4 unfolded, 8 folded + fused);
+     count the kernel launches of each run; then time the stages of one
+     more forward with CUDA events;
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -39,6 +42,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from vcagan_torch.io.weights import load_serving_npz  # noqa: E402
 from vcagan_torch.kernels import _build  # noqa: E402
+from vcagan_torch.kernels import fused_block as fb  # noqa: E402
 from vcagan_torch.kernels import masked_attention as attn  # noqa: E402
 from vcagan_torch.runtime import use_full_fp32  # noqa: E402
 from vcagan_torch.serve import Synthesizer  # noqa: E402
@@ -49,6 +53,16 @@ SERVING_NPZ = os.path.join(ROOT, "data", "soak_serving_q8.npz")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 ATTN_TOL = 1e-5  # atol and rtol: fp32 on both sides, D=256-term sums
+# Fused block, atol and rtol.  fp32: two convolutions of up to 9*512 = 4608
+# terms each, summed in another order than cuDNN's, on outputs of order 1.
+# bf16: one rounding of h and one of the output (2^-8 relative each), the
+# bound of the JAX package's own bf16 test.
+FB_TOL = 1e-4
+FB_BF16_TOL = 0.05
+KERNELS = ("masked_attention", "fused_block")
+# The identity-shortcut blocks of one forward: (name, H, W, C).
+TRUNK_BLOCKS = (("layer1_0", 28, 28, 64), ("layer1_1", 28, 28, 64), ("layer2_1", 14, 14, 128),
+                ("layer3_1", 7, 7, 256), ("layer4_1", 4, 4, 512))
 PATH_TOL = 1e-3  # atol and rtol for phon/sent/mel3/spec, card vs CPU
 WAV_REL_L2 = 1e-2  # waveform after 60 Griffin-Lim rounds, card vs CPU
 
@@ -149,7 +163,137 @@ def phase_kernel_vs_plain():
     return totals, worst
 
 
-def phase_path_card_vs_cpu(states):
+def fused_block_inputs(n, h, w, c, seed, dtype=torch.float32, zero_ring=False):
+    """x (N,H,W,C); weights of variance 1/(9C), so h and the output stay of
+    order 1; biases 0.1; PReLU slopes of either sign.  ``zero_ring``: x = 0
+    and b1 = 3, so h is PReLU(b1) inside the image and must be 0 outside."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    x = rand(n, h, w, c)
+    w1, w2 = (rand(3, 3, c, c) / (9 * c) ** 0.5 for _ in range(2))
+    b1, b2 = 0.1 * rand(c), 0.1 * rand(c)
+    a1, a2 = 0.25 * rand(c), 0.25 * rand(c)
+    if zero_ring:
+        x, b1 = torch.zeros_like(x), b1 + 3.0
+    return x.to(dtype), w1, b1, a1, w2, b2, a2
+
+
+def fused_block_work(n, h, w, c, itemsize=4):
+    """(bytes, flops) the function needs: x read and out written once, both
+    fp32 weights, biases and slopes read once; two convolutions of
+    2*9*C*C*H*W*N flops each."""
+    return 2 * n * h * w * c * itemsize + 4 * (2 * 9 * c * c + 4 * c), 2 * 2 * 9 * c * c * h * w * n
+
+
+def phase_fused_block_vs_plain(card):
+    """Returns one forward's totals (the five trunk blocks at N = 3600) and
+    the worst fp32 error against the plain version."""
+    cases = [  # name, N, H, W, C, dtype, zero_ring
+        *((f"{name} N=150", 150, h, w, c, torch.float32, False)
+          for name, h, w, c in TRUNK_BLOCKS[1:]),
+        *((f"{name} N=7", 7, h, w, c, torch.float32, False)  # not a multiple of the group
+          for name, h, w, c in TRUNK_BLOCKS[3:]),
+        ("one image", 1, 28, 28, 64, torch.float32, False),
+        ("9x9x64", 5, 9, 9, 64, torch.float32, False),
+        ("5x5x16", 3, 5, 5, 16, torch.float32, False),
+        ("ragged 11x5x48", 13, 11, 5, 48, torch.float32, False),
+        *((f"zero ring {h}x{w}x{c}", 3, h, w, c, torch.float32, True)
+          for _, h, w, c in TRUNK_BLOCKS[1:]),
+        *((f"bf16 {name}", 50, h, w, c, torch.bfloat16, False)
+          for name, h, w, c in TRUNK_BLOCKS[1:]),
+        ("bf16 zero ring", 3, 28, 28, 64, torch.bfloat16, True),
+    ]
+    worst = 0.0
+    for i, (name, n, h, w, c, dtype, zero_ring) in enumerate(cases):
+        args = fused_block_inputs(n, h, w, c, seed=100 + i, dtype=dtype, zero_ring=zero_ring)
+        got = fb.fused_block_cuda(*args)
+        torch.cuda.synchronize()
+        want = fb.fused_block_reference(*args)
+        check(got.shape == want.shape and got.dtype == dtype, f"{name}: shape or dtype")
+        check(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
+        err = (got.float() - want.float()).abs().max().item()
+        plan = fb.kernel_plan(n, h, w, c, dtype)
+        if dtype == torch.float32:
+            tol = FB_TOL
+            worst = max(worst, err)
+            # cuDNN's own rounding is in `want`, so also hold the kernel to
+            # a float64 evaluation of the same function.
+            want64 = fb.fused_block_reference(*(a.double() for a in args))
+            err64 = (got.double() - want64).abs().max().item()
+            check(torch.allclose(got.double(), want64, rtol=tol, atol=tol),
+                  f"{name}: kernel vs float64 max abs err {err64:.3e}")
+            extra = f" (vs float64 {err64:.3e})"
+        else:
+            tol, extra = FB_BF16_TOL, ""
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"{name} {n, h, w, c}: kernel vs plain max abs err {err:.3e}")
+        if zero_ring:  # the border pixels are where a wrong ring shows
+            border = torch.ones(h, w, dtype=torch.bool, device="cuda")
+            border[1:-1, 1:-1] = False
+            berr = (got.float() - want.float())[:, border].abs().max().item()
+            check(berr <= tol * (1 + want.float().abs().max().item()),
+                  f"{name}: border max abs err {berr:.3e}")
+            extra += f" border {berr:.3e}"
+        print(f"fused_block {name:22s} N={n} {h}x{w}x{c} {str(dtype)[6:]}: max_abs_err "
+              f"{err:.3e}{extra} ok [tile {plan['rows']} rows x {plan['images']} images, "
+              f"{plan['channels']} channels a pass, {plan['smem']} B smem]")
+
+    # Times at the serving path's N = B*T = 3600, one per shape class.
+    totals = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)
+    timed = {}
+    n = 3600
+    for name, h, w, c in TRUNK_BLOCKS:
+        if (h, w, c) not in timed:
+            args = fused_block_inputs(n, h, w, c, seed=7)
+            kw = dict(samples=5, calls=4, warmup=1)  # milliseconds a call: few suffice
+            plain = time_ms(lambda: fb.fused_block_reference(*args), **kw)
+            ms = time_ms(lambda: fb.fused_block_cuda(*args), **kw)
+            nbytes, flops = fused_block_work(n, h, w, c)
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
+            timed[(h, w, c)] = (ms, plain, nbytes, flops)
+            print(f"fused_block time N={n} {h}x{w}x{c} fp32: kernel {ms:.3f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain (cuDNN convs, TF32 off) "
+                  f"{plain:.3f} ms, bound {bound:.3f} ms ({nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e12:.3f} TFLOP) [{card}]")
+            del args
+        ms, plain, nbytes, flops = timed[(h, w, c)]
+        for key, val in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
+            totals[key] += val
+    return totals, worst
+
+
+def reset_launches():
+    attn.LAUNCHES = 0
+    fb.LAUNCHES = 0
+
+
+def check_launches(forwards, fused, what):
+    """Every forward launches 2 attention kernels and, with fused blocks,
+    5 fused-block kernels (else none)."""
+    check(attn.LAUNCHES == 2 * forwards,
+          f"{what}: {attn.LAUNCHES} attention launches in {forwards} forwards, not 2 each")
+    want = 5 * forwards if fused else 0
+    check(fb.LAUNCHES == want,
+          f"{what}: {fb.LAUNCHES} fused-block launches in {forwards} forwards, not {want}")
+
+
+def compare_outputs(what, got, want, tol, wav_tol):
+    for name in ("phon", "sent", "mel3", "spec"):
+        g, w = got[name].cpu(), want[name].cpu()
+        check(torch.isfinite(g).all().item(), f"{what} {name}: non-finite")
+        err = (g - w).abs().max().item()
+        print(f"path {what} {name}: max abs err {err:.3e} (max |ref| {w.abs().max().item():.3e})")
+        check(torch.allclose(g, w, rtol=tol, atol=tol), f"{what} {name} differs: {err:.3e}")
+    g, w = got["wav"].cpu(), want["wav"].cpu()
+    rel = (torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)).item()
+    print(f"path {what} wav: relative L2 {rel:.3e}")
+    check(rel < wav_tol, f"{what} wav relative L2 {rel:.3e}")
+
+
+def phase_paths_card_vs_cpu(states):
+    """Both paths on the card against the CPU (plain versions of the
+    kernels), and the folded + fused path against the unfolded one on the
+    card.  Returns the two synthesizers on the card."""
     b, t = 2, 75
     rng = np.random.default_rng(1)
     video = rng.standard_normal((b, t, 112, 112, 1)).astype(np.float32)
@@ -157,31 +301,31 @@ def phase_path_card_vs_cpu(states):
     noise = rng.standard_normal((b, 20, t, 128)).astype(np.float32)
     phase = rng.uniform(-np.pi, np.pi, (b, 4 * t, 321)).astype(np.float32)
 
-    on_card = Synthesizer(device="cuda").load_state_dicts(states)
-    before = attn.LAUNCHES
-    got = on_card(video, lengths, noise=noise, init_phase=phase)
-    torch.cuda.synchronize()
-    check(attn.LAUNCHES - before == 2, f"{attn.LAUNCHES - before} attention launches, not 2")
-    want = Synthesizer(device="cpu").load_state_dicts(states)(
-        video, lengths, noise=noise, init_phase=phase
-    )
-    check(got["wav"].shape == (b, 160 * (4 * t - 1)), f"wav shape {tuple(got['wav'].shape)}")
-    for name in ("phon", "sent", "mel3", "spec"):
-        g, w = got[name].cpu(), want[name]
-        check(torch.isfinite(g).all().item(), f"{name}: non-finite on the card")
-        err = (g - w).abs().max().item()
-        print(f"path {name}: card vs CPU max abs err {err:.3e} (max |CPU| "
-              f"{w.abs().max().item():.3e})")
-        check(torch.allclose(g, w, rtol=PATH_TOL, atol=PATH_TOL), f"{name} differs: {err:.3e}")
-    g, w = got["wav"].cpu(), want["wav"]
-    rel = (torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)).item()
-    print(f"path wav: card vs CPU relative L2 {rel:.3e}")
-    check(rel < WAV_REL_L2, f"wav relative L2 {rel:.3e}")
-    return on_card
+    synths, outs = {}, {}
+    for what, variant in (("unfolded", {}),
+                          ("folded+fused", dict(fold_bn=True, fused_blocks=True))):
+        on_card = Synthesizer(device="cuda", **variant).load_state_dicts(states)
+        reset_launches()
+        got = on_card(video, lengths, noise=noise, init_phase=phase)
+        torch.cuda.synchronize()
+        check_launches(1, bool(variant), what)
+        check(got["wav"].shape == (b, 160 * (4 * t - 1)), f"wav shape {tuple(got['wav'].shape)}")
+        want = Synthesizer(device="cpu", **variant).load_state_dicts(states)(
+            video, lengths, noise=noise, init_phase=phase
+        )
+        compare_outputs(f"{what}, card vs CPU", got, want, PATH_TOL, WAV_REL_L2)
+        synths[what], outs[what] = on_card, got
+    # Folding is exact algebra and the kernel computes the same block, so the
+    # two paths differ by fp32 rounding only: the same bounds hold.
+    compare_outputs("folded+fused vs unfolded, card", outs["folded+fused"], outs["unfolded"],
+                    PATH_TOL, WAV_REL_L2)
+    return synths["unfolded"], synths["folded+fused"]
 
 
-def phase_serve(synth, card):
-    b, t, batches = 48, 75, 8
+def phase_serve(synth, card, what, batches, fused):
+    """Serve at full width; returns (attention, fused-block) launches of the
+    counted batches."""
+    b, t = 48, 75
     video = torch.from_numpy(
         np.random.default_rng(2).standard_normal((b, t, 112, 112, 1)).astype(np.float32)
     ).cuda()
@@ -191,28 +335,29 @@ def phase_serve(synth, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    attn.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     outs = [synth(video, lengths) for _ in range(batches)]
     sums = torch.stack([o["wav"].abs().sum() for o in outs]).cpu()  # the one sync
     elapsed = time.perf_counter() - t0
-    launches = attn.LAUNCHES
+    launches = (attn.LAUNCHES, fb.LAUNCHES)
+    check_launches(batches, fused, what)
 
     wav = outs[-1]["wav"]
     check(wav.shape == (b, 160 * (4 * t - 1)), f"wav shape {tuple(wav.shape)}")
     check(bool(torch.isfinite(sums).all()) and bool(torch.isfinite(wav).all()), "non-finite wav")
-    check(launches == 2 * batches, f"{launches} attention launches in {batches} forwards")
     mel_fps = batches * b * 4 * t / elapsed
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"serve B={b} T={t} fp32: {mel_fps:.1f} mel-frames/s ({elapsed:.3f} s for "
-          f"{batches} batches), peak {peak_gb:.2f} GB, {launches / batches:g} attention "
-          f"launches per forward [{card}]")
-    stage_breakdown(synth, video, lengths, card)
+    print(f"serve {what} B={b} T={t} fp32: {mel_fps:.1f} mel-frames/s ({elapsed:.3f} s for "
+          f"{batches} batches), peak {peak_gb:.2f} GB, {launches[0] / batches:g} attention "
+          f"and {launches[1] / batches:g} fused-block launches per forward [{card}]")
+    del outs
+    stage_breakdown(synth, video, lengths, card, what)
     return launches
 
 
 @torch.inference_mode()
-def stage_breakdown(synth, video, lengths, card):
+def stage_breakdown(synth, video, lengths, card, what):
     """Device time of each stage of one forward (the composition of
     ``Synthesizer.__call__``), from CUDA events between the stages."""
     events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -229,7 +374,7 @@ def stage_breakdown(synth, video, lengths, card):
     names = ("visual_front", "decoder", "postnet", "griffin_lim+deemphasis")
     ms = [events[i].elapsed_time(events[i + 1]) for i in range(4)]
     total = sum(ms)
-    print(f"stages of one B={video.shape[0]} forward [{card}]: " + ", ".join(
+    print(f"stages of one {what} B={video.shape[0]} forward [{card}]: " + ", ".join(
         f"{n} {m:.2f} ms ({100 * m / total:.1f}%)" for n, m in zip(names, ms)
     ) + f"; total {total:.2f} ms")
 
@@ -245,34 +390,44 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    _build.load("masked_attention")
-    print(f"build: {time.perf_counter() - t0:.1f} s for masked_attention")
-    with open(_build.log_path("masked_attention")) as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  masked_attention: {line.strip()}")
+    _build.build(KERNELS)
+    print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(KERNELS)} (in parallel)")
+    for name in KERNELS:
+        with open(_build.log_path(name)) as f:
+            for line in f:
+                if "registers" in line or "spill" in line or "error" in line:
+                    print(f"  {name}: {line.strip()}")
 
-    totals, worst = phase_kernel_vs_plain()
+    attn_totals, attn_worst = phase_kernel_vs_plain()
+    fb_totals, fb_worst = phase_fused_block_vs_plain(card)
     states = load_serving_npz(SERVING_NPZ)
-    synth = phase_path_card_vs_cpu(states)
-    launches = phase_serve(synth, card)
+    unfolded, folded = phase_paths_card_vs_cpu(states)
+    attn_unfolded, _ = phase_serve(unfolded, card, "unfolded", batches=4, fused=False)
+    del unfolded
+    torch.cuda.empty_cache()
+    attn_folded, fb_launches = phase_serve(folded, card, "folded+fused", batches=8, fused=True)
 
-    kernel = {
-        "name": "masked_cross_attention",
-        "route": "cuda",
-        "source": "vcagan_torch/csrc/masked_attention.cu",
-        "replaces": "vcagan/kernels/masked_attention.py:85",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": totals["ms"],
-        "plain_ms": totals["plain_ms"],
-        "bound_ms": max(totals["bytes"] / HBM_BYTES_PER_S,
-                        totals["flops"] / FP32_FLOP_PER_S) * 1e3,
-        "bound_by": ("bytes" if totals["bytes"] / HBM_BYTES_PER_S
-                     >= totals["flops"] / FP32_FLOP_PER_S else "operations"),
-        "library_ms": totals["library_ms"],
-    }
-    print(json.dumps({"kernels": [kernel]}))
+    def kernel_entry(name, source, replaces, launches, worst, totals):
+        t_bytes = totals["bytes"] / HBM_BYTES_PER_S
+        t_flops = totals["flops"] / FP32_FLOP_PER_S
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": worst, "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"], "bound_ms": max(t_bytes, t_flops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "library_ms": totals.get("library_ms"),
+        }
+
+    # ms, plain_ms, bound_ms: one forward's launches of the kernel (2
+    # attentions; 5 fused blocks).  launches: the counted batches of the
+    # serving runs (attention: both paths; fused block: the folded path).
+    print(json.dumps({"kernels": [
+        kernel_entry("masked_cross_attention", "vcagan_torch/csrc/masked_attention.cu",
+                     "vcagan/kernels/masked_attention.py:85", attn_unfolded + attn_folded,
+                     attn_worst, attn_totals),
+        kernel_entry("fused_basic_block", "vcagan_torch/csrc/fused_block.cu",
+                     "vcagan/kernels/fused_block.py:95", fb_launches, fb_worst, fb_totals),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -35,6 +35,7 @@ from vcagan.io.serving_npz import load_serving_npz as jax_load_serving_npz
 from vcagan.nn import Decoder as JaxDecoder
 from vcagan.nn import Postnet as JaxPostnet
 from vcagan.nn import VisualFront as JaxVisualFront
+from vcagan.nn import fold_generator_side as jax_fold_generator_side
 from vcagan.train import VCAGANModules
 from vcagan_torch.configs import ModelConfig
 from vcagan_torch.serve import Synthesizer
@@ -44,14 +45,20 @@ SERVING_NPZ = os.path.join(ROOT, "data", "soak_serving_q8.npz")
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _jax_bench_composition(params, stats, video, lengths, noise, phase):
-    """bench.py's flagship path, with the noise and phase injected."""
+def _jax_bench_composition(params, stats, video, lengths, noise, phase, folded=False):
+    """bench.py's flagship path, with the noise and phase injected.
+    ``folded``: the serving variant, ``VCAGANModules.create(fold_bn=True,
+    fused_blocks=True)`` on params folded by ``fold_generator_side``."""
+    if folded:
+        params, stats = jax_fold_generator_side(params, stats)
+        modules = VCAGANModules.create(fold_bn=True, fused_blocks=True)
+        v_front, gen, post = modules.v_front, modules.gen, modules.post
+    else:
+        v_front, gen, post = JaxVisualFront(), JaxDecoder(), JaxPostnet()
     var = lambda m: {"params": params[m], "batch_stats": stats[m]}  # noqa: E731
-    phon, sent = JaxVisualFront().apply(var("v_front"), video, train=False)
-    mel1, mel2, mel3 = JaxDecoder().apply(
-        var("gen"), sent, phon, lengths, train=False, noise=noise
-    )
-    gs = JaxPostnet().apply(var("post"), mel3, train=False)
+    phon, sent = v_front.apply(var("v_front"), video, train=False)
+    mel1, mel2, mel3 = gen.apply(var("gen"), sent, phon, lengths, train=False, noise=noise)
+    gs = post.apply(var("post"), mel3, train=False)
     spec = jnp.swapaxes(gs, 1, 2).astype(jnp.float32)
     wav = JaxMelPipeline(JaxAudioConfig()).inverse_spec(
         spec, jax.random.PRNGKey(0), init_phase=phase
@@ -127,6 +134,8 @@ def _port_sources():
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     sources = list(_port_sources())
     assert len(sources) > 15 and os.path.exists(sources[-1])
+    seen = {os.path.relpath(path, os.path.join(ROOT, "vcagan_torch")) for path in sources}
+    assert {"nn/fold.py", "kernels/fused_block.py", "kernels/masked_attention.py"} <= seen
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

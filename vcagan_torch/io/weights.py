@@ -7,7 +7,10 @@ converter's ``convert_visual_front/decoder/postnet`` are its exact inverse.
 Layouts: conv HWIO/DHWIO/WIO -> OIHW/OIDHW/OIW, dense (in, out) -> (out, in),
 GRU (in, 3H) -> (3H, in), BatchNorm scale/bias + mean/var -> weight/bias +
 running stats, and the attention ``q`` input rows from the JAX f-major to
-the reference c-major flatten order.
+the reference c-major flatten order.  Trees folded by the JAX package's
+``fold_generator_side`` (no paired BatchNorm nodes, a ``bias`` on their
+convolutions, empty ``v_front``/``post`` statistics) give the folded state
+dicts, the same that ``vcagan_torch/nn/fold.py`` makes of the unfolded ones.
 
 ``load_serving_npz`` reads the flat ``params/<mod>/...`` and
 ``stats/<mod>/...`` file of ``vcagan/io/serving_npz.py`` (fp16 leaves, or
@@ -54,6 +57,15 @@ def _conv_bias(sd: Dict, prefix: str, p: Tree) -> None:
         sd[f"{prefix}.bias"] = p["bias"]
 
 
+def _conv_then_bn(sd: Dict, conv: str, bn: str, p: Tree, s: Tree, conv_name: str,
+                  bn_name: str) -> None:
+    """A convolution and the BatchNorm after it; a folded tree has no
+    BatchNorm node and carries the affine in the convolution's bias."""
+    _conv_bias(sd, conv, p[conv_name])
+    if bn_name in p:
+        _bn(sd, bn, p[bn_name], s[bn_name])
+
+
 def _dense(sd: Dict, prefix: str, p: Tree, rows=None) -> None:
     kernel = np.asarray(p["kernel"])
     sd[f"{prefix}.weight"] = _linear(kernel if rows is None else kernel[rows])
@@ -70,19 +82,18 @@ def _gen_res_blk(sd: Dict, prefix: str, p: Tree, s: Tree) -> None:
 
 def visual_front_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
-    sd["frontend.0.weight"] = _conv(p["stem_conv"]["kernel"])
-    _bn(sd, "frontend.1", p["stem_bn"], s["stem_bn"])
+    _conv_then_bn(sd, "frontend.0", "frontend.1", p, s, "stem_conv", "stem_bn")
     sd["frontend.2.weight"] = p["stem_act"]["alpha"]
     for name, bp in p["resnet"].items():  # layer{stage}_{block}
-        bs = s["resnet"][name]
+        bs = s.get("resnet", {}).get(name, {})
         prefix = "resnet." + name.replace("_", ".")
         for i in (1, 2):
-            sd[f"{prefix}.conv{i}.weight"] = _conv(bp[f"conv{i}"]["kernel"])
-            _bn(sd, f"{prefix}.bn{i}", bp[f"bn{i}"], bs[f"bn{i}"])
+            _conv_then_bn(sd, f"{prefix}.conv{i}", f"{prefix}.bn{i}", bp, bs,
+                          f"conv{i}", f"bn{i}")
             sd[f"{prefix}.relu{i}.weight"] = bp[f"act{i}"]["alpha"]
         if "down_conv" in bp:
-            sd[f"{prefix}.downsample.0.weight"] = _conv(bp["down_conv"]["kernel"])
-            _bn(sd, f"{prefix}.downsample.1", bp["down_bn"], bs["down_bn"])
+            _conv_then_bn(sd, f"{prefix}.downsample.0", f"{prefix}.downsample.1", bp, bs,
+                          "down_conv", "down_bn")
     for layer, lp in p["sentence_encoder"].items():  # l{k}
         k = layer[1:]
         for ours, suffix in (("fwd", ""), ("bwd", "_reverse")):
@@ -124,8 +135,7 @@ def decoder_state(p: Tree, s: Tree, base_bins: int = 20) -> Dict[str, np.ndarray
 
 def postnet_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
     sd: Dict[str, np.ndarray] = {}
-    _conv_bias(sd, "postnet.0", p["conv_in"])
-    _bn(sd, "postnet.1", p["bn_in"], s["bn_in"])
+    _conv_then_bn(sd, "postnet.0", "postnet.1", p, s, "conv_in", "bn_in")
     for i, idx in enumerate((3, 4, 5), start=1):
         for conv in ("conv1", "conv2", "conv1x1"):
             if conv in p[f"res{i}"]:
@@ -135,11 +145,12 @@ def postnet_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
 
 
 def from_jax(params: Tree, batch_stats: Tree) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{v_front, gen, post} numpy flax trees -> the port's state dicts."""
+    """{v_front, gen, post} numpy flax trees, unfolded or folded -> the
+    port's state dicts, unfolded or folded."""
     states = {
-        "v_front": visual_front_state(params["v_front"], batch_stats["v_front"]),
+        "v_front": visual_front_state(params["v_front"], batch_stats.get("v_front", {})),
         "gen": decoder_state(params["gen"], batch_stats["gen"]),
-        "post": postnet_state(params["post"], batch_stats["post"]),
+        "post": postnet_state(params["post"], batch_stats.get("post", {})),
     }
     return {mod: as_tensors(sd) for mod, sd in states.items()}
 

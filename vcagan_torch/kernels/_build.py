@@ -51,19 +51,36 @@ def log_path(name: str) -> str:
     return library_path(name)[:-3] + ".log"
 
 
-def _build(name: str) -> None:
-    final = library_path(name)
-    if os.path.exists(final):
+def build(names) -> None:
+    """Build the libraries of ``names`` that are not built yet: one nvcc for
+    each source, all started together; raises if any of them fails."""
+    missing = [name for name in names if not os.path.exists(library_path(name))]
+    if not missing:
         return
+    compiler = nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{final}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    with open(log_path(name), "w") as f:
-        f.write(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, final)
+    running, failed = [], []
+    try:
+        for name in missing:
+            tmp = f"{library_path(name)}.{os.getpid()}.{threading.get_ident()}.tmp"
+            cmd = [compiler, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+            with open(log_path(name), "w") as log:
+                proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+            running.append((name, tmp, proc))
+        for name, tmp, proc in running:
+            rc = proc.wait()
+            if rc == 0:
+                os.replace(tmp, library_path(name))
+            else:
+                with open(log_path(name)) as f:
+                    failed.append(f"nvcc failed for {name}.cu (exit {rc}):\n{f.read()}")
+    finally:
+        for _, _, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -71,6 +88,6 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            _build(name)
+            build([name])
             lib = _LIBS[name] = ctypes.CDLL(library_path(name))
         return lib

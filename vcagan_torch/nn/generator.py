@@ -16,7 +16,7 @@ from torch import nn
 
 from vcagan_torch.configs import ModelConfig
 from vcagan_torch.nn.attention import AVAttention
-from vcagan_torch.nn.common import INV_SQRT2, batch_norm, leaky_relu
+from vcagan_torch.nn.common import INV_SQRT2, FoldableModule, batch_norm, leaky_relu
 
 
 def _nearest_up2(x: torch.Tensor) -> torch.Tensor:
@@ -138,22 +138,27 @@ class Decoder(nn.Module):
         return self.to_mel1(g1)[:, 0], self.to_mel2(g2)[:, 0], self.to_mel3(g3)[:, 0]
 
 
-class Postnet(nn.Module):
-    """Normalised mel (B, 80, T) -> linear magnitudes (B, 321, T)."""
+class Postnet(FoldableModule):
+    """Normalised mel (B, 80, T) -> linear magnitudes (B, 321, T).
+    ``fold_bn``: ``postnet.1`` is folded into ``postnet.0``
+    (``vcagan/nn/generator.py:218-226``)."""
 
-    def __init__(self, config: ModelConfig | None = None, n_mels: int = 80):
-        super().__init__()
+    def __init__(self, config: ModelConfig | None = None, n_mels: int = 80,
+                 fold_bn: bool = False):
+        super().__init__(fold_bn)
         m = config or ModelConfig()
         ch = m.postnet_channels
         self.postnet = nn.Sequential(
             nn.Conv1d(n_mels, 128, 7, padding=3),
-            batch_norm(128, dims=1),
+            batch_norm(128, dims=1, folded=fold_bn),
             nn.LeakyReLU(0.2),
             ResBlk1D(128, ch),
             ResBlk1D(ch, ch),
             ResBlk1D(ch, ch),
             nn.Conv1d(ch, m.linear_bins, 1, bias=False),
         )
+        if fold_bn:
+            self.eval()
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         return self.postnet(mel)

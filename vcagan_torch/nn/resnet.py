@@ -1,10 +1,19 @@
 """ResNet-18 trunk for per-frame lip features, NCHW.
 
-Port of ``vcagan/nn/resnet.py:49-164`` (the unfolded path): BasicBlock
+Port of ``vcagan/nn/resnet.py:49-164``: BasicBlock
 conv3x3-BN-PReLU-conv3x3-BN (+ shortcut) -> PReLU, layout [2,2,2,2], a
 1x1 stride-2 conv + BN projection where the shape changes, and a global
 spatial mean.  Attribute names follow the reference state dict
 (``layer1.0.conv1``, ``bn1``, ``relu1``, ``downsample.0/1``).
+
+``fold_bn``: serving mode; every conv -> BN pair was folded into a biased
+convolution (``vcagan_torch/nn/fold.py``), an ``nn.Identity`` stands where
+the BatchNorm was.  ``fused`` (needs ``fold_bn``): the identity-shortcut
+blocks (5 of the 8) each run as one launch of the fused block kernel
+(``vcagan_torch/kernels/fused_block.py``), on ``torch.channels_last``
+memory, where the kernel's (N, H, W, C) layout is a view; the projection
+blocks keep the library convolutions.  The state-dict keys are the same
+with and without ``fused``.
 """
 
 from __future__ import annotations
@@ -14,45 +23,85 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from vcagan_torch.nn.common import batch_norm, prelu
+from vcagan_torch.kernels.fused_block import fused_basic_block
+from vcagan_torch.nn.common import FoldableModule, batch_norm, prelu
 
 
-class BasicBlock(nn.Module):
-    def __init__(self, in_planes: int, planes: int, stride: int = 1):
-        super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=False)
-        self.bn1 = batch_norm(planes)
+def _hwio(conv: nn.Conv2d) -> torch.Tensor:
+    """A convolution's (O, I, kh, kw) weight in the kernel's (kh, kw, I, O) order."""
+    return conv.weight.detach().permute(2, 3, 1, 0).contiguous()
+
+
+class BasicBlock(FoldableModule):
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 fold_bn: bool = False, fused: bool = False):
+        super().__init__(fold_bn)
+        if fused and not fold_bn:
+            raise ValueError("fused requires fold_bn=True (serving mode)")
+        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=fold_bn)
+        self.bn1 = batch_norm(planes, folded=fold_bn)
         self.relu1 = prelu(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = batch_norm(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=fold_bn)
+        self.bn2 = batch_norm(planes, folded=fold_bn)
         self.relu2 = prelu(planes)
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_planes, planes, 1, stride, bias=False), batch_norm(planes)
+                nn.Conv2d(in_planes, planes, 1, stride, bias=fold_bn),
+                batch_norm(planes, folded=fold_bn),
             )
+        self.fused = fused and self.downsample is None
+        if self.fused:
+            # The kernel's weight order, repacked when weights are loaded and
+            # not per call; not part of the state dict.
+            self.register_buffer("w1_hwio", _hwio(self.conv1), persistent=False)
+            self.register_buffer("w2_hwio", _hwio(self.conv2), persistent=False)
+            self.register_load_state_dict_post_hook(BasicBlock._repack_after_load)
+        if fold_bn:
+            self.eval()
+
+    def repack(self) -> None:
+        """Refresh the kernel's copy of the weights; ``load_state_dict`` does
+        it, a caller that writes ``conv1``/``conv2`` weights in place must."""
+        self.w1_hwio = _hwio(self.conv1)
+        self.w2_hwio = _hwio(self.conv2)
+
+    @staticmethod
+    def _repack_after_load(module: "BasicBlock", incompatible_keys) -> None:
+        module.repack()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            x = x.contiguous(memory_format=torch.channels_last)  # no copy when it is
+            out = fused_basic_block(
+                x.permute(0, 2, 3, 1), self.w1_hwio, self.conv1.bias, self.relu1.weight,
+                self.w2_hwio, self.conv2.bias, self.relu2.weight,
+            )
+            return out.permute(0, 3, 1, 2)
         out = self.relu1(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         residual = x if self.downsample is None else self.downsample(x)
         return self.relu2(out + residual)
 
 
-class ResNetTrunk(nn.Module):
+class ResNetTrunk(FoldableModule):
     """(N, 64, H, W) -> stacked BasicBlocks -> global mean -> (N, 512)."""
 
-    def __init__(self, layers: Sequence[int] = (2, 2, 2, 2), in_planes: int = 64):
-        super().__init__()
+    def __init__(self, layers: Sequence[int] = (2, 2, 2, 2), in_planes: int = 64,
+                 fold_bn: bool = False, fused: bool = False):
+        super().__init__(fold_bn)
         plan = [(64, 1), (128, 2), (256, 2), (512, 2)]
         for stage, (planes, first_stride) in enumerate(plan):
             blocks = []
             for block in range(layers[stage]):
                 blocks.append(
-                    BasicBlock(in_planes, planes, first_stride if block == 0 else 1)
+                    BasicBlock(in_planes, planes, first_stride if block == 0 else 1,
+                               fold_bn=fold_bn, fused=fused)
                 )
                 in_planes = planes
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+        if fold_bn:
+            self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))

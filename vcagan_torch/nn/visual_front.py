@@ -5,6 +5,11 @@ conv is a space-to-depth rewrite for the TPU (``s2d_stem_conv3d``) that
 computes exactly a k(5,7,7) s(1,2,2) pad (2,3,3) conv; here it is that plain
 ``nn.Conv3d``.  Public layout as in JAX: video (B, T, H, W, 1) ->
 ``phon``, ``sent`` (B, T, 512).
+
+``fold_bn``: serving mode; the stem convolution carries the folded
+BatchNorm as a bias (``vcagan/nn/visual_front.py:75-84``) and the trunk is
+folded too.  ``fused`` is passed to the trunk (``:114-117``), which then
+gets its frames channels-last.
 """
 
 from __future__ import annotations
@@ -15,32 +20,45 @@ import torch
 from torch import nn
 
 from vcagan_torch.configs import ModelConfig
-from vcagan_torch.nn.common import batch_norm, prelu
+from vcagan_torch.nn.common import FoldableModule, batch_norm, prelu
 from vcagan_torch.nn.gru import BiGRU
 from vcagan_torch.nn.resnet import ResNetTrunk
 
 
-class VisualFront(nn.Module):
-    def __init__(self, config: ModelConfig | None = None):
-        super().__init__()
+class VisualFront(FoldableModule):
+    def __init__(self, config: ModelConfig | None = None, fold_bn: bool = False,
+                 fused: bool = False):
+        super().__init__(fold_bn)
+        if fused and not fold_bn:
+            raise ValueError("fused requires fold_bn=True (serving mode)")
+        self.fused = fused
         m = config or ModelConfig()
         c = m.stem_channels
         self.frontend = nn.Sequential(
-            nn.Conv3d(1, c, (5, 7, 7), stride=(1, 2, 2), padding=(2, 3, 3), bias=False),
-            batch_norm(c, dims=3),
+            nn.Conv3d(1, c, (5, 7, 7), stride=(1, 2, 2), padding=(2, 3, 3), bias=fold_bn),
+            batch_norm(c, dims=3, folded=fold_bn),
             prelu(c),
             nn.MaxPool3d((1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1)),
         )
-        self.resnet = ResNetTrunk(m.resnet_layers, in_planes=c)
+        self.resnet = ResNetTrunk(m.resnet_layers, in_planes=c, fold_bn=fold_bn, fused=fused)
         self.dropout = nn.Dropout(m.frontend_dropout)
         self.sentence_encoder = BiGRU(m.feature_dim, m.gru_hidden, m.gru_layers, m.gru_dropout)
         self.fc = nn.Linear(2 * m.gru_hidden, m.feature_dim)
         self.feature_dim = m.feature_dim
+        if fold_bn:
+            self.eval()
 
     def forward(self, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         b, t = video.shape[:2]
         x = self.frontend(video.permute(0, 4, 1, 2, 3))  # (B, C, T, H', W')
-        x = self.dropout(self.resnet(x.transpose(1, 2).flatten(0, 1)))  # (B*T, 512)
+        if self.fused:
+            # (B*T, H', W', C) in memory, seen as NCHW: the one copy that the
+            # flatten below makes too, into the layout the fused blocks read
+            frames = x.permute(0, 2, 3, 4, 1).reshape(b * t, *x.shape[3:], x.shape[1])
+            frames = frames.permute(0, 3, 1, 2)
+        else:
+            frames = x.transpose(1, 2).flatten(0, 1)
+        x = self.dropout(self.resnet(frames))  # (B*T, 512)
         phon = x.reshape(b, t, self.feature_dim)
         sent = self.fc(self.sentence_encoder(phon))
         return phon, sent

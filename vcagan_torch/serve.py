@@ -5,6 +5,11 @@ The same composition as the JAX package's benchmark path (``bench.py:52-76``
 with the modules of ``vcagan/train/models.py:41-81``): the raw postnet
 output, swapped to (B, T, 321), is the linear spectrogram that
 ``MelPipeline.inverse_spec`` vocodes.  fp32 throughout.
+
+``Synthesizer(fold_bn=True, fused_blocks=True)`` is the counterpart of
+``VCAGANModules.create(fold_bn=True, fused_blocks=True)``: the serving
+variant whose conv -> BatchNorm pairs are folded at load and whose five
+identity-shortcut ResNet blocks each run as one fused kernel launch.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from vcagan_torch.configs import AudioConfig, ModelConfig
 from vcagan_torch.dsp.pipeline import MelPipeline
 from vcagan_torch.io.weights import from_jax, load_serving_npz
+from vcagan_torch.nn.fold import fold_generator_side
 from vcagan_torch.nn.generator import Decoder, Postnet
 from vcagan_torch.nn.visual_front import VisualFront
 from vcagan_torch.runtime import resolve_device, use_full_fp32
@@ -28,9 +34,16 @@ def _tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 class Synthesizer:
     """Lip video -> waveform.  Runs on CUDA unless ``device="cpu"`` is
     passed; without weights the modules hold PyTorch's random init drawn
-    from seed 0."""
+    from seed 0.  ``fold_bn``: eval-only modules with the BatchNorms folded
+    into their convolutions; weights are given unfolded and folded once at
+    load.  ``fused_blocks`` (needs ``fold_bn``): the trunk's stride-1 blocks
+    run as single launches of the fused block kernel."""
 
-    def __init__(self, config: ModelConfig | None = None, device=None):
+    def __init__(self, config: ModelConfig | None = None, device=None,
+                 fold_bn: bool = False, fused_blocks: bool = False):
+        if fused_blocks and not fold_bn:
+            raise ValueError("fused_blocks requires fold_bn=True (serving mode)")
+        self.fold_bn = fold_bn
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             use_full_fp32()
@@ -39,9 +52,9 @@ class Synthesizer:
             raise NotImplementedError("bf16 serving is not ported yet; fp32 only")
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
-            self.v_front = VisualFront(self.config)
+            self.v_front = VisualFront(self.config, fold_bn=fold_bn, fused=fused_blocks)
             self.gen = Decoder(self.config)
-            self.post = Postnet(self.config, n_mels=AudioConfig().n_mels)
+            self.post = Postnet(self.config, n_mels=AudioConfig().n_mels, fold_bn=fold_bn)
         for m in self.modules():
             m.to(self.device).eval()
         self.pipe = MelPipeline()
@@ -51,19 +64,27 @@ class Synthesizer:
         return (self.v_front, self.gen, self.post)
 
     def load_state_dicts(self, states: Dict[str, Dict[str, torch.Tensor]]) -> "Synthesizer":
+        """Unfolded {v_front, gen, post} state dicts (folded ones pass through
+        a folding synthesizer unchanged)."""
+        if self.fold_bn:
+            states = fold_generator_side(states)
         for name, module in zip(("v_front", "gen", "post"), self.modules()):
             module.load_state_dict(states[name], strict=True)
         return self
 
     @classmethod
-    def from_jax(cls, params, batch_stats, config=None, device=None):
+    def from_jax(cls, params, batch_stats, config=None, device=None,
+                 fold_bn: bool = False, fused_blocks: bool = False):
         """Weights from the JAX package's {v_front, gen, post} trees."""
-        return cls(config, device).load_state_dicts(from_jax(params, batch_stats))
+        synth = cls(config, device, fold_bn, fused_blocks)
+        return synth.load_state_dicts(from_jax(params, batch_stats))
 
     @classmethod
-    def from_serving_npz(cls, path: str, config=None, device=None):
+    def from_serving_npz(cls, path: str, config=None, device=None,
+                         fold_bn: bool = False, fused_blocks: bool = False):
         """Weights from a serving npz (``vcagan/io/serving_npz.py`` format)."""
-        return cls(config, device).load_state_dicts(load_serving_npz(path))
+        synth = cls(config, device, fold_bn, fused_blocks)
+        return synth.load_state_dicts(load_serving_npz(path))
 
     @torch.inference_mode()
     def __call__(
