@@ -212,7 +212,6 @@ def phase_fused_block_vs_plain(card):
         check(got.shape == want.shape and got.dtype == dtype, f"{name}: shape or dtype")
         check(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
         err = (got.float() - want.float()).abs().max().item()
-        plan = fb.kernel_plan(n, h, w, c, dtype)
         if dtype == torch.float32:
             tol = FB_TOL
             worst = max(worst, err)
@@ -235,16 +234,25 @@ def phase_fused_block_vs_plain(card):
                   f"{name}: border max abs err {berr:.3e}")
             extra += f" border {berr:.3e}"
         print(f"fused_block {name:22s} N={n} {h}x{w}x{c} {str(dtype)[6:]}: max_abs_err "
-              f"{err:.3e}{extra} ok [tile {plan['rows']} rows x {plan['images']} images, "
-              f"{plan['channels']} channels a pass, {plan['smem']} B smem]")
+              f"{err:.3e}{extra} ok")
 
-    # Times at the serving path's N = B*T = 3600, one per shape class.
+    # The serving path's own shapes, N = B*T = 3600, one per shape class:
+    # first kernel against plain version (fp32 on both sides, so no float64
+    # pass at this size), then the times.
     totals = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)
     timed = {}
     n = 3600
     for name, h, w, c in TRUNK_BLOCKS:
         if (h, w, c) not in timed:
             args = fused_block_inputs(n, h, w, c, seed=7)
+            got, want = fb.fused_block_cuda(*args), fb.fused_block_reference(*args)
+            err = (got - want).abs().max().item()
+            check(torch.isfinite(got).all().item(), f"N={n} {h}x{w}x{c}: non-finite output")
+            check(torch.allclose(got, want, rtol=FB_TOL, atol=FB_TOL),
+                  f"N={n} {h}x{w}x{c}: kernel vs plain max abs err {err:.3e}")
+            worst = max(worst, err)
+            print(f"fused_block serving shape N={n} {h}x{w}x{c} fp32: max_abs_err {err:.3e} ok")
+            del got, want
             kw = dict(samples=5, calls=4, warmup=1)  # milliseconds a call: few suffice
             plain = time_ms(lambda: fb.fused_block_reference(*args), **kw)
             ms = time_ms(lambda: fb.fused_block_cuda(*args), **kw)
@@ -323,8 +331,8 @@ def phase_paths_card_vs_cpu(states):
 
 
 def phase_serve(synth, card, what, batches, fused):
-    """Serve at full width; returns (attention, fused-block) launches of the
-    counted batches."""
+    """Serve at full width; returns the launches of the counted batches, by
+    kernel."""
     b, t = 48, 75
     video = torch.from_numpy(
         np.random.default_rng(2).standard_normal((b, t, 112, 112, 1)).astype(np.float32)
@@ -353,7 +361,7 @@ def phase_serve(synth, card, what, batches, fused):
           f"and {launches[1] / batches:g} fused-block launches per forward [{card}]")
     del outs
     stage_breakdown(synth, video, lengths, card, what)
-    return launches
+    return dict(zip(("masked_cross_attention", "fused_basic_block"), launches))
 
 
 @torch.inference_mode()
@@ -402,17 +410,19 @@ def main() -> None:
     fb_totals, fb_worst = phase_fused_block_vs_plain(card)
     states = load_serving_npz(SERVING_NPZ)
     unfolded, folded = phase_paths_card_vs_cpu(states)
-    attn_unfolded, _ = phase_serve(unfolded, card, "unfolded", batches=4, fused=False)
+    launches = {"unfolded": phase_serve(unfolded, card, "unfolded", batches=4, fused=False)}
     del unfolded
     torch.cuda.empty_cache()
-    attn_folded, fb_launches = phase_serve(folded, card, "folded+fused", batches=8, fused=True)
+    launches["folded+fused"] = phase_serve(folded, card, "folded+fused", batches=8, fused=True)
 
-    def kernel_entry(name, source, replaces, launches, worst, totals):
+    def kernel_entry(name, source, replaces, worst, totals):
         t_bytes = totals["bytes"] / HBM_BYTES_PER_S
         t_flops = totals["flops"] / FP32_FLOP_PER_S
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": worst, "ms": totals["ms"],
+            "launches": launches["folded+fused"][name],
+            "launches_by_path": {path: counts[name] for path, counts in launches.items()},
+            "max_abs_err": worst, "ms": totals["ms"],
             "plain_ms": totals["plain_ms"], "bound_ms": max(t_bytes, t_flops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "library_ms": totals.get("library_ms"),
@@ -420,13 +430,13 @@ def main() -> None:
 
     # ms, plain_ms, bound_ms: one forward's launches of the kernel (2
     # attentions; 5 fused blocks).  launches: the counted batches of the
-    # serving runs (attention: both paths; fused block: the folded path).
+    # folded + fused serving run, which goes through both kernels; each
+    # serving run's own count stands in launches_by_path.
     print(json.dumps({"kernels": [
         kernel_entry("masked_cross_attention", "vcagan_torch/csrc/masked_attention.cu",
-                     "vcagan/kernels/masked_attention.py:85", attn_unfolded + attn_folded,
-                     attn_worst, attn_totals),
+                     "vcagan/kernels/masked_attention.py:85", attn_worst, attn_totals),
         kernel_entry("fused_basic_block", "vcagan_torch/csrc/fused_block.cu",
-                     "vcagan/kernels/fused_block.py:95", fb_launches, fb_worst, fb_totals),
+                     "vcagan/kernels/fused_block.py:95", fb_worst, fb_totals),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

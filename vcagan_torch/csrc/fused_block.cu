@@ -509,19 +509,6 @@ int vcagan_fused_block(const void* x, const float* w1, const float* b1, const fl
   return static_cast<int>(err);
 }
 
-// The tile the launcher picks for a problem: R output rows, G images a
-// block, NC output channels a pass, dynamic shared memory in bytes.
-int vcagan_fused_block_plan(int N, int H, int W, int C, int is_bf16, int* R, int* G, int* NC,
-                            int* smem) {
-  Plan plan;
-  if (C < 16 || C % 16 != 0 || !make_plan(N, H, W, C, is_bf16 ? 2 : 4, &plan)) return 1;
-  *R = plan.g.R;
-  *G = plan.g.G;
-  *NC = plan.CG * kTN;
-  *smem = static_cast<int>(plan.smem);
-  return 0;
-}
-
 const char* vcagan_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

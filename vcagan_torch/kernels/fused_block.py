@@ -58,25 +58,9 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     lib.vcagan_fused_block.restype = ctypes.c_int
-    lib.vcagan_fused_block_plan.argtypes = [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int)
-    ] * 4
-    lib.vcagan_fused_block_plan.restype = ctypes.c_int
     lib.vcagan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vcagan_cuda_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def kernel_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype) -> dict:
-    """The tile the launcher picks: ``rows`` output rows and ``images`` per
-    block, ``channels`` output channels per pass, ``smem`` bytes a block."""
-    vals = [ctypes.c_int() for _ in range(4)]
-    rc = _lib().vcagan_fused_block_plan(
-        n, h, w, c, int(dtype == torch.bfloat16), *(ctypes.byref(v) for v in vals)
-    )
-    if rc != 0:
-        raise ValueError(f"no tile of the fused block kernel fits {n, h, w, c} {dtype}")
-    return dict(zip(("rows", "images", "channels", "smem"), (v.value for v in vals)))
 
 
 def fused_block_cuda(x, w1, b1, a1, w2, b2, a2) -> torch.Tensor:

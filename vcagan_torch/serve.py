@@ -73,11 +73,9 @@ class Synthesizer:
         return self
 
     @classmethod
-    def from_jax(cls, params, batch_stats, config=None, device=None,
-                 fold_bn: bool = False, fused_blocks: bool = False):
+    def from_jax(cls, params, batch_stats, config=None, device=None):
         """Weights from the JAX package's {v_front, gen, post} trees."""
-        synth = cls(config, device, fold_bn, fused_blocks)
-        return synth.load_state_dicts(from_jax(params, batch_stats))
+        return cls(config, device).load_state_dicts(from_jax(params, batch_stats))
 
     @classmethod
     def from_serving_npz(cls, path: str, config=None, device=None,
