@@ -6,11 +6,14 @@
 Phases, in order; any failure raises and exits non-zero:
   1. print the card's name and power limit (nvidia-smi); require CUDA;
   2. build the kernels from ``vcagan_torch/csrc`` (one nvcc each, started
-     together) and print the build time and ptxas report;
+     together), print the build time and ptxas report, and count the
+     tensor-core instructions in the fused block's library;
   3. hold each kernel (masked attention, fused ResNet block) to its plain
      PyTorch version and to a float64 evaluation on the card at the serving
-     paths' shapes and at edge cases; time kernel, plain version and, where
-     one PyTorch call computes the same function, that call as a yardstick;
+     paths' shapes and at edge cases (the fused block in its fp32 form,
+     which is 3xTF32, also against that arithmetic in plain PyTorch, and in
+     its bf16 form); time kernel, plain version and, where one PyTorch call
+     computes the same function, that call as a yardstick;
   4. run both serving paths (trained weights from data/soak_serving_q8.npz,
      B=2, T=75, 112x112) on the card and on the CPU with the same noise and
      Griffin-Lim phase, and compare: the unfolded path, and the folded-BN
@@ -48,15 +51,21 @@ from vcagan_torch.runtime import use_full_fp32  # noqa: E402
 from vcagan_torch.serve import Synthesizer  # noqa: E402
 
 SERVING_NPZ = os.path.join(ROOT, "data", "soak_serving_q8.npz")
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# fp32 rate outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the fp32
+# rate outside the tensor cores, and the tensor cores' dense rates.  A bound
+# divides by the rate of the unit that the kernel's form runs on.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
+TF32_TC_FLOP_PER_S = 495e12
+# The fused block's fp32 form does three TF32 products a multiply (3xTF32).
+FB_FLOP_PER_S = {"fp32": TF32_TC_FLOP_PER_S / 3, "bf16": BF16_TC_FLOP_PER_S}
 ATTN_TOL = 1e-5  # atol and rtol: fp32 on both sides, D=256-term sums
 # Fused block, atol and rtol.  fp32: two convolutions of up to 9*512 = 4608
-# terms each, summed in another order than cuDNN's, on outputs of order 1.
-# bf16: one rounding of h and one of the output (2^-8 relative each), the
-# bound of the JAX package's own bf16 test.
+# terms each, summed in another order than cuDNN's, on outputs of order 1;
+# the kernel's 3xTF32 products keep about 2^-21 relative each, so the fp32
+# bound is unchanged.  bf16: one rounding of h and one of the output (2^-8
+# relative each), the bound of the JAX package's own bf16 test.
 FB_TOL = 1e-4
 FB_BF16_TOL = 0.05
 KERNELS = ("masked_attention", "fused_block")
@@ -180,48 +189,79 @@ def fused_block_inputs(n, h, w, c, seed, dtype=torch.float32, zero_ring=False):
 
 def fused_block_work(n, h, w, c, itemsize=4):
     """(bytes, flops) the function needs: x read and out written once, both
-    fp32 weights, biases and slopes read once; two convolutions of
-    2*9*C*C*H*W*N flops each."""
-    return 2 * n * h * w * c * itemsize + 4 * (2 * 9 * c * c + 4 * c), 2 * 2 * 9 * c * c * h * w * n
+    weights (of x's type), fp32 biases and slopes read once; two
+    convolutions of 2*9*C*C*H*W*N flops each."""
+    nbytes = 2 * n * h * w * c * itemsize + 2 * 9 * c * c * itemsize + 4 * 4 * c
+    return nbytes, 2 * 2 * 9 * c * c * h * w * n
+
+
+def ragged_batch(h, w, c, dtype):
+    """An N for which the plan puts several images in a block and the last
+    block is not full."""
+    for n in range(151, 400):
+        plan = fb.plan_fused_block(n, h, w, c, dtype)
+        if plan.g > 1 and n % plan.g:
+            return n
+    raise RuntimeError(f"chip_smoke: no ragged batch for {h}x{w}x{c} {dtype}")
+
+
+def convs_bf16(x, w1, b1, a1, w2, b2, a2):
+    """The block as bf16 library convolutions on channels-last memory (a
+    yardstick for the bf16 form; not what the plain version computes)."""
+    def prelu(v, a):
+        return torch.where(v >= 0, v, a.to(v.dtype)[None, :, None, None] * v)
+
+    xc = x.permute(0, 3, 1, 2)
+    k1, k2 = (k.to(x.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+              for k in (w1, w2))
+    hmid = prelu(F.conv2d(xc, k1, b1.to(x.dtype), padding=1), a1)
+    return prelu(F.conv2d(hmid, k2, b2.to(x.dtype), padding=1) + xc, a2).permute(0, 2, 3, 1)
 
 
 def phase_fused_block_vs_plain(card):
-    """Returns one forward's totals (the five trunk blocks at N = 3600) and
-    the worst fp32 error against the plain version."""
+    """Returns one forward's totals (the five trunk blocks at N = 3600), fp32
+    and bf16, and the worst fp32 error against the plain version."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [shape for _, *shape in TRUNK_BLOCKS[1:]]
     cases = [  # name, N, H, W, C, dtype, zero_ring
-        *((f"{name} N=150", 150, h, w, c, torch.float32, False)
-          for name, h, w, c in TRUNK_BLOCKS[1:]),
-        *((f"{name} N=7", 7, h, w, c, torch.float32, False)  # not a multiple of the group
-          for name, h, w, c in TRUNK_BLOCKS[3:]),
-        ("one image", 1, 28, 28, 64, torch.float32, False),
-        ("9x9x64", 5, 9, 9, 64, torch.float32, False),
-        ("5x5x16", 3, 5, 5, 16, torch.float32, False),
-        ("ragged 11x5x48", 13, 11, 5, 48, torch.float32, False),
-        *((f"zero ring {h}x{w}x{c}", 3, h, w, c, torch.float32, True)
-          for _, h, w, c in TRUNK_BLOCKS[1:]),
-        *((f"bf16 {name}", 50, h, w, c, torch.bfloat16, False)
-          for name, h, w, c in TRUNK_BLOCKS[1:]),
-        ("bf16 zero ring", 3, 28, 28, 64, torch.bfloat16, True),
+        *((f"{name} N=150", 150, h, w, c, f32, False) for name, h, w, c in TRUNK_BLOCKS[1:]),
+        *((f"{name} N=7", 7, h, w, c, f32, False) for name, h, w, c in TRUNK_BLOCKS[3:]),
+        # the last block of several images is not full
+        *((f"ragged {h}x{w}x{c}", ragged_batch(h, w, c, dt), h, w, c, dt, False)
+          for h, w, c in shapes[2:] for dt in (f32, bf16)),
+        *((f"one image {h}x{w}x{c}", 1, h, w, c, dt, False) for h, w, c in shapes
+          for dt in (f32, bf16)),
+        ("9x9x64", 5, 9, 9, 64, f32, False),
+        # C not a multiple of the 64 channels a warp takes
+        *((name, n, h, w, c, dt, False) for name, n, h, w, c in
+          (("5x5x16", 3, 5, 5, 16), ("ragged 11x5x48", 13, 11, 5, 48)) for dt in (f32, bf16)),
+        *((f"zero ring {h}x{w}x{c}", 3, h, w, c, dt, True) for h, w, c in shapes
+          for dt in (f32, bf16)),
+        *((f"bf16 {name}", 50, h, w, c, bf16, False) for name, h, w, c in TRUNK_BLOCKS[1:]),
     ]
-    worst = 0.0
+    worst = worst_3x = 0.0
     for i, (name, n, h, w, c, dtype, zero_ring) in enumerate(cases):
         args = fused_block_inputs(n, h, w, c, seed=100 + i, dtype=dtype, zero_ring=zero_ring)
-        got = fb.fused_block_cuda(*args)
+        got = fb.fused_basic_block(*args)  # packs the weights, launches the kernel
         torch.cuda.synchronize()
         want = fb.fused_block_reference(*args)
         check(got.shape == want.shape and got.dtype == dtype, f"{name}: shape or dtype")
         check(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
         err = (got.float() - want.float()).abs().max().item()
-        if dtype == torch.float32:
+        if dtype == f32:
             tol = FB_TOL
             worst = max(worst, err)
             # cuDNN's own rounding is in `want`, so also hold the kernel to
-            # a float64 evaluation of the same function.
+            # a float64 evaluation of the same function, and to its own
+            # arithmetic (three TF32 products a multiply) in plain PyTorch.
             want64 = fb.fused_block_reference(*(a.double() for a in args))
             err64 = (got.double() - want64).abs().max().item()
             check(torch.allclose(got.double(), want64, rtol=tol, atol=tol),
                   f"{name}: kernel vs float64 max abs err {err64:.3e}")
-            extra = f" (vs float64 {err64:.3e})"
+            err3x = (got - fb.fused_block_reference_3xtf32(*args)).abs().max().item()
+            check(err3x < tol, f"{name}: kernel vs 3xTF32 in plain PyTorch {err3x:.3e}")
+            worst_3x = max(worst_3x, err3x)
+            extra = f" (vs float64 {err64:.3e}, vs plain 3xTF32 {err3x:.3e})"
         else:
             tol, extra = FB_BF16_TOL, ""
         check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
@@ -233,40 +273,58 @@ def phase_fused_block_vs_plain(card):
             check(berr <= tol * (1 + want.float().abs().max().item()),
                   f"{name}: border max abs err {berr:.3e}")
             extra += f" border {berr:.3e}"
-        print(f"fused_block {name:22s} N={n} {h}x{w}x{c} {str(dtype)[6:]}: max_abs_err "
-              f"{err:.3e}{extra} ok")
+        plan = fb.plan_fused_block(n, h, w, c, dtype)
+        print(f"fused_block {name:22s} N={n} {h}x{w}x{c} {str(dtype)[6:]} (rows {plan.r}, images "
+              f"{plan.g} a block): max_abs_err {err:.3e}{extra} ok")
+    print(f"fused_block fp32 form (3xTF32) vs plain 3xTF32, worst of the cases: {worst_3x:.3e}")
 
-    # The serving path's own shapes, N = B*T = 3600, one per shape class:
-    # first kernel against plain version (fp32 on both sides, so no float64
-    # pass at this size), then the times.
-    totals = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)
+    # The serving path's own shapes, N = B*T = 3600, one per shape class and
+    # form: first kernel against plain version (no float64 pass at this
+    # size), then the times, with the weights packed beforehand as the
+    # modules pack them at load.
+    totals = {form: dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0) for form in FB_FLOP_PER_S}
+    totals["bf16"]["convs_ms"] = 0.0
     timed = {}
     n = 3600
+    kw = dict(samples=5, calls=4, warmup=1)  # milliseconds a call: few suffice
     for name, h, w, c in TRUNK_BLOCKS:
-        if (h, w, c) not in timed:
-            args = fused_block_inputs(n, h, w, c, seed=7)
-            got, want = fb.fused_block_cuda(*args), fb.fused_block_reference(*args)
-            err = (got - want).abs().max().item()
-            check(torch.isfinite(got).all().item(), f"N={n} {h}x{w}x{c}: non-finite output")
-            check(torch.allclose(got, want, rtol=FB_TOL, atol=FB_TOL),
-                  f"N={n} {h}x{w}x{c}: kernel vs plain max abs err {err:.3e}")
-            worst = max(worst, err)
-            print(f"fused_block serving shape N={n} {h}x{w}x{c} fp32: max_abs_err {err:.3e} ok")
-            del got, want
-            kw = dict(samples=5, calls=4, warmup=1)  # milliseconds a call: few suffice
-            plain = time_ms(lambda: fb.fused_block_reference(*args), **kw)
-            ms = time_ms(lambda: fb.fused_block_cuda(*args), **kw)
-            nbytes, flops = fused_block_work(n, h, w, c)
-            bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
-            timed[(h, w, c)] = (ms, plain, nbytes, flops)
-            print(f"fused_block time N={n} {h}x{w}x{c} fp32: kernel {ms:.3f} ms "
-                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain (cuDNN convs, TF32 off) "
-                  f"{plain:.3f} ms, bound {bound:.3f} ms ({nbytes / 1e6:.1f} MB, "
-                  f"{flops / 1e12:.3f} TFLOP) [{card}]")
-            del args
-        ms, plain, nbytes, flops = timed[(h, w, c)]
-        for key, val in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
-            totals[key] += val
+        for form, dtype, tol in (("fp32", f32, FB_TOL), ("bf16", bf16, FB_BF16_TOL)):
+            if (h, w, c, form) not in timed:
+                args = fused_block_inputs(n, h, w, c, seed=7, dtype=dtype)
+                x, w1, b1, a1, w2, b2, a2 = args
+                packed = (x, fb.pack_weights(w1, dtype), b1, a1, fb.pack_weights(w2, dtype), b2, a2)
+                got, want = fb.fused_block_cuda(*packed), fb.fused_block_reference(*args)
+                err = (got.float() - want.float()).abs().max().item()
+                check(torch.isfinite(got).all().item(), f"N={n} {h}x{w}x{c}: non-finite output")
+                check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                      f"N={n} {h}x{w}x{c} {form}: kernel vs plain max abs err {err:.3e}")
+                if form == "fp32":
+                    worst = max(worst, err)
+                print(f"fused_block serving shape N={n} {h}x{w}x{c} {form}: max_abs_err "
+                      f"{err:.3e} ok")
+                del got, want
+                plain = time_ms(lambda: fb.fused_block_reference(*args), **kw)
+                ms = time_ms(lambda: fb.fused_block_cuda(*packed), **kw)
+                nbytes, flops = fused_block_work(n, h, w, c, x.element_size())
+                bound = max(nbytes / HBM_BYTES_PER_S, flops / FB_FLOP_PER_S[form]) * 1e3
+                timed[(h, w, c, form)] = dict(ms=ms, plain_ms=plain, bytes=nbytes, flops=flops)
+                if form == "fp32":
+                    what = ("3xTF32 on the tensor cores", "plain (cuDNN fp32 convs, TF32 off)",
+                            "flops / (495 TFLOP/s / 3)")
+                    extra = ""
+                else:
+                    convs = time_ms(lambda: convs_bf16(*args), **kw)
+                    timed[(h, w, c, form)]["convs_ms"] = convs
+                    what = ("bf16 on the tensor cores", "plain (bf16 values, cuDNN fp32 convs)",
+                            "flops / 989 TFLOP/s")
+                    extra = f", bf16 cuDNN convs {convs:.3f} ms"
+                print(f"fused_block time N={n} {h}x{w}x{c} {form} ({what[0]}): kernel {ms:.3f} ms "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s), {what[1]} {plain:.3f} ms{extra}, bound "
+                      f"{bound:.3f} ms ({what[2]}; {nbytes / 1e6:.1f} MB, {flops / 1e12:.3f} "
+                      f"TFLOP) [{card}]")
+                del args, packed
+            for key, val in timed[(h, w, c, form)].items():
+                totals[form][key] += val
     return totals, worst
 
 
@@ -406,6 +464,12 @@ def main() -> None:
                 if "registers" in line or "spill" in line or "error" in line:
                     print(f"  {name}: {line.strip()}")
 
+    sass = subprocess.run(["cuobjdump", "-sass", _build.library_path("fused_block")],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    tensor_core = sum("HGMMA" in line or "HMMA" in line for line in sass.splitlines())
+    print(f"  fused_block: {tensor_core} tensor-core instructions (HGMMA/HMMA) in the library")
+    check(tensor_core > 0, "the fused block's library holds no tensor-core instruction")
+
     attn_totals, attn_worst = phase_kernel_vs_plain()
     fb_totals, fb_worst = phase_fused_block_vs_plain(card)
     states = load_serving_npz(SERVING_NPZ)
@@ -415,28 +479,44 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches["folded+fused"] = phase_serve(folded, card, "folded+fused", batches=8, fused=True)
 
-    def kernel_entry(name, source, replaces, worst, totals):
-        t_bytes = totals["bytes"] / HBM_BYTES_PER_S
-        t_flops = totals["flops"] / FP32_FLOP_PER_S
+    def bound(totals, flop_per_s):
+        t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
+        return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
+
+    def kernel_entry(name, source, replaces, worst, totals, flop_per_s):
+        bound_ms, bound_by = bound(totals, flop_per_s)
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches["folded+fused"][name],
             "launches_by_path": {path: counts[name] for path, counts in launches.items()},
             "max_abs_err": worst, "ms": totals["ms"],
-            "plain_ms": totals["plain_ms"], "bound_ms": max(t_bytes, t_flops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "plain_ms": totals["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": totals.get("library_ms"),
         }
 
     # ms, plain_ms, bound_ms: one forward's launches of the kernel (2
-    # attentions; 5 fused blocks).  launches: the counted batches of the
+    # attentions; 5 fused blocks, in the fp32 form the serving path runs:
+    # 3xTF32, so its bound divides by a third of the TF32 rate; the bf16
+    # form's numbers stand beside it).  launches: the counted batches of the
     # folded + fused serving run, which goes through both kernels; each
     # serving run's own count stands in launches_by_path.
+    fused = kernel_entry("fused_basic_block", "vcagan_torch/csrc/fused_block.cu",
+                         "vcagan/kernels/fused_block.py:95", fb_worst, fb_totals["fp32"],
+                         FB_FLOP_PER_S["fp32"])
+    fused.update(form="3xTF32", ms_bf16=fb_totals["bf16"]["ms"],
+                 plain_ms_bf16=fb_totals["bf16"]["plain_ms"],
+                 bound_ms_bf16=bound(fb_totals["bf16"], FB_FLOP_PER_S["bf16"])[0],
+                 convs_ms_bf16=fb_totals["bf16"]["convs_ms"])
+    print(f"fused_block one forward (5 launches) [{card}]: fp32 form (3xTF32) "
+          f"{fused['ms']:.2f} ms, plain {fused['plain_ms']:.2f} ms, bound "
+          f"{fused['bound_ms']:.2f} ms; bf16 form "
+          f"{fused['ms_bf16']:.2f} ms, plain {fused['plain_ms_bf16']:.2f} ms, bf16 cuDNN convs "
+          f"{fused['convs_ms_bf16']:.2f} ms, bound {fused['bound_ms_bf16']:.2f} ms")
     print(json.dumps({"kernels": [
         kernel_entry("masked_cross_attention", "vcagan_torch/csrc/masked_attention.cu",
-                     "vcagan/kernels/masked_attention.py:85", attn_worst, attn_totals),
-        kernel_entry("fused_basic_block", "vcagan_torch/csrc/fused_block.cu",
-                     "vcagan/kernels/fused_block.py:95", fb_worst, fb_totals),
+                     "vcagan/kernels/masked_attention.py:85", attn_worst, attn_totals,
+                     FP32_FLOP_PER_S),
+        fused,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,12 @@ on the card by ``chip_smoke.py``).
 Tolerances: fp32 rtol = atol = 2e-5, the JAX file's own bound (sums of up to
 9*512 terms taken in another order); bf16 rtol = atol = 0.05 with a bf16
 output, as the JAX file's bf16 case.
+
+What the kernel reads and how it tiles is Python, so it is held here too:
+the packed weights round-trip; the kernel's fp32 arithmetic (three TF32
+products a multiply, ``fused_block_reference_3xtf32``) agrees with float64
+and with the JAX package to 1e-4 where one TF32 product misses 1e-5; and
+the tile plan fits shared memory and covers every pixel exactly once.
 """
 
 import jax.numpy as jnp
@@ -173,3 +179,122 @@ def test_fused_trunk_matches_unfused_trunk_and_jax_on_shared_params():
         {"params": params}, jnp.asarray(x), train=False
     )
     np.testing.assert_allclose(y2.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+# ---- what the kernel reads: packed weights
+
+
+@pytest.mark.parametrize("c", [16, 48, 64, 128])
+def test_pack_weights_round_trip(c):
+    w = torch.from_numpy(_mats(1, 1, 1, c, seed=c)[1])
+    packed = fb.pack_weights(w, torch.bfloat16)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (9 * c * c,)
+    assert torch.equal(fb.unpack_weights(packed, c, torch.bfloat16), w.to(torch.bfloat16))
+
+    packed = fb.pack_weights(w, torch.float32)
+    assert packed.dtype == torch.float32 and packed.shape == (2 * 9 * c * c,)
+    hi, lo = fb.unpack_weights(packed, c, torch.float32)
+    for part in (hi, lo):  # TF32 values: rounding them again changes nothing
+        assert torch.equal(fb.round_tf32(part), part)
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((hi + lo - w).abs() <= 2.0**-21 * w.abs()).all()
+    assert (hi - w).abs().max() > 1e-6  # and hi alone is not w
+
+
+def test_pack_weights_puts_b_fragments_in_lane_order():
+    """The first 16 bytes of a lane: bf16, lane (g, t) holds k = 2t, 2t+1,
+    2t+8, 2t+9 of output g and then of output g+8; fp32, k = t and t+4 of
+    output g, the hi parts and then the lo parts."""
+    c = 32
+    w = torch.from_numpy(_mats(1, 1, 1, c, seed=5)[1])
+    tap, ks, g, t = 4, 1, 5, 2
+    lane = 4 * g + t
+    bf = fb.pack_weights(w, torch.bfloat16).reshape(9, c // 16, c // 16, 32, 8)
+    want = [w[1, 1, 16 * ks + k, 16 + n] for n in (g, g + 8) for k in (2 * t, 2 * t + 1,
+                                                                         2 * t + 8, 2 * t + 9)]
+    assert torch.equal(bf[tap, ks, 1, lane], torch.stack(want).to(torch.bfloat16))
+    fp = fb.pack_weights(w, torch.float32).reshape(9, c // 8, c // 8, 32, 4)
+    hi, lo = fb.split_tf32(w)
+    want = [part[1, 1, 8 * ks + k, 8 * 3 + g] for part in (hi, lo) for k in (t, t + 4)]
+    assert torch.equal(fp[tap, ks, 3, lane], torch.stack(want))
+
+
+# ---- the kernel's fp32 arithmetic in plain PyTorch
+
+
+@pytest.mark.parametrize("n,h,w,c,nb", [(3, 9, 9, 16, 2), (2, 7, 7, 64, 2)])
+def test_3xtf32_holds_fp32_accuracy_where_one_tf32_product_does_not(n, h, w, c, nb):
+    args = _mats(n, h, w, c, seed=7)
+    t_args = _torch_args(args)
+    got = fb.fused_block_reference_3xtf32(*t_args).numpy()
+    want64 = fb.fused_block_reference(*(a.double() for a in t_args)).numpy()
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, want64, **tol)
+    np.testing.assert_allclose(got, np.asarray(fused_block_xla(*_jax_args(args))), **tol)
+    kernel = _fused_block_pallas(*_jax_args(args), nb=nb, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kernel), **tol)
+    # far inside the tolerance: the split keeps about 2^-21 a product ...
+    assert np.abs(got - want64).max() < 1e-5
+    # ... which one TF32 product a multiply does not
+    single = fb.fused_block_reference_3xtf32(*t_args, passes=1).numpy()
+    assert np.abs(single - want64).max() > 1e-5
+
+
+# ---- the tile plan
+
+TRUNK = {"layer1_0": (28, 28, 64), "layer1_1": (28, 28, 64), "layer2_1": (14, 14, 128),
+         "layer3_1": (7, 7, 256), "layer4_1": (4, 4, 512)}
+PLAN_CASES = [
+    *((f"{name}-{kind}-N{n}", n, *shape, dtype)
+      for name, shape in TRUNK.items()
+      for kind, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))
+      for n in (1, 7, 150, 3600)),
+    ("ragged-11x5x48-fp32", 13, 11, 5, 48, torch.float32),
+    ("ragged-11x5x48-bf16", 13, 11, 5, 48, torch.bfloat16),
+    ("5x5x16-bf16", 3, 5, 5, 16, torch.bfloat16),
+    ("9x9x64-fp32", 5, 9, 9, 64, torch.float32),
+    ("31x3x96-fp32", 37, 31, 3, 96, torch.float32),
+    ("3x33x32-bf16", 301, 3, 33, 32, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_plan_fits_shared_memory_and_covers_every_pixel_once(case):
+    _, n, h, w, c, dtype = case
+    plan = fb.plan_fused_block(n, h, w, c, dtype)
+    k_step = 16 if dtype == torch.bfloat16 else 8
+    assert plan.smem <= fb.MAX_SMEM == 232448
+    assert plan.smem == fb._smem_bytes(c, plan.itemsize, plan.g, plan.xr, plan.hr, w, plan.bn,
+                                       plan.ks, plan.stages)
+    assert len(plan.ints()) == 14 and plan.ints()[-1] == plan.smem
+    assert c % plan.bn == 0 and (c // k_step) % plan.ks == 0 and 2 <= plan.stages <= fb.MAX_STAGES
+    assert plan.tiles == -(-h // plan.r) and (plan.g == 1 or plan.tiles == 1)
+    assert plan.blocks == -(-n // plan.g) * plan.tiles
+
+    written = np.zeros((n, h, w), np.int32)
+    for block in range(plan.blocks):
+        px = fb.block_pixels(plan, block)
+        im, row, col = px["stores"].T
+        np.add.at(written, (im, row, col), 1)
+        # h: every pixel lands in the block's h rows, each in a place of its
+        # own, never in the row of zeros that follows them, and only pixels
+        # of the image are stored (there is no ring to keep zero)
+        assert px["h_index"].min() >= 0 and px["h_index"].max() < plan.g * plan.hr * w
+        assert len(np.unique(px["h_index"])) == len(px["h_index"])
+        assert px["h_pixels"][:, 1].min() >= 0 and px["h_pixels"][:, 1].max() < h
+        # phase 2 finds h on the output rows and their neighbours in the
+        # image; phase 1 finds x on h's rows and their neighbours
+        out_rows, h_rows, x_rows = px["out_rows"], px["h_rows"], px["x_rows"]
+        assert h_rows.start <= max(out_rows.start - 1, 0) and h_rows.stop >= min(out_rows.stop + 1, h)
+        assert x_rows.start <= max(h_rows.start - 1, 0) and x_rows.stop >= min(h_rows.stop + 1, h)
+        assert set(px["h_pixels"][:, 1]) == set(h_rows)
+    assert (written == 1).all()
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fb.plan_fused_block(2, 4, 4, 24, torch.float32)
+    with pytest.raises(ValueError, match="no kernel for"):
+        fb.plan_fused_block(2, 4, 4, 16, torch.float64)
+    with pytest.raises(ValueError, match="fits"):  # one row of h alone is too much
+        fb.plan_fused_block(1, 4, 4096, 512, torch.float32)

@@ -1,55 +1,79 @@
 // Fused folded-BN ResNet BasicBlock (stride 1, identity shortcut), forward:
 //   h   = PReLU(conv3x3(x, w1) + b1, a1)        rounded to x's type
 //   out = PReLU(conv3x3(h, w2) + b2 + x, a2)    rounded to x's type
-// x, out (N,H,W,C) channels innermost, fp32 or bf16; w1, w2 (3,3,C,C) as
-// [tap][c_in][c_out], fp32 (rounded to bf16 on the fly when x is bf16);
-// b*, a* (C,) fp32.  Both convolutions pad with zeros (SAME) and sum in
-// fp32.  C must be a multiple of 16.
+// x, out (N,H,W,C) channels innermost, fp32 or bf16; w1, w2 packed by
+// vcagan_torch/kernels/fused_block.py::pack_weights from (3,3,C,C); b*, a*
+// (C,) fp32.  Both convolutions pad with zeros (SAME) and sum in fp32.  C
+// must be a multiple of 16.
 //
 // Replaces the TPU kernel vcagan/kernels/fused_block.py:78-130
 // (_block_kernel / _fused_block_pallas), which holds whole images and two
 // zero-padded copies in VMEM and computes each convolution as 9 shifted
-// channel contractions.  What it is for is kept: ONE launch computes the
-// whole block and h never goes to device memory.
+// channel contractions on the matrix unit.  What it is for is kept: ONE
+// launch computes the whole block and h never goes to device memory.
 //
-// Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 outside the tensor
-// cores): flops = 2 convs * 2*9*C*C*H*W*N, bytes = x read + out written +
-// both weights.  At N = 3600 each of 28x28x64, 14x14x128, 7x7x256 is
-// 0.416 TFLOP -> 6.2 ms and 4x4x512 is 0.544 TFLOP -> 8.1 ms, while the
-// bytes give at most 0.43 ms: the block is bound by operations.
+// Bound on an H100 SXM (3.35 TB/s; tensor cores 989 TFLOP/s bf16, 495
+// TFLOP/s TF32): flops = 2 convs * 2*9*C*C*H*W*N, bytes = x read + out
+// written + both weights.  At N = 3600 each of 28x28x64, 14x14x128, 7x7x256
+// is 0.416 TFLOP and 4x4x512 is 0.544 TFLOP against at most 1.4 GB, so the
+// block is bound by operations in both forms:
+//   bf16 in and out: one product a multiply at 989 TFLOP/s, 0.42 ms a launch
+//     (0.55 ms at 4x4x512);
+//   fp32 in and out: three TF32 products a multiply (3xTF32, below), 165
+//     TFLOP/s effective, 2.52 ms a launch (3.30 ms at 4x4x512).
 //
-// Design (fp32 FMA from shared memory):
-// - One thread block computes one tile: G whole images, or R output rows
-//   of one image.  The tile's h, with a ring of one pixel and ALL C
-//   channels, lives in shared memory as hs[c][image][row][col]; nothing else
-//   of activation size is kept.  A row tile needs h on R+2 rows, so the two
-//   ring rows are recomputed by the neighbouring tiles (x is read on R+4
-//   rows).
-// - The ring of h outside the image is zero, as conv2's SAME padding
-//   wants, not conv1 evaluated there: hs is zeroed first and phase 1 only
-//   writes pixels inside the image.
-// - Each phase is an implicit GEMM, pixels x c_out over 9 taps x c_in.
-//   A thread owns a strip of TM pixels of one row x 8 output channels in
-//   registers.  Per input channel and kernel row it reads the strip's TM+2
-//   inputs once and uses them for all three horizontal taps, so the loop
-//   is 3*8*TM FMAs to TM+2 scalar and 6 vector loads.  TM = 7 divides the
-//   trunk's widths 28, 14 and 7 (and 7 floats between lanes spread over
-//   all banks); TM = 4 serves maps up to 4 wide.  The block owns 256/CG
-//   strips x NC = 8*CG output channels per pass and loops over passes and
-//   over chunks of NC output channels.
-// - The weights do not fit (2.4 MB a conv at C=256): per step a slice
-//   [9 taps][KC c_in][NC c_out] is streamed through shared memory (from L2
-//   after the first blocks).  In phase 1 the x patch of the same KC input
-//   channels (with its zero border) is staged beside it; in phase 2 the
-//   operand is hs itself.  A step's slices are loaded into registers
-//   before the previous step's FMAs and stored to shared memory after
-//   them, so the loads' latency hides behind the arithmetic at no cost in
-//   shared memory.  The residual re-reads x from global memory.
-// - The launcher searches R, G and NC for the fewest strip slots per output
-//   pixel that fit the 227 KB of a block (make_plan).
-// - N need not be a multiple of G: images past N load zeros and store
-//   nothing.  The grid is one-dimensional (N/G * row tiles blocks).
-// Later work: wgmma (TF32/bf16) for the products, TMA for the slices.
+// Design (both convolutions as implicit GEMMs on the tensor cores, pixels x
+// c_out over k = 9 taps x c_in, fp32 accumulators in registers):
+// - The instruction is mma.sync (m16n8k16 for bf16, m16n8k8 for TF32), not
+//   wgmma: its A operand is a register fragment whose 16 rows each have an
+//   address of their own, so a row is a pixel and a tap is a shift of that
+//   address.  The x patch and h are kept as [pixel][channel] rows of the
+//   image itself, WITHOUT a padded ring: a tap that leaves the image points
+//   its row at one shared row of zeros.  That is SAME padding, it makes the
+//   "ring of h is zero" rule hold by construction (nothing is ever stored
+//   outside the image), and no tensor-core row is spent on ring positions
+//   (50% of a padded 4x4 grid).  wgmma would read A through one descriptor
+//   for 64 rows, which needs the padded grid or a gather through registers.
+// - One block (8 warps) computes one tile: G whole images, or R output rows
+//   of one image (then h is computed on R+2 rows, the two border rows again
+//   by the neighbouring tiles).  Shared memory holds the tile's x patch and
+//   h for ALL channels (a pixel's row is padded by 16 bytes so that the 8
+//   or 16 rows of a fragment fall on different banks) and a ring of weight
+//   stages.  bf16 fragments are read with ldmatrix, fp32 ones with plain
+//   loads.
+// - The weights do not fit (up to 9.4 MB a convolution): they are streamed
+//   from L2 with cp.async through a ring of 2-3 stages, each `ks` k-steps x
+//   BN output channels, one __syncthreads a stage; the loads of the next
+//   stages run under the products of this one, across passes and across the
+//   two convolutions.  They were packed at load in the order of the B
+//   fragment, so a warp reads a fragment with one conflict-free 16-byte
+//   load a lane.
+// - 8 warps = warps_m along the pixels x 8/warps_m along the channels; a warp
+//   accumulates up to 4 (bf16) or 2 (fp32) tiles of 16 pixels x WN (64, or
+//   16 for C not a multiple of 64) channels, the 16-pixel tiles dealt round
+//   robin so that a ragged count spreads over the warps; rows past the end
+//   read the zero row and store nothing.  Images past N load zeros and
+//   store nothing.
+// - All SMs stream the same weights; in step they would all ask the same
+//   few L2 slices at once.  Each block starts its walk over the stages of a
+//   (pass, chunk) at a different stage (the sum does not care about order).
+// - fp32 form, 3xTF32: every operand a = a_hi + a_lo, a_hi = a rounded to
+//   TF32, a_lo = a - a_hi rounded to TF32; the product is a_lo*b_hi +
+//   a_hi*b_lo first, then a_hi*b_hi, summed in fp32.  That keeps about
+//   2^-21 relative a product, so the fp32 form holds the fp32 tolerances.
+//   The three products of a k-step go into a fresh sum, which an ordinary
+//   fp32 add puts on the accumulator: the tensor cores add with truncation,
+//   and a sum left in them over k = 9*C drifts by 1e-4 at C = 512.  The
+//   weights' parts are packed at load; x and h are kept in fp32 in shared
+//   memory and split where they are read (5 integer and float instructions
+//   a value, each value then used for 8 n-tiles x 3 products).
+// - The plan (R, G, warps_m, ks, stages, shared-memory bytes) is made in
+//   Python (plan_fused_block) and checked here.
+// Later work: wgmma with A from registers and B through a descriptor (B is
+// then read from shared memory once a warpgroup, not once a warp, which is
+// what holds mma.sync to about 60% of the tensor cores' rate), streaming
+// the x patch so that more images fit a block at 4x4x512, a cluster sharing
+// one multicast weight load.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,430 +82,523 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTN = 8;                // output channels per thread
-constexpr int kSlack = 8;             // a ragged strip reads past its row
-constexpr size_t kMaxSmem = 232448;   // 227 KB a block may use
+constexpr int kWarps = 8;
+constexpr int kMaxSmem = 232448;     // 227 KB a block may use
+constexpr int kMaxStages = 5;
+constexpr int kPlanInts = 14;
 
-struct Geom {
+struct Plan {
   int N, H, W, C;
-  int R, G;        // output rows per tile; images per block
-  int tiles;       // row tiles per image
-  int spr;         // strips per row
-  int xs_stride;   // floats per channel of the staged x patch
-  int hs_stride;   // elements per channel of hs
-  int tab_len;     // entries of the patch offset table (padded to 4)
+  int R, G, tiles;   // output rows a tile; images a block; row tiles an image
+  int XR, HR;        // rows of the x patch and of h kept for an image
+  int warps_m, WN;   // warps along the pixels; channels a warp
+  int KS, stages;    // k-steps a stage; stages of the ring
+  int smem;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> struct Traits;
+template <> struct Traits<float> {
+  static constexpr int kStep = 8;    // input channels an instruction
+  static constexpr int kPad = 4;     // elements added to a pixel's row
+  static constexpr int kWBytes = 8;  // packed bytes a weight (hi and lo)
+  static constexpr int kMT = 2;      // 16-pixel tiles a warp accumulates
+  static constexpr int kRows = 2;    // fragment rows a lane addresses a tile
+};
+template <> struct Traits<__nv_bfloat16> {
+  static constexpr int kStep = 16;
+  static constexpr int kPad = 8;
+  static constexpr int kWBytes = 2;
+  static constexpr int kMT = 4;
+  static constexpr int kRows = 1;
+};
 
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// A value after the round trip through the storage type.
-template <typename T> __device__ __forceinline__ float rounded(float v) {
-  return to_float(from_float<T>(v));
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  const int size = valid ? 16 : 0;  // 0: writes 16 zero bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(size)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most `n` of this thread's copy groups are still in flight.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
 }
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+// Plain loads from shared memory (the compiler may schedule them freely).
+__device__ __forceinline__ float lds_f32(const unsigned char* base, uint32_t off) {
+  return *reinterpret_cast<const float*>(base + off);
 }
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+__device__ __forceinline__ uint4 lds_128(const unsigned char* base, uint32_t off) {
+  return *reinterpret_cast<const uint4*>(base + off);
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned int*>(&lo);
-  u.y = *reinterpret_cast<const unsigned int*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d = a * b (a fresh sum).
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// fp32 -> nearest TF32 value (low 13 mantissa bits zero, ties away from
+// zero, as cvt.rna.tf32.f32; integer instructions, which run at full rate).
+__device__ __forceinline__ uint32_t round_tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+// a = hi + lo with both parts TF32 values.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(a);
+  lo = round_tf32(a - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ float prelu(float v, float a) { return v >= 0.f ? v : a * v; }
 
-// Input channels per step for a pass of nc output channels: the step's
-// weight slice waits in 9 * KC * nc / 256 registers a thread.
-constexpr int step_channels(int nc) { return nc > 64 ? 4 : 8; }
-
-// Pass widths in order of preference among plans of equal cost (measured on
-// an H100 at the trunk's shapes: 128 beats 64, which stages x twice as
-// often, and 256, where a warp spans four channel groups).
-constexpr int kPassWidths[] = {128, 64, 256, 16};
-
-template <int CG> struct Tile {
-  static constexpr int NC = CG * kTN;              // output channels per pass
-  static constexpr int PG = kThreads / CG;         // strips per pass
-  static constexpr int KC = step_channels(NC);     // input channels per step
-};
-
-// A step's operands travel global memory -> registers -> shared memory:
-// the loads of step s+1 are started before the FMAs of step s and land while
-// they run; after the FMAs (and a barrier) the registers are stored.
-
-// Weight slice [9][KC][NC] of w[tap][ci0 + kc][co0 + n].
-template <typename T, int CG> struct WeightStage {
-  static constexpr int NC = Tile<CG>::NC, KC = Tile<CG>::KC, Q = NC / 4;
-  static constexpr int kTotal = 9 * KC * Q;
-  static constexpr int kLoads = (kTotal + kThreads - 1) / kThreads;
-  float4 v[kLoads];
-
-  __device__ __forceinline__ void fetch(const float* __restrict__ w, int C, int ci0, int co0,
-                                        int tid) {
-#pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      const int idx = tid + k * kThreads;
-      if (idx < kTotal) {
-        const int row = idx / Q;  // tap * KC + kc
-        const int tap = row / KC;
-        v[k] = load4(w + (static_cast<size_t>(tap) * C + ci0 + row - tap * KC) * C + co0 +
-                     4 * (idx - row * Q));
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* Ws, int tid) const {
-#pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      const int idx = tid + k * kThreads;
-      if (idx < kTotal) {
-        float4 r = v[k];
-        r.x = rounded<T>(r.x);
-        r.y = rounded<T>(r.y);
-        r.z = rounded<T>(r.z);
-        r.w = rounded<T>(r.w);
-        store4(Ws + 4 * idx, r);  // [row][4 * q] with row * NC + 4 * q = 4 * idx
-      }
-    }
-  }
-};
-
-// The x patch of KC input channels, all positions of `tab`, transposed to
-// channel-major Xs[kc][pos].  At most kPatchLoads float4 a thread
-// (make_plan sees to it).
-constexpr int kPatchLoads = 5;
-
-template <typename T, int KC> struct PatchStage {
-  float4 v[kPatchLoads];
-
-  __device__ __forceinline__ void fetch(const T* __restrict__ x, const int* tab, int npos,
-                                        int C, int ci0, int tid) {
-#pragma unroll
-    for (int k = 0; k < kPatchLoads; ++k) {
-      const int idx = tid + k * kThreads;
-      v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (idx < npos * (KC / 4)) {
-        const int pos = idx / (KC / 4);
-        const int off = tab[pos];
-        if (off >= 0) {
-          v[k] = load4(x + static_cast<size_t>(off) * C + ci0 + 4 * (idx - pos * (KC / 4)));
-        }
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* Xs, int xs_stride, int npos, int tid) const {
-#pragma unroll
-    for (int k = 0; k < kPatchLoads; ++k) {
-      const int idx = tid + k * kThreads;
-      if (idx < npos * (KC / 4)) {
-        const int pos = idx / (KC / 4);
-        float* dst = Xs + 4 * (idx - pos * (KC / 4)) * xs_stride + pos;
-        dst[0] = v[k].x;
-        dst[xs_stride] = v[k].y;
-        dst[2 * xs_stride] = v[k].z;
-        dst[3 * xs_stride] = v[k].w;
-      }
-    }
-  }
-};
-
-// A strip of a pass: image gi of the block, row r of the phase's rows,
-// first column c0; dead past the phase's last strip.
-struct Strip {
-  int gi, r, c0;
-  bool live;
-};
-
-__device__ __forceinline__ Strip strip_of(int sid, int rows, int spr, int nstrips, int tm) {
-  Strip s;
-  s.live = sid < nstrips;
-  s.gi = sid / (rows * spr);
-  const int rem = sid - s.gi * rows * spr;
-  s.r = rem / spr;
-  s.c0 = (rem - s.r * spr) * tm;
-  return s;
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// acc[i][j] += sum over 9 taps and KC channels of a[kc][base + dy*Wp + i + dx]
-// * Ws[dy][dx][kc][8*cg + j].  `a` is channel-major with `a_stride` elements
-// a channel and rows of Wp elements.
-template <typename A, int CG, int TM>
-__device__ __forceinline__ void fma_taps(const A* a, int a_stride, int base, const float* Ws,
-                                         int Wp, int cg, float (&acc)[TM][kTN]) {
-  constexpr int NC = Tile<CG>::NC, KC = Tile<CG>::KC;
+// The rows of one phase's GEMM: pixel m of the block is image gi, image
+// row `row`, column `col`.
+struct Rows {
+  int per, row0, W;  // pixels an image; first image row; width
+  __device__ __forceinline__ void at(int m, int& gi, int& row, int& col) const {
+    gi = m / per;
+    const int rem = m - gi * per;
+    const int rr = rem / W;
+    row = row0 + rr;
+    col = rem - rr * W;
+  }
+};
+
+// The products of one stage (`KS` k-steps at `b_o`, `chunk_bytes` apart) on
+// the first L of the warp's tiles, whose rows stand at offsets a_o.
+// bf16: one m16n8k16 a (tile, n-tile) and k-step.
+template <int NT, int L>
+__device__ __forceinline__ void stage_products(float (&acc)[4][NT][4], const unsigned char* smem,
+                                               uint32_t smem_u, const uint32_t (&a_o)[4][1],
+                                               uint32_t b_o, int KS, int chunk_bytes) {
+#pragma unroll 2
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t a[L][4];
+#pragma unroll
+    for (int i = 0; i < L; ++i) ldmatrix_x4(a[i], smem_u + a_o[i][0] + ks * 32);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      const uint4 b = lds_128(smem, b_o + ks * chunk_bytes + np * 512);
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        mma_bf16(acc[i][2 * np], a[i], b.x, b.y);
+        mma_bf16(acc[i][2 * np + 1], a[i], b.z, b.w);
+      }
+    }
+  }
+}
+
+// fp32 as 3xTF32: a k-step's three products go into a fresh sum (small terms
+// first) which is then added to the accumulator by an ordinary fp32 add.
+// The tensor cores add with truncation, so a sum kept in them over all of
+// k = 9 * C drifts by about 1e-4 at C = 512; the ordinary add rounds to
+// nearest.  Four n-tiles go together, so that dependent products stand
+// 4 * L instructions apart.
+template <int NT, int L>
+__device__ __forceinline__ void stage_products(float (&acc)[2][NT][4], const unsigned char* smem,
+                                               uint32_t smem_u, const uint32_t (&a_o)[2][2],
+                                               uint32_t b_o, int KS, int chunk_bytes) {
+  constexpr int NG = NT < 4 ? NT : 4;
 #pragma unroll 1
-  for (int dy = 0; dy < 3; ++dy) {
-    const A* arow = a + base + dy * Wp;
-    const float* wrow = Ws + dy * 3 * KC * NC + cg * kTN;
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t hi[L][4], lo[L][4];
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      float av[TM + 2];
+    for (int i = 0; i < L; ++i) {
+      // a0 (g8, t4), a1 (g8 + 8, t4), a2 (g8, t4 + 4), a3 (g8 + 8, t4 + 4)
+      split_tf32(lds_f32(smem, a_o[i][0] + ks * 32), hi[i][0], lo[i][0]);
+      split_tf32(lds_f32(smem, a_o[i][1] + ks * 32), hi[i][1], lo[i][1]);
+      split_tf32(lds_f32(smem, a_o[i][0] + ks * 32 + 16), hi[i][2], lo[i][2]);
+      split_tf32(lds_f32(smem, a_o[i][1] + ks * 32 + 16), hi[i][3], lo[i][3]);
+    }
 #pragma unroll
-      for (int i = 0; i < TM + 2; ++i) av[i] = to_float(arow[kc * a_stride + i]);
+    for (int n0 = 0; n0 < NT; n0 += NG) {
+      uint4 b[NG];  // b0 hi, b1 hi, b0 lo, b1 lo
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const float4 b0 = load4(wrow + (dx * KC + kc) * NC);
-        const float4 b1 = load4(wrow + (dx * KC + kc) * NC + 4);
-        const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int j = 0; j < NG; ++j) b[j] = lds_128(smem, b_o + ks * chunk_bytes + (n0 + j) * 512);
+      float sum[L][NG][4];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
+      for (int i = 0; i < L; ++i)
 #pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i + dx], bv[j], acc[i][j]);
-        }
-      }
+        for (int j = 0; j < NG; ++j) mma_tf32_first(sum[i][j], lo[i], b[j].x, b[j].y);
+#pragma unroll
+      for (int i = 0; i < L; ++i)
+#pragma unroll
+        for (int j = 0; j < NG; ++j) mma_tf32(sum[i][j], hi[i], b[j].z, b[j].w);
+#pragma unroll
+      for (int i = 0; i < L; ++i)
+#pragma unroll
+        for (int j = 0; j < NG; ++j) mma_tf32(sum[i][j], hi[i], b[j].x, b[j].y);
+#pragma unroll
+      for (int i = 0; i < L; ++i)
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n0 + j][e] += sum[i][j][e];
     }
   }
 }
 
-template <typename T, int CG, int TM>
-__global__ void __launch_bounds__(kThreads)
-fused_block_kernel(const T* __restrict__ x, const float* __restrict__ w1,
+template <typename T, int WN>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1p,
                    const float* __restrict__ b1, const float* __restrict__ a1,
-                   const float* __restrict__ w2, const float* __restrict__ b2,
-                   const float* __restrict__ a2, T* __restrict__ out, const Geom g) {
-  constexpr int NC = Tile<CG>::NC, PG = Tile<CG>::PG, KC = Tile<CG>::KC;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ws = reinterpret_cast<float*>(smem_raw);   // [9][KC][NC]
-  float* Xs = Ws + 9 * KC * NC;                      // [KC][xs_stride]
-  int* tab = reinterpret_cast<int*>(Xs + KC * g.xs_stride);
-  T* hs = reinterpret_cast<T*>(tab + g.tab_len);     // [C][hs_stride]
+                   const unsigned char* __restrict__ w2p, const float* __restrict__ b2,
+                   const float* __restrict__ a2, T* __restrict__ out, const Plan p) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kStep = Traits<T>::kStep, kMT = Traits<T>::kMT, kRows = Traits<T>::kRows;
+  constexpr int kEsize = static_cast<int>(sizeof(T));
+  constexpr int NT = WN / 8;  // n-tiles of 8 channels a warp
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  const int tid = threadIdx.x;
-  const int pg = tid % PG;  // lanes of a warp: neighbouring strips,
-  const int cg = tid / PG;  // few channel groups (weights broadcast)
-  const int tile = blockIdx.x % g.tiles;
-  const int n0 = (blockIdx.x / g.tiles) * g.G;
-  const int r0 = tile * g.R;
-  const int H = g.H, W = g.W, C = g.C;
-  const int Wp = W + 2;
-  const int xrows = g.R + 4;  // patch rows: image rows r0-2 .. r0+R+1
-  const int hrows = g.R + 2;  // h rows:     image rows r0-1 .. r0+R
-  const int rows_out = min(g.R, H - r0);
-  const int hr_lo = r0 == 0 ? 1 : 0;          // h rows inside the image
-  const int hr_hi = min(hrows, H - r0 + 1);
-  const int rows_h = hr_hi - hr_lo;
-  const int npos = g.G * xrows * Wp;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;  // fragment row and column group
+  const int warp_m = warp % p.warps_m, warp_n = warp / p.warps_m;
+  const int H = p.H, W = p.W, C = p.C;
+  const int BN = kWarps / p.warps_m * WN;
+  const int chunks = C / BN;
+  const int h_stride = (C + Traits<T>::kPad) * kEsize;   // bytes a pixel of h
+  const int x_stride = p.KS * 32 + 16;                   // bytes a pixel of an x slice
+  const int steps_tap = C / kStep;                       // k-steps a tap
+  const int slices = steps_tap / p.KS;                   // channel slices of KS k-steps
+  const int row_bytes = C * kStep * Traits<T>::kWBytes;  // packed bytes a k-step, all channels
+  const int chunk_bytes = BN * kStep * Traits<T>::kWBytes;
+  const int stage_bytes = p.KS * chunk_bytes;
+  const int spc = 9 * slices;  // stages a (pass, chunk): slice-major, the 9 taps inside
+  // Blocks walk the slices of a (pass, chunk) from different starts, so that
+  // the SMs do not all ask L2 for the same weights at the same time.
+  const int rot = static_cast<int>(blockIdx.x * 0.6180339887 * slices) % slices;
 
-  // Offset (in pixels) of every patch position in x, or -1 for the zero
-  // border and for images past N.
-  for (int pos = tid; pos < npos; pos += kThreads) {
-    const int gi = pos / (xrows * Wp);
-    const int rem = pos - gi * xrows * Wp;
-    const int xr = rem / Wp;
-    const int ir = r0 - 2 + xr;
-    const int ic = rem - xr * Wp - 1;
-    const int n = n0 + gi;
-    const bool inside = n < g.N && ir >= 0 && ir < H && ic >= 0 && ic < W;
-    tab[pos] = inside ? (n * H + ir) * W + ic : -1;
+  const int tile = blockIdx.x % p.tiles;
+  const int n0 = (blockIdx.x / p.tiles) * p.G;
+  const int r0 = tile * p.R;
+  const bool whole = p.tiles == 1;
+  const int x0 = whole ? 0 : r0 - 2;  // image row of the x tile's row 0
+  const int h0 = whole ? 0 : r0 - 1;  // image row of h's row 0
+  const int h_lo = max(r0 - 1, 0), h_hi = min(r0 + p.R + 1, H);  // h rows in the image
+  const int o_hi = min(r0 + p.R, H);
+  const int M1 = p.G * (h_hi - h_lo) * W, M2 = p.G * (o_hi - r0) * W;
+  const int slots = p.warps_m * kMT;  // 16-pixel tiles a pass
+  const int passes1 = ((M1 + 15) / 16 + slots - 1) / slots;
+  const int passes2 = ((M2 + 15) / 16 + slots - 1) / slots;
+  const int x_pixels = p.G * p.XR * W;
+  const int slice_bytes = x_pixels * x_stride;
+
+  // Shared memory: weight ring | two x slices | h | zero row | b1 a1 b2 a2 |
+  // the x tile's pixels in device memory.
+  unsigned char* xs = smem + p.stages * stage_bytes;
+  unsigned char* hs = xs + 2 * slice_bytes;
+  unsigned char* zero = hs + p.G * p.HR * W * h_stride;
+  float* params = reinterpret_cast<float*>(zero + h_stride);
+  int* tab = reinterpret_cast<int*>(params + 4 * C);
+  // Byte offsets from `smem`, and its address for cp.async and ldmatrix.
+  const uint32_t smem_u = smem_u32(smem);
+  const uint32_t xs_o = xs - smem, hs_o = hs - smem, zero_o = zero - smem;
+
+  // Pixel of x (N*H*W index) behind each pixel of the x tile, -1 outside the
+  // image or past N; the zero row; the biases and slopes.
+  for (int pix = tid; pix < x_pixels; pix += kThreads) {
+    const int gi = pix / (p.XR * W);
+    const int rem = pix - gi * p.XR * W;
+    const int xr = rem / W;
+    const int row = x0 + xr, col = rem - xr * W, n = n0 + gi;
+    tab[pix] = n < p.N && row >= 0 && row < H ? (n * H + row) * W + col : -1;
   }
-  for (int i = tid; i < C * g.hs_stride; i += kThreads) hs[i] = from_float<T>(0.f);
-  // (the barriers at the head of phase 1 order both before their use)
+  for (int i = tid; i < h_stride / 4; i += kThreads) reinterpret_cast<uint32_t*>(zero)[i] = 0u;
+  for (int i = tid; i < C; i += kThreads) {
+    params[i] = b1[i];
+    params[C + i] = a1[i];
+    params[2 * C + i] = b2[i];
+    params[3 * C + i] = a2[i];
+  }
+  __syncthreads();
 
-  // ---- phase 1: h on the tile and its ring rows, into hs.
-  const int n1 = g.G * rows_h * g.spr;
-  for (int co0 = 0; co0 < C; co0 += NC) {
-    for (int pass0 = 0; pass0 < n1; pass0 += PG) {
-      const Strip st = strip_of(pass0 + pg, rows_h, g.spr, n1, TM);
-      const int base = st.live ? st.gi * xrows * Wp + (hr_lo + st.r) * Wp + st.c0 : 0;
-      float acc[TM][kTN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  // ---- the stream, in the order the products consume it: phase 1's
+  // (pass, chunk) pairs, then phase 2's; inside a pair the channel slices
+  // (from slice `rot` on, wrapping), inside a slice the 9 taps.  A stage is
+  // one tap of one slice of the weights; in phase 1 the first tap of a slice
+  // also brings that slice of x (all pixels of the tile).  All counters step
+  // without a division: this runs once a stage.
+  const int lg_step = __ffs(chunk_bytes / 16) - 1;  // 16-byte pieces a k-step (a power of 2)
+  const int lg_pixel = __ffs(2 * p.KS) - 1;         // pieces a pixel of an x slice
+  int l_left = (passes1 + passes2) * chunks * spc, l_pairs = passes1 * chunks;
+  int l_tap = 0, l_done = 0, l_slice = rot, l_chunk = 0, l_slot = 0, x_loaded = 0;
+  auto issue_load = [&]() {
+    if (l_left > 0) {
+      --l_left;
+      const bool first = l_pairs > 0;
+      const unsigned char* src = (first ? w1p : w2p) +
+                                 static_cast<size_t>(l_tap * steps_tap + l_slice * p.KS) * row_bytes +
+                                 static_cast<size_t>(l_chunk) * chunk_bytes;
+      const uint32_t dst = smem_u + l_slot * stage_bytes;
+      for (int idx = tid; idx < (p.KS << lg_step); idx += kThreads) {
+        const int ks = idx >> lg_step, piece = idx - (ks << lg_step);
+        cp_async16(dst + idx * 16, src + static_cast<size_t>(ks) * row_bytes + piece * 16, true);
       }
-      WeightStage<T, CG> wst;
-      PatchStage<T, KC> xst;
-      __syncthreads();  // tab is written (first pass)
-      wst.fetch(w1, C, 0, co0, tid);
-      xst.fetch(x, tab, npos, C, 0, tid);
-      for (int ci0 = 0; ci0 < C; ci0 += KC) {
-        __syncthreads();  // previous step's reads of Ws and Xs are done
-        wst.store(Ws, tid);
-        xst.store(Xs, g.xs_stride, npos, tid);
-        __syncthreads();
-        if (ci0 + KC < C) {
-          wst.fetch(w1, C, ci0 + KC, co0, tid);
-          xst.fetch(x, tab, npos, C, ci0 + KC, tid);
+      if (first && l_tap == 0) {
+        const uint32_t xdst = smem_u + xs_o + (x_loaded & 1) * slice_bytes;
+        const unsigned char* xsrc =
+            reinterpret_cast<const unsigned char*>(x) + l_slice * p.KS * 32;
+        for (int idx = tid; idx < (x_pixels << lg_pixel); idx += kThreads) {
+          const int pix = idx >> lg_pixel, piece = idx - (pix << lg_pixel);
+          const int at = tab[pix];
+          cp_async16(xdst + pix * x_stride + piece * 16,
+                     xsrc + (at < 0 ? 0 : static_cast<size_t>(at) * C * kEsize) + piece * 16,
+                     at >= 0);
         }
-        fma_taps<float, CG, TM>(Xs, g.xs_stride, base, Ws, Wp, cg, acc);
+        ++x_loaded;
       }
-      if (st.live) {
-        const int hpos = st.gi * hrows * Wp + (hr_lo + st.r) * Wp + st.c0 + 1;
+      if (++l_slot == p.stages) l_slot = 0;
+      if (++l_tap == 9) {
+        l_tap = 0;
+        if (++l_slice == slices) l_slice = 0;
+        if (++l_done == slices) {  // the pair is through; l_slice is back at rot
+          l_done = 0;
+          if (++l_chunk == chunks) l_chunk = 0;
+          --l_pairs;
+        }
+      }
+    }
+    cp_async_commit();  // always, so that the groups stay counted
+  };
+  for (int j = 0; j < p.stages - 1; ++j) issue_load();
+  int c_slot = 0, x_used = 0;
+
+  // Offset of this lane's B fragments inside a k-step of a stage.
+  const uint32_t b_lane = (warp_n * (WN / (kBf16 ? 16 : 8)) * 32 + lane) * 16;
+  // What a lane adds to a row's offset: ldmatrix lanes 16-31 address the
+  // second 8 channels; an fp32 lane reads channel t4 (and t4 + 4).
+  const uint32_t lane_k = kBf16 ? (lane >> 4) * 16 : t4 * 4;
+
+#pragma unroll 1
+  for (int phase = 0; phase < 2; ++phase) {
+    const int M = phase == 0 ? M1 : M2;
+    const int passes = phase == 0 ? passes1 : passes2;
+    Rows rows;
+    rows.per = (phase == 0 ? h_hi - h_lo : o_hi - r0) * W;
+    rows.row0 = phase == 0 ? h_lo : r0;
+    rows.W = W;
+    // The operand: phase 1 reads the x slices, phase 2 reads h.
+    const int src_rows = phase == 0 ? p.XR : p.HR, src_row0 = phase == 0 ? x0 : h0;
+    const int a_stride = phase == 0 ? x_stride : h_stride;
+    const float* bias = params + 2 * phase * C;
+    const float* slope = bias + C;
+
+#pragma unroll 1
+    for (int pass = 0; pass < passes; ++pass) {
+      // Warp's tiles: pass * slots + i * warps_m + warp_m, i < kMT.  `most`
+      // is the largest count of tiles a warp of the block has in this pass:
+      // every warp computes that many (the others wait at the barrier
+      // anyway), tiles past the end on the zero row.
+      const int tile0 = pass * slots + warp_m;
+      const int tiles_left = (M + 15) / 16 - pass * slots;
+      const int most = min(kMT, (tiles_left + p.warps_m - 1) / p.warps_m);
+
+      // The fragment rows this lane addresses: bf16 (ldmatrix) one row a
+      // tile, lane & 15; fp32 rows g8 and g8 + 8.
+      int pix_i[kMT][kRows];  // the row's pixel in the operand's tile
+      int rc[kMT][kRows];     // image row << 16 | column; -1: no such pixel
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          const int co = co0 + cg * kTN + j;
-          const float bias = b1[co], slope = a1[co];
+      for (int i = 0; i < kMT; ++i) {
 #pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            if (st.c0 + i < W) {
-              hs[co * g.hs_stride + hpos + i] = from_float<T>(prelu(acc[i][j] + bias, slope));
+        for (int k = 0; k < kRows; ++k) {
+          const int m = (tile0 + i * p.warps_m) * 16 + (kBf16 ? (lane & 15) : g8 + 8 * k);
+          int gi, row, col;
+          rows.at(m, gi, row, col);
+          rc[i][k] = m < M ? (row << 16 | col) : -1;
+          pix_i[i][k] = (gi * src_rows + row - src_row0) * W + col;
+        }
+      }
+
+#pragma unroll 1
+      for (int chunk = 0; chunk < chunks; ++chunk) {
+        float acc[kMT][NT][4];
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll 1
+        for (int done = 0, slice = rot; done < slices; ++done) {
+          if (phase == 0) ++x_used;  // the next x slice
+          const uint32_t a_base = (phase == 0 ? xs_o + ((x_used - 1) & 1) * slice_bytes
+                                              : hs_o + slice * p.KS * 32) + lane_k;
+#pragma unroll 1
+          for (int tap = 0; tap < 9; ++tap) {
+            cp_async_wait(p.stages - 2);
+            __syncthreads();  // the stage is there; the buffers to refill are free
+            issue_load();
+            const uint32_t buf = c_slot * stage_bytes;
+            if (++c_slot == p.stages) c_slot = 0;
+
+            // The rows' offsets at this stage's tap.
+            const int dy = tap / 3 - 1, dx = tap - (tap / 3) * 3 - 1;
+            uint32_t a_o[kMT][kRows];
+#pragma unroll
+            for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+              for (int k = 0; k < kRows; ++k) {
+                const int row = (rc[i][k] >> 16) + dy, col = (rc[i][k] & 0xffff) + dx;
+                const bool in = rc[i][k] >= 0 && row >= 0 && row < H && col >= 0 && col < W;
+                a_o[i][k] = in ? a_base + (pix_i[i][k] + dy * W + dx) * a_stride : zero_o + lane_k;
+              }
+            }
+            const uint32_t b_o = buf + b_lane;
+            switch (most) {
+              case 1: stage_products<NT, 1>(acc, smem, smem_u, a_o, b_o, p.KS, chunk_bytes); break;
+              case 2: stage_products<NT, 2>(acc, smem, smem_u, a_o, b_o, p.KS, chunk_bytes); break;
+              case 3:
+                if constexpr (kMT > 2)
+                  stage_products<NT, 3>(acc, smem, smem_u, a_o, b_o, p.KS, chunk_bytes);
+                break;
+              default:
+                if constexpr (kMT > 2)
+                  stage_products<NT, 4>(acc, smem, smem_u, a_o, b_o, p.KS, chunk_bytes);
+                break;
+            }
+          }
+          if (++slice == slices) slice = 0;
+        }
+
+        // ---- epilogue of (pass, chunk): accumulator rows g8 and g8 + 8 of
+        // each tile, columns 2 * t4 and 2 * t4 + 1 of each n-tile.  Phase 1
+        // stores h; phase 2 adds x and stores the output.
+        int at[kMT][2];  // phase 1: offset of the pixel's row of h; phase 2: pixel of x and out
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int m = (tile0 + i * p.warps_m) * 16 + g8 + 8 * half;
+            int gi, row, col;
+            rows.at(m, gi, row, col);
+            const bool ok = m < M && (phase == 0 || n0 + gi < p.N);
+            at[i][half] = !ok ? -1
+                          : phase == 0
+                              ? static_cast<int>(hs_o) + ((gi * p.HR + row - h0) * W + col) * h_stride
+                              : ((n0 + gi) * H + row) * W + col;
+          }
+        }
+        const int co0 = chunk * BN + warp_n * WN + 2 * t4;
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            if (at[i][half] >= 0) {
+              const size_t g = static_cast<size_t>(at[i][half]) * C + co0;
+              float2 res[NT];  // the residual, all loads in flight together
+              if (phase == 1) {
+#pragma unroll
+                for (int j = 0; j < NT; ++j) res[j] = load2(x + g + 8 * j);
+              }
+#pragma unroll
+              for (int j = 0; j < NT; ++j) {
+                const int co = co0 + 8 * j;
+                const float2 bb = load2(bias + co), aa = load2(slope + co);
+                const float v0 = acc[i][j][2 * half] + bb.x, v1 = acc[i][j][2 * half + 1] + bb.y;
+                if (phase == 0) {
+                  store2(reinterpret_cast<T*>(smem + at[i][half]) + co, prelu(v0, aa.x),
+                         prelu(v1, aa.y));
+                } else {
+                  store2(out + g + 8 * j, prelu(v0 + res[j].x, aa.x), prelu(v1 + res[j].y, aa.y));
+                }
+              }
             }
           }
         }
       }
     }
+    // Phase 2's first stage passes a __syncthreads before any warp reads h.
   }
-
-  // ---- phase 2: out on the tile, from hs.
-  const int n2 = g.G * rows_out * g.spr;
-  for (int co0 = 0; co0 < C; co0 += NC) {
-    for (int pass0 = 0; pass0 < n2; pass0 += PG) {
-      const Strip st = strip_of(pass0 + pg, rows_out, g.spr, n2, TM);
-      const int base = st.live ? st.gi * hrows * Wp + st.r * Wp + st.c0 : 0;
-      float acc[TM][kTN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-      }
-      WeightStage<T, CG> wst;
-      wst.fetch(w2, C, 0, co0, tid);
-      for (int ci0 = 0; ci0 < C; ci0 += KC) {
-        __syncthreads();  // hs written (first step) / Ws reads done
-        wst.store(Ws, tid);
-        __syncthreads();
-        if (ci0 + KC < C) wst.fetch(w2, C, ci0 + KC, co0, tid);
-        fma_taps<T, CG, TM>(hs + static_cast<size_t>(ci0) * g.hs_stride, g.hs_stride, base,
-                            Ws, Wp, cg, acc);
-      }
-      const int n = n0 + st.gi;
-      if (st.live && n < g.N) {
-        const size_t pix0 = (static_cast<size_t>(n) * H + r0 + st.r) * W + st.c0;
-        const int co = co0 + cg * kTN;
-        const float4 bb0 = load4(b2 + co), bb1 = load4(b2 + co + 4);
-        const float4 aa0 = load4(a2 + co), aa1 = load4(a2 + co + 4);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          if (st.c0 + i >= W) continue;
-          const size_t at = (pix0 + i) * C + co;
-          const float4 r0v = load4(x + at), r1v = load4(x + at + 4);
-          float4 y0, y1;
-          y0.x = prelu(acc[i][0] + bb0.x + r0v.x, aa0.x);
-          y0.y = prelu(acc[i][1] + bb0.y + r0v.y, aa0.y);
-          y0.z = prelu(acc[i][2] + bb0.z + r0v.z, aa0.z);
-          y0.w = prelu(acc[i][3] + bb0.w + r0v.w, aa0.w);
-          y1.x = prelu(acc[i][4] + bb1.x + r1v.x, aa1.x);
-          y1.y = prelu(acc[i][5] + bb1.y + r1v.y, aa1.y);
-          y1.z = prelu(acc[i][6] + bb1.z + r1v.z, aa1.z);
-          y1.w = prelu(acc[i][7] + bb1.w + r1v.w, aa1.w);
-          store4(out + at, y0);
-          store4(out + at + 4, y1);
-        }
-      }
-    }
-  }
+  cp_async_wait(0);
 }
-
-struct Plan {
-  Geom g;
-  int CG, TM;
-  size_t smem;
-};
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Tile and thread layout for one problem; false if no tile fits.  Every
-// (R rows of one image | G whole images) x NC is tried; the plan with the
-// fewest strip slots per output pixel wins: tiles * passes * PG slots serve
-// G * H * W pixels.  Ties go by kPassWidths, then to the smaller tile.
-bool make_plan(int N, int H, int W, int C, size_t esize, Plan* best) {
-  const int TM = W <= 4 ? 4 : 7;
-  const int spr = ceil_div(W, TM);
-  bool found = false;
-  long long best_slots = 0, best_pixels = 1;
-  for (int NC : kPassWidths) {
-    if (C % NC != 0) continue;
-    const int CG = NC / kTN, PG = kThreads / CG, KC = step_channels(NC);
-    for (int R = 1; R <= H; ++R) {
-      const int g_max = R == H ? (N < 64 ? N : 64) : 1;
-      for (int G = 1; G <= g_max; ++G) {
-        if (G > 1 && G * H * W > 1024) break;
-        Geom g;
-        g.N = N; g.H = H; g.W = W; g.C = C; g.R = R; g.G = G;
-        g.tiles = ceil_div(H, R);
-        g.spr = spr;
-        const int npos = G * (R + 4) * (W + 2);
-        const int xs = npos + kSlack;
-        g.xs_stride = xs + ((4 - xs % 8) + 8) % 8;  // = 4 mod 8: spreads the banks
-        g.hs_stride = G * (R + 2) * (W + 2) + kSlack;
-        g.tab_len = (npos + 3) / 4 * 4;
-        const size_t smem =
-            sizeof(float) * (9 * KC * NC + static_cast<size_t>(KC) * g.xs_stride) +
-            sizeof(int) * g.tab_len + static_cast<size_t>(C) * g.hs_stride * esize;
-        if (smem > kMaxSmem || npos * (KC / 4) > kPatchLoads * kThreads) {
-          break;  // a larger G only needs more
-        }
-        const int rows_h = R + 2 < H ? R + 2 : H;
-        const int passes = ceil_div(G * rows_h * spr, PG) + ceil_div(G * R * spr, PG);
-        const long long slots = static_cast<long long>(g.tiles) * passes * PG;
-        const long long pixels = static_cast<long long>(G) * H * W;
-        if (!found || slots * best_pixels < best_slots * pixels) {
-          found = true;
-          best_slots = slots;
-          best_pixels = pixels;
-          best->g = g;
-          best->CG = CG;
-          best->TM = TM;
-          best->smem = smem;
-        }
-      }
-    }
-  }
-  return found;
+// The plan is made in Python; refuse one that does not describe this
+// problem or does not fit a block.
+bool plan_ok(const Plan& p, bool bf16) {
+  const int step = bf16 ? 16 : 8, wbytes = bf16 ? 2 : 8, esize = bf16 ? 2 : 4;
+  if (p.N < 1 || p.H < 1 || p.W < 1 || p.C < 16 || p.C % 16 != 0) return false;
+  if (p.R < 1 || p.R > p.H || p.G < 1 || p.tiles != ceil_div(p.H, p.R)) return false;
+  if (p.tiles > 1 && p.G != 1) return false;
+  if (p.XR != (p.tiles == 1 ? p.H : p.R + 4) || p.HR != (p.tiles == 1 ? p.H : p.R + 2)) return false;
+  if (p.H >= 32768 || p.W >= 32768) return false;
+  if (p.warps_m != 1 && p.warps_m != 2 && p.warps_m != 4 && p.warps_m != 8) return false;
+  if (p.WN != 64 && p.WN != 16) return false;
+  const int BN = kWarps / p.warps_m * p.WN;
+  if (p.C % BN != 0) return false;
+  if ((p.KS != 1 && p.KS != 2 && p.KS != 4 && p.KS != 8) || (p.C / step) % p.KS != 0) return false;
+  if (p.stages < 2 || p.stages > kMaxStages) return false;
+  const long long stride = static_cast<long long>(p.C + (bf16 ? 8 : 4)) * esize;
+  const long long x_pixels = static_cast<long long>(p.G) * p.XR * p.W;
+  const long long smem = static_cast<long long>(p.stages) * p.KS * BN * step * wbytes +
+                         2 * x_pixels * (p.KS * 32 + 16) +
+                         (static_cast<long long>(p.G) * p.HR * p.W + 1) * stride + 16 * p.C +
+                         (x_pixels + 3) / 4 * 16;
+  return smem == p.smem && smem <= kMaxSmem;
 }
 
-template <typename T, int CG, int TM>
-cudaError_t launch(const Plan& p, const void* x, const float* w1, const float* b1,
-                   const float* a1, const float* w2, const float* b2, const float* a2,
-                   void* out, cudaStream_t stream) {
-  auto kernel = fused_block_kernel<T, CG, TM>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(p.smem));
+template <typename T, int WN>
+cudaError_t launch(const Plan& p, const void* x, const void* w1p, const float* b1,
+                   const float* a1, const void* w2p, const float* b2, const float* a2, void* out,
+                   cudaStream_t stream) {
+  auto kernel = fused_block_kernel<T, WN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  const long long blocks =
-      static_cast<long long>((p.g.N + p.g.G - 1) / p.g.G) * p.g.tiles;
+  const long long blocks = static_cast<long long>(ceil_div(p.N, p.G)) * p.tiles;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), kThreads, p.smem, stream>>>(
-      static_cast<const T*>(x), w1, b1, a1, w2, b2, a2, static_cast<T*>(out), p.g);
+      static_cast<const T*>(x), static_cast<const unsigned char*>(w1p), b1, a1,
+      static_cast<const unsigned char*>(w2p), b2, a2, static_cast<T*>(out), p);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const Plan& p, const void* x, const float* w1, const float* b1,
-                     const float* a1, const float* w2, const float* b2, const float* a2,
-                     void* out, cudaStream_t s) {
-#define FB_CASE(cg)                                                              \
-  case cg:                                                                       \
-    return p.TM == 4 ? launch<T, cg, 4>(p, x, w1, b1, a1, w2, b2, a2, out, s)   \
-                     : launch<T, cg, 7>(p, x, w1, b1, a1, w2, b2, a2, out, s)
-  switch (p.CG) {
-    FB_CASE(2);
-    FB_CASE(8);
-    FB_CASE(16);
-    FB_CASE(32);
-  }
-#undef FB_CASE
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -490,22 +607,28 @@ extern "C" {
 
 // Launches on `stream` of `device`; returns the CUDA error (0 on success).
 // The library links its own CUDA runtime, so it selects the device itself.
-// N*H*W must be below 2^31, C a multiple of 16, pointers 16-byte aligned.
-int vcagan_fused_block(const void* x, const float* w1, const float* b1, const float* a1,
-                       const float* w2, const float* b2, const float* a2, void* out, int N,
-                       int H, int W, int C, int is_bf16, int device, void* stream) {
-  if (N < 1 || H < 1 || W < 1 || C < 16 || C % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Plan plan;
-  if (!make_plan(N, H, W, C, is_bf16 ? 2 : 4, &plan)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// `plan`: the ints of vcagan_torch/kernels/fused_block.py::Plan.ints().
+// N*H*W*C must be below 2^31, pointers 16-byte aligned.
+int vcagan_fused_block(const void* x, const void* w1p, const float* b1, const float* a1,
+                       const void* w2p, const float* b2, const float* a2, void* out,
+                       const int* plan, int plan_len, int is_bf16, int device, void* stream) {
+  if (plan_len != kPlanInts) return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  p.N = plan[0]; p.H = plan[1]; p.W = plan[2]; p.C = plan[3];
+  p.R = plan[4]; p.G = plan[5]; p.tiles = plan[6]; p.XR = plan[7]; p.HR = plan[8];
+  p.warps_m = plan[9]; p.WN = plan[10]; p.KS = plan[11]; p.stages = plan[12];
+  p.smem = plan[13];
+  if (!plan_ok(p, is_bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? dispatch<__nv_bfloat16>(plan, x, w1, b1, a1, w2, b2, a2, out, s)
-                : dispatch<float>(plan, x, w1, b1, a1, w2, b2, a2, out, s);
+  if (is_bf16) {
+    err = p.WN == 64 ? launch<__nv_bfloat16, 64>(p, x, w1p, b1, a1, w2p, b2, a2, out, s)
+                     : launch<__nv_bfloat16, 16>(p, x, w1p, b1, a1, w2p, b2, a2, out, s);
+  } else {
+    err = p.WN == 64 ? launch<float, 64>(p, x, w1p, b1, a1, w2p, b2, a2, out, s)
+                     : launch<float, 16>(p, x, w1p, b1, a1, w2p, b2, a2, out, s);
+  }
   return static_cast<int>(err);
 }
 

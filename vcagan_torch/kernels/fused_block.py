@@ -5,23 +5,36 @@ w2) + b2 + x, a2), stride 1, SAME zero padding, C_in = C_out.
 BatchNorms were folded into the convolutions.  On a CUDA tensor it launches
 the hand-written Hopper kernel in ``vcagan_torch/csrc/fused_block.cu`` (which
 replaces the TPU kernel ``_block_kernel`` / ``_fused_block_pallas`` of
-``vcagan/kernels/fused_block.py:78-130``; its bound and design are noted in
-the source): one launch, and the activation between the two convolutions
-never reaches device memory.  On a CPU tensor it runs the plain PyTorch
-version, ``fused_block_reference``, the twin of the JAX package's
-``fused_block_xla``.  Forward only.
+``vcagan/kernels/fused_block.py:78-130``; its bounds and design are noted in
+the source): one launch, both convolutions on the tensor cores, and the
+activation between them never reaches device memory.  On a CPU tensor it
+runs the plain PyTorch version, ``fused_block_reference``, the twin of the
+JAX package's ``fused_block_xla``.  Forward only.
 
 Layout as in the JAX function: x (N, H, W, C) channels last, w (3, 3, C, C)
 as (kh, kw, c_in, c_out), b and a (C,) fp32.  x is fp32 or bf16; sums are
-fp32; for bf16 the weights are rounded to bf16 and so are the intermediate
-activation and the output.
+fp32.  For bf16 the weights are rounded to bf16 and so are the intermediate
+activation and the output.  For fp32 the kernel does every product as three
+TF32 products (3xTF32: each operand split into a TF32 high part and a TF32
+low part, the two cross terms summed first, then the high product), which
+keeps fp32 accuracy to about 2^-21 relative a product;
+``fused_block_reference_3xtf32`` is that arithmetic in plain PyTorch.
+
+What the kernel reads besides x is prepared here, where the CPU tests reach
+it: ``pack_weights`` lays a (3, 3, C, C) weight out once, at load, in the
+order of the tensor cores' B fragments, and ``plan_fused_block`` chooses the
+tile (rows or whole images a block, warps along the pixels, the ring of
+weight stages) and its shared-memory size.  The plan goes to the C entry
+point as plain ints, which refuses one that does not fit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -30,32 +43,288 @@ from vcagan_torch.kernels import _build
 CHANNEL_MULTIPLE = 16  # the kernel takes C = 16, 32, 48, ...
 LAUNCHES = 0  # kernel launches so far; reset by the caller that counts
 
+MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
+WARPS = 8  # a block is 256 threads
+MAX_STAGES = 5  # buffers of the weight ring (at most)
+SMS = 132  # streaming multiprocessors of an H100, for the plan's wave count
+
 
 def _prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, alpha * x)
 
 
+def _conv(inp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """NHWC input, (3, 3, I, O) weight of the same type -> NHWC, SAME padding."""
+    return F.conv2d(inp.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+
+
 def fused_block_reference(x, w1, b1, a1, w2, b2, a2) -> torch.Tensor:
     """Plain version: two convolutions summed in fp32, the activation between
     them rounded to ``x.dtype``."""
-
-    def conv(inp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:  # NHWC fp32 -> NHWC fp32
-        kernel = w.to(x.dtype).to(inp.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
-        return F.conv2d(inp.permute(0, 3, 1, 2), kernel, padding=1).permute(0, 2, 3, 1)
-
     compute = torch.float64 if x.dtype == torch.float64 else torch.float32
+
+    def conv(inp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return _conv(inp, w.to(x.dtype).to(compute))
+
     x32 = x.to(compute)
     h = _prelu(conv(x32, w1) + b1.to(compute), a1.to(compute)).to(x.dtype).to(compute)
     y = conv(h, w2) + b2.to(compute) + x32
     return _prelu(y, a2.to(compute)).to(x.dtype).contiguous()
 
 
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 mantissa bits; ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds), still stored as fp32."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """t = hi + lo to about 2^-21 relative, both parts TF32 values."""
+    hi = round_tf32(t)
+    return hi, round_tf32(t - hi)
+
+
+def fused_block_reference_3xtf32(x, w1, b1, a1, w2, b2, a2, passes: int = 3) -> torch.Tensor:
+    """The fp32 block with every product done as the kernel's fp32 form does
+    it: operands split into TF32 parts, lo*hi + hi*lo first, then hi*hi, all
+    summed in fp32.  ``passes=1`` keeps the hi*hi product only (single-pass
+    TF32), to show what the split buys."""
+
+    def conv(inp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        a_hi, a_lo = split_tf32(inp)
+        w_hi, w_lo = split_tf32(w)
+        if passes == 1:
+            return _conv(a_hi, w_hi)
+        return (_conv(a_lo, w_hi) + _conv(a_hi, w_lo)) + _conv(a_hi, w_hi)
+
+    h = _prelu(conv(x, w1) + b1, a1)
+    return _prelu(conv(h, w2) + b2 + x, a2).contiguous()
+
+
+# ---- weights in the order the kernel reads them
+
+
+def _k_step(dtype: torch.dtype) -> int:
+    """Input channels one tensor-core instruction contracts."""
+    return 16 if dtype == torch.bfloat16 else 8
+
+
+def pack_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(3, 3, C, C) fp32 -> the flat tensor the kernel streams.
+
+    The contraction runs over k = tap * C + c_in in steps of 16 (bf16) or 8
+    (fp32).  For every step and every 8 output channels the values stand in
+    the order of ``mma.sync``'s B fragment, lane by lane, so that a warp
+    reads its fragments with one 16-byte load a lane and no bank conflict:
+    bf16: [step][16 outputs][lane][2 n-tiles][b0, b1][2 k] as bf16;
+    fp32: [step][8 outputs][lane][hi, lo][b0, b1] as fp32, hi and lo the
+    TF32 parts of ``split_tf32``.
+    """
+    c = w.shape[2]
+    if tuple(w.shape) != (3, 3, c, c) or c % CHANNEL_MULTIPLE or w.dtype != torch.float32:
+        raise ValueError(f"w must be float32 (3, 3, C, C), C a multiple of 16, got {tuple(w.shape)}")
+    if dtype == torch.bfloat16:
+        # c_in = 16 ks + 8 khalf + 2 t + kpair; c_out = 16 np + 8 nsel + g; lane = 4 g + t
+        v = w.to(torch.bfloat16).reshape(9, c // 16, 2, 4, 2, c // 16, 2, 8)
+        return v.permute(0, 1, 5, 7, 3, 6, 2, 4).reshape(-1).contiguous()
+    if dtype == torch.float32:
+        # c_in = 8 ks + 4 khalf + t; c_out = 8 nt + g
+        v = torch.stack(split_tf32(w)).reshape(2, 9, c // 8, 2, 4, c // 8, 8)
+        return v.permute(1, 2, 5, 6, 4, 0, 3).reshape(-1).contiguous()
+    raise ValueError(f"no packing for {dtype}")
+
+
+def unpack_weights(packed: torch.Tensor, c: int, dtype: torch.dtype):
+    """Inverse of ``pack_weights``: the (3, 3, C, C) bf16 weight, or the
+    (hi, lo) pair of fp32 weights."""
+    if dtype == torch.bfloat16:
+        v = packed.reshape(9, c // 16, c // 16, 8, 4, 2, 2, 2)
+        return v.permute(0, 1, 6, 4, 7, 2, 5, 3).reshape(3, 3, c, c).contiguous()
+    v = packed.reshape(9, c // 8, c // 8, 8, 4, 2, 2).permute(5, 0, 1, 6, 4, 2, 3)
+    hi, lo = v.reshape(2, 3, 3, c, c).contiguous()
+    return hi, lo
+
+
+# ---- the tile plan
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch's tiling.  A block computes ``g`` whole images (``r == h``)
+    or ``r`` output rows of one image; it keeps h (``hr`` rows an image) for
+    all channels in shared memory, one pixel a row of ``c + pad`` elements,
+    plus one row of zeros that stands for every pixel outside the image, and
+    streams the rest: the packed weights through ``stages`` buffers of
+    ``ks`` k-steps x ``bn`` output channels, and the x tile (``xr`` rows an
+    image) through two buffers of ``ks`` k-steps of channels.
+    Its 8 warps are ``warps_m`` along the pixels x ``8 // warps_m`` along
+    the channels; a warp accumulates up to ``mt`` tiles of 16 pixels x
+    ``wn`` channels."""
+
+    n: int
+    h: int
+    w: int
+    c: int
+    itemsize: int
+    r: int
+    g: int
+    tiles: int
+    xr: int
+    hr: int
+    warps_m: int
+    wn: int
+    ks: int
+    stages: int
+    smem: int
+    cost: float = dataclasses.field(compare=False, default=0.0)
+
+    @property
+    def mt(self) -> int:
+        return _tiles_a_warp(self.itemsize)
+
+    @property
+    def bn(self) -> int:
+        return WARPS // self.warps_m * self.wn
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.n // self.g) * self.tiles
+
+    @property
+    def pixel_stride(self) -> int:
+        """Elements a pixel's row takes in shared memory: the padding makes
+        16 neighbouring pixels' rows fall on different banks."""
+        return self.c + (8 if self.itemsize == 2 else 4)
+
+    def ints(self) -> list[int]:
+        """What the C entry point takes, in its order."""
+        return [self.n, self.h, self.w, self.c, self.r, self.g, self.tiles, self.xr, self.hr,
+                self.warps_m, self.wn, self.ks, self.stages, self.smem]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _smem_bytes(c, itemsize, g, xr, hr, w, bn, ks, stages) -> int:
+    """Weight ring, two x slices (``ks`` k-steps of channels, every pixel of
+    the x tile), h and the zero row, biases and slopes, the x tile's pixel
+    table."""
+    stride = (c + (8 if itemsize == 2 else 4)) * itemsize
+    k_step, wbytes = (16, 2) if itemsize == 2 else (8, 8)
+    x_pixels = g * xr * w
+    return (stages * ks * bn * k_step * wbytes + 2 * x_pixels * (ks * 32 + 16)
+            + (g * hr * w + 1) * stride + 16 * c + _ceil_div(x_pixels, 4) * 16)
+
+
+def _tiles_a_warp(itemsize: int) -> int:
+    """16-pixel tiles a warp accumulates at once (at most): 128 accumulator
+    registers in bf16; 64 in fp32, whose k-step also holds a fresh sum."""
+    return 4 if itemsize == 2 else 2
+
+
+def _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks, stages) -> float:
+    """Clock cycles a block needs, roughly: per k-step the largest of the
+    tensor cores' time, the shared-memory reads of the fragments, the weight
+    slice's way from L2 and the share of L2's latency that the stages in
+    flight do not cover, plus a barrier a stage and an epilogue a pass."""
+    k_step, wbytes, products = (16, 2, 1) if itemsize == 2 else (8, 8, 3)
+    nt, chunks, k_steps = wn // 8, c // bn, 9 * c // k_step
+    tiles_a_warp = _tiles_a_warp(itemsize)
+    latency = 2500 / ((stages - 1) * ks)
+    total = 0.0
+    for m in (m1, m2):
+        left = _ceil_div(m, 16)
+        while left > 0:
+            mt = min(tiles_a_warp, _ceil_div(left, warps_m))
+            left -= warps_m * tiles_a_warp
+            mma = mt * nt * products * 8  # 8 warps on 4 tensor cores, 4 cycles each
+            if itemsize == 2:
+                lds = WARPS * 4 * (mt + nt // 2)  # 512-byte reads at 128 bytes a cycle
+            else:
+                lds = WARPS * (4 * mt + 4 * nt)
+            l2 = bn * k_step * wbytes / 16  # about 16 bytes a cycle a block
+            total += chunks * (k_steps * (max(mma, lds, l2, latency) + 60 / ks) + 16 * mt * nt + 600)
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def plan_fused_block(n: int, h: int, w: int, c: int, dtype: torch.dtype) -> Plan:
+    """The cheapest tiling by ``_block_cost`` that fits ``MAX_SMEM``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"no kernel for {dtype}")
+    if n < 1 or h < 1 or w < 1 or c < CHANNEL_MULTIPLE or c % CHANNEL_MULTIPLE:
+        raise ValueError(
+            f"the kernel takes N, H, W >= 1 and C a multiple of {CHANNEL_MULTIPLE}, "
+            f"got {(n, h, w, c)}"
+        )
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    wn = 64 if c % 64 == 0 else 16
+    k_steps_tap = c // _k_step(dtype)
+    best = None
+    tilings = [(r, 1) for r in range(1, h)] + [(h, g) for g in range(1, min(n, 64) + 1)]
+    for r, g in tilings:
+        tiles = _ceil_div(h, r)
+        xr, hr = (h, h) if r == h else (r + 4, r + 2)
+        m1, m2 = g * min(hr, h) * w, g * r * w
+        for warps_m in (8, 4, 2, 1):
+            bn = WARPS // warps_m * wn
+            if c % bn:
+                continue
+            waves = _ceil_div(_ceil_div(n, g) * tiles, SMS)
+            for stages in range(2, MAX_STAGES + 1):
+                for ks in (8, 4, 2, 1):
+                    smem = _smem_bytes(c, itemsize, g, xr, hr, w, bn, ks, stages)
+                    if k_steps_tap % ks or smem > MAX_SMEM:
+                        continue
+                    cost = waves * _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks, stages)
+                    if best is None or cost < best.cost:
+                        best = Plan(n, h, w, c, itemsize, r, g, tiles, xr, hr, warps_m, wn, ks,
+                                    stages, smem, cost)
+    if best is None:
+        raise ValueError(f"no tile of {(n, h, w, c)} {dtype} fits {MAX_SMEM} bytes")
+    return best
+
+
+def block_pixels(plan: Plan, block: int) -> dict:
+    """What one block touches, as the kernel indexes it, for the CPU tests
+    that hold the plan: ``h_index`` (where phase 1 stores each of its pixels
+    in the block's h, in pixels) and ``h_pixels`` (their image, row, col);
+    ``stores`` (image, row, col of every output pixel phase 2 writes, images
+    past N left out); ``x_rows`` / ``h_rows`` / ``out_rows``, the image rows
+    of the x tile, of h and of the output."""
+    p = plan
+    tile, n0 = block % p.tiles, block // p.tiles * p.g
+    r0 = tile * p.r
+    x0, h0 = (0, 0) if p.tiles == 1 else (r0 - 2, r0 - 1)
+    h_lo, h_hi = max(r0 - 1, 0), min(r0 + p.r + 1, p.h)
+    o_hi = min(r0 + p.r, p.h)
+
+    def rows(first: int, count: int):  # pixel m of the phase -> image, row, col
+        m = np.arange(p.g * count * p.w)
+        gi, rem = np.divmod(m, count * p.w)
+        return gi, first + rem // p.w, rem % p.w
+
+    gi, row, col = rows(h_lo, h_hi - h_lo)
+    h_index = (gi * p.hr + row - h0) * p.w + col
+    h_pixels = np.stack([n0 + gi, row, col], axis=1)
+    gi, row, col = rows(r0, o_hi - r0)
+    stores = np.stack([n0 + gi, row, col], axis=1)[n0 + gi < p.n]
+    return dict(h_index=h_index, h_pixels=h_pixels, stores=stores,
+                x_rows=range(max(x0, 0), min(x0 + p.xr, p.h)), h_rows=range(h_lo, h_hi),
+                out_rows=range(r0, o_hi))
+
+
+# ---- the kernel
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built on first use)."""
     lib = _build.load("fused_block")
-    lib.vcagan_fused_block.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p
+    lib.vcagan_fused_block.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p
     ]
     lib.vcagan_fused_block.restype = ctypes.c_int
     lib.vcagan_cuda_error_string.argtypes = [ctypes.c_int]
@@ -63,8 +332,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def fused_block_cuda(x, w1, b1, a1, w2, b2, a2) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; raises on any input it
+def fused_block_cuda(x, w1_packed, b1, a1, w2_packed, b2, a2) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream; the weights come packed
+    for ``x.dtype`` by ``pack_weights``.  Raises on any input the kernel
     does not take and on a launch error."""
     global LAUNCHES
     if x.device.type != "cuda":
@@ -74,16 +344,14 @@ def fused_block_cuda(x, w1, b1, a1, w2, b2, a2) -> torch.Tensor:
             f"x must be a 4-D float32 or bfloat16 tensor, got {x.dtype} {tuple(x.shape)}"
         )
     n, h, w, c = x.shape
-    if n < 1 or h < 1 or w < 1 or c < CHANNEL_MULTIPLE or c % CHANNEL_MULTIPLE:
-        raise ValueError(
-            f"the kernel takes N, H, W >= 1 and C a multiple of {CHANNEL_MULTIPLE}, "
-            f"got {tuple(x.shape)}"
-        )
-    if n * h * w >= 2**31:
-        raise ValueError(f"N*H*W must stay below 2^31, got {n * h * w}")
-    shapes = {"w1": (3, 3, c, c), "w2": (3, 3, c, c), "b1": (c,), "a1": (c,), "b2": (c,),
+    plan = plan_fused_block(n, h, w, c, x.dtype)  # raises on shapes the kernel does not take
+    if n * h * w * c >= 2**31:
+        raise ValueError(f"N*H*W*C must stay below 2^31, got {n * h * w * c}")
+    packed = (9 * c * c * (1 if x.dtype == torch.bfloat16 else 2),)
+    shapes = {"w1_packed": packed, "w2_packed": packed, "b1": (c,), "a1": (c,), "b2": (c,),
               "a2": (c,)}
-    tensors = {"x": x, "w1": w1, "b1": b1, "a1": a1, "w2": w2, "b2": b2, "a2": a2}
+    tensors = {"x": x, "w1_packed": w1_packed, "b1": b1, "a1": a1, "w2_packed": w2_packed,
+               "b2": b2, "a2": a2}
     for name, t in tensors.items():
         if t.device != x.device:
             raise ValueError(f"{name} must lie on {x.device}, got {t.device}")
@@ -91,30 +359,36 @@ def fused_block_cuda(x, w1, b1, a1, w2, b2, a2) -> torch.Tensor:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-        if name != "x" and (t.dtype != torch.float32 or tuple(t.shape) != shapes[name]):
+        want = x.dtype if name.endswith("packed") else torch.float32
+        if name != "x" and (t.dtype != want or tuple(t.shape) != shapes[name]):
             raise ValueError(
-                f"{name} must be float32 of shape {shapes[name]}, got {t.dtype} {tuple(t.shape)}"
+                f"{name} must be {want} of shape {shapes[name]}, got {t.dtype} {tuple(t.shape)}"
             )
     out = torch.empty_like(x)
     lib = _lib()
+    ints = plan.ints()
     err = lib.vcagan_fused_block(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), a1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), a2.data_ptr(), out.data_ptr(), n, h, w, c,
-        int(x.dtype == torch.bfloat16), x.device.index,
+        x.data_ptr(), w1_packed.data_ptr(), b1.data_ptr(), a1.data_ptr(), w2_packed.data_ptr(),
+        b2.data_ptr(), a2.data_ptr(), out.data_ptr(), (ctypes.c_int * len(ints))(*ints),
+        len(ints), int(x.dtype == torch.bfloat16), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         msg = lib.vcagan_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_block kernel launch failed ({err}): {msg}")
+        raise RuntimeError(f"fused_block kernel launch failed ({err}): {msg}; plan {plan}")
     LAUNCHES += 1
     return out
 
 
-def fused_basic_block(x, w1, b1, a1, w2, b2, a2) -> torch.Tensor:
+def fused_basic_block(x, w1, b1, a1, w2, b2, a2, packed=None) -> torch.Tensor:
     """x (N, H, W, C) -> (N, H, W, C).  CPU tensors take the plain version;
-    CUDA tensors the kernel; anything else raises."""
+    CUDA tensors the kernel, with ``packed`` = (``pack_weights(w1, x.dtype)``,
+    ``pack_weights(w2, x.dtype)``) if the caller packed them at load, else
+    packed here; anything else raises."""
     if x.device.type == "cpu":
         return fused_block_reference(x, w1, b1, a1, w2, b2, a2)
     if x.device.type == "cuda":
-        return fused_block_cuda(x, w1, b1, a1, w2, b2, a2)
+        w1p, w2p = packed if packed is not None else (
+            pack_weights(w1, x.dtype), pack_weights(w2, x.dtype))
+        return fused_block_cuda(x, w1p, b1, a1, w2p, b2, a2)
     raise ValueError(f"no fused block for device {x.device}")
