@@ -232,13 +232,24 @@ def phase_fused_block_vs_plain(card):
         *((f"one image {h}x{w}x{c}", 1, h, w, c, dt, False) for h, w, c in shapes
           for dt in (f32, bf16)),
         ("9x9x64", 5, 9, 9, 64, f32, False),
-        # C not a multiple of the 64 channels a warp takes
-        *((name, n, h, w, c, dt, False) for name, n, h, w, c in
-          (("5x5x16", 3, 5, 5, 16), ("ragged 11x5x48", 13, 11, 5, 48)) for dt in (f32, bf16)),
+        ("ragged 11x5x192", 13, 11, 5, 192, f32, False),
+        ("ragged 11x5x192", 13, 11, 5, 192, bf16, False),
         *((f"zero ring {h}x{w}x{c}", 3, h, w, c, dt, True) for h, w, c in shapes
           for dt in (f32, bf16)),
         *((f"bf16 {name}", 50, h, w, c, bf16, False) for name, h, w, c in TRUNK_BLOCKS[1:]),
     ]
+    # C not a multiple of the 64 channels of a tensor-core tile: the kernel
+    # does not take it, and says so instead of computing something else.
+    for c in (16, 48):
+        args = fused_block_inputs(3, 5, 5, c, seed=99)
+        try:
+            fb.fused_basic_block(*args)
+        except ValueError as e:
+            check("multiple of 64" in str(e), f"C={c}: raised, but with {e}")
+            print(f"fused_block C={c}: refused ({e}) ok")
+        else:
+            check(False, f"C={c}: the wrapper did not raise")
+
     worst = worst_3x = 0.0
     for i, (name, n, h, w, c, dtype, zero_ring) in enumerate(cases):
         args = fused_block_inputs(n, h, w, c, seed=100 + i, dtype=dtype, zero_ring=zero_ring)

@@ -201,22 +201,22 @@ def test_pack_weights_round_trip(c):
     assert (hi - w).abs().max() > 1e-6  # and hi alone is not w
 
 
-def test_pack_weights_puts_b_fragments_in_lane_order():
-    """The first 16 bytes of a lane: bf16, lane (g, t) holds k = 2t, 2t+1,
-    2t+8, 2t+9 of output g and then of output g+8; fp32, k = t and t+4 of
-    output g, the hi parts and then the lo parts."""
-    c = 32
+def test_pack_weights_lays_out_core_matrices():
+    """A core matrix is 8 output channels x 16 bytes of input channels, 128
+    bytes; a k-step's two halves follow each other, then (fp32) the lo parts,
+    then the next 8 output channels."""
+    c = 64
     w = torch.from_numpy(_mats(1, 1, 1, c, seed=5)[1])
-    tap, ks, g, t = 4, 1, 5, 2
-    lane = 4 * g + t
-    bf = fb.pack_weights(w, torch.bfloat16).reshape(9, c // 16, c // 16, 32, 8)
-    want = [w[1, 1, 16 * ks + k, 16 + n] for n in (g, g + 8) for k in (2 * t, 2 * t + 1,
-                                                                         2 * t + 8, 2 * t + 9)]
-    assert torch.equal(bf[tap, ks, 1, lane], torch.stack(want).to(torch.bfloat16))
-    fp = fb.pack_weights(w, torch.float32).reshape(9, c // 8, c // 8, 32, 4)
-    hi, lo = fb.split_tf32(w)
-    want = [part[1, 1, 8 * ks + k, 8 * 3 + g] for part in (hi, lo) for k in (t, t + 4)]
-    assert torch.equal(fp[tap, ks, 3, lane], torch.stack(want))
+    tap, ks, j = 4, 1, 5  # tap (1, 1); k-step; output channels 8 j .. 8 j + 7
+    bf = fb.pack_weights(w, torch.bfloat16).reshape(9, c // 16, c // 8, 2, 8, 8)
+    for half in (0, 1):  # [output][k] of input channels 16 ks + 8 half ..
+        want = w[1, 1, 16 * ks + 8 * half:16 * ks + 8 * half + 8, 8 * j:8 * j + 8].T
+        assert torch.equal(bf[tap, ks, j, half], want.to(torch.bfloat16))
+    fp = fb.pack_weights(w, torch.float32).reshape(9, c // 8, c // 8, 2, 2, 8, 4)
+    for part, values in enumerate(fb.split_tf32(w)):
+        for half in (0, 1):
+            want = values[1, 1, 8 * ks + 4 * half:8 * ks + 4 * half + 4, 8 * j:8 * j + 8].T
+            assert torch.equal(fp[tap, ks, j, part, half], want)
 
 
 # ---- the kernel's fp32 arithmetic in plain PyTorch
@@ -249,12 +249,12 @@ PLAN_CASES = [
       for name, shape in TRUNK.items()
       for kind, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))
       for n in (1, 7, 150, 3600)),
-    ("ragged-11x5x48-fp32", 13, 11, 5, 48, torch.float32),
-    ("ragged-11x5x48-bf16", 13, 11, 5, 48, torch.bfloat16),
-    ("5x5x16-bf16", 3, 5, 5, 16, torch.bfloat16),
+    ("ragged-11x5x64-fp32", 13, 11, 5, 64, torch.float32),
+    ("ragged-11x5x192-bf16", 13, 11, 5, 192, torch.bfloat16),
+    ("5x5x64-bf16", 3, 5, 5, 64, torch.bfloat16),
     ("9x9x64-fp32", 5, 9, 9, 64, torch.float32),
-    ("31x3x96-fp32", 37, 31, 3, 96, torch.float32),
-    ("3x33x32-bf16", 301, 3, 33, 32, torch.bfloat16),
+    ("31x3x192-fp32", 37, 31, 3, 192, torch.float32),
+    ("3x33x320-bf16", 301, 3, 33, 320, torch.bfloat16),
 ]
 
 
@@ -268,6 +268,7 @@ def test_plan_fits_shared_memory_and_covers_every_pixel_once(case):
                                        plan.ks, plan.stages)
     assert len(plan.ints()) == 14 and plan.ints()[-1] == plan.smem
     assert c % plan.bn == 0 and (c // k_step) % plan.ks == 0 and 2 <= plan.stages <= fb.MAX_STAGES
+    assert plan.warps_m in (4, 8) and plan.wn * plan.mt <= 256
     assert plan.tiles == -(-h // plan.r) and (plan.g == 1 or plan.tiles == 1)
     assert plan.blocks == -(-n // plan.g) * plan.tiles
 
@@ -292,9 +293,10 @@ def test_plan_fits_shared_memory_and_covers_every_pixel_once(case):
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
-    with pytest.raises(ValueError, match="multiple of 16"):
-        fb.plan_fused_block(2, 4, 4, 24, torch.float32)
+    for c in (16, 48, 96):  # the tensor-core tiles are 64 channels wide
+        with pytest.raises(ValueError, match="multiple of 64"):
+            fb.plan_fused_block(2, 4, 4, c, torch.float32)
     with pytest.raises(ValueError, match="no kernel for"):
-        fb.plan_fused_block(2, 4, 4, 16, torch.float64)
+        fb.plan_fused_block(2, 4, 4, 64, torch.float64)
     with pytest.raises(ValueError, match="fits"):  # one row of h alone is too much
         fb.plan_fused_block(1, 4, 4096, 512, torch.float32)

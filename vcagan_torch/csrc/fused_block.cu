@@ -4,7 +4,7 @@
 // x, out (N,H,W,C) channels innermost, fp32 or bf16; w1, w2 packed by
 // vcagan_torch/kernels/fused_block.py::pack_weights from (3,3,C,C); b*, a*
 // (C,) fp32.  Both convolutions pad with zeros (SAME) and sum in fp32.  C
-// must be a multiple of 16.
+// must be a multiple of 64.
 //
 // Replaces the TPU kernel vcagan/kernels/fused_block.py:78-130
 // (_block_kernel / _fused_block_pallas), which holds whole images and two
@@ -24,39 +24,44 @@
 //
 // Design (both convolutions as implicit GEMMs on the tensor cores, pixels x
 // c_out over k = 9 taps x c_in, fp32 accumulators in registers):
-// - The instruction is mma.sync (m16n8k16 for bf16, m16n8k8 for TF32), not
-//   wgmma: its A operand is a register fragment whose 16 rows each have an
-//   address of their own, so a row is a pixel and a tap is a shift of that
-//   address.  The x patch and h are kept as [pixel][channel] rows of the
-//   image itself, WITHOUT a padded ring: a tap that leaves the image points
-//   its row at one shared row of zeros.  That is SAME padding, it makes the
-//   "ring of h is zero" rule hold by construction (nothing is ever stored
-//   outside the image), and no tensor-core row is spent on ring positions
-//   (50% of a padded 4x4 grid).  wgmma would read A through one descriptor
-//   for 64 rows, which needs the padded grid or a gather through registers.
-// - One block (8 warps) computes one tile: G whole images, or R output rows
-//   of one image (then h is computed on R+2 rows, the two border rows again
-//   by the neighbouring tiles).  Shared memory holds the tile's x patch and
-//   h for ALL channels (a pixel's row is padded by 16 bytes so that the 8
-//   or 16 rows of a fragment fall on different banks) and a ring of weight
-//   stages.  bf16 fragments are read with ldmatrix, fp32 ones with plain
-//   loads.
+// - The instruction is wgmma.mma_async (m64nNk16 bf16, m64n64k8 TF32) with A
+//   from REGISTERS and B from shared memory.  A warpgroup's A tile is 64
+//   pixels; each of its 4 warps brings its 16 rows as a register fragment
+//   (ldmatrix for bf16, plain loads for fp32) whose rows each have an address
+//   of their own, so a row is a pixel and a tap is a shift of that address.
+//   x and h are kept as [pixel][channel] rows of the image itself, WITHOUT a
+//   padded ring: a tap that leaves the image points its row at one shared
+//   row of zeros.  That is SAME padding, it makes the "ring of h is zero"
+//   rule hold by construction (nothing is ever stored outside the image),
+//   and no tensor-core row is spent on ring positions (50% of a padded 4x4
+//   grid).  A through a shared-memory descriptor would need the padded grid.
+// - One block (2 warpgroups) computes one tile: G whole images, or R output
+//   rows of one image (then h is computed on R+2 rows, the two border rows
+//   again by the neighbouring tiles).  Shared memory holds h for ALL
+//   channels (a pixel's row is padded by 16 bytes so that the rows of a
+//   fragment fall on different banks); everything else streams.
 // - The weights do not fit (up to 9.4 MB a convolution): they are streamed
-//   from L2 with cp.async through a ring of 2-3 stages, each `ks` k-steps x
-//   BN output channels, one __syncthreads a stage; the loads of the next
-//   stages run under the products of this one, across passes and across the
-//   two convolutions.  They were packed at load in the order of the B
-//   fragment, so a warp reads a fragment with one conflict-free 16-byte
-//   load a lane.
-// - 8 warps = warps_m along the pixels x 8/warps_m along the channels; a warp
-//   accumulates up to 4 (bf16) or 2 (fp32) tiles of 16 pixels x WN (64, or
-//   16 for C not a multiple of 64) channels, the 16-pixel tiles dealt round
-//   robin so that a ragged count spreads over the warps; rows past the end
-//   read the zero row and store nothing.  Images past N load zeros and
-//   store nothing.
+//   from L2 with cp.async through a ring of 2-5 stages, each one tap of
+//   `ks` k-steps x BN output channels, one __syncthreads a stage; the loads
+//   of the next stages run under the products of this one, across passes and
+//   across the two convolutions.  They were packed at load as the
+//   instruction's core matrices (8 channels x 16 bytes, no swizzle), so a
+//   stage is a plain copy and B needs no registers.
+// - x streams too, in slices of `ks` k-steps of channels for all pixels of
+//   the tile (two buffers; a slice comes with the first of its 9 taps), so
+//   that only h limits the pixels a block holds, and the weights a launch
+//   reads from L2 fall as the pixels a block holds rise (4x4x512 fp32: 4
+//   images a block where the resident x patch left 2).
+//   The residual re-reads x from device memory (L2).
+// - 8 warps = warps_m (8 or 4) along the pixels x 8/warps_m along the
+//   channels; a warpgroup accumulates up to 256/WN (bf16; WN = 64, 128, 256)
+//   or 2 (fp32, WN = 64) tiles of 64 pixels x WN channels, the 16-pixel
+//   tiles dealt round robin over the warps so that a ragged count spreads;
+//   rows past the end read the zero row and store nothing.  Images past N
+//   load zeros and store nothing.
 // - All SMs stream the same weights; in step they would all ask the same
-//   few L2 slices at once.  Each block starts its walk over the stages of a
-//   (pass, chunk) at a different stage (the sum does not care about order).
+//   few L2 slices at once.  Each block starts its walk over the channel
+//   slices of a (pass, chunk) at a different slice (a sum does not care).
 // - fp32 form, 3xTF32: every operand a = a_hi + a_lo, a_hi = a rounded to
 //   TF32, a_lo = a - a_hi rounded to TF32; the product is a_lo*b_hi +
 //   a_hi*b_lo first, then a_hi*b_hi, summed in fp32.  That keeps about
@@ -66,18 +71,18 @@
 //   and a sum left in them over k = 9*C drifts by 1e-4 at C = 512.  The
 //   weights' parts are packed at load; x and h are kept in fp32 in shared
 //   memory and split where they are read (5 integer and float instructions
-//   a value, each value then used for 8 n-tiles x 3 products).
-// - The plan (R, G, warps_m, ks, stages, shared-memory bytes) is made in
+//   a value, each value then used for 64 channels x 3 products).
+// - The plan (R, G, warps_m, WN, ks, stages, shared-memory bytes) is made in
 //   Python (plan_fused_block) and checked here.
-// Later work: wgmma with A from registers and B through a descriptor (B is
-// then read from shared memory once a warpgroup, not once a warp, which is
-// what holds mma.sync to about 60% of the tensor cores' rate), streaming
-// the x patch so that more images fit a block at 4x4x512, a cluster sharing
-// one multicast weight load.
+// Later work: the fp32 form waits for each k-step's products before it adds
+// them (a second sum would overlap them); wider N for fp32; a cluster
+// sharing one multicast weight load; a persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -101,14 +106,12 @@ template <> struct Traits<float> {
   static constexpr int kStep = 8;    // input channels an instruction
   static constexpr int kPad = 4;     // elements added to a pixel's row
   static constexpr int kWBytes = 8;  // packed bytes a weight (hi and lo)
-  static constexpr int kMT = 2;      // 16-pixel tiles a warp accumulates
   static constexpr int kRows = 2;    // fragment rows a lane addresses a tile
 };
 template <> struct Traits<__nv_bfloat16> {
   static constexpr int kStep = 16;
   static constexpr int kPad = 8;
   static constexpr int kWBytes = 2;
-  static constexpr int kMT = 4;
   static constexpr int kRows = 1;
 };
 
@@ -144,31 +147,180 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
 __device__ __forceinline__ float lds_f32(const unsigned char* base, uint32_t off) {
   return *reinterpret_cast<const float*>(base + off);
 }
-__device__ __forceinline__ uint4 lds_128(const unsigned char* base, uint32_t off) {
-  return *reinterpret_cast<const uint4*>(base + off);
+// ---- wgmma: D (64 pixels x N channels, fp32, in the registers of a
+// warpgroup's 4 warps, 16 rows each: a thread holds rows g8 and g8 + 8,
+// columns 2 * t4 and 2 * t4 + 1 of every 8 channels) += A (64 x 16 bf16 or
+// 64 x 8 TF32, from registers: each warp's 16 rows as ldmatrix.x4 delivers
+// them, so a row still has an address of its own) * B (16 or 8 x N, read by
+// the tensor cores straight from shared memory through a descriptor).
+// B stands in shared memory as pack_weights lays it out: core matrices of 8
+// output channels x 8 input channels (16 bytes a row, 128 bytes each), the
+// two halves of a k-step 128 bytes apart (the leading offset), the groups of
+// 8 channels 256 bytes apart (the stride offset), no swizzle.
+// (fp32: 4 input channels a 16-byte row, and a group's hi and lo parts side
+// by side, so the groups are 512 bytes apart and the lo parts start at 256.)
+__device__ __forceinline__ uint64_t b_descriptor(uint32_t addr, int group_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(group_bytes >> 4) << 32);
 }
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// The instruction's last operands: scale-d (the predicate: add to D),
+// scale-a 1, scale-b 1, B not transposed (input channels run along a core
+// matrix's rows).
+template <int N> struct Wgmma;
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+template <> struct Wgmma<256> {
+  static __device__ __forceinline__ void run(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// d = a * b (a fresh sum).
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+// TF32: D (64 x 64) = or += A (64 x 8; a thread holds (g8, t4), (g8 + 8, t4),
+// (g8, t4 + 4), (g8 + 8, t4 + 4)) * B (8 x 64); `add` 0 starts a fresh sum.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t desc, int add) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
 }
 
 // fp32 -> nearest TF32 value (low 13 mantissa bits zero, ties away from
@@ -210,76 +362,97 @@ struct Rows {
   }
 };
 
-// The products of one stage (`KS` k-steps at `b_o`, `chunk_bytes` apart) on
-// the first L of the warp's tiles, whose rows stand at offsets a_o.
-// bf16: one m16n8k16 a (tile, n-tile) and k-step.
-template <int NT, int L>
-__device__ __forceinline__ void stage_products(float (&acc)[4][NT][4], const unsigned char* smem,
-                                               uint32_t smem_u, const uint32_t (&a_o)[4][1],
-                                               uint32_t b_o, int KS, int chunk_bytes) {
-#pragma unroll 2
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t a[L][4];
+// The products of one stage (`KS` k-steps of B at `b_u`, `chunk_bytes`
+// apart) on the first L of the warpgroup's tiles, whose rows stand at the
+// offsets a_o.  bf16: each tile of 64 pixels x N channels takes one
+// instruction a k-step.  A's fragments for the
+// next k-step are read while this k-step's products run (two sets of
+// registers; a set is free again once the group before the last is through).
+template <int N, int MT, int L>
+__device__ __forceinline__ void stage_wgmma_bf16(float (&acc)[MT][N / 8][4], uint32_t smem_u,
+                                                 const uint32_t (&a_o)[MT][1], uint32_t b_u,
+                                                 int KS, int chunk_bytes) {
+  uint32_t a[2][L][4];
 #pragma unroll
-    for (int i = 0; i < L; ++i) ldmatrix_x4(a[i], smem_u + a_o[i][0] + ks * 32);
+  for (int i = 0; i < L; ++i) ldmatrix_x4(a[0][i], smem_u + a_o[i][0]);
+#pragma unroll 1
+  for (int ks = 0; ks < KS; ks += 2) {
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      const uint4 b = lds_128(smem, b_o + ks * chunk_bytes + np * 512);
+    for (int half = 0; half < 2; ++half) {
+      if (ks + half < KS) {
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < L; ++i) {
-        mma_bf16(acc[i][2 * np], a[i], b.x, b.y);
-        mma_bf16(acc[i][2 * np + 1], a[i], b.z, b.w);
+        for (int i = 0; i < L; ++i) {
+          Wgmma<N>::run(reinterpret_cast<float(&)[N / 2]>(acc[i]), a[half][i],
+                        b_descriptor(b_u + (ks + half) * chunk_bytes, 256));
+        }
+        wgmma_commit();
+        if (ks + half + 1 < KS) {
+          wgmma_wait<1>();  // the other set's products are through
+#pragma unroll
+          for (int i = 0; i < L; ++i)
+            ldmatrix_x4(a[half ^ 1][i], smem_u + a_o[i][0] + (ks + half + 1) * 32);
+        }
       }
     }
   }
+  wgmma_wait<0>();  // before the barrier that lets the stage's buffer be refilled
 }
 
 // fp32 as 3xTF32: a k-step's three products go into a fresh sum (small terms
-// first) which is then added to the accumulator by an ordinary fp32 add.
+// first), which is then added to the accumulator by an ordinary fp32 add.
 // The tensor cores add with truncation, so a sum kept in them over all of
 // k = 9 * C drifts by about 1e-4 at C = 512; the ordinary add rounds to
-// nearest.  Four n-tiles go together, so that dependent products stand
-// 4 * L instructions apart.
-template <int NT, int L>
-__device__ __forceinline__ void stage_products(float (&acc)[2][NT][4], const unsigned char* smem,
-                                               uint32_t smem_u, const uint32_t (&a_o)[2][2],
-                                               uint32_t b_o, int KS, int chunk_bytes) {
-  constexpr int NG = NT < 4 ? NT : 4;
+// nearest.  The next k-step's values are read and split while this k-step's
+// products run.
+template <int L>
+__device__ __forceinline__ void load_split(uint32_t (&hi)[L][4], uint32_t (&lo)[L][4],
+                                           const unsigned char* smem,
+                                           const uint32_t (&a_o)[2][2], int k_off) {
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    // a0 (g8, t4), a1 (g8 + 8, t4), a2 (g8, t4 + 4), a3 (g8 + 8, t4 + 4)
+    split_tf32(lds_f32(smem, a_o[i][0] + k_off), hi[i][0], lo[i][0]);
+    split_tf32(lds_f32(smem, a_o[i][1] + k_off), hi[i][1], lo[i][1]);
+    split_tf32(lds_f32(smem, a_o[i][0] + k_off + 16), hi[i][2], lo[i][2]);
+    split_tf32(lds_f32(smem, a_o[i][1] + k_off + 16), hi[i][3], lo[i][3]);
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void stage_wgmma_tf32(float (&acc)[2][8][4], const unsigned char* smem,
+                                                 const uint32_t (&a_o)[2][2], uint32_t b_u,
+                                                 int KS, int chunk_bytes) {
+  float sum[L][32];
+#pragma unroll
+  for (int i = 0; i < L; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sum[i][e] = 0.f;
+  uint32_t hi[2][L][4], lo[2][L][4];
+  load_split<L>(hi[0], lo[0], smem, a_o, 0);
 #pragma unroll 1
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t hi[L][4], lo[L][4];
+  for (int ks = 0; ks < KS; ks += 2) {
 #pragma unroll
-    for (int i = 0; i < L; ++i) {
-      // a0 (g8, t4), a1 (g8 + 8, t4), a2 (g8, t4 + 4), a3 (g8 + 8, t4 + 4)
-      split_tf32(lds_f32(smem, a_o[i][0] + ks * 32), hi[i][0], lo[i][0]);
-      split_tf32(lds_f32(smem, a_o[i][1] + ks * 32), hi[i][1], lo[i][1]);
-      split_tf32(lds_f32(smem, a_o[i][0] + ks * 32 + 16), hi[i][2], lo[i][2]);
-      split_tf32(lds_f32(smem, a_o[i][1] + ks * 32 + 16), hi[i][3], lo[i][3]);
-    }
+    for (int half = 0; half < 2; ++half) {
+      if (ks + half < KS) {
+        const uint64_t b_hi = b_descriptor(b_u + (ks + half) * chunk_bytes, 512);
+        const uint64_t b_lo = b_descriptor(b_u + (ks + half) * chunk_bytes + 256, 512);
+        wgmma_fence();
 #pragma unroll
-    for (int n0 = 0; n0 < NT; n0 += NG) {
-      uint4 b[NG];  // b0 hi, b1 hi, b0 lo, b1 lo
+        for (int i = 0; i < L; ++i) {
+          wgmma_tf32_n64(sum[i], lo[half][i], b_hi, 0);
+          wgmma_tf32_n64(sum[i], hi[half][i], b_lo, 1);
+          wgmma_tf32_n64(sum[i], hi[half][i], b_hi, 1);
+        }
+        wgmma_commit();
+        if (ks + half + 1 < KS)
+          load_split<L>(hi[half ^ 1], lo[half ^ 1], smem, a_o, (ks + half + 1) * 32);
+        wgmma_wait<0>();
 #pragma unroll
-      for (int j = 0; j < NG; ++j) b[j] = lds_128(smem, b_o + ks * chunk_bytes + (n0 + j) * 512);
-      float sum[L][NG][4];
+        for (int i = 0; i < L; ++i)
 #pragma unroll
-      for (int i = 0; i < L; ++i)
-#pragma unroll
-        for (int j = 0; j < NG; ++j) mma_tf32_first(sum[i][j], lo[i], b[j].x, b[j].y);
-#pragma unroll
-      for (int i = 0; i < L; ++i)
-#pragma unroll
-        for (int j = 0; j < NG; ++j) mma_tf32(sum[i][j], hi[i], b[j].z, b[j].w);
-#pragma unroll
-      for (int i = 0; i < L; ++i)
-#pragma unroll
-        for (int j = 0; j < NG; ++j) mma_tf32(sum[i][j], hi[i], b[j].x, b[j].y);
-#pragma unroll
-      for (int i = 0; i < L; ++i)
-#pragma unroll
-        for (int j = 0; j < NG; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][n0 + j][e] += sum[i][j][e];
+          for (int e = 0; e < 32; ++e) acc[i][e / 4][e % 4] += sum[i][e];
+      }
     }
   }
 }
@@ -291,7 +464,10 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
                    const unsigned char* __restrict__ w2p, const float* __restrict__ b2,
                    const float* __restrict__ a2, T* __restrict__ out, const Plan p) {
   constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int kStep = Traits<T>::kStep, kMT = Traits<T>::kMT, kRows = Traits<T>::kRows;
+  constexpr int kStep = Traits<T>::kStep, kRows = Traits<T>::kRows;
+  // Tiles (64 pixels x WN channels) a warpgroup accumulates: 128 accumulator
+  // registers a thread in bf16; 64 in fp32, whose k-step also has its sum.
+  constexpr int kMT = kBf16 ? 256 / WN : 2;
   constexpr int kEsize = static_cast<int>(sizeof(T));
   constexpr int NT = WN / 8;  // n-tiles of 8 channels a warp
   extern __shared__ __align__(16) unsigned char smem[];
@@ -409,8 +585,8 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
   for (int j = 0; j < p.stages - 1; ++j) issue_load();
   int c_slot = 0, x_used = 0;
 
-  // Offset of this lane's B fragments inside a k-step of a stage.
-  const uint32_t b_lane = (warp_n * (WN / (kBf16 ? 16 : 8)) * 32 + lane) * 16;
+  // Offset of the warpgroup's B tile inside a k-step of a stage.
+  const uint32_t b_warp = warp_n * (WN / 8) * (kBf16 ? 256 : 512);
   // What a lane adds to a row's offset: ldmatrix lanes 16-31 address the
   // second 8 channels; an fp32 lane reads channel t4 (and t4 + 4).
   const uint32_t lane_k = kBf16 ? (lane >> 4) * 16 : t4 * 4;
@@ -473,6 +649,8 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
 #pragma unroll 1
           for (int tap = 0; tap < 9; ++tap) {
             cp_async_wait(p.stages - 2);
+            // wgmma reads the stage through the asynchronous proxy
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
             __syncthreads();  // the stage is there; the buffers to refill are free
             issue_load();
             const uint32_t buf = c_slot * stage_bytes;
@@ -490,18 +668,22 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
                 a_o[i][k] = in ? a_base + (pix_i[i][k] + dy * W + dx) * a_stride : zero_o + lane_k;
               }
             }
-            const uint32_t b_o = buf + b_lane;
+            const uint32_t b_u = smem_u + buf + b_warp;
+            auto products = [&](auto count) {
+              constexpr int L = decltype(count)::value;
+              if constexpr (L > kMT) {
+                return;  // `most` never exceeds kMT
+              } else if constexpr (kBf16) {
+                stage_wgmma_bf16<WN, kMT, L>(acc, smem_u, a_o, b_u, p.KS, chunk_bytes);
+              } else {
+                stage_wgmma_tf32<L>(acc, smem, a_o, b_u, p.KS, chunk_bytes);
+              }
+            };
             switch (most) {
-              case 1: stage_products<NT, 1>(acc, smem, smem_u, a_o, b_o, p.KS, chunk_bytes); break;
-              case 2: stage_products<NT, 2>(acc, smem, smem_u, a_o, b_o, p.KS, chunk_bytes); break;
-              case 3:
-                if constexpr (kMT > 2)
-                  stage_products<NT, 3>(acc, smem, smem_u, a_o, b_o, p.KS, chunk_bytes);
-                break;
-              default:
-                if constexpr (kMT > 2)
-                  stage_products<NT, 4>(acc, smem, smem_u, a_o, b_o, p.KS, chunk_bytes);
-                break;
+              case 1: products(std::integral_constant<int, 1>{}); break;
+              case 2: products(std::integral_constant<int, 2>{}); break;
+              case 3: products(std::integral_constant<int, 3>{}); break;
+              default: products(std::integral_constant<int, 4>{}); break;
             }
           }
           if (++slice == slices) slice = 0;
@@ -565,13 +747,14 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // problem or does not fit a block.
 bool plan_ok(const Plan& p, bool bf16) {
   const int step = bf16 ? 16 : 8, wbytes = bf16 ? 2 : 8, esize = bf16 ? 2 : 4;
-  if (p.N < 1 || p.H < 1 || p.W < 1 || p.C < 16 || p.C % 16 != 0) return false;
+  if (p.N < 1 || p.H < 1 || p.W < 1 || p.C < 64 || p.C % 64 != 0) return false;
   if (p.R < 1 || p.R > p.H || p.G < 1 || p.tiles != ceil_div(p.H, p.R)) return false;
   if (p.tiles > 1 && p.G != 1) return false;
   if (p.XR != (p.tiles == 1 ? p.H : p.R + 4) || p.HR != (p.tiles == 1 ? p.H : p.R + 2)) return false;
   if (p.H >= 32768 || p.W >= 32768) return false;
-  if (p.warps_m != 1 && p.warps_m != 2 && p.warps_m != 4 && p.warps_m != 8) return false;
-  if (p.WN != 64 && p.WN != 16) return false;
+  // the 4 warps of a warpgroup stand along the pixels
+  if (p.warps_m != 4 && p.warps_m != 8) return false;
+  if (p.WN != 64 && !(bf16 && (p.WN == 128 || p.WN == 256))) return false;
   const int BN = kWarps / p.warps_m * p.WN;
   if (p.C % BN != 0) return false;
   if ((p.KS != 1 && p.KS != 2 && p.KS != 4 && p.KS != 8) || (p.C / step) % p.KS != 0) return false;
@@ -608,7 +791,7 @@ extern "C" {
 // Launches on `stream` of `device`; returns the CUDA error (0 on success).
 // The library links its own CUDA runtime, so it selects the device itself.
 // `plan`: the ints of vcagan_torch/kernels/fused_block.py::Plan.ints().
-// N*H*W*C must be below 2^31, pointers 16-byte aligned.
+// N*H*W*C must be below 2^31, C a multiple of 64, pointers 16-byte aligned.
 int vcagan_fused_block(const void* x, const void* w1p, const float* b1, const float* a1,
                        const void* w2p, const float* b2, const float* a2, void* out,
                        const int* plan, int plan_len, int is_bf16, int device, void* stream) {
@@ -623,11 +806,11 @@ int vcagan_fused_block(const void* x, const void* w1p, const float* b1, const fl
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    err = p.WN == 64 ? launch<__nv_bfloat16, 64>(p, x, w1p, b1, a1, w2p, b2, a2, out, s)
-                     : launch<__nv_bfloat16, 16>(p, x, w1p, b1, a1, w2p, b2, a2, out, s);
+    err = p.WN == 256   ? launch<__nv_bfloat16, 256>(p, x, w1p, b1, a1, w2p, b2, a2, out, s)
+          : p.WN == 128 ? launch<__nv_bfloat16, 128>(p, x, w1p, b1, a1, w2p, b2, a2, out, s)
+                        : launch<__nv_bfloat16, 64>(p, x, w1p, b1, a1, w2p, b2, a2, out, s);
   } else {
-    err = p.WN == 64 ? launch<float, 64>(p, x, w1p, b1, a1, w2p, b2, a2, out, s)
-                     : launch<float, 16>(p, x, w1p, b1, a1, w2p, b2, a2, out, s);
+    err = launch<float, 64>(p, x, w1p, b1, a1, w2p, b2, a2, out, s);
   }
   return static_cast<int>(err);
 }

@@ -21,9 +21,9 @@ keeps fp32 accuracy to about 2^-21 relative a product;
 ``fused_block_reference_3xtf32`` is that arithmetic in plain PyTorch.
 
 What the kernel reads besides x is prepared here, where the CPU tests reach
-it: ``pack_weights`` lays a (3, 3, C, C) weight out once, at load, in the
-order of the tensor cores' B fragments, and ``plan_fused_block`` chooses the
-tile (rows or whole images a block, warps along the pixels, the ring of
+it: ``pack_weights`` lays a (3, 3, C, C) weight out once, at load, as the
+tensor cores read it from shared memory, and ``plan_fused_block`` chooses
+the tile (rows or whole images a block, warps along the pixels, the ring of
 weight stages) and its shared-memory size.  The plan goes to the C entry
 point as plain ints, which refuses one that does not fit.
 """
@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from vcagan_torch.kernels import _build
 
-CHANNEL_MULTIPLE = 16  # the kernel takes C = 16, 32, 48, ...
+CHANNEL_MULTIPLE = 64  # the kernel takes C = 64, 128, 192, ...
 LAUNCHES = 0  # kernel launches so far; reset by the caller that counts
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
@@ -114,24 +114,24 @@ def pack_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(3, 3, C, C) fp32 -> the flat tensor the kernel streams.
 
     The contraction runs over k = tap * C + c_in in steps of 16 (bf16) or 8
-    (fp32).  For every step and every 8 output channels the values stand in
-    the order of ``mma.sync``'s B fragment, lane by lane, so that a warp
-    reads its fragments with one 16-byte load a lane and no bank conflict:
-    bf16: [step][16 outputs][lane][2 n-tiles][b0, b1][2 k] as bf16;
-    fp32: [step][8 outputs][lane][hi, lo][b0, b1] as fp32, hi and lo the
-    TF32 parts of ``split_tf32``.
+    (fp32) input channels.  ``wgmma`` reads a step's weights straight from
+    shared memory as core matrices of 8 output channels x 16 bytes of input
+    channels, 128 bytes each, without swizzle, so that is how they stand:
+    bf16: [step][8 outputs][2 halves of k][output][8 k] as bf16;
+    fp32: [step][8 outputs][hi, lo][2 halves of k][output][4 k] as fp32, hi
+    and lo the TF32 parts of ``split_tf32``.
     """
     c = w.shape[2]
-    if tuple(w.shape) != (3, 3, c, c) or c % CHANNEL_MULTIPLE or w.dtype != torch.float32:
+    if tuple(w.shape) != (3, 3, c, c) or c % 16 or w.dtype != torch.float32:
         raise ValueError(f"w must be float32 (3, 3, C, C), C a multiple of 16, got {tuple(w.shape)}")
     if dtype == torch.bfloat16:
-        # c_in = 16 ks + 8 khalf + 2 t + kpair; c_out = 16 np + 8 nsel + g; lane = 4 g + t
-        v = w.to(torch.bfloat16).reshape(9, c // 16, 2, 4, 2, c // 16, 2, 8)
-        return v.permute(0, 1, 5, 7, 3, 6, 2, 4).reshape(-1).contiguous()
+        # c_in = 16 ks + 8 khalf + k; c_out = 8 j + r
+        v = w.to(torch.bfloat16).reshape(9, c // 16, 2, 8, c // 8, 8)
+        return v.permute(0, 1, 4, 2, 5, 3).reshape(-1).contiguous()
     if dtype == torch.float32:
-        # c_in = 8 ks + 4 khalf + t; c_out = 8 nt + g
+        # c_in = 8 ks + 4 khalf + k; c_out = 8 j + r
         v = torch.stack(split_tf32(w)).reshape(2, 9, c // 8, 2, 4, c // 8, 8)
-        return v.permute(1, 2, 5, 6, 4, 0, 3).reshape(-1).contiguous()
+        return v.permute(1, 2, 5, 0, 3, 6, 4).reshape(-1).contiguous()
     raise ValueError(f"no packing for {dtype}")
 
 
@@ -139,9 +139,9 @@ def unpack_weights(packed: torch.Tensor, c: int, dtype: torch.dtype):
     """Inverse of ``pack_weights``: the (3, 3, C, C) bf16 weight, or the
     (hi, lo) pair of fp32 weights."""
     if dtype == torch.bfloat16:
-        v = packed.reshape(9, c // 16, c // 16, 8, 4, 2, 2, 2)
-        return v.permute(0, 1, 6, 4, 7, 2, 5, 3).reshape(3, 3, c, c).contiguous()
-    v = packed.reshape(9, c // 8, c // 8, 8, 4, 2, 2).permute(5, 0, 1, 6, 4, 2, 3)
+        v = packed.reshape(9, c // 16, c // 8, 2, 8, 8)
+        return v.permute(0, 1, 3, 5, 2, 4).reshape(3, 3, c, c).contiguous()
+    v = packed.reshape(9, c // 8, c // 8, 2, 2, 8, 4).permute(3, 0, 1, 4, 6, 2, 5)
     hi, lo = v.reshape(2, 3, 3, c, c).contiguous()
     return hi, lo
 
@@ -158,9 +158,9 @@ class Plan:
     streams the rest: the packed weights through ``stages`` buffers of
     ``ks`` k-steps x ``bn`` output channels, and the x tile (``xr`` rows an
     image) through two buffers of ``ks`` k-steps of channels.
-    Its 8 warps are ``warps_m`` along the pixels x ``8 // warps_m`` along
-    the channels; a warp accumulates up to ``mt`` tiles of 16 pixels x
-    ``wn`` channels."""
+    Its 8 warps are ``warps_m`` (8 or 4: a warpgroup's four stand together)
+    along the pixels x ``8 // warps_m`` along the channels; a warpgroup
+    accumulates up to ``mt`` tiles of 64 pixels x ``wn`` channels."""
 
     n: int
     h: int
@@ -181,7 +181,7 @@ class Plan:
 
     @property
     def mt(self) -> int:
-        return _tiles_a_warp(self.itemsize)
+        return _tiles_a_warp(self.itemsize, self.wn)
 
     @property
     def bn(self) -> int:
@@ -218,20 +218,21 @@ def _smem_bytes(c, itemsize, g, xr, hr, w, bn, ks, stages) -> int:
             + (g * hr * w + 1) * stride + 16 * c + _ceil_div(x_pixels, 4) * 16)
 
 
-def _tiles_a_warp(itemsize: int) -> int:
-    """16-pixel tiles a warp accumulates at once (at most): 128 accumulator
+def _tiles_a_warp(itemsize: int, wn: int) -> int:
+    """Tiles (64 pixels x ``wn`` channels) a warpgroup accumulates at once, at
+    most; each of its warps holds 16 of a tile's pixels.  128 accumulator
     registers in bf16; 64 in fp32, whose k-step also holds a fresh sum."""
-    return 4 if itemsize == 2 else 2
+    return 2 if itemsize == 4 else 256 // wn
 
 
 def _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks, stages) -> float:
     """Clock cycles a block needs, roughly: per k-step the largest of the
-    tensor cores' time, the shared-memory reads of the fragments, the weight
+    tensor cores' time, the shared-memory reads of the operands, the weight
     slice's way from L2 and the share of L2's latency that the stages in
     flight do not cover, plus a barrier a stage and an epilogue a pass."""
     k_step, wbytes, products = (16, 2, 1) if itemsize == 2 else (8, 8, 3)
     nt, chunks, k_steps = wn // 8, c // bn, 9 * c // k_step
-    tiles_a_warp = _tiles_a_warp(itemsize)
+    tiles_a_warp = _tiles_a_warp(itemsize, wn)
     latency = 2500 / ((stages - 1) * ks)
     total = 0.0
     for m in (m1, m2):
@@ -240,10 +241,9 @@ def _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks, stages) -> float:
             mt = min(tiles_a_warp, _ceil_div(left, warps_m))
             left -= warps_m * tiles_a_warp
             mma = mt * nt * products * 8  # 8 warps on 4 tensor cores, 4 cycles each
-            if itemsize == 2:
-                lds = WARPS * 4 * (mt + nt // 2)  # 512-byte reads at 128 bytes a cycle
-            else:
-                lds = WARPS * (4 * mt + 4 * nt)
+            # shared-memory reads at 128 bytes a cycle: A fragments by the
+            # warps, B by the tensor cores
+            lds = WARPS * 4 * mt + 2 * mt * wn * products // 4
             l2 = bn * k_step * wbytes / 16  # about 16 bytes a cycle a block
             total += chunks * (k_steps * (max(mma, lds, l2, latency) + 60 / ks) + 16 * mt * nt + 600)
     return total
@@ -260,7 +260,8 @@ def plan_fused_block(n: int, h: int, w: int, c: int, dtype: torch.dtype) -> Plan
             f"got {(n, h, w, c)}"
         )
     itemsize = 2 if dtype == torch.bfloat16 else 4
-    wn = 64 if c % 64 == 0 else 16
+    # a warpgroup's tile: 64 pixels x 64 (bf16 also 128 or 256) channels
+    widths = tuple(wn for wn in ((64, 128, 256) if itemsize == 2 else (64,)) if c % wn == 0)
     k_steps_tap = c // _k_step(dtype)
     best = None
     tilings = [(r, 1) for r in range(1, h)] + [(h, g) for g in range(1, min(n, 64) + 1)]
@@ -268,20 +269,22 @@ def plan_fused_block(n: int, h: int, w: int, c: int, dtype: torch.dtype) -> Plan
         tiles = _ceil_div(h, r)
         xr, hr = (h, h) if r == h else (r + 4, r + 2)
         m1, m2 = g * min(hr, h) * w, g * r * w
-        for warps_m in (8, 4, 2, 1):
-            bn = WARPS // warps_m * wn
-            if c % bn:
-                continue
-            waves = _ceil_div(_ceil_div(n, g) * tiles, SMS)
-            for stages in range(2, MAX_STAGES + 1):
-                for ks in (8, 4, 2, 1):
-                    smem = _smem_bytes(c, itemsize, g, xr, hr, w, bn, ks, stages)
-                    if k_steps_tap % ks or smem > MAX_SMEM:
-                        continue
-                    cost = waves * _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks, stages)
-                    if best is None or cost < best.cost:
-                        best = Plan(n, h, w, c, itemsize, r, g, tiles, xr, hr, warps_m, wn, ks,
-                                    stages, smem, cost)
+        waves = _ceil_div(_ceil_div(n, g) * tiles, SMS)
+        for wn in widths:
+            for warps_m in (8, 4):
+                bn = WARPS // warps_m * wn
+                if c % bn:
+                    continue
+                for stages in range(2, MAX_STAGES + 1):
+                    for ks in (8, 4, 2, 1):
+                        smem = _smem_bytes(c, itemsize, g, xr, hr, w, bn, ks, stages)
+                        if k_steps_tap % ks or smem > MAX_SMEM:
+                            continue
+                        cost = waves * _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks,
+                                                   stages)
+                        if best is None or cost < best.cost:
+                            best = Plan(n, h, w, c, itemsize, r, g, tiles, xr, hr, warps_m, wn,
+                                        ks, stages, smem, cost)
     if best is None:
         raise ValueError(f"no tile of {(n, h, w, c)} {dtype} fits {MAX_SMEM} bytes")
     return best
