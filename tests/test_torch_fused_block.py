@@ -286,8 +286,8 @@ def test_plan_fits_shared_memory_and_covers_every_pixel_once(case):
         # phase 2 finds h on the output rows and their neighbours in the
         # image; phase 1 finds x on h's rows and their neighbours
         out_rows, h_rows, x_rows = px["out_rows"], px["h_rows"], px["x_rows"]
-        assert h_rows.start <= max(out_rows.start - 1, 0) and h_rows.stop >= min(out_rows.stop + 1, h)
-        assert x_rows.start <= max(h_rows.start - 1, 0) and x_rows.stop >= min(h_rows.stop + 1, h)
+        for have, need in ((h_rows, out_rows), (x_rows, h_rows)):
+            assert have.start <= max(need.start - 1, 0) and have.stop >= min(need.stop + 1, h)
         assert set(px["h_pixels"][:, 1]) == set(h_rows)
     assert (written == 1).all()
 

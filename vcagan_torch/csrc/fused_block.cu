@@ -177,7 +177,8 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 // matrix's rows).
 template <int N> struct Wgmma;
 template <> struct Wgmma<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc) {
     asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -201,7 +202,8 @@ template <> struct Wgmma<64> {
   }
 };
 template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc) {
     asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -237,7 +239,8 @@ template <> struct Wgmma<128> {
   }
 };
 template <> struct Wgmma<256> {
-  static __device__ __forceinline__ void run(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
+  static __device__ __forceinline__ void run(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t desc) {
     asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -544,12 +547,12 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
   const int lg_pixel = __ffs(2 * p.KS) - 1;         // pieces a pixel of an x slice
   int l_left = (passes1 + passes2) * chunks * spc, l_pairs = passes1 * chunks;
   int l_tap = 0, l_done = 0, l_slice = rot, l_chunk = 0, l_slot = 0, x_loaded = 0;
-  auto issue_load = [&]() {
+  auto start_load = [&]() {
     if (l_left > 0) {
       --l_left;
       const bool first = l_pairs > 0;
-      const unsigned char* src = (first ? w1p : w2p) +
-                                 static_cast<size_t>(l_tap * steps_tap + l_slice * p.KS) * row_bytes +
+      const size_t k_step = static_cast<size_t>(l_tap * steps_tap + l_slice * p.KS);
+      const unsigned char* src = (first ? w1p : w2p) + k_step * row_bytes +
                                  static_cast<size_t>(l_chunk) * chunk_bytes;
       const uint32_t dst = smem_u + l_slot * stage_bytes;
       for (int idx = tid; idx < (p.KS << lg_step); idx += kThreads) {
@@ -582,7 +585,7 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
     }
     cp_async_commit();  // always, so that the groups stay counted
   };
-  for (int j = 0; j < p.stages - 1; ++j) issue_load();
+  for (int j = 0; j < p.stages - 1; ++j) start_load();
   int c_slot = 0, x_used = 0;
 
   // Offset of the warpgroup's B tile inside a k-step of a stage.
@@ -652,7 +655,7 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
             // wgmma reads the stage through the asynchronous proxy
             asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
             __syncthreads();  // the stage is there; the buffers to refill are free
-            issue_load();
+            start_load();
             const uint32_t buf = c_slot * stage_bytes;
             if (++c_slot == p.stages) c_slot = 0;
 
@@ -703,7 +706,8 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
             const bool ok = m < M && (phase == 0 || n0 + gi < p.N);
             at[i][half] = !ok ? -1
                           : phase == 0
-                              ? static_cast<int>(hs_o) + ((gi * p.HR + row - h0) * W + col) * h_stride
+                              ? static_cast<int>(hs_o) +
+                                    ((gi * p.HR + row - h0) * W + col) * h_stride
                               : ((n0 + gi) * H + row) * W + col;
           }
         }
@@ -750,7 +754,8 @@ bool plan_ok(const Plan& p, bool bf16) {
   if (p.N < 1 || p.H < 1 || p.W < 1 || p.C < 64 || p.C % 64 != 0) return false;
   if (p.R < 1 || p.R > p.H || p.G < 1 || p.tiles != ceil_div(p.H, p.R)) return false;
   if (p.tiles > 1 && p.G != 1) return false;
-  if (p.XR != (p.tiles == 1 ? p.H : p.R + 4) || p.HR != (p.tiles == 1 ? p.H : p.R + 2)) return false;
+  const bool whole = p.tiles == 1;
+  if (p.XR != (whole ? p.H : p.R + 4) || p.HR != (whole ? p.H : p.R + 2)) return false;
   if (p.H >= 32768 || p.W >= 32768) return false;
   // the 4 warps of a warpgroup stand along the pixels
   if (p.warps_m != 4 && p.warps_m != 8) return false;

@@ -123,7 +123,9 @@ def pack_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """
     c = w.shape[2]
     if tuple(w.shape) != (3, 3, c, c) or c % 16 or w.dtype != torch.float32:
-        raise ValueError(f"w must be float32 (3, 3, C, C), C a multiple of 16, got {tuple(w.shape)}")
+        raise ValueError(
+            f"w must be float32 (3, 3, C, C), C a multiple of 16, got {tuple(w.shape)}"
+        )
     if dtype == torch.bfloat16:
         # c_in = 16 ks + 8 khalf + k; c_out = 8 j + r
         v = w.to(torch.bfloat16).reshape(9, c // 16, 2, 8, c // 8, 8)
@@ -245,7 +247,8 @@ def _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks, stages) -> float:
             # warps, B by the tensor cores
             lds = WARPS * 4 * mt + 2 * mt * wn * products // 4
             l2 = bn * k_step * wbytes / 16  # about 16 bytes a cycle a block
-            total += chunks * (k_steps * (max(mma, lds, l2, latency) + 60 / ks) + 16 * mt * nt + 600)
+            step = max(mma, lds, l2, latency) + 60 / ks
+            total += chunks * (k_steps * step + 16 * mt * nt + 600)
     return total
 
 

@@ -55,9 +55,8 @@ class BasicBlock(FoldableModule):
             # The kernel's weight order, repacked when weights are loaded and
             # not per call; not part of the state dict.  The plain version
             # (CPU) reads (kh, kw, I, O); the kernel reads that packed for
-            # its tensor-core fragments, once for each type it serves.
-            for name in ("w1_hwio", "w2_hwio", "w1_packed_fp32", "w2_packed_fp32",
-                         "w1_packed_bf16", "w2_packed_bf16"):
+            # the tensor cores, in the type of the weights (and of x).
+            for name in ("w1_hwio", "w2_hwio", "w1_packed", "w2_packed"):
                 self.register_buffer(name, None, persistent=False)
             self.repack()
             self.register_load_state_dict_post_hook(BasicBlock._repack_after_load)
@@ -65,13 +64,13 @@ class BasicBlock(FoldableModule):
             self.eval()
 
     def repack(self) -> None:
-        """Refresh the kernel's copy of the weights; ``load_state_dict`` does
-        it, a caller that writes ``conv1``/``conv2`` weights in place must."""
+        """Refresh the kernel's copies of the weights; ``load_state_dict`` does
+        it, a caller that writes ``conv1``/``conv2`` weights in place, or
+        casts the module to another type, must."""
         self.w1_hwio = _hwio(self.conv1)
         self.w2_hwio = _hwio(self.conv2)
-        for kind, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            setattr(self, f"w1_packed_{kind}", pack_weights(self.w1_hwio.float(), dtype))
-            setattr(self, f"w2_packed_{kind}", pack_weights(self.w2_hwio.float(), dtype))
+        self.w1_packed = pack_weights(self.w1_hwio.float(), self.w1_hwio.dtype)
+        self.w2_packed = pack_weights(self.w2_hwio.float(), self.w2_hwio.dtype)
 
     @staticmethod
     def _repack_after_load(module: "BasicBlock", incompatible_keys) -> None:
@@ -80,11 +79,10 @@ class BasicBlock(FoldableModule):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
             x = x.contiguous(memory_format=torch.channels_last)  # no copy when it is
-            kind = "bf16" if x.dtype == torch.bfloat16 else "fp32"
             out = fused_basic_block(
                 x.permute(0, 2, 3, 1), self.w1_hwio, self.conv1.bias, self.relu1.weight,
                 self.w2_hwio, self.conv2.bias, self.relu2.weight,
-                packed=(getattr(self, f"w1_packed_{kind}"), getattr(self, f"w2_packed_{kind}")),
+                packed=(self.w1_packed, self.w2_packed),
             )
             return out.permute(0, 3, 1, 2)
         out = self.relu1(self.bn1(self.conv1(x)))
