@@ -66,17 +66,20 @@
 //   TF32, a_lo = a - a_hi rounded to TF32; the product is a_lo*b_hi +
 //   a_hi*b_lo first, then a_hi*b_hi, summed in fp32.  That keeps about
 //   2^-21 relative a product, so the fp32 form holds the fp32 tolerances.
-//   The three products of a k-step go into a fresh sum, which an ordinary
-//   fp32 add puts on the accumulator: the tensor cores add with truncation,
-//   and a sum left in them over k = 9*C drifts by 1e-4 at C = 512.  The
+//   The products of a stage (at most 8 k-steps) go into a fresh sum, which
+//   an ordinary fp32 add puts on the accumulator: the tensor cores add with
+//   truncation, and a sum left in them over k = 9*C drifts by 1e-4 at
+//   C = 512, while adding after every k-step leaves them idle.  The
 //   weights' parts are packed at load; x and h are kept in fp32 in shared
 //   memory and split where they are read (5 integer and float instructions
 //   a value, each value then used for 64 channels x 3 products).
 // - The plan (R, G, warps_m, WN, ks, stages, shared-memory bytes) is made in
 //   Python (plan_fused_block) and checked here.
-// Later work: the fp32 form waits for each k-step's products before it adds
-// them (a second sum would overlap them); wider N for fp32; a cluster
-// sharing one multicast weight load; a persistent grid.
+// Later work: every stage ends in a barrier of both warpgroups with the
+// tensor cores (nearly) drained, which costs as much as the products of a
+// stage: warpgroups that run apart (a producer warp and mbarriers a
+// buffer), wider N for fp32, a cluster sharing one multicast weight load, a
+// persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -371,10 +374,13 @@ struct Rows {
 // instruction a k-step.  A's fragments for the
 // next k-step are read while this k-step's products run (two sets of
 // registers; a set is free again once the group before the last is through).
+// With `keep` the stage's last group stays in flight over the barrier that
+// follows (KS is even then, so that group reads the second set of registers
+// while the next stage's first fragments go into the first).
 template <int N, int MT, int L>
 __device__ __forceinline__ void stage_wgmma_bf16(float (&acc)[MT][N / 8][4], uint32_t smem_u,
                                                  const uint32_t (&a_o)[MT][1], uint32_t b_u,
-                                                 int KS, int chunk_bytes) {
+                                                 int KS, int chunk_bytes, bool keep) {
   uint32_t a[2][L][4];
 #pragma unroll
   for (int i = 0; i < L; ++i) ldmatrix_x4(a[0][i], smem_u + a_o[i][0]);
@@ -399,15 +405,23 @@ __device__ __forceinline__ void stage_wgmma_bf16(float (&acc)[MT][N / 8][4], uin
       }
     }
   }
-  wgmma_wait<0>();  // before the barrier that lets the stage's buffer be refilled
+  // Before the barrier after which a buffer is refilled: this stage's, or
+  // with `keep` the stage's before it.
+  if (keep) {
+    wgmma_wait<1>();
+  } else {
+    wgmma_wait<0>();
+  }
 }
 
-// fp32 as 3xTF32: a k-step's three products go into a fresh sum (small terms
-// first), which is then added to the accumulator by an ordinary fp32 add.
-// The tensor cores add with truncation, so a sum kept in them over all of
-// k = 9 * C drifts by about 1e-4 at C = 512; the ordinary add rounds to
-// nearest.  The next k-step's values are read and split while this k-step's
-// products run.
+// fp32 as 3xTF32: a k-step's three products (small terms first) go into a
+// sum that is fresh at every stage; at the stage's end an ordinary fp32 add
+// puts it on the accumulator.  The tensor cores add with truncation, so a
+// sum kept in them over all of k = 9 * C drifts by about 1e-4 at C = 512;
+// over a stage's at most 24 products the drift stays below fp32 rounding,
+// and the ordinary add rounds to nearest.  Inside the stage nothing waits
+// for a product but the registers of A: the next k-step's values are read
+// and split while this k-step's products run.
 template <int L>
 __device__ __forceinline__ void load_split(uint32_t (&hi)[L][4], uint32_t (&lo)[L][4],
                                            const unsigned char* smem,
@@ -443,21 +457,23 @@ __device__ __forceinline__ void stage_wgmma_tf32(float (&acc)[2][8][4], const un
         wgmma_fence();
 #pragma unroll
         for (int i = 0; i < L; ++i) {
-          wgmma_tf32_n64(sum[i], lo[half][i], b_hi, 0);
+          wgmma_tf32_n64(sum[i], lo[half][i], b_hi, ks + half > 0);
           wgmma_tf32_n64(sum[i], hi[half][i], b_lo, 1);
           wgmma_tf32_n64(sum[i], hi[half][i], b_hi, 1);
         }
         wgmma_commit();
-        if (ks + half + 1 < KS)
+        if (ks + half + 1 < KS) {
+          wgmma_wait<1>();  // the other set's products are through
           load_split<L>(hi[half ^ 1], lo[half ^ 1], smem, a_o, (ks + half + 1) * 32);
-        wgmma_wait<0>();
-#pragma unroll
-        for (int i = 0; i < L; ++i)
-#pragma unroll
-          for (int e = 0; e < 32; ++e) acc[i][e / 4][e % 4] += sum[i][e];
+        }
       }
     }
   }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < L; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e / 4][e % 4] += sum[i][e];
 }
 
 template <typename T, int WN>
@@ -585,7 +601,13 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
     }
     cp_async_commit();  // always, so that the groups stay counted
   };
-  for (int j = 0; j < p.stages - 1; ++j) start_load();
+  // Stages asked for ahead of the one in use.  bf16 with room in the ring
+  // asks for one less: the buffer refilled after a barrier is then the one
+  // of the stage before the last, and the last stage's final products may
+  // still run over the barrier.
+  const bool keep = kBf16 && p.KS >= 2 && p.stages >= 3;
+  const int ahead = p.stages - (keep ? 2 : 1);
+  for (int j = 0; j < ahead; ++j) start_load();
   int c_slot = 0, x_used = 0;
 
   // Offset of the warpgroup's B tile inside a k-step of a stage.
@@ -651,7 +673,7 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
                                               : hs_o + slice * p.KS * 32) + lane_k;
 #pragma unroll 1
           for (int tap = 0; tap < 9; ++tap) {
-            cp_async_wait(p.stages - 2);
+            cp_async_wait(ahead - 1);
             // wgmma reads the stage through the asynchronous proxy
             asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
             __syncthreads();  // the stage is there; the buffers to refill are free
@@ -677,7 +699,7 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
               if constexpr (L > kMT) {
                 return;  // `most` never exceeds kMT
               } else if constexpr (kBf16) {
-                stage_wgmma_bf16<WN, kMT, L>(acc, smem_u, a_o, b_u, p.KS, chunk_bytes);
+                stage_wgmma_bf16<WN, kMT, L>(acc, smem_u, a_o, b_u, p.KS, chunk_bytes, keep);
               } else {
                 stage_wgmma_tf32<L>(acc, smem, a_o, b_u, p.KS, chunk_bytes);
               }
@@ -692,6 +714,7 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
           if (++slice == slices) slice = 0;
         }
 
+        if (keep) wgmma_wait<0>();  // the accumulators are complete
         // ---- epilogue of (pass, chunk): accumulator rows g8 and g8 + 8 of
         // each tile, columns 2 * t4 and 2 * t4 + 1 of each n-tile.  Phase 1
         // stores h; phase 2 adds x and stores the output.

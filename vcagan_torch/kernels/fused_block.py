@@ -235,7 +235,8 @@ def _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks, stages) -> float:
     k_step, wbytes, products = (16, 2, 1) if itemsize == 2 else (8, 8, 3)
     nt, chunks, k_steps = wn // 8, c // bn, 9 * c // k_step
     tiles_a_warp = _tiles_a_warp(itemsize, wn)
-    latency = 2500 / ((stages - 1) * ks)
+    ahead = stages - 2 if itemsize == 2 and ks >= 2 and stages >= 3 else stages - 1
+    latency = 2500 / (ahead * ks)
     total = 0.0
     for m in (m1, m2):
         left = _ceil_div(m, 16)
@@ -247,9 +248,11 @@ def _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks, stages) -> float:
             # warps, B by the tensor cores
             lds = WARPS * 4 * mt + 2 * mt * wn * products // 4
             l2 = bn * k_step * wbytes / 16  # about 16 bytes a cycle a block
-            step = max(mma, lds, l2, latency) + 60 / ks
-            total += chunks * (k_steps * step + 16 * mt * nt + 600)
-    return total
+            # the operands' reads share shared memory with the weight copies
+            # every stage ends in a barrier with the tensor cores drained
+            step = max(mma + lds / 2, l2, latency) + (1500 if itemsize == 4 else 1000) / ks
+            total += chunks * (k_steps * step + 300 * mt * nt + 600)
+    return total + 6000  # the block's set-up
 
 
 @functools.lru_cache(maxsize=None)
