@@ -75,11 +75,10 @@
 //   a value, each value then used for 64 channels x 3 products).
 // - The plan (R, G, warps_m, WN, ks, stages, shared-memory bytes) is made in
 //   Python (plan_fused_block) and checked here.
-// Later work: every stage ends in a barrier of both warpgroups with the
-// tensor cores (nearly) drained, which costs as much as the products of a
-// stage: warpgroups that run apart (a producer warp and mbarriers a
-// buffer), wider N for fp32, a cluster sharing one multicast weight load, a
-// persistent grid.
+// Later work: less between the products of two stages (waits, barrier,
+// copies and address arithmetic take as long as a stage's products), wider
+// N for fp32, a cluster sharing one multicast weight load, a persistent
+// grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
