@@ -18,6 +18,8 @@ and with the JAX package to 1e-4 where one TF32 product misses 1e-5; and
 the tile plan fits shared memory and covers every pixel exactly once.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -258,10 +260,10 @@ PLAN_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
-def test_plan_fits_shared_memory_and_covers_every_pixel_once(case):
-    _, n, h, w, c, dtype = case
-    plan = fb.plan_fused_block(n, h, w, c, dtype)
+def _check_plan(plan, dtype):
+    """Shared memory, the kernel's limits, and the cover: every output pixel
+    stored once, h inside the block's rows."""
+    n, h, w, c = plan.n, plan.h, plan.w, plan.c
     k_step = 16 if dtype == torch.bfloat16 else 8
     assert plan.smem <= fb.MAX_SMEM == 232448
     assert plan.smem == fb._smem_bytes(c, plan.itemsize, plan.g, plan.xr, plan.hr, w, plan.bn,
@@ -292,6 +294,28 @@ def test_plan_fits_shared_memory_and_covers_every_pixel_once(case):
     assert (written == 1).all()
 
 
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_plan_fits_shared_memory_and_covers_every_pixel_once(case):
+    _, n, h, w, c, dtype = case
+    plan = fb.plan_fused_block(n, h, w, c, dtype)
+    assert (plan.n, plan.h, plan.w, plan.c) == (n, h, w, c)
+    _check_plan(plan, dtype)
+
+
+@pytest.mark.parametrize("case", [PLAN_CASES[i] for i in (1, 13, 21, 29, 37, 41, 45)],
+                         ids=lambda case: case[0])
+def test_every_candidate_the_planner_weighs_is_a_plan_the_kernel_takes(case):
+    """The planner's pick is the cheapest candidate; the others (timed on
+    the card by ``tune_fused_block``) tile the problem just as well."""
+    _, n, h, w, c, dtype = case
+    plans = fb.candidate_plans(n, h, w, c, dtype)
+    assert fb.plan_fused_block(n, h, w, c, dtype) == min(plans, key=lambda p: p.cost)
+    assert len({dataclasses.astuple(p) for p in plans}) == len(plans) > 20
+    assert len({(p.r, p.g) for p in plans}) > 1 and len({p.ks for p in plans}) > 1
+    for plan in plans[:: max(1, len(plans) // 12)]:
+        _check_plan(plan, dtype)
+
+
 def test_plan_refuses_what_the_kernel_does_not_take():
     for c in (16, 48, 96):  # the tensor-core tiles are 64 channels wide
         with pytest.raises(ValueError, match="multiple of 64"):
@@ -300,3 +324,13 @@ def test_plan_refuses_what_the_kernel_does_not_take():
         fb.plan_fused_block(2, 4, 4, 64, torch.float64)
     with pytest.raises(ValueError, match="fits"):  # one row of h alone is too much
         fb.plan_fused_block(1, 4, 4096, 512, torch.float32)
+    assert fb.candidate_plans(1, 4, 4096, 512, torch.float32) == []
+
+
+def test_tuning_script_imports_on_the_cpu_and_needs_a_card(monkeypatch):
+    from vcagan_torch.kernels import tune_fused_block
+
+    monkeypatch.setattr("sys.argv", ["tune_fused_block", "--top", "2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        tune_fused_block.main()

@@ -41,14 +41,21 @@
 //   channels (a pixel's row is padded by 16 bytes so that the rows of a
 //   fragment fall on different banks); everything else streams.
 // - The weights do not fit (up to 9.4 MB a convolution): they are streamed
-//   from L2 with cp.async through a ring of 2-5 stages, each one tap of
-//   `ks` k-steps x BN output channels, one __syncthreads a stage; the loads
-//   of the next stages run under the products of this one, across passes and
-//   across the two convolutions.  They were packed at load as the
-//   instruction's core matrices (8 channels x 16 bytes, no swizzle), so a
-//   stage is a plain copy and B needs no registers.
-// - x streams too, in slices of `ks` k-steps of channels for all pixels of
-//   the tile (two buffers; a slice comes with the first of its 9 taps), so
+//   from L2 through a ring of 2-5 stages, each one tap of `ks` k-steps x BN
+//   output channels, one __syncthreads a stage; the loads of the next stages
+//   run under the products of this one, across passes and across the two
+//   convolutions.  They were packed at load as the instruction's core
+//   matrices (8 channels x 16 bytes, no swizzle), so a k-step of a stage is
+//   one contiguous piece: one thread asks the TMA unit for it with a bulk
+//   copy (cp.async.bulk, no tensor map) that is counted on the buffer's
+//   mbarrier, after the stage's first products are under way.  The copies
+//   arrive through the asynchronous proxy, through which the tensor cores
+//   read B, so no proxy fence is needed; B needs no registers.  (cp.async by
+//   all threads cost every warp some 700 cycles of address arithmetic and
+//   copy instructions a stage, with the tensor cores idle.)
+// - x streams too (cp.async, every pixel has its own source), in slices of
+//   `ks` k-steps of channels for all pixels of the tile (two buffers; a
+//   slice comes with the first of its 9 taps), so
 //   that only h limits the pixels a block holds, and the weights a launch
 //   reads from L2 fall as the pixels a block holds rise (4x4x512 fp32: 4
 //   images a block where the resident x patch left 2).
@@ -75,10 +82,11 @@
 //   a value, each value then used for 64 channels x 3 products).
 // - The plan (R, G, warps_m, WN, ks, stages, shared-memory bytes) is made in
 //   Python (plan_fused_block) and checked here.
-// Later work: less between the products of two stages (waits, barrier,
-// copies and address arithmetic take as long as a stage's products), wider
-// N for fp32, a cluster sharing one multicast weight load, a persistent
-// grid.
+// Later work: a warp's own instructions between its products (the split of
+// A in fp32, tap offsets, drain, adds, epilogues) still take longer than the
+// products, and with two warps a scheduler nothing hides them: wider N for
+// fp32, warpgroups half a k-step apart, a cluster sharing one multicast
+// weight load, a persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -137,6 +145,38 @@ __device__ __forceinline__ void cp_async_wait(int n) {
     case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
+}
+
+// ---- bulk copies (the TMA unit, no tensor map): one thread asks for `bytes`
+// contiguous bytes; they arrive through the asynchronous proxy, the one the
+// tensor cores read shared memory through, and are counted on an mbarrier.
+__device__ __forceinline__ void mbarrier_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+__device__ __forceinline__ void mbarrier_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// Wait until the barrier's phase of parity `parity` is complete.
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -376,10 +416,13 @@ struct Rows {
 // With `keep` the stage's last group stays in flight over the barrier that
 // follows (KS is even then, so that group reads the second set of registers
 // while the next stage's first fragments go into the first).
-template <int N, int MT, int L>
+// `after_first` (the block's next loads) runs once the first k-step's
+// products are under way, so that the tensor cores work meanwhile.
+template <int N, int MT, int L, typename F>
 __device__ __forceinline__ void stage_wgmma_bf16(float (&acc)[MT][N / 8][4], uint32_t smem_u,
                                                  const uint32_t (&a_o)[MT][1], uint32_t b_u,
-                                                 int KS, int chunk_bytes, bool keep) {
+                                                 int KS, int chunk_bytes, bool keep,
+                                                 F&& after_first) {
   uint32_t a[2][L][4];
 #pragma unroll
   for (int i = 0; i < L; ++i) ldmatrix_x4(a[0][i], smem_u + a_o[i][0]);
@@ -395,6 +438,7 @@ __device__ __forceinline__ void stage_wgmma_bf16(float (&acc)[MT][N / 8][4], uin
                         b_descriptor(b_u + (ks + half) * chunk_bytes, 256));
         }
         wgmma_commit();
+        if (half == 0 && ks == 0) after_first();
         if (ks + half + 1 < KS) {
           wgmma_wait<1>();  // the other set's products are through
 #pragma unroll
@@ -435,10 +479,10 @@ __device__ __forceinline__ void load_split(uint32_t (&hi)[L][4], uint32_t (&lo)[
   }
 }
 
-template <int L>
+template <int L, typename F>
 __device__ __forceinline__ void stage_wgmma_tf32(float (&acc)[2][8][4], const unsigned char* smem,
                                                  const uint32_t (&a_o)[2][2], uint32_t b_u,
-                                                 int KS, int chunk_bytes) {
+                                                 int KS, int chunk_bytes, F&& after_first) {
   float sum[L][32];
 #pragma unroll
   for (int i = 0; i < L; ++i)
@@ -461,6 +505,7 @@ __device__ __forceinline__ void stage_wgmma_tf32(float (&acc)[2][8][4], const un
           wgmma_tf32_n64(sum[i], hi[half][i], b_hi, 1);
         }
         wgmma_commit();
+        if (half == 0 && ks == 0) after_first();
         if (ks + half + 1 < KS) {
           wgmma_wait<1>();  // the other set's products are through
           load_split<L>(hi[half ^ 1], lo[half ^ 1], smem, a_o, (ks + half + 1) * 32);
@@ -490,7 +535,10 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
   constexpr int NT = WN / 8;  // n-tiles of 8 channels a warp
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // The warp's number by a shuffle, so that the compiler knows it (and the B
+  // descriptors made from it) to be the same in all lanes.
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
   const int g8 = lane >> 2, t4 = lane & 3;  // fragment row and column group
   const int warp_m = warp % p.warps_m, warp_n = warp / p.warps_m;
   const int H = p.H, W = p.W, C = p.C;
@@ -524,24 +572,29 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
   const int slice_bytes = x_pixels * x_stride;
 
   // Shared memory: weight ring | two x slices | h | zero row | b1 a1 b2 a2 |
-  // the x tile's pixels in device memory.
+  // the x tile's pixels in device memory | an mbarrier a ring buffer.
   unsigned char* xs = smem + p.stages * stage_bytes;
   unsigned char* hs = xs + 2 * slice_bytes;
   unsigned char* zero = hs + p.G * p.HR * W * h_stride;
   float* params = reinterpret_cast<float*>(zero + h_stride);
   int* tab = reinterpret_cast<int*>(params + 4 * C);
+  const uint32_t bars_u = smem_u32(tab) + (x_pixels + 3) / 4 * 16;
   // Byte offsets from `smem`, and its address for cp.async and ldmatrix.
   const uint32_t smem_u = smem_u32(smem);
   const uint32_t xs_o = xs - smem, hs_o = hs - smem, zero_o = zero - smem;
 
-  // Pixel of x (N*H*W index) behind each pixel of the x tile, -1 outside the
-  // image or past N; the zero row; the biases and slopes.
+  // Element of x (N*H*W*C index) where each pixel of the x tile starts, -1
+  // outside the image or past N; the zero row; the biases and slopes.
   for (int pix = tid; pix < x_pixels; pix += kThreads) {
     const int gi = pix / (p.XR * W);
     const int rem = pix - gi * p.XR * W;
     const int xr = rem / W;
     const int row = x0 + xr, col = rem - xr * W, n = n0 + gi;
-    tab[pix] = n < p.N && row >= 0 && row < H ? (n * H + row) * W + col : -1;
+    tab[pix] = n < p.N && row >= 0 && row < H ? ((n * H + row) * W + col) * C : -1;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) mbarrier_init(bars_u + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = tid; i < h_stride / 4; i += kThreads) reinterpret_cast<uint32_t*>(zero)[i] = 0u;
   for (int i = tid; i < C; i += kThreads) {
@@ -558,21 +611,22 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
   // one tap of one slice of the weights; in phase 1 the first tap of a slice
   // also brings that slice of x (all pixels of the tile).  All counters step
   // without a division: this runs once a stage.
-  const int lg_step = __ffs(chunk_bytes / 16) - 1;  // 16-byte pieces a k-step (a power of 2)
-  const int lg_pixel = __ffs(2 * p.KS) - 1;         // pieces a pixel of an x slice
+  const int lg_pixel = __ffs(2 * p.KS) - 1;  // 16-byte pieces a pixel of an x slice
   int l_left = (passes1 + passes2) * chunks * spc, l_pairs = passes1 * chunks;
   int l_tap = 0, l_done = 0, l_slice = rot, l_chunk = 0, l_slot = 0, x_loaded = 0;
   auto start_load = [&]() {
     if (l_left > 0) {
       --l_left;
       const bool first = l_pairs > 0;
-      const size_t k_step = static_cast<size_t>(l_tap * steps_tap + l_slice * p.KS);
-      const unsigned char* src = (first ? w1p : w2p) + k_step * row_bytes +
-                                 static_cast<size_t>(l_chunk) * chunk_bytes;
-      const uint32_t dst = smem_u + l_slot * stage_bytes;
-      for (int idx = tid; idx < (p.KS << lg_step); idx += kThreads) {
-        const int ks = idx >> lg_step, piece = idx - (ks << lg_step);
-        cp_async16(dst + idx * 16, src + static_cast<size_t>(ks) * row_bytes + piece * 16, true);
+      if (tid == 0) {  // the weights: a bulk copy a k-step, counted on the buffer's mbarrier
+        const size_t k_step = static_cast<size_t>(l_tap * steps_tap + l_slice * p.KS);
+        const unsigned char* src = (first ? w1p : w2p) + k_step * row_bytes +
+                                   static_cast<size_t>(l_chunk) * chunk_bytes;
+        const uint32_t dst = smem_u + l_slot * stage_bytes, bar = bars_u + 8 * l_slot;
+        mbarrier_expect(bar, stage_bytes);
+        for (int ks = 0; ks < p.KS; ++ks)
+          bulk_copy(dst + ks * chunk_bytes, src + static_cast<uint32_t>(ks * row_bytes),
+                    chunk_bytes, bar);
       }
       if (first && l_tap == 0) {
         const uint32_t xdst = smem_u + xs_o + (x_loaded & 1) * slice_bytes;
@@ -582,8 +636,7 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
           const int pix = idx >> lg_pixel, piece = idx - (pix << lg_pixel);
           const int at = tab[pix];
           cp_async16(xdst + pix * x_stride + piece * 16,
-                     xsrc + (at < 0 ? 0 : static_cast<size_t>(at) * C * kEsize) + piece * 16,
-                     at >= 0);
+                     xsrc + static_cast<size_t>(max(at, 0)) * kEsize + piece * 16, at >= 0);
         }
         ++x_loaded;
       }
@@ -598,7 +651,7 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
         }
       }
     }
-    cp_async_commit();  // always, so that the groups stay counted
+    cp_async_commit();  // always, so that the x slices' groups stay counted
   };
   // Stages asked for ahead of the one in use.  bf16 with room in the ring
   // asks for one less: the buffer refilled after a barrier is then the one
@@ -608,6 +661,7 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
   const int ahead = p.stages - (keep ? 2 : 1);
   for (int j = 0; j < ahead; ++j) start_load();
   int c_slot = 0, x_used = 0;
+  uint32_t c_parity = 0;
 
   // Offset of the warpgroup's B tile inside a k-step of a stage.
   const uint32_t b_warp = warp_n * (WN / 8) * (kBf16 ? 256 : 512);
@@ -672,13 +726,14 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
                                               : hs_o + slice * p.KS * 32) + lane_k;
 #pragma unroll 1
           for (int tap = 0; tap < 9; ++tap) {
-            cp_async_wait(ahead - 1);
-            // wgmma reads the stage through the asynchronous proxy
-            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-            __syncthreads();  // the stage is there; the buffers to refill are free
-            start_load();
+            cp_async_wait(ahead - 1);                     // this thread's part of the x slice
+            mbarrier_wait(bars_u + 8 * c_slot, c_parity);  // the stage's weights
+            __syncthreads();  // the slice is there; the buffers to refill are free
             const uint32_t buf = c_slot * stage_bytes;
-            if (++c_slot == p.stages) c_slot = 0;
+            if (++c_slot == p.stages) {
+              c_slot = 0;
+              c_parity ^= 1;
+            }
 
             // The rows' offsets at this stage's tap.
             const int dy = tap / 3 - 1, dx = tap - (tap / 3) * 3 - 1;
@@ -698,9 +753,10 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
               if constexpr (L > kMT) {
                 return;  // `most` never exceeds kMT
               } else if constexpr (kBf16) {
-                stage_wgmma_bf16<WN, kMT, L>(acc, smem_u, a_o, b_u, p.KS, chunk_bytes, keep);
+                stage_wgmma_bf16<WN, kMT, L>(acc, smem_u, a_o, b_u, p.KS, chunk_bytes, keep,
+                                             start_load);
               } else {
-                stage_wgmma_tf32<L>(acc, smem, a_o, b_u, p.KS, chunk_bytes);
+                stage_wgmma_tf32<L>(acc, smem, a_o, b_u, p.KS, chunk_bytes, start_load);
               }
             };
             switch (most) {
@@ -791,7 +847,7 @@ bool plan_ok(const Plan& p, bool bf16) {
   const long long smem = static_cast<long long>(p.stages) * p.KS * BN * step * wbytes +
                          2 * x_pixels * (p.KS * 32 + 16) +
                          (static_cast<long long>(p.G) * p.HR * p.W + 1) * stride + 16 * p.C +
-                         (x_pixels + 3) / 4 * 16;
+                         (x_pixels + 3) / 4 * 16 + 8 * kMaxStages + 8;
   return smem == p.smem && smem <= kMaxSmem;
 }
 

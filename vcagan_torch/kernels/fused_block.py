@@ -212,12 +212,13 @@ def _ceil_div(a: int, b: int) -> int:
 def _smem_bytes(c, itemsize, g, xr, hr, w, bn, ks, stages) -> int:
     """Weight ring, two x slices (``ks`` k-steps of channels, every pixel of
     the x tile), h and the zero row, biases and slopes, the x tile's pixel
-    table."""
+    table, an mbarrier a ring buffer."""
     stride = (c + (8 if itemsize == 2 else 4)) * itemsize
     k_step, wbytes = (16, 2) if itemsize == 2 else (8, 8)
     x_pixels = g * xr * w
     return (stages * ks * bn * k_step * wbytes + 2 * x_pixels * (ks * 32 + 16)
-            + (g * hr * w + 1) * stride + 16 * c + _ceil_div(x_pixels, 4) * 16)
+            + (g * hr * w + 1) * stride + 16 * c + _ceil_div(x_pixels, 4) * 16
+            + 8 * MAX_STAGES + 8)
 
 
 def _tiles_a_warp(itemsize: int, wn: int) -> int:
@@ -255,9 +256,10 @@ def _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks, stages) -> float:
     return total + 6000  # the block's set-up
 
 
-@functools.lru_cache(maxsize=None)
-def plan_fused_block(n: int, h: int, w: int, c: int, dtype: torch.dtype) -> Plan:
-    """The cheapest tiling by ``_block_cost`` that fits ``MAX_SMEM``."""
+def candidate_plans(n: int, h: int, w: int, c: int, dtype: torch.dtype) -> list[Plan]:
+    """Every tiling the kernel takes for this problem that fits ``MAX_SMEM``,
+    each with its cost by ``_block_cost`` (``plan_fused_block`` takes the
+    cheapest; ``tune_fused_block`` times them on the card)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"no kernel for {dtype}")
     if n < 1 or h < 1 or w < 1 or c < CHANNEL_MULTIPLE or c % CHANNEL_MULTIPLE:
@@ -266,10 +268,12 @@ def plan_fused_block(n: int, h: int, w: int, c: int, dtype: torch.dtype) -> Plan
             f"got {(n, h, w, c)}"
         )
     itemsize = 2 if dtype == torch.bfloat16 else 4
-    # a warpgroup's tile: 64 pixels x 64 (bf16 also 128 or 256) channels
-    widths = tuple(wn for wn in ((64, 128, 256) if itemsize == 2 else (64,)) if c % wn == 0)
+    # a warpgroup's tile: 64 pixels x 64 (bf16 also 128 or 256) channels; the
+    # widest first, so that of two plans of one cost the one that reads A
+    # once for more channels is taken
+    widths = tuple(wn for wn in ((256, 128, 64) if itemsize == 2 else (64,)) if c % wn == 0)
     k_steps_tap = c // _k_step(dtype)
-    best = None
+    plans = []
     tilings = [(r, 1) for r in range(1, h)] + [(h, g) for g in range(1, min(n, 64) + 1)]
     for r, g in tilings:
         tiles = _ceil_div(h, r)
@@ -288,12 +292,18 @@ def plan_fused_block(n: int, h: int, w: int, c: int, dtype: torch.dtype) -> Plan
                             continue
                         cost = waves * _block_cost(m1, m2, c, itemsize, warps_m, wn, bn, ks,
                                                    stages)
-                        if best is None or cost < best.cost:
-                            best = Plan(n, h, w, c, itemsize, r, g, tiles, xr, hr, warps_m, wn,
-                                        ks, stages, smem, cost)
-    if best is None:
+                        plans.append(Plan(n, h, w, c, itemsize, r, g, tiles, xr, hr, warps_m,
+                                          wn, ks, stages, smem, cost))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def plan_fused_block(n: int, h: int, w: int, c: int, dtype: torch.dtype) -> Plan:
+    """The cheapest tiling by ``_block_cost`` that fits ``MAX_SMEM``."""
+    plans = candidate_plans(n, h, w, c, dtype)
+    if not plans:
         raise ValueError(f"no tile of {(n, h, w, c)} {dtype} fits {MAX_SMEM} bytes")
-    return best
+    return min(plans, key=lambda plan: plan.cost)  # the first of equals
 
 
 def block_pixels(plan: Plan, block: int) -> dict:
@@ -341,10 +351,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def fused_block_cuda(x, w1_packed, b1, a1, w2_packed, b2, a2) -> torch.Tensor:
+def fused_block_cuda(x, w1_packed, b1, a1, w2_packed, b2, a2, plan=None) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; the weights come packed
-    for ``x.dtype`` by ``pack_weights``.  Raises on any input the kernel
-    does not take and on a launch error."""
+    for ``x.dtype`` by ``pack_weights``.  ``plan`` (for timing tilings) takes
+    the place of ``plan_fused_block``'s.  Raises on any input the kernel does
+    not take, on a plan that is not of this problem and on a launch error."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"x must lie on a CUDA device, got {x.device}")
@@ -353,7 +364,10 @@ def fused_block_cuda(x, w1_packed, b1, a1, w2_packed, b2, a2) -> torch.Tensor:
             f"x must be a 4-D float32 or bfloat16 tensor, got {x.dtype} {tuple(x.shape)}"
         )
     n, h, w, c = x.shape
-    plan = plan_fused_block(n, h, w, c, x.dtype)  # raises on shapes the kernel does not take
+    if plan is None:
+        plan = plan_fused_block(n, h, w, c, x.dtype)  # raises on shapes the kernel does not take
+    elif (plan.n, plan.h, plan.w, plan.c, plan.itemsize) != (n, h, w, c, x.element_size()):
+        raise ValueError(f"{plan} is not a plan for {x.dtype} {(n, h, w, c)}")
     if n * h * w * c >= 2**31:
         raise ValueError(f"N*H*W*C must stay below 2^31, got {n * h * w * c}")
     packed = (9 * c * c * (1 if x.dtype == torch.bfloat16 else 2),)
