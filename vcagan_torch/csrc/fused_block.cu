@@ -48,7 +48,9 @@
 //   matrices (8 channels x 16 bytes, no swizzle), so a k-step of a stage is
 //   one contiguous piece: one thread asks the TMA unit for it with a bulk
 //   copy (cp.async.bulk, no tensor map) that is counted on the buffer's
-//   mbarrier, after the stage's first products are under way.  The copies
+//   mbarrier, after the stage's first products are under way; the k-steps
+//   of a stage go round the warps, because asking holds the asking warp
+//   (and with it its warpgroup) up for some hundred cycles.  The copies
 //   arrive through the asynchronous proxy, through which the tensor cores
 //   read B, so no proxy fence is needed; B needs no registers.  (cp.async by
 //   all threads cost every warp some 700 cycles of address arithmetic and
@@ -618,15 +620,22 @@ fused_block_kernel(const T* __restrict__ x, const unsigned char* __restrict__ w1
     if (l_left > 0) {
       --l_left;
       const bool first = l_pairs > 0;
-      if (tid == 0) {  // the weights: a bulk copy a k-step, counted on the buffer's mbarrier
-        const size_t k_step = static_cast<size_t>(l_tap * steps_tap + l_slice * p.KS);
-        const unsigned char* src = (first ? w1p : w2p) + k_step * row_bytes +
-                                   static_cast<size_t>(l_chunk) * chunk_bytes;
+      // The weights: a bulk copy a k-step, counted on the buffer's mbarrier.
+      // Asking costs the asking warp some hundred cycles a copy, so the
+      // k-steps go round the warps (0, 2, 4, 6, 1, 3, 5, 7) and warp 1 or 7
+      // tells the barrier how many bytes to expect (the count may run
+      // negative until it does).
+      if (lane == 0) {
         const uint32_t dst = smem_u + l_slot * stage_bytes, bar = bars_u + 8 * l_slot;
-        mbarrier_expect(bar, stage_bytes);
-        for (int ks = 0; ks < p.KS; ++ks)
-          bulk_copy(dst + ks * chunk_bytes, src + static_cast<uint32_t>(ks * row_bytes),
+        if (warp == (p.KS < 8 ? 1 : 7)) mbarrier_expect(bar, stage_bytes);
+        const int ks = (warp >> 1) + 4 * (warp & 1);
+        if (ks < p.KS) {
+          const size_t k_step = static_cast<size_t>(l_tap * steps_tap + l_slice * p.KS + ks);
+          bulk_copy(dst + ks * chunk_bytes,
+                    (first ? w1p : w2p) + k_step * row_bytes +
+                        static_cast<size_t>(l_chunk) * chunk_bytes,
                     chunk_bytes, bar);
+        }
       }
       if (first && l_tap == 0) {
         const uint32_t xdst = smem_u + xs_o + (x_loaded & 1) * slice_bytes;
