@@ -5,7 +5,10 @@ both JAX paths: the einsum oracle ``_attention_xla`` and the Pallas kernel
 in interpret mode, at the cases of ``tests/test_attention_kernel.py`` plus
 the edge lengths (0, < S, = S, > S).  Tolerance 1e-5 as there: both sides
 are fp32 with D <= 256 terms per dot product.  The CUDA kernel itself is
-held to the plain version on the card by ``chip_smoke.py``.
+held to the plain version on the card by ``chip_smoke.py``; here its
+arithmetic (3xTF32: both products as three TF32 products of the operands'
+high and low parts) is held to the JAX package in plain PyTorch, with the
+keys padded as the kernel's tiles pad them, and its tile plan is checked.
 """
 
 import jax.numpy as jnp
@@ -14,6 +17,7 @@ import pytest
 import torch
 
 from vcagan.kernels.masked_attention import _attention_pallas, _attention_xla
+from vcagan_torch.kernels import _build
 from vcagan_torch.kernels import masked_attention as port
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -80,3 +84,89 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):
         port.masked_attention_cuda(torch.zeros(1, 2, 4), torch.zeros(1, 2, 4),
                                    torch.zeros(1, 2, 4), torch.ones(1, dtype=torch.int32))
+
+
+# ---- the kernel's fp32 arithmetic (3xTF32) in plain PyTorch
+
+
+@pytest.mark.parametrize("b,t,s,d,lengths", [*CASES, (2, 75, 75, 256, [75, 40])])
+def test_3xtf32_holds_fp32_accuracy_where_one_tf32_product_does_not(b, t, s, d, lengths):
+    q, k, v, lens = _inputs(b, t, s, d, lengths, seed=b * 1000 + t)
+    args = [torch.from_numpy(a) for a in (q, k, v, lens)]
+    jq, jk, jv, jl = (jnp.asarray(a) for a in (q, k, v, lens))
+    got = port.masked_attention_reference_3xtf32(*args).numpy()
+    np.testing.assert_allclose(got, np.asarray(_attention_xla(jq, jk, jv, jl)), **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(_attention_pallas(jq, jk, jv, jl, interpret=True)), **TOL
+    )
+    one_pass = port.masked_attention_reference_3xtf32(*args, passes=1).numpy()
+    assert np.abs(one_pass - np.asarray(_attention_xla(jq, jk, jv, jl))).max() > 1e-5
+
+
+@pytest.mark.parametrize("key_pad", [port.N_TILE, port.KEY_TILE])
+def test_padded_keys_get_weight_zero(key_pad):
+    """S = 21 padded to the kernel's tiles with zero rows of K and V (score
+    -inf, weight 0): a length-0 row still averages the 21 real values."""
+    b, t, s, d = 4, 9, 21, 256
+    q, k, v, lens = _inputs(b, t, s, d, [0, 5, 21, 30], seed=11)
+    args = [torch.from_numpy(a) for a in (q, k, v, lens)]
+    got = port.masked_attention_reference_3xtf32(*args, key_pad=key_pad).numpy()
+    want = np.asarray(_attention_xla(*(jnp.asarray(a) for a in (q, k, v, lens))))
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got[0], np.broadcast_to(v[0].mean(0), (t, d)), **TOL)
+    np.testing.assert_array_equal(got, port.masked_attention_reference_3xtf32(*args).numpy())
+
+
+# ---- the tile plan
+
+
+PLAN_CASES = [("att1", 75, 75, 256), ("att2", 150, 75, 256), ("LRS max", 640, 160, 256),
+              *((f"T={t} S={s}", t, s, 256) for t in (1, 17) for s in (1, 8, 9, 160, port.S_MAX)),
+              ("D=64", 33, 21, 64), ("D=128", 33, 21, 128), ("D=72", 33, 21, 72)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_plan_fits_shared_memory_and_covers_every_row_once(case):
+    _, t, s, d = case
+    plan = port.attention_plan(t, s, d)
+    assert plan.smem_bytes <= port.MAX_SMEM == 232448
+    assert plan.smem_bytes == 4 * (16 * plan.warps * (plan.q_stride + plan.p_stride)
+                                   + 2 * plan.key_tile * max(plan.k_stride, plan.v_stride))
+    assert 1 <= plan.warps <= port.WARPS and plan.key_tile == port.KEY_TILE
+    assert d % plan.d_chunk == 0 and plan.d_chunk <= 64
+    # warp w of row tile i owns rows 16 (i * warps + w) ... + 15
+    covered = np.zeros(plan.row_tiles * plan.warps * 16, int)
+    for i in range(plan.row_tiles):
+        for w in range(plan.warps):
+            covered[16 * (i * plan.warps + w):16 * (i * plan.warps + w + 1)] += 1
+    assert (covered[:t] == 1).all() and len(covered) - t < 16 * plan.warps
+    # strides put a fragment's rows on different banks
+    assert plan.q_stride % 8 == 4 and plan.k_stride % 8 == 4 and plan.p_stride % 8 == 4
+    assert plan.v_stride % 32 in (8, 24)
+    assert plan.ints(3) == [3, t, s, d, plan.warps, plan.key_tile, plan.d_chunk,
+                            plan.row_tiles, plan.smem_bytes]
+
+
+def test_plan_spreads_the_warps_over_the_row_tiles():
+    assert (port.attention_plan(75, 75, 256).warps, port.attention_plan(75, 75, 256).row_tiles) == (3, 2)
+    assert (port.attention_plan(150, 75, 256).warps, port.attention_plan(150, 75, 256).row_tiles) == (4, 3)
+    assert port.attention_plan(1, 75, 256).warps == 1
+
+
+@pytest.mark.parametrize("t,s,d", [(75, 75, 100), (75, 75, 4), (75, port.S_MAX + 1, 256),
+                                   (75, 0, 256), (0, 75, 256), (64, 512, 4096)])
+def test_plan_refuses_what_the_kernel_does_not_take(t, s, d):
+    with pytest.raises(ValueError):
+        port.attention_plan(t, s, d)
+
+
+def test_an_edited_shared_header_rebuilds_every_kernel(tmp_path, monkeypatch):
+    for name in ("masked_attention", "fused_block"):
+        assert "tf32.cuh" in [p.rsplit("/", 1)[-1] for p in _build.sources(name)]
+    for f in ("masked_attention.cu", "fused_block.cu", "tf32.cuh"):
+        (tmp_path / f).write_bytes(open(f"{_build.CSRC}/{f}", "rb").read())
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    before = {name: _build.library_path(name) for name in ("masked_attention", "fused_block")}
+    (tmp_path / "tf32.cuh").write_text((tmp_path / "tf32.cuh").read_text() + "\n// edited\n")
+    for name, path in before.items():
+        assert _build.library_path(name) != path

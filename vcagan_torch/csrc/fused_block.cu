@@ -96,6 +96,8 @@
 
 #include <type_traits>
 
+#include "tf32.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -368,17 +370,6 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
-}
-
-// fp32 -> nearest TF32 value (low 13 mantissa bits zero, ties away from
-// zero, as cvt.rna.tf32.f32; integer instructions, which run at full rate).
-__device__ __forceinline__ uint32_t round_tf32(float a) {
-  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-}
-// a = hi + lo with both parts TF32 values.
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
-  hi = round_tf32(a);
-  lo = round_tf32(a - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ float prelu(float v, float a) { return v >= 0.f ? v : a * v; }

@@ -1,6 +1,7 @@
 // Length-masked cross-attention, forward, fp32:
 //   out[b] = softmax(q[b] k[b]^T / sqrt(D), keys >= lengths[b] -> -1e30) v[b]
-// q (B,T,D), k/v (B,S,D), lengths (B,) int32, out (B,T,D); all contiguous.
+// q (B,T,D), k/v (B,S,D), lengths (B,) int32, out (B,T,D); all contiguous,
+// 16-byte aligned; D a multiple of 8, 1 <= S <= 512.
 //
 // Replaces the TPU kernel vcagan/kernels/masked_attention.py:50-121
 // (_attention_kernel / _attention_pallas), which holds one sample's whole
@@ -8,177 +9,362 @@
 // value is -1e30, not -inf, so a row with lengths[b] <= 0 averages all S
 // values of v instead of giving NaN; lengths[b] >= S masks nothing.
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
-// cores) at the serving path's shapes, B=48, D=256, each input read once
-// and the output written once:
+// Bound on an H100 SXM (3.35 TB/s; tensor cores 495 TFLOP/s TF32, so 165
+// TFLOP/s for fp32 done as three TF32 products) at the serving path's
+// shapes, B=48, D=256, each input read once and the output written once:
 //   att1  T=75,  S=75: q,k,v,out 3.69 MB each = 14.7 MB -> 4.4 us;
-//                       4*B*T*S*D = 0.28 GFLOP        -> 4.1 us  (bytes)
+//                       4*B*T*S*D = 0.28 GFLOP at 165 TFLOP/s -> 1.7 us
 //   att2  T=150, S=75: q,out 7.37 MB, k,v 3.69 MB = 22.1 MB -> 6.6 us;
-//                       0.55 GFLOP                    -> 8.3 us  (operations)
-// The two products are small, so the score strip never leaves the SM.
+//                       0.55 GFLOP -> 3.4 us
+// so both are bound by bytes.  (PR 1's bound divided by the 67 TFLOP/s of
+// fp32 outside the tensor cores, which made att2 bound by operations; that
+// was the bound of an FMA kernel, not of the card.)
 //
-// Design (first, simple version): one block per (sample b, tile of kRows
-// query rows).  The block reads lengths[b] itself (the TPU kernel had it
-// scalar-prefetched).  Blocks run in parallel in no order, so nothing is
-// carried between them; every block streams its sample's K through shared
-// memory in tiles of kKeys keys to fill a (kRows x S) fp32 score strip in
-// shared memory, runs the masked row softmax there (one warp per row), and
-// then reads V straight from global memory, one coalesced row per key, for
-// the P.V product kept in registers.  K and V are never held whole: at
-// S=160, D=256 they would take 320 KB, more than the 227 KB a block may use.
-// All arithmetic is fp32 FMA; moving both products to wgmma is later work.
+// Design (both products on the tensor cores, mma.sync m16n8k8 TF32):
+// - A block is one sample and `warps` x 16 query rows; a warp owns 16 rows
+//   (one m16 fragment).  wgmma's 64-row tile would waste up to 53 rows of a
+//   75- or 150-row sample; the 16-row tile wastes at most 15.  The plan
+//   (vcagan_torch/kernels/masked_attention.py::attention_plan) spreads the
+//   warps over the row tiles: 75 rows are 2 blocks of 3 warps.
+// - The block's Q rows are copied to shared memory once (cp.async).  K, then
+//   V, stream through a ring of two buffers in pieces of 32 keys x d_chunk
+//   (64 at D = 256) columns: K pieces walk (key tile, chunk), V pieces
+//   (chunk, key tile).  Piece p+1's copy (cp.async, 16 bytes a thread) runs
+//   under piece p's products; two __syncthreads a piece.  Every warp of the
+//   block uses each piece, so K and V are read once a block (from L2 by
+//   every row tile of a sample).
+// - QK^T: a warp multiplies its 16 rows by a piece's 4 key n-tiles; a key
+//   tile's scores sum over the D chunks in registers; after the last chunk
+//   they are scaled, masked and stored in the warp's 16 x S strip of shared
+//   memory.  The strip is needed because the m16n8k8 C layout is not its A
+//   layout (P is the A operand of P.V).
+// - The padding trap: S is padded to the n-tile of 8 keys.  Padded keys get
+//   score -inf (weight exactly 0), masked real keys -1e30, so a row with
+//   length 0 still averages exactly the S real values; padded rows of the K
+//   and V pieces are zero-filled by cp.async (so 0 * V stays 0).
+// - Softmax in the strip, warp by warp: lane 4g + t owns rows g and g + 8
+//   (as in the C fragment) and the columns t, t+4, ...; max and sum by quad
+//   shuffles; expf; P = e / sum written back in place.
+// - P.V: for each D chunk, the warp's 16 x d_chunk output (8 n-tiles, 32
+//   fp32 sums a thread) over the V pieces of that chunk; P's A fragments
+//   are read from the strip.  A chunk of 64 keeps a thread's sums and fresh
+//   sums at 64 registers; all 256 columns at once would be 256.
+// - fp32 as 3xTF32: each operand split into hi = tf32(a), lo = tf32(a - hi)
+//   by integer round-and-mask (tf32.cuh), lo*hi + hi*lo issued first, then
+//   hi*hi.  The tensor cores add with truncation, so the products of a piece
+//   (at most 8 k-steps) go into a fresh sum that an ordinary fp32 add puts
+//   on the running sum.
+// - Bank conflicts are avoided by padding rows, not by a swizzle: Q, K and
+//   the strip are read as rows g, columns t (stride 4 mod 8 floats); V as
+//   rows t, columns g (stride 8 or 24 mod 32 floats).
+//
+// Later work: wgmma with A from registers, K/V by TMA, a swizzled layout, a
+// persistent grid.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int kRows = 16;     // query rows per block
-constexpr int kKeys = 32;     // keys per K tile (one per lane)
-constexpr int kThreads = 256; // 8 warps
-constexpr int kRowGroups = kThreads / kKeys;          // 8
-constexpr int kRowsPerThread = kRows / kRowGroups;    // 2
-constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 16;          // query rows of a warp
+constexpr int kKeyTile = 32;       // keys of a piece
+constexpr int kKeyNT = kKeyTile / 8;
+constexpr int kMaxChunk = 64;      // D columns of a piece, at most
+constexpr int kChunkNT = kMaxChunk / 8;
+constexpr int kMaxWarps = 8;
+constexpr int kMaxKeys = 512;
+constexpr int kMaxSmem = 232448;   // 227 KB a block may use
+constexpr int kPlanInts = 9;
 constexpr float kMasked = -1e30f;
 
-static_assert(kRows % kRowGroups == 0, "rows must split over row groups");
+struct Plan {
+  int B, T, S, D, warps, key_tile, d_chunk, row_tiles, smem;
+};
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// Row strides in floats, as AttentionPlan has them.
+__host__ __device__ inline int q_stride(int D) { return D + 4; }
+__host__ __device__ inline int p_stride(int S) { return (S + 7) / 8 * 8 + 4; }
+__host__ __device__ inline int k_stride(int dc) { return dc + 4; }
+__host__ __device__ inline int v_stride(int dc) { return dc % 16 == 8 ? dc : dc + 8; }
+__host__ __device__ inline int buf_floats(int dc) {
+  return kKeyTile * (k_stride(dc) > v_stride(dc) ? k_stride(dc) : v_stride(dc));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// Q rows, one score strip a warp, two K/V buffers.
+size_t smem_bytes(int warps, int S, int D, int dc) {
+  return sizeof(float) * (static_cast<size_t>(kRows) * warps * q_stride(D) +
+                          static_cast<size_t>(kRows) * warps * p_stride(S) +
+                          2 * static_cast<size_t>(buf_floats(dc)));
 }
 
-__global__ void __launch_bounds__(kThreads)
+bool plan_ok(const Plan& p) {
+  if (p.B < 1 || p.B > 65535 || p.T < 1 || p.S < 1 || p.S > kMaxKeys) return false;
+  if (p.D < 8 || p.D % 8 != 0) return false;
+  if (p.key_tile != kKeyTile) return false;
+  if (p.d_chunk != 8 && p.d_chunk != 16 && p.d_chunk != 32 && p.d_chunk != kMaxChunk) return false;
+  if (p.D % p.d_chunk != 0) return false;
+  if (p.warps < 1 || p.warps > kMaxWarps) return false;
+  if (p.row_tiles != (p.T + kRows * p.warps - 1) / (kRows * p.warps)) return false;
+  const size_t smem = smem_bytes(p.warps, p.S, p.D, p.d_chunk);
+  return smem == static_cast<size_t>(p.smem) && smem <= static_cast<size_t>(kMaxSmem);
+}
+
+// 16 bytes global -> shared; `valid` false writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// D (16 x 8) += A (16 x 8; a thread holds (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4)) * B (8 x 8; (t, g), (t + 4, g)); D: (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).  g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b in 3xTF32: the two small cross terms first, then hi * hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi);
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
+}
+
+// A fragment of rows g, g + 8 and columns t, t + 4 from `a` (at row g,
+// column t) with row stride `st`, split into TF32 parts.
+__device__ __forceinline__ void load_a(const float* a, int st, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split_tf32(a[0], hi[0], lo[0]);
+  split_tf32(a[8 * st], hi[1], lo[1]);
+  split_tf32(a[4], hi[2], lo[2]);
+  split_tf32(a[8 * st + 4], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void load_b(float b0, float b1, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  split_tf32(b0, hi[0], lo[0]);
+  split_tf32(b1, hi[1], lo[1]);
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
 masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ lengths,
-                        float* __restrict__ out, int T, int S, int D) {
-  extern __shared__ float smem[];
-  float* qs = smem;              // kRows x D        query tile
-  float* ps = qs + kRows * D;    // kRows x S        scores, then probabilities
-  float* ks = ps + kRows * S;    // kKeys x (D + 1)  key tile, padded rows
+                        float* __restrict__ out, const Plan p) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = p.T, S = p.S, D = p.D, dc = p.d_chunk;
+  const int qst = q_stride(D), pst = p_stride(S), kst = k_stride(dc), vst = v_stride(dc);
+  float* qs = smem;                                // rows x qst
+  float* strips = qs + kRows * p.warps * qst;      // warps x 16 x pst
+  float* ring = strips + kRows * p.warps * pst;    // 2 x buf_floats
 
+  const int tid = threadIdx.x, nthreads = 32 * p.warps;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kRows;
-  const int rows = min(kRows, T - t0);
-  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * kRows * p.warps;
+  const int row0 = t0 + kRows * warp;              // this warp's first row
+  const bool active = row0 < T;                    // warp-uniform
   const int length = lengths[b];
   const float sqrt_d = sqrtf(static_cast<float>(D));
+  float* strip = strips + warp * kRows * pst;
 
-  const float* qb = q + (static_cast<size_t>(b) * T + t0) * D;
   const float* kb = k + static_cast<size_t>(b) * S * D;
   const float* vb = v + static_cast<size_t>(b) * S * D;
+  const int key_tiles = (S + kKeyTile - 1) / kKeyTile;
+  const int chunks = D / dc;
+  const int k_pieces = key_tiles * chunks;
+  const int pieces = 2 * k_pieces;
+  const int buf = buf_floats(dc);
 
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    qs[i] = (i / D) < rows ? qb[i] : 0.f;
-  }
-
-  // ---- scores: lane = key within the tile, warp = row group.  A warp's
-  // threads share a row (q reads broadcast) and read 32 different key rows
-  // whose D+1 stride puts them in 32 different banks.
-  const int kd = D + 1;
-  const int key = tid % kKeys;
-  const int row0 = tid / kKeys;
-  for (int s0 = 0; s0 < S; s0 += kKeys) {
-    const int nk = min(kKeys, S - s0);
-    __syncthreads();  // q tile written / previous key tile consumed
-    for (int i = tid; i < kKeys * D; i += kThreads) {
-      const int j = i / D;
-      const int d = i - j * D;
-      ks[j * kd + d] = j < nk ? kb[static_cast<size_t>(s0 + j) * D + d] : 0.f;
+  // The block's query rows (zeros past T).
+  {
+    const float* qb = q + static_cast<size_t>(b) * T * D;
+    const int vecs = D / 4;
+    for (int i = tid; i < kRows * p.warps * vecs; i += nthreads) {
+      const int r = i / vecs, c = i - r * vecs;
+      const bool ok = t0 + r < T;
+      cp_async16(qs + r * qst + 4 * c, ok ? qb + static_cast<size_t>(t0 + r) * D + 4 * c : q, ok);
     }
-    __syncthreads();
-    if (key < nk) {
-      float acc[kRowsPerThread];
+  }
+  // Piece `pc` into its ring buffer: 32 keys x dc columns, zeros past S.
+  auto load_piece = [&](int pc) {
+    const bool is_v = pc >= k_pieces;
+    const int i = is_v ? pc - k_pieces : pc;
+    const int j = is_v ? i % key_tiles : i / chunks;
+    const int c = is_v ? i / key_tiles : i % chunks;
+    const float* src = (is_v ? vb : kb) + static_cast<size_t>(j) * kKeyTile * D + c * dc;
+    float* dst = ring + (pc & 1) * buf;
+    const int st = is_v ? vst : kst;
+    const int vecs = dc / 4;
+    for (int e = tid; e < kKeyTile * vecs; e += nthreads) {
+      const int r = e / vecs, x = e - r * vecs;
+      const bool ok = j * kKeyTile + r < S;
+      cp_async16(dst + r * st + 4 * x, ok ? src + static_cast<size_t>(r) * D + 4 * x : kb, ok);
+    }
+  };
+
+  float score[kKeyNT][4];   // a key tile's scores, summed over the D chunks
+  float acc[kChunkNT][4];   // a D chunk of the output, summed over the keys
+
+  load_piece(0);
+  cp_async_commit();  // with the query rows
+  for (int pc = 0; pc < pieces; ++pc) {
+    if (pc + 1 < pieces) load_piece(pc + 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();  // piece pc (and the query rows) visible to all warps
+    const float* piece = ring + (pc & 1) * buf;
+    if (pc < k_pieces) {
+      // ---- scores: 16 rows x (up to) 4 n-tiles of keys, over dc columns
+      const int j = pc / chunks, c = pc % chunks;
+      const int n_tiles = min(kKeyNT, (S - j * kKeyTile + 7) / 8);
+      if (c == 0) {
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) acc[r] = 0.f;
-      const float* kj = ks + key * kd;
-      for (int d = 0; d < D; ++d) {
-        const float kv = kj[d];
+        for (int n = 0; n < kKeyNT; ++n)
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-          acc[r] = fmaf(qs[(row0 + r * kRowGroups) * D + d], kv, acc[r]);
+          for (int e = 0; e < 4; ++e) score[n][e] = 0.f;
+      }
+      if (active) {
+        float fresh[kKeyNT][4] = {};
+        const float* qa = qs + (kRows * warp + g) * qst + c * dc + t4;
+        for (int ks = 0; ks < dc / 8; ++ks) {
+          uint32_t a_hi[4], a_lo[4];
+          load_a(qa + 8 * ks, qst, a_hi, a_lo);
+#pragma unroll
+          for (int n = 0; n < kKeyNT; ++n) {
+            if (n < n_tiles) {
+              const float* kk = piece + (8 * n + g) * kst + 8 * ks + t4;
+              uint32_t b_hi[2], b_lo[2];
+              load_b(kk[0], kk[4], b_hi, b_lo);
+              mma_3xtf32(fresh[n], a_hi, a_lo, b_hi, b_lo);
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kKeyNT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) score[n][e] += fresh[n][e];
+        if (c == chunks - 1) {  // scale, mask and store the key tile's scores
+#pragma unroll
+          for (int n = 0; n < kKeyNT; ++n) {
+            if (n < n_tiles) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int key = j * kKeyTile + 8 * n + 2 * t4 + (e & 1);
+                const float sc = score[n][e] / sqrt_d;
+                strip[(g + 8 * (e >> 1)) * pst + key] =
+                    key < length ? sc : (key < S ? kMasked : -INFINITY);
+              }
+            }
+          }
         }
       }
-      const int j = s0 + key;
+    } else {
+      const int i = pc - k_pieces, c = i / key_tiles, j = i % key_tiles;
+      if (pc == k_pieces && active) {
+        // ---- softmax of the warp's strip; lane 4g + t: rows g, g + 8
+        const int cols = (S + 7) / 8 * 8;
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        ps[(row0 + r * kRowGroups) * S + j] = j < length ? acc[r] / sqrt_d : kMasked;
+        for (int h = 0; h < 2; ++h) {
+          float* row = strip + (g + 8 * h) * pst;
+          float m = -INFINITY;
+          for (int x = t4; x < cols; x += 4) m = fmaxf(m, row[x]);
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          float sum = 0.f;
+          for (int x = t4; x < cols; x += 4) {
+            const float e = expf(row[x] - m);
+            row[x] = e;
+            sum += e;
+          }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          for (int x = t4; x < cols; x += 4) row[x] = row[x] / sum;
+        }
+        __syncwarp();
+      }
+      // ---- P.V: 16 rows x dc columns (8 n-tiles), over (up to) 32 keys
+      if (j == 0) {
+#pragma unroll
+        for (int n = 0; n < kChunkNT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      }
+      if (active) {
+        const int k_steps = min(kKeyNT, (S - j * kKeyTile + 7) / 8);
+        const int n_tiles = dc / 8;
+        float fresh[kChunkNT][4] = {};
+        const float* pa = strip + g * pst + j * kKeyTile + t4;
+        for (int ks = 0; ks < k_steps; ++ks) {
+          uint32_t a_hi[4], a_lo[4];
+          load_a(pa + 8 * ks, pst, a_hi, a_lo);
+#pragma unroll
+          for (int n = 0; n < kChunkNT; ++n) {
+            if (n < n_tiles) {
+              const float* vv = piece + (8 * ks + t4) * vst + 8 * n + g;
+              uint32_t b_hi[2], b_lo[2];
+              load_b(vv[0], vv[4 * vst], b_hi, b_lo);
+              mma_3xtf32(fresh[n], a_hi, a_lo, b_hi, b_lo);
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kChunkNT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += fresh[n][e];
+        if (j == key_tiles - 1) {  // the chunk is complete: store it
+#pragma unroll
+          for (int n = 0; n < kChunkNT; ++n) {
+            if (n < n_tiles) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int row = row0 + g + 8 * h;
+                if (row < T) {
+                  float2* o = reinterpret_cast<float2*>(
+                      out + (static_cast<size_t>(b) * T + row) * D + c * dc + 8 * n + 2 * t4);
+                  *o = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+                }
+              }
+            }
+          }
+        }
       }
     }
+    __syncthreads();  // the buffer of piece pc is free for piece pc + 2
   }
-  __syncthreads();
-
-  // ---- masked row softmax in shared memory, one warp per row.
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  for (int r = warp; r < kRows; r += kWarps) {
-    float* pr = ps + r * S;
-    float m = -INFINITY;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, pr[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(pr[j] - m);
-      pr[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < S; j += 32) pr[j] = pr[j] / sum;
-  }
-  __syncthreads();
-
-  // ---- P.V: each thread owns one column d of the output tile and keeps
-  // its kRows sums in registers; V rows are read coalesced from global.
-  float* ob = out + (static_cast<size_t>(b) * T + t0) * D;
-  for (int d = tid; d < D; d += kThreads) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < S; ++j) {
-      const float vj = vb[static_cast<size_t>(j) * D + d];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(ps[r * S + j], vj, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < rows) ob[static_cast<size_t>(r) * D + d] = acc[r];
-    }
-  }
-}
-
-// Shared memory one block needs, in bytes.
-size_t smem_bytes(int S, int D) {
-  return sizeof(float) * (static_cast<size_t>(kRows) * D +
-                          static_cast<size_t>(kRows) * S +
-                          static_cast<size_t>(kKeys) * (D + 1));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` of `device`; returns cudaGetLastError() (0 on
-// success).  The library links its own CUDA runtime, so it selects the
-// device itself.
-int vcagan_masked_attention(const float* q, const float* k, const float* v,
-                            const int* lengths, float* out, int B, int T, int S,
-                            int D, int device, void* stream) {
-  const size_t smem = smem_bytes(S, D);
+// Launches on `stream` of `device`; returns the CUDA error (0 on success).
+// The library links its own CUDA runtime, so it selects the device itself.
+// `plan`: the ints of vcagan_torch/kernels/masked_attention.py::
+// AttentionPlan.ints(B); a plan that does not match refuses the launch.
+int vcagan_masked_attention(const float* q, const float* k, const float* v, const int* lengths,
+                            float* out, const int* plan, int plan_len, int device, void* stream) {
+  if (plan_len != kPlanInts) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6], plan[7], plan[8]};
+  if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(
-      masked_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  err = cudaFuncSetAttribute(masked_attention_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kRows - 1) / kRows, B);
-  masked_attention_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, lengths, out, T, S, D);
+  const dim3 grid(p.row_tiles, p.B);
+  masked_attention_kernel<<<grid, 32 * p.warps, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, lengths, out, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,8 @@
 
 Each ``vcagan_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on first use into ``vcagan_torch/_build/<name>-<hash>.so`` (the
-hash covers the source and the flags, so an edited source builds anew).
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
+an edited source or header builds anew).
 Nothing is built when a module is imported.  A missing ``nvcc`` or a failed
 build raises.
 """
@@ -40,10 +41,19 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+def sources(name: str) -> list[str]:
+    """The files a build of ``name`` reads: its source and every header of
+    ``csrc`` (which the sources share)."""
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    return [os.path.join(CSRC, f) for f in (f"{name}.cu", *headers)]
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def log_path(name: str) -> str:

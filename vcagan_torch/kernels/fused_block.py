@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from vcagan_torch.kernels import _build
+from vcagan_torch.kernels._tf32 import round_tf32, split_tf32  # noqa: F401  (re-exported)
 
 CHANNEL_MULTIPLE = 64  # the kernel takes C = 64, 128, 192, ...
 LAUNCHES = 0  # kernel launches so far; reset by the caller that counts
@@ -70,19 +71,6 @@ def fused_block_reference(x, w1, b1, a1, w2, b2, a2) -> torch.Tensor:
     h = _prelu(conv(x32, w1) + b1.to(compute), a1.to(compute)).to(x.dtype).to(compute)
     y = conv(h, w2) + b2.to(compute) + x32
     return _prelu(y, a2.to(compute)).to(x.dtype).contiguous()
-
-
-def round_tf32(t: torch.Tensor) -> torch.Tensor:
-    """fp32 -> the nearest TF32 value (10 mantissa bits; ties away from zero,
-    as ``cvt.rna.tf32.f32`` rounds), still stored as fp32."""
-    bits = t.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """t = hi + lo to about 2^-21 relative, both parts TF32 values."""
-    hi = round_tf32(t)
-    return hi, round_tf32(t - hi)
 
 
 def fused_block_reference_3xtf32(x, w1, b1, a1, w2, b2, a2, passes: int = 3) -> torch.Tensor:

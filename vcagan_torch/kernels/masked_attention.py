@@ -4,23 +4,44 @@
 launches the hand-written Hopper kernel in ``vcagan_torch/csrc/
 masked_attention.cu`` (which replaces the TPU kernel ``_attention_kernel`` /
 ``_attention_pallas`` of ``vcagan/kernels/masked_attention.py:50-121``; its
-bound and design are noted in the source).  On a CPU tensor it runs the
-plain PyTorch version, ``masked_attention_reference``, which is the
-einsum/softmax twin of the JAX package's ``_attention_xla``.  Forward only.
+bound and design are noted in the source): both products on the tensor
+cores, in fp32 as 3xTF32 (each operand split into a TF32 high and low part,
+lo*hi + hi*lo first, then hi*hi), which keeps about 2^-21 relative a
+product.  On a CPU tensor it runs the plain PyTorch version,
+``masked_attention_reference``, which is the einsum/softmax twin of the JAX
+package's ``_attention_xla``.  ``masked_attention_reference_3xtf32`` is the
+kernel's arithmetic in plain PyTorch, for the tests and the card's checks.
+Forward only.
+
+The tile plan (``attention_plan``: warps a block, key tile, D chunk, shared
+memory, grid) is chosen here, where the CPU tests reach it, and goes to the
+C entry point as plain ints, which refuses one that does not match.  The
+kernel takes D a multiple of 8 and 1 <= S <= ``S_MAX``; other shapes raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
 import torch
 
 from vcagan_torch.kernels import _build
+from vcagan_torch.kernels._tf32 import split_tf32
 
 NEG_INF = -1e30  # mask value; not -inf, so an all-masked row stays finite
 LAUNCHES = 0  # kernel launches so far; reset by the caller that counts
+
+MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
+WARPS = 4  # warps a block at most; each owns 16 query rows
+ROWS = 16  # query rows of one warp (the m16n8k8 fragment's M)
+KEY_TILE = 32  # keys of one streamed K or V piece
+N_TILE = 8  # keys (QK^T) or columns (PV) of one tensor-core product
+D_CHUNKS = (64, 32, 16, 8)  # the D chunk is the largest of these dividing D
+S_MAX = 512  # keys at most: the score strips of 4 warps at D = 256 fit
+PLAN_INTS = 9
 
 
 def masked_attention_reference(
@@ -35,11 +56,126 @@ def masked_attention_reference(
     return torch.einsum("bts,bsd->btd", probs, v)
 
 
+def masked_attention_reference_3xtf32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+    passes: int = 3, key_pad: int = 1,
+) -> torch.Tensor:
+    """The fp32 function with both products done as the kernel does them:
+    operands split into TF32 parts, lo*hi + hi*lo first, then hi*hi, summed
+    in fp32; P = softmax of the scaled, masked scores is split too.
+    ``passes=1`` keeps the hi*hi products only (single-pass TF32), to show
+    what the split buys.  ``key_pad``: pad the keys with zero rows of K and V
+    to a multiple of it, as the kernel's tiles do, and give the padded keys
+    weight exactly 0 (score -inf), so the result does not change."""
+    s = k.shape[1]
+    pad = -s % key_pad
+    if pad:
+        k, v = (torch.cat([x, x.new_zeros(x.shape[0], pad, x.shape[2])], 1) for x in (k, v))
+
+    def product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        a_hi, a_lo = split_tf32(a)
+        b_hi, b_lo = split_tf32(b)
+        if passes == 1:
+            return torch.einsum(eq, a_hi, b_hi)
+        return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)) + torch.einsum(
+            eq, a_hi, b_hi
+        )
+
+    scores = product("btd,bsd->bts", q, k) / math.sqrt(q.shape[-1])
+    key_idx = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    mask = key_idx < lengths.to(q.device)[:, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    scores = torch.where(key_idx < s, scores, torch.full_like(scores, -math.inf))
+    probs = torch.softmax(scores, dim=-1)
+    return product("bts,bsd->btd", probs, v)
+
+
+# ---- the tile plan
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """One launch's tiling.  A block is one sample and ``warps`` x 16 query
+    rows; the grid is (``row_tiles``, B).  K, then V, stream through a ring
+    of two buffers in pieces of ``key_tile`` keys x ``d_chunk`` columns.
+    Row strides in floats (``*_stride``) are padded so that the rows of a
+    tensor-core fragment fall on different shared-memory banks."""
+
+    t: int
+    s: int
+    d: int
+    warps: int
+    key_tile: int
+    d_chunk: int
+    row_tiles: int
+    smem_bytes: int
+
+    @property
+    def q_stride(self) -> int:
+        return self.d + 4  # 4 (mod 8): A fragments read rows g, cols t
+
+    @property
+    def p_stride(self) -> int:
+        return _round_up(self.s, N_TILE) + 4
+
+    @property
+    def k_stride(self) -> int:
+        return self.d_chunk + 4  # K is B "col": rows g, cols t, like A
+
+    @property
+    def v_stride(self) -> int:
+        # V is B "row": rows t, cols g, so the stride must be 8 or 24 (mod 32)
+        return self.d_chunk if self.d_chunk % 16 == 8 else self.d_chunk + 8
+
+    def ints(self, b: int) -> list[int]:
+        """What the C entry point takes, in its order."""
+        return [b, self.t, self.s, self.d, self.warps, self.key_tile, self.d_chunk,
+                self.row_tiles, self.smem_bytes]
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _smem_bytes(warps: int, s: int, d: int, d_chunk: int) -> int:
+    """Q rows, one score strip a warp, two K/V buffers (the formula of
+    ``smem_bytes`` in the CUDA source)."""
+    plan = AttentionPlan(0, s, d, warps, KEY_TILE, d_chunk, 0, 0)
+    floats = (ROWS * warps * plan.q_stride + ROWS * warps * plan.p_stride
+              + 2 * KEY_TILE * max(plan.k_stride, plan.v_stride))
+    return 4 * floats
+
+
+def attention_plan(t: int, s: int, d: int, max_warps: int = WARPS) -> AttentionPlan:
+    """The plan for q (B,t,d), k and v (B,s,d); raises for a shape the kernel
+    does not take.  The warps are spread evenly over the row tiles (75 rows:
+    2 tiles of 3 warps, not 4 + 1); a plan over the shared-memory budget
+    takes fewer warps a block."""
+    if d < N_TILE or d % N_TILE:
+        raise ValueError(f"the attention kernel takes D a multiple of {N_TILE}, got D={d}")
+    if not 1 <= s <= S_MAX:
+        raise ValueError(f"the attention kernel takes 1 <= S <= {S_MAX} keys, got S={s}")
+    if t < 1:
+        raise ValueError(f"no plan for T={t} query rows")
+    d_chunk = next(c for c in D_CHUNKS if d % c == 0)
+    warp_tiles = -(-t // ROWS)
+    warps = -(-warp_tiles // -(-warp_tiles // max_warps))
+    while (smem := _smem_bytes(warps, s, d, d_chunk)) > MAX_SMEM:
+        if warps == 1:
+            raise ValueError(f"the attention kernel does not fit D={d}, S={s}: "
+                             f"{smem} bytes of shared memory, {MAX_SMEM} at most")
+        warps -= 1
+    return AttentionPlan(t, s, d, warps, KEY_TILE, d_chunk, -(-warp_tiles // warps), smem)
+
+
+# ---- the kernel
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built on first use)."""
     lib = _build.load("masked_attention")
-    lib.vcagan_masked_attention.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    lib.vcagan_masked_attention.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p
     ]
     lib.vcagan_masked_attention.restype = ctypes.c_int
@@ -49,10 +185,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def masked_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+    plan: AttentionPlan | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; raises on any input it
-    does not take and on a launch error."""
+    does not take and on a launch error.  ``plan`` defaults to
+    ``attention_plan`` of the shapes."""
     global LAUNCHES
     for name, x in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if x.device.type != "cuda" or x.device != q.device:
@@ -62,6 +200,8 @@ def masked_attention_cuda(
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != torch.float32 or x.dim() != 3:
             raise ValueError(f"{name} must be a 3-D float32 tensor, got {x.dtype} {tuple(x.shape)}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if lengths.dtype != torch.int32:
         raise ValueError(f"lengths must be int32, got {lengths.dtype}")
     b, t, d = q.shape
@@ -71,15 +211,20 @@ def masked_attention_cuda(
             f"shapes do not match: q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} lengths {tuple(lengths.shape)}"
         )
-    if s == 0 or d == 0 or b > 65535:
-        raise ValueError(f"the kernel takes S >= 1, D >= 1 and B <= 65535, got {b, t, s, d}")
+    if b > 65535:
+        raise ValueError(f"the kernel takes B <= 65535, got {b}")
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if t == 0 or b == 0:
         return out
+    plan = attention_plan(t, s, d) if plan is None else plan
+    if (plan.t, plan.s, plan.d) != (t, s, d):
+        raise ValueError(f"the plan is for {plan.t, plan.s, plan.d}, not {t, s, d}")
+    ints = (ctypes.c_int * PLAN_INTS)(*plan.ints(b))
     lib = _lib()
     err = lib.vcagan_masked_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, t, s, d, q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.addressof(ints), PLAN_INTS, q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         msg = lib.vcagan_cuda_error_string(err).decode()
