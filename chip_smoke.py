@@ -7,13 +7,15 @@ Phases, in order; any failure raises and exits non-zero:
   1. print the card's name and power limit (nvidia-smi); require CUDA;
   2. build the kernels from ``vcagan_torch/csrc`` (one nvcc each, started
      together), print the build time and ptxas report, and count the
-     tensor-core instructions in the fused block's library;
+     tensor-core instructions in each kernel's library;
   3. hold each kernel (masked attention, fused ResNet block) to its plain
      PyTorch version and to a float64 evaluation on the card at the serving
-     paths' shapes and at edge cases (the fused block in its fp32 form,
-     which is 3xTF32, also against that arithmetic in plain PyTorch, and in
-     its bf16 form); time kernel, plain version and, where one PyTorch call
-     computes the same function, that call as a yardstick;
+     paths' shapes and at edge cases (both kernels' fp32 forms, which are
+     3xTF32, also against that arithmetic in plain PyTorch; the fused block
+     in its bf16 form too; shapes a kernel does not take must raise); time
+     kernel, plain version and, where one PyTorch call computes the same
+     function, that call as a yardstick (the attention also at the LRS
+     shape and with its second plan candidate, printed only);
   4. run both serving paths (trained weights from data/soak_serving_q8.npz,
      B=2, T=75, 112x112) on the card and on the CPU with the same noise and
      Griffin-Lim phase, and compare: the unfolded path, and the folded-BN
@@ -51,16 +53,19 @@ from vcagan_torch.runtime import use_full_fp32  # noqa: E402
 from vcagan_torch.serve import Synthesizer  # noqa: E402
 
 SERVING_NPZ = os.path.join(ROOT, "data", "soak_serving_q8.npz")
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the fp32
-# rate outside the tensor cores, and the tensor cores' dense rates.  A bound
-# divides by the rate of the unit that the kernel's form runs on.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
+# tensor cores' dense rates.  A bound divides by the rate of the unit that
+# the kernel's form runs on.
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 BF16_TC_FLOP_PER_S = 989e12
 TF32_TC_FLOP_PER_S = 495e12
-# The fused block's fp32 form does three TF32 products a multiply (3xTF32).
+# Both kernels' fp32 forms do three TF32 products a multiply (3xTF32).
 FB_FLOP_PER_S = {"fp32": TF32_TC_FLOP_PER_S / 3, "bf16": BF16_TC_FLOP_PER_S}
+ATTN_FLOP_PER_S = TF32_TC_FLOP_PER_S / 3
 ATTN_TOL = 1e-5  # atol and rtol: fp32 on both sides, D=256-term sums
+# The attention's second plan candidate (warps a block at most), timed beside
+# the wrapper's plan (attn.WARPS) and printed only.
+ATTN_OTHER_WARPS = 2
 # Fused block, atol and rtol.  fp32: two convolutions of up to 9*512 = 4608
 # terms each, summed in another order than cuDNN's, on outputs of order 1;
 # the kernel's 3xTF32 products keep about 2^-21 relative each, so the fp32
@@ -123,7 +128,18 @@ def sdpa(q, k, v, mask):
     )[:, 0]
 
 
-def phase_kernel_vs_plain():
+def check_refused(what, fn, words):
+    """``fn`` must raise ValueError with ``words`` in its message."""
+    try:
+        fn()
+    except ValueError as e:
+        check(words in str(e), f"{what}: raised, but with {e}")
+        print(f"{what}: refused ({e}) ok")
+    else:
+        check(False, f"{what}: the wrapper did not raise")
+
+
+def phase_kernel_vs_plain(card):
     """Returns the per-forward totals at the serving shapes."""
     rng = np.random.default_rng(0)
     cases = [
@@ -132,40 +148,75 @@ def phase_kernel_vs_plain():
         ("LRS max", 4, 640, 160, 256, [160, 100, 1, 37]),
         ("ragged", 3, 77, 21, 256, [1, 2, 3]),
         ("edges", 4, 33, 21, 256, [0, 7, 21, 40]),  # 0, < S, = S, > S
+        ("S=8", 3, 40, 8, 256, [0, 8, 5]),
+        ("S=9", 3, 40, 9, 256, [0, 9, 4]),
+        ("S=16", 3, 40, 16, 256, [0, 16, 11]),
+        ("S=160", 3, 40, 160, 256, [0, 160, 97]),
+        ("S=S_MAX", 2, 20, attn.S_MAX, 256, [0, 300]),
+        ("T=1", 5, 1, 75, 256, [75, 0, 1, 40, 80]),
+        ("T=17", 3, 17, 75, 256, [75, 0, 33]),
+        ("B=1", 1, 75, 75, 256, [60]),
+        ("D=64", 3, 33, 21, 64, [0, 21, 9]),
+        ("D=128", 3, 33, 21, 128, [0, 21, 9]),
+        ("D=72", 2, 20, 21, 72, [0, 13]),
     ]
-    worst = 0.0
+    # Shapes outside the kernel's limits: the wrapper says so instead of
+    # computing something else.
+    for what, (b, t, s, d), words in (
+        ("D=100", (2, 9, 21, 100), "multiple of 8"),
+        (f"S={attn.S_MAX + 1}", (2, 9, attn.S_MAX + 1, 256), "keys"),
+    ):
+        q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=98)
+        check_refused(f"attention {what}", lambda: attn.masked_attention_cuda(q, k, v, lens), words)
+
+    worst = worst_3x = 0.0
     for i, (name, b, t, s, d, lengths) in enumerate(cases):
         q, k, v, lens = attention_inputs(b, t, s, d, lengths, seed=i)
         got = attn.masked_attention_cuda(q, k, v, lens)
         torch.cuda.synchronize()
         want = attn.masked_attention_reference(q, k, v, lens)
         err = (got - want).abs().max().item()
-        # The plain version can agree bit for bit (same FMA orders), so the
-        # kernel is also held to a float64 evaluation of the same function.
+        # The plain version has its own rounding, so the kernel is also held
+        # to a float64 evaluation of the same function, and to its own
+        # arithmetic (three TF32 products a multiply) in plain PyTorch.
         want64 = attn.masked_attention_reference(q.double(), k.double(), v.double(), lens)
         err64 = (got.double() - want64).abs().max().item()
-        worst = max(worst, err)
+        err3x = (got - attn.masked_attention_reference_3xtf32(q, k, v, lens)).abs().max().item()
+        worst, worst_3x = max(worst, err), max(worst_3x, err3x)
         check(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
         check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
               f"{name} {b, t, s, d}: kernel vs plain max abs err {err:.3e}")
         check(err64 < ATTN_TOL, f"{name} {b, t, s, d}: kernel vs float64 max abs err {err64:.3e}")
-        print(f"attention {name:10s} B={b} T={t} S={s} D={d}: max_abs_err {err:.3e} "
-              f"(vs float64 {err64:.3e}) ok")
+        check(err3x < ATTN_TOL, f"{name} {b, t, s, d}: kernel vs plain 3xTF32 {err3x:.3e}")
+        plan = attn.attention_plan(t, s, d)
+        print(f"attention {name:10s} B={b} T={t} S={s} D={d} ({plan.warps} warps x "
+              f"{plan.row_tiles} row tiles, D chunk {plan.d_chunk}): max_abs_err {err:.3e} "
+              f"(vs float64 {err64:.3e}, vs plain 3xTF32 {err3x:.3e}) ok")
+    print(f"attention (3xTF32) vs plain 3xTF32, worst of the cases: {worst_3x:.3e}")
 
     # Times at the serving path's inputs: full lengths (bench-style clips of
     # 75 frames), so no key is masked and the work is the whole product.
+    # The LRS shape and the second plan candidate are printed only.
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
-    for name, b, t, s, d in (("att1", 48, 75, 75, 256), ("att2", 48, 150, 75, 256)):
+    for name, b, t, s, d in (("att1", 48, 75, 75, 256), ("att2", 48, 150, 75, 256),
+                             ("LRS", 4, 640, 160, 256)):
         q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=7)
+        plan, other = attn.attention_plan(t, s, d), attn.attention_plan(t, s, d, ATTN_OTHER_WARPS)
         ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
+        other_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens, plan=other))
         plain = time_ms(lambda: attn.masked_attention_reference(q, k, v, lens))
         mask = key_mask(k, lens)
         lib = time_ms(lambda: sdpa(q, k, v, mask))
         nbytes, flops = attention_work(b, t, s, d)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3
-        print(f"attention {name} time B={b} T={t} S={s} D={d}: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms "
-              f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
+        bound = max(t_bytes, t_flops)
+        print(f"attention {name} time B={b} T={t} S={s} D={d} (3xTF32 on the tensor cores): "
+              f"kernel {ms:.4f} ms ({plan.warps} warps x {plan.row_tiles} row tiles), other plan "
+              f"{other_ms:.4f} ms ({other.warps} warps x {other.row_tiles}), plain {plain:.4f} ms, "
+              f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({'bytes' if t_bytes >= t_flops else 'operations'}; "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at 495 TFLOP/s / 3) [{card}]")
+        if name == "LRS":
+            continue
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bytes", nbytes), ("flops", flops)):
             totals[key] += val
@@ -242,13 +293,7 @@ def phase_fused_block_vs_plain(card):
     # does not take it, and says so instead of computing something else.
     for c in (16, 48):
         args = fused_block_inputs(3, 5, 5, c, seed=99)
-        try:
-            fb.fused_basic_block(*args)
-        except ValueError as e:
-            check("multiple of 64" in str(e), f"C={c}: raised, but with {e}")
-            print(f"fused_block C={c}: refused ({e}) ok")
-        else:
-            check(False, f"C={c}: the wrapper did not raise")
+        check_refused(f"fused_block C={c}", lambda: fb.fused_basic_block(*args), "multiple of 64")
 
     worst = worst_3x = 0.0
     for i, (name, n, h, w, c, dtype, zero_ring) in enumerate(cases):
@@ -475,13 +520,15 @@ def main() -> None:
                 if "registers" in line or "spill" in line or "error" in line:
                     print(f"  {name}: {line.strip()}")
 
-    sass = subprocess.run(["cuobjdump", "-sass", _build.library_path("fused_block")],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
-    tensor_core = sum("HGMMA" in line or "HMMA" in line for line in sass.splitlines())
-    print(f"  fused_block: {tensor_core} tensor-core instructions (HGMMA/HMMA) in the library")
-    check(tensor_core > 0, "the fused block's library holds no tensor-core instruction")
+    for name in KERNELS:
+        sass = subprocess.run(["cuobjdump", "-sass", _build.library_path(name)],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        lines = sass.splitlines()
+        hgmma, hmma = (sum(op in line for line in lines) for op in ("HGMMA", "HMMA"))
+        print(f"  {name}: {hgmma} HGMMA and {hmma} HMMA tensor-core instructions in the library")
+        check(hgmma + hmma > 0, f"the {name} library holds no tensor-core instruction")
 
-    attn_totals, attn_worst = phase_kernel_vs_plain()
+    attn_totals, attn_worst = phase_kernel_vs_plain(card)
     fb_totals, fb_worst = phase_fused_block_vs_plain(card)
     states = load_serving_npz(SERVING_NPZ)
     unfolded, folded = phase_paths_card_vs_cpu(states)
@@ -523,12 +570,14 @@ def main() -> None:
           f"{fused['bound_ms']:.2f} ms; bf16 form "
           f"{fused['ms_bf16']:.2f} ms, plain {fused['plain_ms_bf16']:.2f} ms, bf16 cuDNN convs "
           f"{fused['convs_ms_bf16']:.2f} ms, bound {fused['bound_ms_bf16']:.2f} ms")
-    print(json.dumps({"kernels": [
-        kernel_entry("masked_cross_attention", "vcagan_torch/csrc/masked_attention.cu",
-                     "vcagan/kernels/masked_attention.py:85", attn_worst, attn_totals,
-                     FP32_FLOP_PER_S),
-        fused,
-    ]}))
+    attention = kernel_entry("masked_cross_attention", "vcagan_torch/csrc/masked_attention.cu",
+                             "vcagan/kernels/masked_attention.py:85", attn_worst, attn_totals,
+                             ATTN_FLOP_PER_S)
+    attention.update(form="3xTF32")
+    print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms, plain "
+          f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "
+          f"{attention['bound_ms']:.4f} ms ({attention['bound_by']})")
+    print(json.dumps({"kernels": [attention, fused]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
