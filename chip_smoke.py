@@ -104,6 +104,34 @@ def time_ms(fn, samples: int = 20, calls: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, samples: int = 20, calls: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: ``calls`` calls captured once in a CUDA
+    graph, the graph replayed ``samples`` times between CUDA events; the
+    median, divided by ``calls``.  No host work is timed, which matters for
+    calls of tens of microseconds, where ``time_ms`` times the host (the
+    attention's wrapper, its plain version and sdpa take 20-140 us of host
+    time a call)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(samples):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def attention_inputs(b, t, s, d, lengths, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=g, device="cuda")
@@ -196,22 +224,27 @@ def phase_kernel_vs_plain(card):
 
     # Times at the serving path's inputs: full lengths (bench-style clips of
     # 75 frames), so no key is masked and the work is the whole product.
-    # The LRS shape and the second plan candidate are printed only.
+    # Device times from CUDA-graph replays; the kernel's time_ms (events
+    # around back-to-back calls, as PR 1-3 timed it, host work included) is
+    # printed beside.  The LRS shape and the second plan candidate are
+    # printed only.
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
     for name, b, t, s, d in (("att1", 48, 75, 75, 256), ("att2", 48, 150, 75, 256),
                              ("LRS", 4, 640, 160, 256)):
         q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=7)
         plan, other = attn.attention_plan(t, s, d), attn.attention_plan(t, s, d, ATTN_OTHER_WARPS)
-        ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
-        other_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens, plan=other))
-        plain = time_ms(lambda: attn.masked_attention_reference(q, k, v, lens))
+        ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
+        events_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
+        other_ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens, plan=other))
+        plain = graph_ms(lambda: attn.masked_attention_reference(q, k, v, lens))
         mask = key_mask(k, lens)
-        lib = time_ms(lambda: sdpa(q, k, v, mask))
+        lib = graph_ms(lambda: sdpa(q, k, v, mask))
         nbytes, flops = attention_work(b, t, s, d)
         t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
         bound = max(t_bytes, t_flops)
         print(f"attention {name} time B={b} T={t} S={s} D={d} (3xTF32 on the tensor cores): "
-              f"kernel {ms:.4f} ms ({plan.warps} warps x {plan.row_tiles} row tiles), other plan "
+              f"kernel {ms:.4f} ms ({plan.warps} warps x {plan.row_tiles} row tiles; events around "
+              f"back-to-back calls {events_ms:.4f} ms), other plan "
               f"{other_ms:.4f} ms ({other.warps} warps x {other.row_tiles}), plain {plain:.4f} ms, "
               f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({'bytes' if t_bytes >= t_flops else 'operations'}; "
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at 495 TFLOP/s / 3) [{card}]")

@@ -50,10 +50,19 @@
 //   are read from the strip.  A chunk of 64 keeps a thread's sums and fresh
 //   sums at 64 registers; all 256 columns at once would be 256.
 // - fp32 as 3xTF32: each operand split into hi = tf32(a), lo = tf32(a - hi)
-//   by integer round-and-mask (tf32.cuh), lo*hi + hi*lo issued first, then
-//   hi*hi.  The tensor cores add with truncation, so the products of a piece
-//   (at most 8 k-steps) go into a fresh sum that an ordinary fp32 add puts
-//   on the running sum.
+//   by integer round-and-mask (tf32.cuh); the cross terms lo*hi + hi*lo are
+//   summed apart from hi*hi and added to it at the end of a piece.  The
+//   tensor cores add with truncation, so a piece's products (at most 8
+//   k-steps) go into fresh sums that an ordinary fp32 add puts on the
+//   running sum (left in the tensor cores over D = 256, the error against
+//   float64 grew from 2e-6 to 8e-6 of the 1e-5 allowed).
+// - A warp issues its products in order and waits for each operand, and the
+//   grid gives an SM only 2-3 warps, so nothing else hides a wait: a k-step
+//   loads and splits all its B fragments first, then issues the products
+//   tile by tile in three rounds (lo*hi, hi*hi, hi*lo), so that no product
+//   waits on the one before it; D chunks are template instances (8, 16,
+//   32, 64) so that the k-steps unroll.  (The first version, 3 chained
+//   products a tile, took 98 us at both serving shapes.)
 // - Bank conflicts are avoided by padding rows, not by a swizzle: Q, K and
 //   the strip are read as rows g, columns t (stride 4 mod 8 floats); V as
 //   rows t, columns g (stride 8 or 24 mod 32 floats).
@@ -73,7 +82,6 @@ constexpr int kRows = 16;          // query rows of a warp
 constexpr int kKeyTile = 32;       // keys of a piece
 constexpr int kKeyNT = kKeyTile / 8;
 constexpr int kMaxChunk = 64;      // D columns of a piece, at most
-constexpr int kChunkNT = kMaxChunk / 8;
 constexpr int kMaxWarps = 8;
 constexpr int kMaxKeys = 512;
 constexpr int kMaxSmem = 232448;   // 227 KB a block may use
@@ -85,11 +93,11 @@ struct Plan {
 };
 
 // Row strides in floats, as AttentionPlan has them.
-__host__ __device__ inline int q_stride(int D) { return D + 4; }
-__host__ __device__ inline int p_stride(int S) { return (S + 7) / 8 * 8 + 4; }
-__host__ __device__ inline int k_stride(int dc) { return dc + 4; }
-__host__ __device__ inline int v_stride(int dc) { return dc % 16 == 8 ? dc : dc + 8; }
-__host__ __device__ inline int buf_floats(int dc) {
+__host__ __device__ constexpr int q_stride(int D) { return D + 4; }
+__host__ __device__ constexpr int p_stride(int S) { return (S + 7) / 8 * 8 + 4; }
+__host__ __device__ constexpr int k_stride(int dc) { return dc + 4; }
+__host__ __device__ constexpr int v_stride(int dc) { return dc % 16 == 8 ? dc : dc + 8; }
+__host__ __device__ constexpr int buf_floats(int dc) {
   return kKeyTile * (k_stride(dc) > v_stride(dc) ? k_stride(dc) : v_stride(dc));
 }
 
@@ -133,15 +141,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a * b in 3xTF32: the two small cross terms first, then hi * hi.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
-                                           const uint32_t (&b_lo)[2]) {
-  mma_tf32(d, a_lo, b_hi);
-  mma_tf32(d, a_hi, b_lo);
-  mma_tf32(d, a_hi, b_hi);
-}
-
 // A fragment of rows g, g + 8 and columns t, t + 4 from `a` (at row g,
 // column t) with row stride `st`, split into TF32 parts.
 __device__ __forceinline__ void load_a(const float* a, int st, uint32_t (&hi)[4],
@@ -157,16 +156,48 @@ __device__ __forceinline__ void load_b(float b0, float b1, uint32_t (&hi)[2], ui
   split_tf32(b1, hi[1], lo[1]);
 }
 
+// One k-step of 3xTF32 products on N n-tiles (those below `n_tiles`):
+// the small cross terms go into `cross`, hi * hi into `hihi`, issued tile by
+// tile in three rounds so that no product waits on the one before it.
+template <int N>
+__device__ __forceinline__ void k_step_3xtf32(float (&hihi)[N][4], float (&cross)[N][4],
+                                              const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
+                                              const uint32_t (&b_hi)[N][2],
+                                              const uint32_t (&b_lo)[N][2], int n_tiles) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    if (n < n_tiles) mma_tf32(cross[n], a_lo, b_hi[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    if (n < n_tiles) mma_tf32(hihi[n], a_hi, b_hi[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+    if (n < n_tiles) mma_tf32(cross[n], a_hi, b_lo[n]);
+}
+
+// sum += hihi + cross, with an ordinary fp32 add (the tensor cores truncate).
+template <int N>
+__device__ __forceinline__ void add_fresh(float (&sum)[N][4], const float (&hihi)[N][4],
+                                          const float (&cross)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[n][e] += hihi[n][e] + cross[n][e];
+}
+
+template <int DC>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ lengths,
                         float* __restrict__ out, const Plan p) {
+  constexpr int kst = k_stride(DC), vst = v_stride(DC), buf = buf_floats(DC);
+  constexpr int kNT = DC / 8;  // n-tiles of a D chunk
   extern __shared__ __align__(16) float smem[];
-  const int T = p.T, S = p.S, D = p.D, dc = p.d_chunk;
-  const int qst = q_stride(D), pst = p_stride(S), kst = k_stride(dc), vst = v_stride(dc);
+  const int T = p.T, S = p.S, D = p.D;
+  const int qst = q_stride(D), pst = p_stride(S);
   float* qs = smem;                                // rows x qst
   float* strips = qs + kRows * p.warps * qst;      // warps x 16 x pst
-  float* ring = strips + kRows * p.warps * pst;    // 2 x buf_floats
+  float* ring = strips + kRows * p.warps * pst;    // 2 x buf
 
   const int tid = threadIdx.x, nthreads = 32 * p.warps;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
@@ -181,10 +212,9 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   const float* kb = k + static_cast<size_t>(b) * S * D;
   const float* vb = v + static_cast<size_t>(b) * S * D;
   const int key_tiles = (S + kKeyTile - 1) / kKeyTile;
-  const int chunks = D / dc;
+  const int chunks = D / DC;
   const int k_pieces = key_tiles * chunks;
   const int pieces = 2 * k_pieces;
-  const int buf = buf_floats(dc);
 
   // The block's query rows (zeros past T).
   {
@@ -196,25 +226,25 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
       cp_async16(qs + r * qst + 4 * c, ok ? qb + static_cast<size_t>(t0 + r) * D + 4 * c : q, ok);
     }
   }
-  // Piece `pc` into its ring buffer: 32 keys x dc columns, zeros past S.
+  // Piece `pc` into its ring buffer: 32 keys x DC columns, zeros past S.
   auto load_piece = [&](int pc) {
     const bool is_v = pc >= k_pieces;
     const int i = is_v ? pc - k_pieces : pc;
     const int j = is_v ? i % key_tiles : i / chunks;
     const int c = is_v ? i / key_tiles : i % chunks;
-    const float* src = (is_v ? vb : kb) + static_cast<size_t>(j) * kKeyTile * D + c * dc;
+    const float* src = (is_v ? vb : kb) + static_cast<size_t>(j) * kKeyTile * D + c * DC;
     float* dst = ring + (pc & 1) * buf;
     const int st = is_v ? vst : kst;
-    const int vecs = dc / 4;
+    constexpr int vecs = DC / 4;
     for (int e = tid; e < kKeyTile * vecs; e += nthreads) {
-      const int r = e / vecs, x = e - r * vecs;
+      const int r = e / vecs, x = e % vecs;
       const bool ok = j * kKeyTile + r < S;
       cp_async16(dst + r * st + 4 * x, ok ? src + static_cast<size_t>(r) * D + 4 * x : kb, ok);
     }
   };
 
   float score[kKeyNT][4];   // a key tile's scores, summed over the D chunks
-  float acc[kChunkNT][4];   // a D chunk of the output, summed over the keys
+  float acc[kNT][4];        // a D chunk of the output, summed over the keys
 
   load_piece(0);
   cp_async_commit();  // with the query rows
@@ -225,7 +255,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
     __syncthreads();  // piece pc (and the query rows) visible to all warps
     const float* piece = ring + (pc & 1) * buf;
     if (pc < k_pieces) {
-      // ---- scores: 16 rows x (up to) 4 n-tiles of keys, over dc columns
+      // ---- scores: 16 rows x (up to) 4 n-tiles of keys, over DC columns
       const int j = pc / chunks, c = pc % chunks;
       const int n_tiles = min(kKeyNT, (S - j * kKeyTile + 7) / 8);
       if (c == 0) {
@@ -235,25 +265,19 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
           for (int e = 0; e < 4; ++e) score[n][e] = 0.f;
       }
       if (active) {
-        float fresh[kKeyNT][4] = {};
-        const float* qa = qs + (kRows * warp + g) * qst + c * dc + t4;
-        for (int ks = 0; ks < dc / 8; ++ks) {
-          uint32_t a_hi[4], a_lo[4];
+        float hihi[kKeyNT][4] = {}, cross[kKeyNT][4] = {};
+        const float* qa = qs + (kRows * warp + g) * qst + c * DC + t4;
+        const float* kk = piece + g * kst + t4;  // key 8n + g, column t
+#pragma unroll
+        for (int ks = 0; ks < kNT; ++ks) {
+          uint32_t a_hi[4], a_lo[4], b_hi[kKeyNT][2], b_lo[kKeyNT][2];
           load_a(qa + 8 * ks, qst, a_hi, a_lo);
 #pragma unroll
-          for (int n = 0; n < kKeyNT; ++n) {
-            if (n < n_tiles) {
-              const float* kk = piece + (8 * n + g) * kst + 8 * ks + t4;
-              uint32_t b_hi[2], b_lo[2];
-              load_b(kk[0], kk[4], b_hi, b_lo);
-              mma_3xtf32(fresh[n], a_hi, a_lo, b_hi, b_lo);
-            }
-          }
+          for (int n = 0; n < kKeyNT; ++n)  // rows past S are zeros
+            load_b(kk[8 * n * kst + 8 * ks], kk[8 * n * kst + 8 * ks + 4], b_hi[n], b_lo[n]);
+          k_step_3xtf32<kKeyNT>(hihi, cross, a_hi, a_lo, b_hi, b_lo, n_tiles);
         }
-#pragma unroll
-        for (int n = 0; n < kKeyNT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) score[n][e] += fresh[n][e];
+        add_fresh<kKeyNT>(score, hihi, cross);
         if (c == chunks - 1) {  // scale, mask and store the key tile's scores
 #pragma unroll
           for (int n = 0; n < kKeyNT; ++n) {
@@ -263,7 +287,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
                 const int key = j * kKeyTile + 8 * n + 2 * t4 + (e & 1);
                 const float sc = score[n][e] / sqrt_d;
                 strip[(g + 8 * (e >> 1)) * pst + key] =
-                    key < length ? sc : (key < S ? kMasked : -INFINITY);
+                    key >= S ? -INFINITY : (key < length ? sc : kMasked);
               }
             }
           }
@@ -293,47 +317,40 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
         }
         __syncwarp();
       }
-      // ---- P.V: 16 rows x dc columns (8 n-tiles), over (up to) 32 keys
+      // ---- P.V: 16 rows x DC columns (kNT n-tiles), over (up to) 32 keys
       if (j == 0) {
 #pragma unroll
-        for (int n = 0; n < kChunkNT; ++n)
+        for (int n = 0; n < kNT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
       }
       if (active) {
         const int k_steps = min(kKeyNT, (S - j * kKeyTile + 7) / 8);
-        const int n_tiles = dc / 8;
-        float fresh[kChunkNT][4] = {};
+        float hihi[kNT][4] = {}, cross[kNT][4] = {};
         const float* pa = strip + g * pst + j * kKeyTile + t4;
-        for (int ks = 0; ks < k_steps; ++ks) {
-          uint32_t a_hi[4], a_lo[4];
-          load_a(pa + 8 * ks, pst, a_hi, a_lo);
+        const float* vv = piece + t4 * vst + g;  // key t, column 8n + g
 #pragma unroll
-          for (int n = 0; n < kChunkNT; ++n) {
-            if (n < n_tiles) {
-              const float* vv = piece + (8 * ks + t4) * vst + 8 * n + g;
-              uint32_t b_hi[2], b_lo[2];
-              load_b(vv[0], vv[4 * vst], b_hi, b_lo);
-              mma_3xtf32(fresh[n], a_hi, a_lo, b_hi, b_lo);
-            }
+        for (int ks = 0; ks < kKeyNT; ++ks) {
+          if (ks < k_steps) {  // the strip ends at S rounded up to 8
+            uint32_t a_hi[4], a_lo[4], b_hi[kNT][2], b_lo[kNT][2];
+            load_a(pa + 8 * ks, pst, a_hi, a_lo);
+#pragma unroll
+            for (int n = 0; n < kNT; ++n)
+              load_b(vv[8 * ks * vst + 8 * n], vv[(8 * ks + 4) * vst + 8 * n], b_hi[n], b_lo[n]);
+            k_step_3xtf32<kNT>(hihi, cross, a_hi, a_lo, b_hi, b_lo, kNT);
           }
         }
-#pragma unroll
-        for (int n = 0; n < kChunkNT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] += fresh[n][e];
+        add_fresh<kNT>(acc, hihi, cross);
         if (j == key_tiles - 1) {  // the chunk is complete: store it
 #pragma unroll
-          for (int n = 0; n < kChunkNT; ++n) {
-            if (n < n_tiles) {
+          for (int n = 0; n < kNT; ++n) {
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int row = row0 + g + 8 * h;
-                if (row < T) {
-                  float2* o = reinterpret_cast<float2*>(
-                      out + (static_cast<size_t>(b) * T + row) * D + c * dc + 8 * n + 2 * t4);
-                  *o = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
-                }
+            for (int h = 0; h < 2; ++h) {
+              const int row = row0 + g + 8 * h;
+              if (row < T) {
+                float2* o = reinterpret_cast<float2*>(
+                    out + (static_cast<size_t>(b) * T + row) * D + c * DC + 8 * n + 2 * t4);
+                *o = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
               }
             }
           }
@@ -342,6 +359,17 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
     }
     __syncthreads();  // the buffer of piece pc is free for piece pc + 2
   }
+}
+
+template <int DC>
+cudaError_t launch(const Plan& p, const float* q, const float* k, const float* v,
+                   const int* lengths, float* out, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(masked_attention_kernel<DC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.row_tiles, p.B);
+  masked_attention_kernel<DC><<<grid, 32 * p.warps, p.smem, stream>>>(q, k, v, lengths, out, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -359,13 +387,14 @@ int vcagan_masked_attention(const float* q, const float* k, const float* v, cons
   if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(masked_attention_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.row_tiles, p.B);
-  masked_attention_kernel<<<grid, 32 * p.warps, p.smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, lengths, out, p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p.d_chunk) {
+    case 64: err = launch<64>(p, q, k, v, lengths, out, s); break;
+    case 32: err = launch<32>(p, q, k, v, lengths, out, s); break;
+    case 16: err = launch<16>(p, q, k, v, lengths, out, s); break;
+    default: err = launch<8>(p, q, k, v, lengths, out, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 const char* vcagan_cuda_error_string(int err) {

@@ -108,7 +108,6 @@ class AttentionPlan:
     key_tile: int
     d_chunk: int
     row_tiles: int
-    smem_bytes: int
 
     @property
     def q_stride(self) -> int:
@@ -127,6 +126,14 @@ class AttentionPlan:
         # V is B "row": rows t, cols g, so the stride must be 8 or 24 (mod 32)
         return self.d_chunk if self.d_chunk % 16 == 8 else self.d_chunk + 8
 
+    @property
+    def smem_bytes(self) -> int:
+        """Q rows, one score strip a warp, two K/V buffers (the formula of
+        ``smem_bytes`` in the CUDA source)."""
+        rows = ROWS * self.warps
+        ring = 2 * self.key_tile * max(self.k_stride, self.v_stride)
+        return 4 * (rows * self.q_stride + rows * self.p_stride + ring)
+
     def ints(self, b: int) -> list[int]:
         """What the C entry point takes, in its order."""
         return [b, self.t, self.s, self.d, self.warps, self.key_tile, self.d_chunk,
@@ -137,15 +144,7 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _smem_bytes(warps: int, s: int, d: int, d_chunk: int) -> int:
-    """Q rows, one score strip a warp, two K/V buffers (the formula of
-    ``smem_bytes`` in the CUDA source)."""
-    plan = AttentionPlan(0, s, d, warps, KEY_TILE, d_chunk, 0, 0)
-    floats = (ROWS * warps * plan.q_stride + ROWS * warps * plan.p_stride
-              + 2 * KEY_TILE * max(plan.k_stride, plan.v_stride))
-    return 4 * floats
-
-
+@functools.lru_cache(maxsize=256)
 def attention_plan(t: int, s: int, d: int, max_warps: int = WARPS) -> AttentionPlan:
     """The plan for q (B,t,d), k and v (B,s,d); raises for a shape the kernel
     does not take.  The warps are spread evenly over the row tiles (75 rows:
@@ -160,12 +159,14 @@ def attention_plan(t: int, s: int, d: int, max_warps: int = WARPS) -> AttentionP
     d_chunk = next(c for c in D_CHUNKS if d % c == 0)
     warp_tiles = -(-t // ROWS)
     warps = -(-warp_tiles // -(-warp_tiles // max_warps))
-    while (smem := _smem_bytes(warps, s, d, d_chunk)) > MAX_SMEM:
+    while True:
+        plan = AttentionPlan(t, s, d, warps, KEY_TILE, d_chunk, -(-warp_tiles // warps))
+        if plan.smem_bytes <= MAX_SMEM:
+            return plan
         if warps == 1:
             raise ValueError(f"the attention kernel does not fit D={d}, S={s}: "
-                             f"{smem} bytes of shared memory, {MAX_SMEM} at most")
+                             f"{plan.smem_bytes} bytes of shared memory, {MAX_SMEM} at most")
         warps -= 1
-    return AttentionPlan(t, s, d, warps, KEY_TILE, d_chunk, -(-warp_tiles // warps), smem)
 
 
 # ---- the kernel
