@@ -63,9 +63,9 @@ TF32_TC_FLOP_PER_S = 495e12
 FB_FLOP_PER_S = {"fp32": TF32_TC_FLOP_PER_S / 3, "bf16": BF16_TC_FLOP_PER_S}
 ATTN_FLOP_PER_S = TF32_TC_FLOP_PER_S / 3
 ATTN_TOL = 1e-5  # atol and rtol: fp32 on both sides, D=256-term sums
-# The attention's second plan candidate (warps a block at most), timed beside
-# the wrapper's plan (attn.WARPS) and printed only.
-ATTN_OTHER_WARPS = 2
+# The attention's second plan candidate (warps a 16-row tile), timed beside
+# the wrapper's plan (attn.SPLIT) and printed only.
+ATTN_OTHER_SPLIT = 3 - attn.SPLIT
 # Fused block, atol and rtol.  fp32: two convolutions of up to 9*512 = 4608
 # terms each, summed in another order than cuDNN's, on outputs of order 1;
 # the kernel's 3xTF32 products keep about 2^-21 relative each, so the fp32
@@ -210,6 +210,11 @@ def phase_kernel_vs_plain(card):
         want64 = attn.masked_attention_reference(q.double(), k.double(), v.double(), lens)
         err64 = (got.double() - want64).abs().max().item()
         err3x = (got - attn.masked_attention_reference_3xtf32(q, k, v, lens)).abs().max().item()
+        # the second plan candidate, which is timed below, computes it too
+        other = attn.masked_attention_cuda(q, k, v, lens, plan=attn.attention_plan(
+            t, s, d, ATTN_OTHER_SPLIT))
+        err_other = (other.double() - want64).abs().max().item()
+        check(err_other < ATTN_TOL, f"{name}: other plan vs float64 {err_other:.3e}")
         worst, worst_3x = max(worst, err), max(worst_3x, err3x)
         check(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
         check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
@@ -217,9 +222,10 @@ def phase_kernel_vs_plain(card):
         check(err64 < ATTN_TOL, f"{name} {b, t, s, d}: kernel vs float64 max abs err {err64:.3e}")
         check(err3x < ATTN_TOL, f"{name} {b, t, s, d}: kernel vs plain 3xTF32 {err3x:.3e}")
         plan = attn.attention_plan(t, s, d)
-        print(f"attention {name:10s} B={b} T={t} S={s} D={d} ({plan.warps} warps x "
-              f"{plan.row_tiles} row tiles, D chunk {plan.d_chunk}): max_abs_err {err:.3e} "
-              f"(vs float64 {err64:.3e}, vs plain 3xTF32 {err3x:.3e}) ok")
+        print(f"attention {name:10s} B={b} T={t} S={s} D={d} ({plan.row_tiles} x {plan.tiles} "
+              f"tiles of 16 rows, {plan.split} warps a tile, D chunk {plan.d_chunk}): max_abs_err {err:.3e} "
+              f"(vs float64 {err64:.3e}, vs plain 3xTF32 {err3x:.3e}; other plan vs float64 "
+              f"{err_other:.3e}) ok")
     print(f"attention (3xTF32) vs plain 3xTF32, worst of the cases: {worst_3x:.3e}")
 
     # Times at the serving path's inputs: full lengths (bench-style clips of
@@ -232,7 +238,7 @@ def phase_kernel_vs_plain(card):
     for name, b, t, s, d in (("att1", 48, 75, 75, 256), ("att2", 48, 150, 75, 256),
                              ("LRS", 4, 640, 160, 256)):
         q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=7)
-        plan, other = attn.attention_plan(t, s, d), attn.attention_plan(t, s, d, ATTN_OTHER_WARPS)
+        plan, other = attn.attention_plan(t, s, d), attn.attention_plan(t, s, d, ATTN_OTHER_SPLIT)
         ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
         events_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
         other_ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens, plan=other))
@@ -243,9 +249,9 @@ def phase_kernel_vs_plain(card):
         t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
         bound = max(t_bytes, t_flops)
         print(f"attention {name} time B={b} T={t} S={s} D={d} (3xTF32 on the tensor cores): "
-              f"kernel {ms:.4f} ms ({plan.warps} warps x {plan.row_tiles} row tiles; events around "
+              f"kernel {ms:.4f} ms ({plan.warps} warps a block, {plan.split} a tile; events around "
               f"back-to-back calls {events_ms:.4f} ms), other plan "
-              f"{other_ms:.4f} ms ({other.warps} warps x {other.row_tiles}), plain {plain:.4f} ms, "
+              f"{other_ms:.4f} ms ({other.warps} warps, {other.split} a tile), plain {plain:.4f} ms, "
               f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({'bytes' if t_bytes >= t_flops else 'operations'}; "
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at 495 TFLOP/s / 3) [{card}]")
         if name == "LRS":

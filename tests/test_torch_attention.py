@@ -130,27 +130,30 @@ def test_plan_fits_shared_memory_and_covers_every_row_once(case):
     _, t, s, d = case
     plan = port.attention_plan(t, s, d)
     assert plan.smem_bytes <= port.MAX_SMEM == 232448
-    assert plan.smem_bytes == 4 * (16 * plan.warps * (plan.q_stride + plan.p_stride)
+    assert plan.smem_bytes == 4 * (16 * plan.tiles * (plan.q_stride + plan.p_stride)
                                    + 2 * plan.key_tile * max(plan.k_stride, plan.v_stride))
-    assert 1 <= plan.warps <= port.WARPS and plan.key_tile == port.KEY_TILE
+    assert 1 <= plan.tiles <= port.TILES and plan.warps == plan.tiles * plan.split <= 8
+    assert plan.split == (port.SPLIT if plan.d_chunk >= 16 else 1)
+    assert plan.key_tile == port.KEY_TILE
     assert d % plan.d_chunk == 0 and plan.d_chunk <= 64
-    # warp w of row tile i owns rows 16 (i * warps + w) ... + 15
-    covered = np.zeros(plan.row_tiles * plan.warps * 16, int)
-    for i in range(plan.row_tiles):
-        for w in range(plan.warps):
-            covered[16 * (i * plan.warps + w):16 * (i * plan.warps + w + 1)] += 1
-    assert (covered[:t] == 1).all() and len(covered) - t < 16 * plan.warps
+    # tile i of block r owns rows 16 (r * tiles + i) ... + 15
+    covered = np.zeros(plan.row_tiles * plan.tiles * 16, int)
+    for r in range(plan.row_tiles):
+        for i in range(plan.tiles):
+            covered[16 * (r * plan.tiles + i):16 * (r * plan.tiles + i + 1)] += 1
+    assert (covered[:t] == 1).all() and len(covered) - t < 16 * plan.tiles
     # strides put a fragment's rows on different banks
     assert plan.q_stride % 8 == 4 and plan.k_stride % 8 == 4 and plan.p_stride % 8 == 4
     assert plan.v_stride % 32 in (8, 24)
-    assert plan.ints(3) == [3, t, s, d, plan.warps, plan.key_tile, plan.d_chunk,
+    assert plan.ints(3) == [3, t, s, d, plan.warps, plan.split, plan.key_tile, plan.d_chunk,
                             plan.row_tiles, plan.smem_bytes]
 
 
-def test_plan_spreads_the_warps_over_the_row_tiles():
-    assert (port.attention_plan(75, 75, 256).warps, port.attention_plan(75, 75, 256).row_tiles) == (3, 2)
-    assert (port.attention_plan(150, 75, 256).warps, port.attention_plan(150, 75, 256).row_tiles) == (4, 3)
-    assert port.attention_plan(1, 75, 256).warps == 1
+@pytest.mark.parametrize("split", [1, 2])
+def test_plan_spreads_the_tiles_over_the_blocks(split):
+    for t, tiles, blocks in ((75, 3, 2), (150, 4, 3), (1, 1, 1), (640, 4, 10)):
+        plan = port.attention_plan(t, 75, 256, split)
+        assert (plan.tiles, plan.row_tiles, plan.warps) == (tiles, blocks, tiles * split)
 
 
 @pytest.mark.parametrize("t,s,d", [(75, 75, 100), (75, 75, 4), (75, port.S_MAX + 1, 256),
@@ -158,6 +161,8 @@ def test_plan_spreads_the_warps_over_the_row_tiles():
 def test_plan_refuses_what_the_kernel_does_not_take(t, s, d):
     with pytest.raises(ValueError):
         port.attention_plan(t, s, d)
+    with pytest.raises(ValueError):
+        port.attention_plan(75, 75, 256, split=3)
 
 
 def test_an_edited_shared_header_rebuilds_every_kernel(tmp_path, monkeypatch):

@@ -21,11 +21,15 @@
 // was the bound of an FMA kernel, not of the card.)
 //
 // Design (both products on the tensor cores, mma.sync m16n8k8 TF32):
-// - A block is one sample and `warps` x 16 query rows; a warp owns 16 rows
-//   (one m16 fragment).  wgmma's 64-row tile would waste up to 53 rows of a
+// - A block is one sample and `tiles` tiles of 16 query rows (one m16
+//   fragment each).  wgmma's 64-row tile would waste up to 53 rows of a
 //   75- or 150-row sample; the 16-row tile wastes at most 15.  The plan
 //   (vcagan_torch/kernels/masked_attention.py::attention_plan) spreads the
-//   warps over the row tiles: 75 rows are 2 blocks of 3 warps.
+//   tiles over the blocks: 75 rows are 2 blocks of 3 tiles.  A tile is
+//   computed by `split` warps (1 or 2), each taking every split-th n-tile
+//   of every product (keys in QK^T, columns in P.V) and half the rows of
+//   the softmax: the serving shapes give only 240-480 tiles for 132 SMs, so
+//   a tile's chain of products is the time, and two warps halve it.
 // - The block's Q rows are copied to shared memory once (cp.async).  K, then
 //   V, stream through a ring of two buffers in pieces of 32 keys x d_chunk
 //   (64 at D = 256) columns: K pieces walk (key tile, chunk), V pieces
@@ -33,22 +37,23 @@
 //   under piece p's products; two __syncthreads a piece.  Every warp of the
 //   block uses each piece, so K and V are read once a block (from L2 by
 //   every row tile of a sample).
-// - QK^T: a warp multiplies its 16 rows by a piece's 4 key n-tiles; a key
+// - QK^T: a tile's 16 rows times a piece's (up to) 4 key n-tiles; a key
 //   tile's scores sum over the D chunks in registers; after the last chunk
-//   they are scaled, masked and stored in the warp's 16 x S strip of shared
+//   they are scaled, masked and stored in the tile's 16 x S strip of shared
 //   memory.  The strip is needed because the m16n8k8 C layout is not its A
 //   layout (P is the A operand of P.V).
 // - The padding trap: S is padded to the n-tile of 8 keys.  Padded keys get
 //   score -inf (weight exactly 0), masked real keys -1e30, so a row with
 //   length 0 still averages exactly the S real values; padded rows of the K
 //   and V pieces are zero-filled by cp.async (so 0 * V stays 0).
-// - Softmax in the strip, warp by warp: lane 4g + t owns rows g and g + 8
-//   (as in the C fragment) and the columns t, t+4, ...; max and sum by quad
-//   shuffles; expf; P = e / sum written back in place.
-// - P.V: for each D chunk, the warp's 16 x d_chunk output (8 n-tiles, 32
+// - Softmax in the strip, tile by tile: lane 4g + t owns rows g and g + 8
+//   (as in the C fragment; one of the two each when a tile has two warps)
+//   and the columns t, t+4, ...; max and sum by quad shuffles; expf;
+//   P = e / sum written back in place; a barrier before P.V.
+// - P.V: for each D chunk, the tile's 16 x d_chunk output (8 n-tiles, 32
 //   fp32 sums a thread) over the V pieces of that chunk; P's A fragments
 //   are read from the strip.  A chunk of 64 keeps a thread's sums and fresh
-//   sums at 64 registers; all 256 columns at once would be 256.
+//   sums at 96 registers; all 256 columns at once would be 384.
 // - fp32 as 3xTF32: each operand split into hi = tf32(a), lo = tf32(a - hi)
 //   by integer round-and-mask (tf32.cuh); the cross terms lo*hi + hi*lo are
 //   summed apart from hi*hi and added to it at the end of a piece.  The
@@ -85,11 +90,11 @@ constexpr int kMaxChunk = 64;      // D columns of a piece, at most
 constexpr int kMaxWarps = 8;
 constexpr int kMaxKeys = 512;
 constexpr int kMaxSmem = 232448;   // 227 KB a block may use
-constexpr int kPlanInts = 9;
+constexpr int kPlanInts = 10;
 constexpr float kMasked = -1e30f;
 
 struct Plan {
-  int B, T, S, D, warps, key_tile, d_chunk, row_tiles, smem;
+  int B, T, S, D, warps, split, key_tile, d_chunk, row_tiles, smem;
 };
 
 // Row strides in floats, as AttentionPlan has them.
@@ -101,10 +106,10 @@ __host__ __device__ constexpr int buf_floats(int dc) {
   return kKeyTile * (k_stride(dc) > v_stride(dc) ? k_stride(dc) : v_stride(dc));
 }
 
-// Q rows, one score strip a warp, two K/V buffers.
-size_t smem_bytes(int warps, int S, int D, int dc) {
-  return sizeof(float) * (static_cast<size_t>(kRows) * warps * q_stride(D) +
-                          static_cast<size_t>(kRows) * warps * p_stride(S) +
+// Q rows, one score strip a 16-row tile, two K/V buffers.
+size_t smem_bytes(int tiles, int S, int D, int dc) {
+  return sizeof(float) * (static_cast<size_t>(kRows) * tiles * q_stride(D) +
+                          static_cast<size_t>(kRows) * tiles * p_stride(S) +
                           2 * static_cast<size_t>(buf_floats(dc)));
 }
 
@@ -115,8 +120,11 @@ bool plan_ok(const Plan& p) {
   if (p.d_chunk != 8 && p.d_chunk != 16 && p.d_chunk != 32 && p.d_chunk != kMaxChunk) return false;
   if (p.D % p.d_chunk != 0) return false;
   if (p.warps < 1 || p.warps > kMaxWarps) return false;
-  if (p.row_tiles != (p.T + kRows * p.warps - 1) / (kRows * p.warps)) return false;
-  const size_t smem = smem_bytes(p.warps, p.S, p.D, p.d_chunk);
+  if ((p.split != 1 && p.split != 2) || p.warps % p.split != 0) return false;
+  if (p.split == 2 && p.d_chunk < 16) return false;
+  const int rows = kRows * (p.warps / p.split);
+  if (p.row_tiles != (p.T + rows - 1) / rows) return false;
+  const size_t smem = smem_bytes(p.warps / p.split, p.S, p.D, p.d_chunk);
   return smem == static_cast<size_t>(p.smem) && smem <= static_cast<size_t>(kMaxSmem);
 }
 
@@ -156,23 +164,24 @@ __device__ __forceinline__ void load_b(float b0, float b1, uint32_t (&hi)[2], ui
   split_tf32(b1, hi[1], lo[1]);
 }
 
-// One k-step of 3xTF32 products on N n-tiles (those below `n_tiles`):
-// the small cross terms go into `cross`, hi * hi into `hihi`, issued tile by
-// tile in three rounds so that no product waits on the one before it.
-template <int N>
-__device__ __forceinline__ void k_step_3xtf32(float (&hihi)[N][4], float (&cross)[N][4],
+// One k-step of 3xTF32 products on a warp's M n-tiles (the first `m` of
+// them): the small cross terms go into `cross`, hi * hi into `hihi`,
+// issued tile by tile in three rounds so that no product waits on the one
+// before it.
+template <int M>
+__device__ __forceinline__ void k_step_3xtf32(float (&hihi)[M][4], float (&cross)[M][4],
                                               const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
-                                              const uint32_t (&b_hi)[N][2],
-                                              const uint32_t (&b_lo)[N][2], int n_tiles) {
+                                              const uint32_t (&b_hi)[M][2],
+                                              const uint32_t (&b_lo)[M][2], int m) {
 #pragma unroll
-  for (int n = 0; n < N; ++n)
-    if (n < n_tiles) mma_tf32(cross[n], a_lo, b_hi[n]);
+  for (int i = 0; i < M; ++i)
+    if (i < m) mma_tf32(cross[i], a_lo, b_hi[i]);
 #pragma unroll
-  for (int n = 0; n < N; ++n)
-    if (n < n_tiles) mma_tf32(hihi[n], a_hi, b_hi[n]);
+  for (int i = 0; i < M; ++i)
+    if (i < m) mma_tf32(hihi[i], a_hi, b_hi[i]);
 #pragma unroll
-  for (int n = 0; n < N; ++n)
-    if (n < n_tiles) mma_tf32(cross[n], a_hi, b_lo[n]);
+  for (int i = 0; i < M; ++i)
+    if (i < m) mma_tf32(cross[i], a_hi, b_lo[i]);
 }
 
 // sum += hihi + cross, with an ordinary fp32 add (the tensor cores truncate).
@@ -185,29 +194,35 @@ __device__ __forceinline__ void add_fresh(float (&sum)[N][4], const float (&hihi
     for (int e = 0; e < 4; ++e) sum[n][e] += hihi[n][e] + cross[n][e];
 }
 
-template <int DC>
+// SPLIT warps compute a 16-row tile; warp `part` of them takes the n-tiles
+// part, part + SPLIT, ... of every product (its i-th is n = i * SPLIT + part).
+template <int DC, int SPLIT>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ lengths,
                         float* __restrict__ out, const Plan p) {
   constexpr int kst = k_stride(DC), vst = v_stride(DC), buf = buf_floats(DC);
-  constexpr int kNT = DC / 8;  // n-tiles of a D chunk
+  constexpr int kMK = kKeyNT / SPLIT;     // a warp's key n-tiles of a piece
+  constexpr int kMV = DC / 8 / SPLIT;     // a warp's column n-tiles of a piece
+  static_assert(kMV >= 1, "a D chunk of 8 is not split");
   extern __shared__ __align__(16) float smem[];
   const int T = p.T, S = p.S, D = p.D;
+  const int tiles = p.warps / SPLIT;               // 16-row tiles of the block
   const int qst = q_stride(D), pst = p_stride(S);
-  float* qs = smem;                                // rows x qst
-  float* strips = qs + kRows * p.warps * qst;      // warps x 16 x pst
-  float* ring = strips + kRows * p.warps * pst;    // 2 x buf
+  float* qs = smem;                                // 16 tiles x qst
+  float* strips = qs + kRows * tiles * qst;        // tiles x 16 x pst
+  float* ring = strips + kRows * tiles * pst;      // 2 x buf
 
   const int tid = threadIdx.x, nthreads = 32 * p.warps;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int tile = warp / SPLIT, part = warp % SPLIT;
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kRows * p.warps;
-  const int row0 = t0 + kRows * warp;              // this warp's first row
+  const int t0 = blockIdx.x * kRows * tiles;
+  const int row0 = t0 + kRows * tile;              // this warp's first row
   const bool active = row0 < T;                    // warp-uniform
   const int length = lengths[b];
   const float sqrt_d = sqrtf(static_cast<float>(D));
-  float* strip = strips + warp * kRows * pst;
+  float* strip = strips + tile * kRows * pst;
 
   const float* kb = k + static_cast<size_t>(b) * S * D;
   const float* vb = v + static_cast<size_t>(b) * S * D;
@@ -220,7 +235,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   {
     const float* qb = q + static_cast<size_t>(b) * T * D;
     const int vecs = D / 4;
-    for (int i = tid; i < kRows * p.warps * vecs; i += nthreads) {
+    for (int i = tid; i < kRows * tiles * vecs; i += nthreads) {
       const int r = i / vecs, c = i - r * vecs;
       const bool ok = t0 + r < T;
       cp_async16(qs + r * qst + 4 * c, ok ? qb + static_cast<size_t>(t0 + r) * D + 4 * c : q, ok);
@@ -243,8 +258,8 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
     }
   };
 
-  float score[kKeyNT][4];   // a key tile's scores, summed over the D chunks
-  float acc[kNT][4];        // a D chunk of the output, summed over the keys
+  float score[kMK][4];   // a key tile's scores, summed over the D chunks
+  float acc[kMV][4];     // a D chunk of the output, summed over the keys
 
   load_piece(0);
   cp_async_commit();  // with the query rows
@@ -258,34 +273,37 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
       // ---- scores: 16 rows x (up to) 4 n-tiles of keys, over DC columns
       const int j = pc / chunks, c = pc % chunks;
       const int n_tiles = min(kKeyNT, (S - j * kKeyTile + 7) / 8);
+      const int m = (n_tiles - part + SPLIT - 1) / SPLIT;  // of them this warp's
       if (c == 0) {
 #pragma unroll
-        for (int n = 0; n < kKeyNT; ++n)
+        for (int i = 0; i < kMK; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) score[n][e] = 0.f;
+          for (int e = 0; e < 4; ++e) score[i][e] = 0.f;
       }
       if (active) {
-        float hihi[kKeyNT][4] = {}, cross[kKeyNT][4] = {};
-        const float* qa = qs + (kRows * warp + g) * qst + c * DC + t4;
-        const float* kk = piece + g * kst + t4;  // key 8n + g, column t
+        float hihi[kMK][4] = {}, cross[kMK][4] = {};
+        const float* qa = qs + (kRows * tile + g) * qst + c * DC + t4;
+        const float* kk = piece + (8 * part + g) * kst + t4;  // key 8n + g, column t
 #pragma unroll
-        for (int ks = 0; ks < kNT; ++ks) {
-          uint32_t a_hi[4], a_lo[4], b_hi[kKeyNT][2], b_lo[kKeyNT][2];
+        for (int ks = 0; ks < DC / 8; ++ks) {
+          uint32_t a_hi[4], a_lo[4], b_hi[kMK][2], b_lo[kMK][2];
           load_a(qa + 8 * ks, qst, a_hi, a_lo);
 #pragma unroll
-          for (int n = 0; n < kKeyNT; ++n)  // rows past S are zeros
-            load_b(kk[8 * n * kst + 8 * ks], kk[8 * n * kst + 8 * ks + 4], b_hi[n], b_lo[n]);
-          k_step_3xtf32<kKeyNT>(hihi, cross, a_hi, a_lo, b_hi, b_lo, n_tiles);
+          for (int i = 0; i < kMK; ++i) {  // rows past S are zeros
+            const float* kn = kk + 8 * SPLIT * i * kst + 8 * ks;
+            load_b(kn[0], kn[4], b_hi[i], b_lo[i]);
+          }
+          k_step_3xtf32<kMK>(hihi, cross, a_hi, a_lo, b_hi, b_lo, m);
         }
-        add_fresh<kKeyNT>(score, hihi, cross);
+        add_fresh<kMK>(score, hihi, cross);
         if (c == chunks - 1) {  // scale, mask and store the key tile's scores
 #pragma unroll
-          for (int n = 0; n < kKeyNT; ++n) {
-            if (n < n_tiles) {
+          for (int i = 0; i < kMK; ++i) {
+            if (i < m) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                const int key = j * kKeyTile + 8 * n + 2 * t4 + (e & 1);
-                const float sc = score[n][e] / sqrt_d;
+                const int key = j * kKeyTile + 8 * (i * SPLIT + part) + 2 * t4 + (e & 1);
+                const float sc = score[i][e] / sqrt_d;
                 strip[(g + 8 * (e >> 1)) * pst + key] =
                     key >= S ? -INFINITY : (key < length ? sc : kMasked);
               }
@@ -295,11 +313,13 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
       }
     } else {
       const int i = pc - k_pieces, c = i / key_tiles, j = i % key_tiles;
-      if (pc == k_pieces && active) {
-        // ---- softmax of the warp's strip; lane 4g + t: rows g, g + 8
+      if (pc == k_pieces) {
+        // ---- softmax of the tile's strip; lane 4g + t: rows g, g + 8 (one
+        // of them each if the tile has two warps)
         const int cols = (S + 7) / 8 * 8;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
+          if (!active || h % SPLIT != part) continue;
           float* row = strip + (g + 8 * h) * pst;
           float m = -INFINITY;
           for (int x = t4; x < cols; x += 4) m = fmaxf(m, row[x]);
@@ -315,42 +335,45 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
           sum += __shfl_xor_sync(0xffffffffu, sum, 2);
           for (int x = t4; x < cols; x += 4) row[x] = row[x] / sum;
         }
-        __syncwarp();
+        __syncthreads();  // P of the whole tile visible to its warps
       }
-      // ---- P.V: 16 rows x DC columns (kNT n-tiles), over (up to) 32 keys
+      // ---- P.V: 16 rows x DC columns, over (up to) 32 keys
       if (j == 0) {
 #pragma unroll
-        for (int n = 0; n < kNT; ++n)
+        for (int i = 0; i < kMV; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+          for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
       }
       if (active) {
         const int k_steps = min(kKeyNT, (S - j * kKeyTile + 7) / 8);
-        float hihi[kNT][4] = {}, cross[kNT][4] = {};
+        float hihi[kMV][4] = {}, cross[kMV][4] = {};
         const float* pa = strip + g * pst + j * kKeyTile + t4;
-        const float* vv = piece + t4 * vst + g;  // key t, column 8n + g
+        const float* vv = piece + t4 * vst + 8 * part + g;  // key t, column 8n + g
 #pragma unroll
         for (int ks = 0; ks < kKeyNT; ++ks) {
           if (ks < k_steps) {  // the strip ends at S rounded up to 8
-            uint32_t a_hi[4], a_lo[4], b_hi[kNT][2], b_lo[kNT][2];
+            uint32_t a_hi[4], a_lo[4], b_hi[kMV][2], b_lo[kMV][2];
             load_a(pa + 8 * ks, pst, a_hi, a_lo);
 #pragma unroll
-            for (int n = 0; n < kNT; ++n)
-              load_b(vv[8 * ks * vst + 8 * n], vv[(8 * ks + 4) * vst + 8 * n], b_hi[n], b_lo[n]);
-            k_step_3xtf32<kNT>(hihi, cross, a_hi, a_lo, b_hi, b_lo, kNT);
+            for (int i = 0; i < kMV; ++i) {
+              const float* vn = vv + 8 * ks * vst + 8 * SPLIT * i;
+              load_b(vn[0], vn[4 * vst], b_hi[i], b_lo[i]);
+            }
+            k_step_3xtf32<kMV>(hihi, cross, a_hi, a_lo, b_hi, b_lo, kMV);
           }
         }
-        add_fresh<kNT>(acc, hihi, cross);
+        add_fresh<kMV>(acc, hihi, cross);
         if (j == key_tiles - 1) {  // the chunk is complete: store it
 #pragma unroll
-          for (int n = 0; n < kNT; ++n) {
+          for (int i = 0; i < kMV; ++i) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int row = row0 + g + 8 * h;
               if (row < T) {
+                const int col = c * DC + 8 * (i * SPLIT + part) + 2 * t4;
                 float2* o = reinterpret_cast<float2*>(
-                    out + (static_cast<size_t>(b) * T + row) * D + c * DC + 8 * n + 2 * t4);
-                *o = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+                    out + (static_cast<size_t>(b) * T + row) * D + col);
+                *o = make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
               }
             }
           }
@@ -361,14 +384,15 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <int DC>
+template <int DC, int SPLIT>
 cudaError_t launch(const Plan& p, const float* q, const float* k, const float* v,
                    const int* lengths, float* out, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(masked_attention_kernel<DC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  const auto kernel = masked_attention_kernel<DC, SPLIT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.row_tiles, p.B);
-  masked_attention_kernel<DC><<<grid, 32 * p.warps, p.smem, stream>>>(q, k, v, lengths, out, p);
+  kernel<<<grid, 32 * p.warps, p.smem, stream>>>(q, k, v, lengths, out, p);
   return cudaGetLastError();
 }
 
@@ -383,16 +407,21 @@ extern "C" {
 int vcagan_masked_attention(const float* q, const float* k, const float* v, const int* lengths,
                             float* out, const int* plan, int plan_len, int device, void* stream) {
   if (plan_len != kPlanInts) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6], plan[7], plan[8]};
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
+               plan[5], plan[6], plan[7], plan[8], plan[9]};
   if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool two = p.split == 2;
   switch (p.d_chunk) {
-    case 64: err = launch<64>(p, q, k, v, lengths, out, s); break;
-    case 32: err = launch<32>(p, q, k, v, lengths, out, s); break;
-    case 16: err = launch<16>(p, q, k, v, lengths, out, s); break;
-    default: err = launch<8>(p, q, k, v, lengths, out, s); break;
+    case 64: err = two ? launch<64, 2>(p, q, k, v, lengths, out, s)
+                       : launch<64, 1>(p, q, k, v, lengths, out, s); break;
+    case 32: err = two ? launch<32, 2>(p, q, k, v, lengths, out, s)
+                       : launch<32, 1>(p, q, k, v, lengths, out, s); break;
+    case 16: err = two ? launch<16, 2>(p, q, k, v, lengths, out, s)
+                       : launch<16, 1>(p, q, k, v, lengths, out, s); break;
+    default: err = launch<8, 1>(p, q, k, v, lengths, out, s); break;
   }
   return static_cast<int>(err);
 }

@@ -35,13 +35,15 @@ NEG_INF = -1e30  # mask value; not -inf, so an all-masked row stays finite
 LAUNCHES = 0  # kernel launches so far; reset by the caller that counts
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
-WARPS = 4  # warps a block at most; each owns 16 query rows
-ROWS = 16  # query rows of one warp (the m16n8k8 fragment's M)
+TILES = 4  # 16-row query tiles a block, at most
+SPLIT = 2  # warps a tile: each computes every SPLIT-th n-tile of a piece
+# (1 where D has no chunk of 16 or more columns)
+ROWS = 16  # query rows of one tile (the m16n8k8 fragment's M)
 KEY_TILE = 32  # keys of one streamed K or V piece
 N_TILE = 8  # keys (QK^T) or columns (PV) of one tensor-core product
 D_CHUNKS = (64, 32, 16, 8)  # the D chunk is the largest of these dividing D
-S_MAX = 512  # keys at most: the score strips of 4 warps at D = 256 fit
-PLAN_INTS = 9
+S_MAX = 512  # keys at most: the score strips of 4 tiles at D = 256 fit
+PLAN_INTS = 10
 
 
 def masked_attention_reference(
@@ -95,19 +97,26 @@ def masked_attention_reference_3xtf32(
 
 @dataclasses.dataclass(frozen=True)
 class AttentionPlan:
-    """One launch's tiling.  A block is one sample and ``warps`` x 16 query
-    rows; the grid is (``row_tiles``, B).  K, then V, stream through a ring
-    of two buffers in pieces of ``key_tile`` keys x ``d_chunk`` columns.
-    Row strides in floats (``*_stride``) are padded so that the rows of a
-    tensor-core fragment fall on different shared-memory banks."""
+    """One launch's tiling.  A block is one sample and ``tiles`` tiles of 16
+    query rows, each computed by ``split`` warps (``warps`` in all, which
+    share the n-tiles of every product); the grid is (``row_tiles``, B).
+    K, then V, stream through a ring of two buffers in pieces of
+    ``key_tile`` keys x ``d_chunk`` columns.  Row strides in floats
+    (``*_stride``) are padded so that the rows of a tensor-core fragment
+    fall on different shared-memory banks."""
 
     t: int
     s: int
     d: int
     warps: int
+    split: int
     key_tile: int
     d_chunk: int
     row_tiles: int
+
+    @property
+    def tiles(self) -> int:
+        return self.warps // self.split
 
     @property
     def q_stride(self) -> int:
@@ -128,16 +137,16 @@ class AttentionPlan:
 
     @property
     def smem_bytes(self) -> int:
-        """Q rows, one score strip a warp, two K/V buffers (the formula of
+        """Q rows, one score strip a tile, two K/V buffers (the formula of
         ``smem_bytes`` in the CUDA source)."""
-        rows = ROWS * self.warps
+        rows = ROWS * self.tiles
         ring = 2 * self.key_tile * max(self.k_stride, self.v_stride)
         return 4 * (rows * self.q_stride + rows * self.p_stride + ring)
 
     def ints(self, b: int) -> list[int]:
         """What the C entry point takes, in its order."""
-        return [b, self.t, self.s, self.d, self.warps, self.key_tile, self.d_chunk,
-                self.row_tiles, self.smem_bytes]
+        return [b, self.t, self.s, self.d, self.warps, self.split, self.key_tile,
+                self.d_chunk, self.row_tiles, self.smem_bytes]
 
 
 def _round_up(n: int, m: int) -> int:
@@ -145,28 +154,32 @@ def _round_up(n: int, m: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def attention_plan(t: int, s: int, d: int, max_warps: int = WARPS) -> AttentionPlan:
+def attention_plan(t: int, s: int, d: int, split: int = SPLIT) -> AttentionPlan:
     """The plan for q (B,t,d), k and v (B,s,d); raises for a shape the kernel
-    does not take.  The warps are spread evenly over the row tiles (75 rows:
-    2 tiles of 3 warps, not 4 + 1); a plan over the shared-memory budget
-    takes fewer warps a block."""
+    does not take.  The 16-row tiles are spread evenly over the blocks (75
+    rows: 2 blocks of 3 tiles, not 4 + 1); a plan over the shared-memory
+    budget takes fewer tiles a block."""
     if d < N_TILE or d % N_TILE:
         raise ValueError(f"the attention kernel takes D a multiple of {N_TILE}, got D={d}")
     if not 1 <= s <= S_MAX:
         raise ValueError(f"the attention kernel takes 1 <= S <= {S_MAX} keys, got S={s}")
     if t < 1:
         raise ValueError(f"no plan for T={t} query rows")
+    if split not in (1, 2):
+        raise ValueError(f"a tile is computed by 1 or 2 warps, not {split}")
     d_chunk = next(c for c in D_CHUNKS if d % c == 0)
-    warp_tiles = -(-t // ROWS)
-    warps = -(-warp_tiles // -(-warp_tiles // max_warps))
+    split = split if d_chunk >= 16 else 1  # a chunk of 8 columns is one n-tile
+    all_tiles = -(-t // ROWS)
+    tiles = -(-all_tiles // -(-all_tiles // TILES))
     while True:
-        plan = AttentionPlan(t, s, d, warps, KEY_TILE, d_chunk, -(-warp_tiles // warps))
+        plan = AttentionPlan(t, s, d, tiles * split, split, KEY_TILE, d_chunk,
+                             -(-all_tiles // tiles))
         if plan.smem_bytes <= MAX_SMEM:
             return plan
-        if warps == 1:
+        if tiles == 1:
             raise ValueError(f"the attention kernel does not fit D={d}, S={s}: "
                              f"{plan.smem_bytes} bytes of shared memory, {MAX_SMEM} at most")
-        warps -= 1
+        tiles -= 1
 
 
 # ---- the kernel
