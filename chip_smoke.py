@@ -129,6 +129,8 @@ def graph_ms(fn, samples: int = 20, calls: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    graph.reset()  # give back the graph's memory pool before the serving phase
+    torch.cuda.empty_cache()
     return statistics.median(times)
 
 
