@@ -15,7 +15,7 @@ Phases, in order; any failure raises and exits non-zero:
      in its bf16 form too; shapes a kernel does not take must raise); time
      kernel, plain version and, where one PyTorch call computes the same
      function, that call as a yardstick (the attention also at the LRS
-     shape and with its second plan candidate, printed only);
+     shape, printed only);
   4. run both serving paths (trained weights from data/soak_serving_q8.npz,
      B=2, T=75, 112x112) on the card and on the CPU with the same noise and
      Griffin-Lim phase, and compare: the unfolded path, and the folded-BN
@@ -63,9 +63,6 @@ TF32_TC_FLOP_PER_S = 495e12
 FB_FLOP_PER_S = {"fp32": TF32_TC_FLOP_PER_S / 3, "bf16": BF16_TC_FLOP_PER_S}
 ATTN_FLOP_PER_S = TF32_TC_FLOP_PER_S / 3
 ATTN_TOL = 1e-5  # atol and rtol: fp32 on both sides, D=256-term sums
-# The attention's second plan candidate (warps a 16-row tile), timed beside
-# the wrapper's plan (attn.SPLIT) and printed only.
-ATTN_OTHER_SPLIT = 3 - attn.SPLIT
 # Fused block, atol and rtol.  fp32: two convolutions of up to 9*512 = 4608
 # terms each, summed in another order than cuDNN's, on outputs of order 1;
 # the kernel's 3xTF32 products keep about 2^-21 relative each, so the fp32
@@ -212,11 +209,6 @@ def phase_kernel_vs_plain(card):
         want64 = attn.masked_attention_reference(q.double(), k.double(), v.double(), lens)
         err64 = (got.double() - want64).abs().max().item()
         err3x = (got - attn.masked_attention_reference_3xtf32(q, k, v, lens)).abs().max().item()
-        # the second plan candidate, which is timed below, computes it too
-        other = attn.masked_attention_cuda(q, k, v, lens, plan=attn.attention_plan(
-            t, s, d, ATTN_OTHER_SPLIT))
-        err_other = (other.double() - want64).abs().max().item()
-        check(err_other < ATTN_TOL, f"{name}: other plan vs float64 {err_other:.3e}")
         worst, worst_3x = max(worst, err), max(worst_3x, err3x)
         check(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
         check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
@@ -225,36 +217,32 @@ def phase_kernel_vs_plain(card):
         check(err3x < ATTN_TOL, f"{name} {b, t, s, d}: kernel vs plain 3xTF32 {err3x:.3e}")
         plan = attn.attention_plan(t, s, d)
         print(f"attention {name:10s} B={b} T={t} S={s} D={d} ({plan.row_tiles} x {plan.tiles} "
-              f"tiles of 16 rows, {plan.split} warps a tile, D chunk {plan.d_chunk}): max_abs_err {err:.3e} "
-              f"(vs float64 {err64:.3e}, vs plain 3xTF32 {err3x:.3e}; other plan vs float64 "
-              f"{err_other:.3e}) ok")
+              f"tiles of 16 rows, {plan.split} warps a tile, D chunk {plan.d_chunk}): "
+              f"max_abs_err {err:.3e} (vs float64 {err64:.3e}, vs plain 3xTF32 {err3x:.3e}) ok")
     print(f"attention (3xTF32) vs plain 3xTF32, worst of the cases: {worst_3x:.3e}")
 
     # Times at the serving path's inputs: full lengths (bench-style clips of
     # 75 frames), so no key is masked and the work is the whole product.
     # Device times from CUDA-graph replays; the kernel's time_ms (events
     # around back-to-back calls, as PR 1-3 timed it, host work included) is
-    # printed beside.  The LRS shape and the second plan candidate are
-    # printed only.
+    # printed beside.  The LRS shape is printed only.
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
     for name, b, t, s, d in (("att1", 48, 75, 75, 256), ("att2", 48, 150, 75, 256),
                              ("LRS", 4, 640, 160, 256)):
         q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=7)
-        plan, other = attn.attention_plan(t, s, d), attn.attention_plan(t, s, d, ATTN_OTHER_SPLIT)
+        plan = attn.attention_plan(t, s, d)
         ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
         events_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
-        other_ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens, plan=other))
         plain = graph_ms(lambda: attn.masked_attention_reference(q, k, v, lens))
         mask = key_mask(k, lens)
         lib = graph_ms(lambda: sdpa(q, k, v, mask))
         nbytes, flops = attention_work(b, t, s, d)
         t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
-        bound = max(t_bytes, t_flops)
+        bound, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
         print(f"attention {name} time B={b} T={t} S={s} D={d} (3xTF32 on the tensor cores): "
               f"kernel {ms:.4f} ms ({plan.warps} warps a block, {plan.split} a tile; events around "
-              f"back-to-back calls {events_ms:.4f} ms), other plan "
-              f"{other_ms:.4f} ms ({other.warps} warps, {other.split} a tile), plain {plain:.4f} ms, "
-              f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({'bytes' if t_bytes >= t_flops else 'operations'}; "
+              f"back-to-back calls {events_ms:.4f} ms), plain {plain:.4f} ms, "
+              f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at 495 TFLOP/s / 3) [{card}]")
         if name == "LRS":
             continue

@@ -133,7 +133,7 @@ def test_plan_fits_shared_memory_and_covers_every_row_once(case):
     assert plan.smem_bytes == 4 * (16 * plan.tiles * (plan.q_stride + plan.p_stride)
                                    + 2 * plan.key_tile * max(plan.k_stride, plan.v_stride))
     assert 1 <= plan.tiles <= port.TILES and plan.warps == plan.tiles * plan.split <= 8
-    assert plan.split == (port.SPLIT if plan.d_chunk >= 16 else 1)
+    assert plan.split == (port.SPLIT if plan.d_chunk >= 16 else 1)  # D=72: chunks of 8
     assert plan.key_tile == port.KEY_TILE
     assert d % plan.d_chunk == 0 and plan.d_chunk <= 64
     # tile i of block r owns rows 16 (r * tiles + i) ... + 15
@@ -149,11 +149,11 @@ def test_plan_fits_shared_memory_and_covers_every_row_once(case):
                             plan.row_tiles, plan.smem_bytes]
 
 
-@pytest.mark.parametrize("split", [1, 2])
-def test_plan_spreads_the_tiles_over_the_blocks(split):
-    for t, tiles, blocks in ((75, 3, 2), (150, 4, 3), (1, 1, 1), (640, 4, 10)):
-        plan = port.attention_plan(t, 75, 256, split)
-        assert (plan.tiles, plan.row_tiles, plan.warps) == (tiles, blocks, tiles * split)
+@pytest.mark.parametrize("t,tiles,blocks", [(75, 3, 2), (150, 4, 3), (1, 1, 1), (640, 4, 10)])
+def test_plan_spreads_the_tiles_over_the_blocks(t, tiles, blocks):
+    """75 rows are 2 blocks of 3 tiles, not 4 + 1."""
+    plan = port.attention_plan(t, 75, 256)
+    assert (plan.tiles, plan.row_tiles, plan.warps) == (tiles, blocks, tiles * port.SPLIT)
 
 
 @pytest.mark.parametrize("t,s,d", [(75, 75, 100), (75, 75, 4), (75, port.S_MAX + 1, 256),
@@ -161,8 +161,6 @@ def test_plan_spreads_the_tiles_over_the_blocks(split):
 def test_plan_refuses_what_the_kernel_does_not_take(t, s, d):
     with pytest.raises(ValueError):
         port.attention_plan(t, s, d)
-    with pytest.raises(ValueError):
-        port.attention_plan(75, 75, 256, split=3)
 
 
 def test_an_edited_shared_header_rebuilds_every_kernel(tmp_path, monkeypatch):

@@ -26,10 +26,12 @@
 //   75- or 150-row sample; the 16-row tile wastes at most 15.  The plan
 //   (vcagan_torch/kernels/masked_attention.py::attention_plan) spreads the
 //   tiles over the blocks: 75 rows are 2 blocks of 3 tiles.  A tile is
-//   computed by `split` warps (1 or 2), each taking every split-th n-tile
-//   of every product (keys in QK^T, columns in P.V) and half the rows of
-//   the softmax: the serving shapes give only 240-480 tiles for 132 SMs, so
-//   a tile's chain of products is the time, and two warps halve it.
+//   computed by two warps, each taking every other n-tile of every product
+//   (keys in QK^T, columns in P.V) and half the rows of the softmax (one
+//   warp where the D chunk is a single n-tile): the serving shapes give
+//   only 240-480 tiles for 132 SMs, so a tile's chain of products is the
+//   time (one warp a tile: 0.0491 / 0.0593 ms at att1 / att2; two:
+//   0.0398 / 0.0594, att2 held back by 144 blocks on 132 SMs).
 // - The block's Q rows are copied to shared memory once (cp.async).  K, then
 //   V, stream through a ring of two buffers in pieces of 32 keys x d_chunk
 //   (64 at D = 256) columns: K pieces walk (key tile, chunk), V pieces
@@ -50,10 +52,10 @@
 //   (as in the C fragment; one of the two each when a tile has two warps)
 //   and the columns t, t+4, ...; max and sum by quad shuffles; expf;
 //   P = e / sum written back in place; a barrier before P.V.
-// - P.V: for each D chunk, the tile's 16 x d_chunk output (8 n-tiles, 32
-//   fp32 sums a thread) over the V pieces of that chunk; P's A fragments
-//   are read from the strip.  A chunk of 64 keeps a thread's sums and fresh
-//   sums at 96 registers; all 256 columns at once would be 384.
+// - P.V: for each D chunk, the tile's 16 x d_chunk output (8 n-tiles, 4 a
+//   warp) over the V pieces of that chunk; P's A fragments are read from
+//   the strip.  A chunk of 64 keeps a thread's sums and fresh sums at 48
+//   registers; all 256 columns at once would be 192.
 // - fp32 as 3xTF32: each operand split into hi = tf32(a), lo = tf32(a - hi)
 //   by integer round-and-mask (tf32.cuh); the cross terms lo*hi + hi*lo are
 //   summed apart from hi*hi and added to it at the end of a piece.  The
@@ -62,18 +64,21 @@
 //   running sum (left in the tensor cores over D = 256, the error against
 //   float64 grew from 2e-6 to 8e-6 of the 1e-5 allowed).
 // - A warp issues its products in order and waits for each operand, and the
-//   grid gives an SM only 2-3 warps, so nothing else hides a wait: a k-step
+//   grid gives an SM only a few warps, so nothing else hides a wait: a k-step
 //   loads and splits all its B fragments first, then issues the products
 //   tile by tile in three rounds (lo*hi, hi*hi, hi*lo), so that no product
 //   waits on the one before it; D chunks are template instances (8, 16,
 //   32, 64) so that the k-steps unroll.  (The first version, 3 chained
-//   products a tile, took 98 us at both serving shapes.)
+//   products a tile, took 0.1 ms at both serving shapes.)
 // - Bank conflicts are avoided by padding rows, not by a swizzle: Q, K and
 //   the strip are read as rows g, columns t (stride 4 mod 8 floats); V as
 //   rows t, columns g (stride 8 or 24 mod 32 floats).
 //
-// Later work: wgmma with A from registers, K/V by TMA, a swizzled layout, a
-// persistent grid.
+// What holds it back (9x its bound): for every 3 products a warp loads 2 B
+// values and splits them, and every warp of a block splits the same K and
+// V values again.  Later work: K/V pieces and Q split once into shared
+// memory, a grid balanced over the SMs, wgmma with A from registers, K/V by
+// TMA, a swizzled layout, a persistent grid.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -120,8 +125,7 @@ bool plan_ok(const Plan& p) {
   if (p.d_chunk != 8 && p.d_chunk != 16 && p.d_chunk != 32 && p.d_chunk != kMaxChunk) return false;
   if (p.D % p.d_chunk != 0) return false;
   if (p.warps < 1 || p.warps > kMaxWarps) return false;
-  if ((p.split != 1 && p.split != 2) || p.warps % p.split != 0) return false;
-  if (p.split == 2 && p.d_chunk < 16) return false;
+  if (p.split != (p.d_chunk >= 16 ? 2 : 1) || p.warps % p.split != 0) return false;
   const int rows = kRows * (p.warps / p.split);
   if (p.row_tiles != (p.T + rows - 1) / rows) return false;
   const size_t smem = smem_bytes(p.warps / p.split, p.S, p.D, p.d_chunk);
@@ -413,14 +417,10 @@ int vcagan_masked_attention(const float* q, const float* k, const float* v, cons
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool two = p.split == 2;
   switch (p.d_chunk) {
-    case 64: err = two ? launch<64, 2>(p, q, k, v, lengths, out, s)
-                       : launch<64, 1>(p, q, k, v, lengths, out, s); break;
-    case 32: err = two ? launch<32, 2>(p, q, k, v, lengths, out, s)
-                       : launch<32, 1>(p, q, k, v, lengths, out, s); break;
-    case 16: err = two ? launch<16, 2>(p, q, k, v, lengths, out, s)
-                       : launch<16, 1>(p, q, k, v, lengths, out, s); break;
+    case 64: err = launch<64, 2>(p, q, k, v, lengths, out, s); break;
+    case 32: err = launch<32, 2>(p, q, k, v, lengths, out, s); break;
+    case 16: err = launch<16, 2>(p, q, k, v, lengths, out, s); break;
     default: err = launch<8, 1>(p, q, k, v, lengths, out, s); break;
   }
   return static_cast<int>(err);

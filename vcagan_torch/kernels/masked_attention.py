@@ -6,8 +6,8 @@ masked_attention.cu`` (which replaces the TPU kernel ``_attention_kernel`` /
 ``_attention_pallas`` of ``vcagan/kernels/masked_attention.py:50-121``; its
 bound and design are noted in the source): both products on the tensor
 cores, in fp32 as 3xTF32 (each operand split into a TF32 high and low part,
-lo*hi + hi*lo first, then hi*hi), which keeps about 2^-21 relative a
-product.  On a CPU tensor it runs the plain PyTorch version,
+the cross terms lo*hi + hi*lo summed apart from hi*hi), which keeps about
+2^-21 relative a product.  On a CPU tensor it runs the plain PyTorch version,
 ``masked_attention_reference``, which is the einsum/softmax twin of the JAX
 package's ``_attention_xla``.  ``masked_attention_reference_3xtf32`` is the
 kernel's arithmetic in plain PyTorch, for the tests and the card's checks.
@@ -36,8 +36,8 @@ LAUNCHES = 0  # kernel launches so far; reset by the caller that counts
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
 TILES = 4  # 16-row query tiles a block, at most
-SPLIT = 2  # warps a tile: each computes every SPLIT-th n-tile of a piece
-# (1 where D has no chunk of 16 or more columns)
+SPLIT = 2  # warps a tile, each computing every other n-tile of a piece
+# (one warp where the D chunk is a single n-tile of 8 columns)
 ROWS = 16  # query rows of one tile (the m16n8k8 fragment's M)
 KEY_TILE = 32  # keys of one streamed K or V piece
 N_TILE = 8  # keys (QK^T) or columns (PV) of one tensor-core product
@@ -124,7 +124,7 @@ class AttentionPlan:
 
     @property
     def p_stride(self) -> int:
-        return _round_up(self.s, N_TILE) + 4
+        return -(-self.s // N_TILE) * N_TILE + 4  # S padded to the n-tile
 
     @property
     def k_stride(self) -> int:
@@ -149,12 +149,8 @@ class AttentionPlan:
                 self.d_chunk, self.row_tiles, self.smem_bytes]
 
 
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
 @functools.lru_cache(maxsize=256)
-def attention_plan(t: int, s: int, d: int, split: int = SPLIT) -> AttentionPlan:
+def attention_plan(t: int, s: int, d: int) -> AttentionPlan:
     """The plan for q (B,t,d), k and v (B,s,d); raises for a shape the kernel
     does not take.  The 16-row tiles are spread evenly over the blocks (75
     rows: 2 blocks of 3 tiles, not 4 + 1); a plan over the shared-memory
@@ -165,10 +161,8 @@ def attention_plan(t: int, s: int, d: int, split: int = SPLIT) -> AttentionPlan:
         raise ValueError(f"the attention kernel takes 1 <= S <= {S_MAX} keys, got S={s}")
     if t < 1:
         raise ValueError(f"no plan for T={t} query rows")
-    if split not in (1, 2):
-        raise ValueError(f"a tile is computed by 1 or 2 warps, not {split}")
     d_chunk = next(c for c in D_CHUNKS if d % c == 0)
-    split = split if d_chunk >= 16 else 1  # a chunk of 8 columns is one n-tile
+    split = SPLIT if d_chunk >= 2 * N_TILE else 1
     all_tiles = -(-t // ROWS)
     tiles = -(-all_tiles // -(-all_tiles // TILES))
     while True:
@@ -199,12 +193,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def masked_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
-    plan: AttentionPlan | None = None,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; raises on any input it
-    does not take and on a launch error.  ``plan`` defaults to
-    ``attention_plan`` of the shapes."""
+    does not take and on a launch error."""
     global LAUNCHES
     for name, x in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if x.device.type != "cuda" or x.device != q.device:
@@ -230,10 +222,7 @@ def masked_attention_cuda(
     out = torch.empty_like(q)
     if t == 0 or b == 0:
         return out
-    plan = attention_plan(t, s, d) if plan is None else plan
-    if (plan.t, plan.s, plan.d) != (t, s, d):
-        raise ValueError(f"the plan is for {plan.t, plan.s, plan.d}, not {t, s, d}")
-    ints = (ctypes.c_int * PLAN_INTS)(*plan.ints(b))
+    ints = (ctypes.c_int * PLAN_INTS)(*attention_plan(t, s, d).ints(b))
     lib = _lib()
     err = lib.vcagan_masked_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
