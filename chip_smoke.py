@@ -101,21 +101,20 @@ def time_ms(fn, samples: int = 20, calls: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, samples: int = 20, calls: int = 20, warmup: int = 3) -> float:
+def graph_ms(fn, side, samples: int = 20, calls: int = 20, warmup: int = 3) -> float:
     """Device time of one call: ``calls`` calls captured once in a CUDA
-    graph, the graph replayed ``samples`` times between CUDA events; the
-    median, divided by ``calls``.  No host work is timed, which matters for
-    calls of tens of microseconds, where ``time_ms`` times the host (the
-    attention's wrapper, its plain version and sdpa take 20-140 us of host
-    time a call)."""
-    side = torch.cuda.Stream()
+    graph on the stream ``side``, the graph replayed ``samples`` times
+    between CUDA events; the median, divided by ``calls``.  No host work is
+    timed, which matters for calls of tens of microseconds, where
+    ``time_ms`` times the host (the attention's wrapper, its plain version
+    and sdpa take 20-140 us of host time a call)."""
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     times = []
@@ -126,8 +125,6 @@ def graph_ms(fn, samples: int = 20, calls: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
-    graph.reset()  # give back the graph's memory pool before the serving phase
-    torch.cuda.empty_cache()
     return statistics.median(times)
 
 
@@ -227,15 +224,16 @@ def phase_kernel_vs_plain(card):
     # around back-to-back calls, as PR 1-3 timed it, host work included) is
     # printed beside.  The LRS shape is printed only.
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
+    side = torch.cuda.Stream()
     for name, b, t, s, d in (("att1", 48, 75, 75, 256), ("att2", 48, 150, 75, 256),
                              ("LRS", 4, 640, 160, 256)):
         q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=7)
         plan = attn.attention_plan(t, s, d)
-        ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
+        ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side)
         events_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
-        plain = graph_ms(lambda: attn.masked_attention_reference(q, k, v, lens))
+        plain = graph_ms(lambda: attn.masked_attention_reference(q, k, v, lens), side)
         mask = key_mask(k, lens)
-        lib = graph_ms(lambda: sdpa(q, k, v, mask))
+        lib = graph_ms(lambda: sdpa(q, k, v, mask), side)
         nbytes, flops = attention_work(b, t, s, d)
         t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
         bound, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
@@ -249,6 +247,10 @@ def phase_kernel_vs_plain(card):
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bytes", nbytes), ("flops", flops)):
             totals[key] += val
+    # cuBLAS keeps a workspace for the side stream, allocated while the plain
+    # version was captured; free it, so that the serving phase's peak memory
+    # counts the serving path only.
+    torch._C._cuda_clearCublasWorkspaces()
     return totals, worst
 
 
