@@ -221,8 +221,8 @@ def phase_kernel_vs_plain(card):
     # Times at the serving path's inputs: full lengths (bench-style clips of
     # 75 frames), so no key is masked and the work is the whole product.
     # Device times from CUDA-graph replays; the kernel's time_ms (events
-    # around back-to-back calls, as PR 1-3 timed it, host work included) is
-    # printed beside.  The LRS shape is printed only.
+    # around back-to-back calls, host work included, as the attention was
+    # timed before) is printed beside.  The LRS shape is printed only.
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
     side = torch.cuda.Stream()
     for name, b, t, s, d in (("att1", 48, 75, 75, 256), ("att2", 48, 150, 75, 256),

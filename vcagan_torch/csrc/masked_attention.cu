@@ -16,9 +16,9 @@
 //                       4*B*T*S*D = 0.28 GFLOP at 165 TFLOP/s -> 1.7 us
 //   att2  T=150, S=75: q,out 7.37 MB, k,v 3.69 MB = 22.1 MB -> 6.6 us;
 //                       0.55 GFLOP -> 3.4 us
-// so both are bound by bytes.  (PR 1's bound divided by the 67 TFLOP/s of
-// fp32 outside the tensor cores, which made att2 bound by operations; that
-// was the bound of an FMA kernel, not of the card.)
+// so both are bound by bytes.  (The earlier FMA kernel's bound divided by
+// the 67 TFLOP/s of fp32 outside the tensor cores, which made att2 bound by
+// operations; that was the bound of that design, not of the card.)
 //
 // Design (both products on the tensor cores, mma.sync m16n8k8 TF32):
 // - A block is one sample and `tiles` tiles of 16 query rows (one m16
