@@ -13,9 +13,7 @@ Phases, in order; any failure raises and exits non-zero:
      paths' shapes and at edge cases (both kernels' fp32 forms, which are
      3xTF32, also against that arithmetic in plain PyTorch; the fused block
      in its bf16 form too; shapes a kernel does not take must raise); time
-     kernel, plain version and, where one PyTorch call computes the same
-     function, that call as a yardstick (the attention also at the LRS
-     shape, printed only);
+     the fused block's kernel, plain version and bf16 library convolutions;
   4. run both serving paths (trained weights from data/soak_serving_q8.npz,
      B=2, T=75, 112x112) on the card and on the CPU with the same noise and
      Griffin-Lim phase, and compare: the unfolded path, and the folded-BN
@@ -24,6 +22,9 @@ Phases, in order; any failure raises and exits non-zero:
      then counted batches with one sync (4 unfolded, 8 folded + fused);
      count the kernel launches of each run; then time the stages of one
      more forward with CUDA events;
+  6. time the attention kernel, its plain version and sdpa, the PyTorch
+     call that computes the same function, at the serving shapes (and at
+     the LRS shape, printed only);
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -164,7 +165,7 @@ def check_refused(what, fn, words):
 
 
 def phase_kernel_vs_plain(card):
-    """Returns the per-forward totals at the serving shapes."""
+    """Returns the worst error against the plain version."""
     rng = np.random.default_rng(0)
     cases = [
         ("att1 path", 48, 75, 75, 256, rng.integers(1, 76, 48)),
@@ -217,13 +218,19 @@ def phase_kernel_vs_plain(card):
               f"tiles of 16 rows, {plan.split} warps a tile, D chunk {plan.d_chunk}): "
               f"max_abs_err {err:.3e} (vs float64 {err64:.3e}, vs plain 3xTF32 {err3x:.3e}) ok")
     print(f"attention (3xTF32) vs plain 3xTF32, worst of the cases: {worst_3x:.3e}")
+    return worst
 
-    # Times at the serving path's inputs: full lengths (bench-style clips of
-    # 75 frames), so no key is masked and the work is the whole product.
-    # Device times from CUDA-graph replays; the kernel's time_ms (events
-    # around back-to-back calls, host work included, as the attention was
-    # timed before) is printed beside.  The LRS shape is printed only.
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
+
+def phase_attention_times(card):
+    """Times at the serving path's inputs: full lengths (bench-style clips
+    of 75 frames), so no key is masked and the work is the whole product.
+    Device times from CUDA-graph replays; the kernel's time_ms (events around
+    back-to-back calls, host work included, as the attention was timed
+    before) stands beside as ``events_ms``.  The LRS shape is printed only.
+    Run after the serving phases: capturing the plain version leaves cuBLAS
+    a workspace for the capture stream, which would count in their peak
+    memory.  Returns the per-forward totals."""
+    totals = dict(ms=0.0, events_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
     side = torch.cuda.Stream()
     for name, b, t, s, d in (("att1", 48, 75, 75, 256), ("att2", 48, 150, 75, 256),
                              ("LRS", 4, 640, 160, 256)):
@@ -244,14 +251,10 @@ def phase_kernel_vs_plain(card):
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at 495 TFLOP/s / 3) [{card}]")
         if name == "LRS":
             continue
-        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bytes", nbytes), ("flops", flops)):
+        for key, val in (("ms", ms), ("events_ms", events_ms), ("plain_ms", plain),
+                         ("library_ms", lib), ("bytes", nbytes), ("flops", flops)):
             totals[key] += val
-    # cuBLAS keeps a workspace for the side stream, allocated while the plain
-    # version was captured; free it, so that the serving phase's peak memory
-    # counts the serving path only.
-    torch._C._cuda_clearCublasWorkspaces()
-    return totals, worst
+    return totals
 
 
 def fused_block_inputs(n, h, w, c, seed, dtype=torch.float32, zero_ring=False):
@@ -559,7 +562,7 @@ def main() -> None:
         print(f"  {name}: {hgmma} HGMMA and {hmma} HMMA tensor-core instructions in the library")
         check(hgmma + hmma > 0, f"the {name} library holds no tensor-core instruction")
 
-    attn_totals, attn_worst = phase_kernel_vs_plain(card)
+    attn_worst = phase_kernel_vs_plain(card)
     fb_totals, fb_worst = phase_fused_block_vs_plain(card)
     states = load_serving_npz(SERVING_NPZ)
     unfolded, folded = phase_paths_card_vs_cpu(states)
@@ -567,12 +570,13 @@ def main() -> None:
     del unfolded
     torch.cuda.empty_cache()
     launches["folded+fused"] = phase_serve(folded, card, "folded+fused", batches=8, fused=True)
+    attn_totals = phase_attention_times(card)
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
         return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
 
-    def kernel_entry(name, source, replaces, worst, totals, flop_per_s):
+    def kernel_entry(name, source, replaces, worst, totals, flop_per_s, timer):
         bound_ms, bound_by = bound(totals, flop_per_s)
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -580,7 +584,7 @@ def main() -> None:
             "launches_by_path": {path: counts[name] for path, counts in launches.items()},
             "max_abs_err": worst, "ms": totals["ms"],
             "plain_ms": totals["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": totals.get("library_ms"),
+            "library_ms": totals.get("library_ms"), "timer": timer,
         }
 
     # ms, plain_ms, bound_ms: one forward's launches of the kernel (2
@@ -588,10 +592,14 @@ def main() -> None:
     # 3xTF32, so its bound divides by a third of the TF32 rate; the bf16
     # form's numbers stand beside it).  launches: the counted batches of the
     # folded + fused serving run, which goes through both kernels; each
-    # serving run's own count stands in launches_by_path.
+    # serving run's own count stands in launches_by_path.  timer: how ms,
+    # plain_ms and library_ms were taken, "graph" (CUDA-graph replay, no host
+    # work) or "events" (CUDA events around back-to-back calls, time_ms); the
+    # attention's events_ms is its time by the second timer, comparable with
+    # times taken that way before.
     fused = kernel_entry("fused_basic_block", "vcagan_torch/csrc/fused_block.cu",
                          "vcagan/kernels/fused_block.py:95", fb_worst, fb_totals["fp32"],
-                         FB_FLOP_PER_S["fp32"])
+                         FB_FLOP_PER_S["fp32"], "events")
     fused.update(form="3xTF32", ms_bf16=fb_totals["bf16"]["ms"],
                  plain_ms_bf16=fb_totals["bf16"]["plain_ms"],
                  bound_ms_bf16=bound(fb_totals["bf16"], FB_FLOP_PER_S["bf16"])[0],
@@ -603,9 +611,10 @@ def main() -> None:
           f"{fused['convs_ms_bf16']:.2f} ms, bound {fused['bound_ms_bf16']:.2f} ms")
     attention = kernel_entry("masked_cross_attention", "vcagan_torch/csrc/masked_attention.cu",
                              "vcagan/kernels/masked_attention.py:85", attn_worst, attn_totals,
-                             ATTN_FLOP_PER_S)
-    attention.update(form="3xTF32")
-    print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms, plain "
+                             ATTN_FLOP_PER_S, "graph")
+    attention.update(form="3xTF32", events_ms=attn_totals["events_ms"])
+    print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
+          f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "
           f"{attention['bound_ms']:.4f} ms ({attention['bound_by']})")
     print(json.dumps({"kernels": [attention, fused]}))

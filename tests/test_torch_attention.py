@@ -122,7 +122,8 @@ def test_padded_keys_get_weight_zero(key_pad):
 
 PLAN_CASES = [("att1", 75, 75, 256), ("att2", 150, 75, 256), ("LRS max", 640, 160, 256),
               *((f"T={t} S={s}", t, s, 256) for t in (1, 17) for s in (1, 8, 9, 160, port.S_MAX)),
-              ("D=64", 33, 21, 64), ("D=128", 33, 21, 128), ("D=72", 33, 21, 72)]
+              ("D=64", 33, 21, 64), ("D=128", 33, 21, 128), ("D=72", 33, 21, 72),
+              ("D=80", 33, 21, 80)]
 
 
 @pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
@@ -133,9 +134,9 @@ def test_plan_fits_shared_memory_and_covers_every_row_once(case):
     assert plan.smem_bytes == 4 * (16 * plan.tiles * (plan.q_stride + plan.p_stride)
                                    + 2 * plan.key_tile * max(plan.k_stride, plan.v_stride))
     assert 1 <= plan.tiles <= port.TILES and plan.warps == plan.tiles * plan.split <= 8
-    assert plan.split == (port.SPLIT if plan.d_chunk >= 16 else 1)  # D=72: chunks of 8
+    assert plan.split == (port.SPLIT if plan.d_chunk > 8 else 1)  # D=72: chunks of 8
     assert plan.key_tile == port.KEY_TILE
-    assert d % plan.d_chunk == 0 and plan.d_chunk <= 64
+    assert plan.d_chunk == (64 if d % 64 == 0 else 8) and d % plan.d_chunk == 0
     # tile i of block r owns rows 16 (r * tiles + i) ... + 15
     covered = np.zeros(plan.row_tiles * plan.tiles * 16, int)
     for r in range(plan.row_tiles):
@@ -145,8 +146,9 @@ def test_plan_fits_shared_memory_and_covers_every_row_once(case):
     # strides put a fragment's rows on different banks
     assert plan.q_stride % 8 == 4 and plan.k_stride % 8 == 4 and plan.p_stride % 8 == 4
     assert plan.v_stride % 32 in (8, 24)
-    assert plan.ints(3) == [3, t, s, d, plan.warps, plan.split, plan.key_tile, plan.d_chunk,
-                            plan.row_tiles, plan.smem_bytes]
+    assert plan.ints(3) == [3, t, s, d, plan.warps, plan.d_chunk, plan.row_tiles,
+                            plan.smem_bytes]
+    assert len(plan.ints(3)) == port.PLAN_INTS
 
 
 @pytest.mark.parametrize("t,tiles,blocks", [(75, 3, 2), (150, 4, 3), (1, 1, 1), (640, 4, 10)])

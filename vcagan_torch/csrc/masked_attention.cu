@@ -67,8 +67,9 @@
 //   grid gives an SM only a few warps, so nothing else hides a wait: a k-step
 //   loads and splits all its B fragments first, then issues the products
 //   tile by tile in three rounds (lo*hi, hi*hi, hi*lo), so that no product
-//   waits on the one before it; D chunks are template instances (8, 16,
-//   32, 64) so that the k-steps unroll.  (The first version, 3 chained
+//   waits on the one before it; D chunks are template instances so that
+//   the k-steps unroll: 64 columns wherever 64 divides D (the model's D is
+//   256), else 8 (any other multiple of 8).  (The first version, 3 chained
 //   products a tile, took 0.1 ms at both serving shapes.)
 // - Bank conflicts are avoided by padding rows, not by a swizzle: Q, K and
 //   the strip are read as rows g, columns t (stride 4 mod 8 floats); V as
@@ -95,12 +96,16 @@ constexpr int kMaxChunk = 64;      // D columns of a piece, at most
 constexpr int kMaxWarps = 8;
 constexpr int kMaxKeys = 512;
 constexpr int kMaxSmem = 232448;   // 227 KB a block may use
-constexpr int kPlanInts = 10;
+constexpr int kPlanInts = 8;
 constexpr float kMasked = -1e30f;
 
 struct Plan {
-  int B, T, S, D, warps, split, key_tile, d_chunk, row_tiles, smem;
+  int B, T, S, D, warps, d_chunk, row_tiles, smem;
 };
+
+// Warps a 16-row tile: two share the n-tiles of a chunk of 64 columns; a
+// chunk of 8 is a single n-tile, computed by one warp.
+__host__ __device__ constexpr int split_of(int dc) { return dc > 8 ? 2 : 1; }
 
 // Row strides in floats, as AttentionPlan has them.
 __host__ __device__ constexpr int q_stride(int D) { return D + 4; }
@@ -121,14 +126,13 @@ size_t smem_bytes(int tiles, int S, int D, int dc) {
 bool plan_ok(const Plan& p) {
   if (p.B < 1 || p.B > 65535 || p.T < 1 || p.S < 1 || p.S > kMaxKeys) return false;
   if (p.D < 8 || p.D % 8 != 0) return false;
-  if (p.key_tile != kKeyTile) return false;
-  if (p.d_chunk != 8 && p.d_chunk != 16 && p.d_chunk != 32 && p.d_chunk != kMaxChunk) return false;
+  if (p.d_chunk != 8 && p.d_chunk != kMaxChunk) return false;
   if (p.D % p.d_chunk != 0) return false;
-  if (p.warps < 1 || p.warps > kMaxWarps) return false;
-  if (p.split != (p.d_chunk >= 16 ? 2 : 1) || p.warps % p.split != 0) return false;
-  const int rows = kRows * (p.warps / p.split);
+  const int split = split_of(p.d_chunk);
+  if (p.warps < 1 || p.warps > kMaxWarps || p.warps % split != 0) return false;
+  const int rows = kRows * (p.warps / split);
   if (p.row_tiles != (p.T + rows - 1) / rows) return false;
-  const size_t smem = smem_bytes(p.warps / p.split, p.S, p.D, p.d_chunk);
+  const size_t smem = smem_bytes(p.warps / split, p.S, p.D, p.d_chunk);
   return smem == static_cast<size_t>(p.smem) && smem <= static_cast<size_t>(kMaxSmem);
 }
 
@@ -200,7 +204,7 @@ __device__ __forceinline__ void add_fresh(float (&sum)[N][4], const float (&hihi
 
 // SPLIT warps compute a 16-row tile; warp `part` of them takes the n-tiles
 // part, part + SPLIT, ... of every product (its i-th is n = i * SPLIT + part).
-template <int DC, int SPLIT>
+template <int DC, int SPLIT = split_of(DC)>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ lengths,
@@ -388,10 +392,10 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <int DC, int SPLIT>
+template <int DC>
 cudaError_t launch(const Plan& p, const float* q, const float* k, const float* v,
                    const int* lengths, float* out, cudaStream_t stream) {
-  const auto kernel = masked_attention_kernel<DC, SPLIT>;
+  const auto kernel = masked_attention_kernel<DC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
@@ -411,18 +415,13 @@ extern "C" {
 int vcagan_masked_attention(const float* q, const float* k, const float* v, const int* lengths,
                             float* out, const int* plan, int plan_len, int device, void* stream) {
   if (plan_len != kPlanInts) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
-               plan[5], plan[6], plan[7], plan[8], plan[9]};
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6], plan[7]};
   if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.d_chunk) {
-    case 64: err = launch<64, 2>(p, q, k, v, lengths, out, s); break;
-    case 32: err = launch<32, 2>(p, q, k, v, lengths, out, s); break;
-    case 16: err = launch<16, 2>(p, q, k, v, lengths, out, s); break;
-    default: err = launch<8, 1>(p, q, k, v, lengths, out, s); break;
-  }
+  err = p.d_chunk == kMaxChunk ? launch<kMaxChunk>(p, q, k, v, lengths, out, s)
+                               : launch<8>(p, q, k, v, lengths, out, s);
   return static_cast<int>(err);
 }
 

@@ -41,9 +41,9 @@ SPLIT = 2  # warps a tile, each computing every other n-tile of a piece
 ROWS = 16  # query rows of one tile (the m16n8k8 fragment's M)
 KEY_TILE = 32  # keys of one streamed K or V piece
 N_TILE = 8  # keys (QK^T) or columns (PV) of one tensor-core product
-D_CHUNKS = (64, 32, 16, 8)  # the D chunk is the largest of these dividing D
+D_CHUNKS = (64, 8)  # the D chunk: 64 where it divides D (the model's 256), else 8
 S_MAX = 512  # keys at most: the score strips of 4 tiles at D = 256 fit
-PLAN_INTS = 10
+PLAN_INTS = 8
 
 
 def masked_attention_reference(
@@ -95,6 +95,11 @@ def masked_attention_reference_3xtf32(
 # ---- the tile plan
 
 
+def _split(d_chunk: int) -> int:
+    """Warps a 16-row tile: the kernel's instance for ``d_chunk``."""
+    return SPLIT if d_chunk > N_TILE else 1
+
+
 @dataclasses.dataclass(frozen=True)
 class AttentionPlan:
     """One launch's tiling.  A block is one sample and ``tiles`` tiles of 16
@@ -103,16 +108,23 @@ class AttentionPlan:
     K, then V, stream through a ring of two buffers in pieces of
     ``key_tile`` keys x ``d_chunk`` columns.  Row strides in floats
     (``*_stride``) are padded so that the rows of a tensor-core fragment
-    fall on different shared-memory banks."""
+    fall on different shared-memory banks.  ``split`` and ``key_tile`` are
+    fixed by the kernel (its D-chunk instance and a constant), not chosen."""
 
     t: int
     s: int
     d: int
     warps: int
-    split: int
-    key_tile: int
     d_chunk: int
     row_tiles: int
+
+    @property
+    def split(self) -> int:
+        return _split(self.d_chunk)
+
+    @property
+    def key_tile(self) -> int:
+        return KEY_TILE
 
     @property
     def tiles(self) -> int:
@@ -145,8 +157,8 @@ class AttentionPlan:
 
     def ints(self, b: int) -> list[int]:
         """What the C entry point takes, in its order."""
-        return [b, self.t, self.s, self.d, self.warps, self.split, self.key_tile,
-                self.d_chunk, self.row_tiles, self.smem_bytes]
+        return [b, self.t, self.s, self.d, self.warps, self.d_chunk, self.row_tiles,
+                self.smem_bytes]
 
 
 @functools.lru_cache(maxsize=256)
@@ -162,12 +174,11 @@ def attention_plan(t: int, s: int, d: int) -> AttentionPlan:
     if t < 1:
         raise ValueError(f"no plan for T={t} query rows")
     d_chunk = next(c for c in D_CHUNKS if d % c == 0)
-    split = SPLIT if d_chunk >= 2 * N_TILE else 1
+    split = _split(d_chunk)
     all_tiles = -(-t // ROWS)
     tiles = -(-all_tiles // -(-all_tiles // TILES))
     while True:
-        plan = AttentionPlan(t, s, d, tiles * split, split, KEY_TILE, d_chunk,
-                             -(-all_tiles // tiles))
+        plan = AttentionPlan(t, s, d, tiles * split, d_chunk, -(-all_tiles // tiles))
         if plan.smem_bytes <= MAX_SMEM:
             return plan
         if tiles == 1:
