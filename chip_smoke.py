@@ -14,17 +14,26 @@ Phases, in order; any failure raises and exits non-zero:
      3xTF32, also against that arithmetic in plain PyTorch; the fused block
      in its bf16 form too; shapes a kernel does not take must raise); time
      the fused block's kernel, plain version and bf16 library convolutions;
-  4. run both serving paths (trained weights from data/soak_serving_q8.npz,
-     B=2, T=75, 112x112) on the card and on the CPU with the same noise and
-     Griffin-Lim phase, and compare: the unfolded path, and the folded-BN
-     path with fused blocks, which is also held to the unfolded one;
-  5. serve B=48 x 75 frames at full width, fp32, on each path: 2 warm-ups,
-     then counted batches with one sync (4 unfolded, 8 folded + fused);
-     count the kernel launches of each run; then time the stages of one
-     more forward with CUDA events;
+  4. run the four serving paths (trained weights from
+     data/soak_serving_q8.npz, B=2, T=75, 112x112) on the card and on the
+     CPU with the same noise and Griffin-Lim phase, and compare: the
+     unfolded path and the folded-BN path with fused blocks, each in fp32
+     and in the bf16 serving mode; the folded + fused path is also held to
+     the unfolded one, and each bf16 path to its fp32 path on the card
+     (the JAX package's bounds for bf16 on trained weights); the bf16
+     outputs must have the JAX package's dtypes;
+  5. serve B=48 x 75 frames at full width on each of the four paths: 2
+     warm-ups, then 8 counted batches with one sync; count the kernel
+     launches of each run; then time the stages of one more forward, the
+     visual front's parts, the five identity-shortcut ResNet blocks and the
+     two attentions inside it, with CUDA events; on the bf16 paths, profile
+     one forward and the stem alone with torch.profiler (device busy share,
+     the kernels that take the most time);
   6. time the attention kernel, its plain version and sdpa, the PyTorch
      call that computes the same function, at the serving shapes (and at
      the LRS shape, printed only);
+  7. run ``python3 -m vcagan_torch.bench`` (bf16, both variants) and print
+     its JSON line;
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -46,10 +55,12 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from vcagan_torch.configs import ModelConfig  # noqa: E402
 from vcagan_torch.io.weights import load_serving_npz  # noqa: E402
 from vcagan_torch.kernels import _build  # noqa: E402
 from vcagan_torch.kernels import fused_block as fb  # noqa: E402
 from vcagan_torch.kernels import masked_attention as attn  # noqa: E402
+from vcagan_torch.nn.resnet import BasicBlock  # noqa: E402
 from vcagan_torch.runtime import use_full_fp32  # noqa: E402
 from vcagan_torch.serve import Synthesizer  # noqa: E402
 
@@ -77,6 +88,21 @@ TRUNK_BLOCKS = (("layer1_0", 28, 28, 64), ("layer1_1", 28, 28, 64), ("layer2_1",
                 ("layer3_1", 7, 7, 256), ("layer4_1", 4, 4, 512))
 PATH_TOL = 1e-3  # atol and rtol for phon/sent/mel3/spec, card vs CPU
 WAV_REL_L2 = 1e-2  # waveform after 60 Griffin-Lim rounds, card vs CPU
+# bf16 serving: the bounds of the JAX package's own test of bf16 against
+# fp32 on trained weights (tests/test_bf16_and_lrs_train.py:198-204): mel3
+# correlation and the spectrogram's relative L2.  They hold every bf16
+# comparison here: bf16 against fp32 on the card, and card against CPU and
+# folded + fused against unfolded in bf16, where both sides round to bf16
+# but cuDNN and the CPU sum in other orders, so a rounding that flips
+# spreads through the layers and elementwise bounds do not apply.
+BF16_MEL_CORR = 0.999
+BF16_SPEC_REL = 0.06
+BF16_DTYPES = dict(phon=torch.bfloat16, sent=torch.float32, mel1=torch.bfloat16,
+                   mel2=torch.bfloat16, mel3=torch.bfloat16, spec=torch.float32,
+                   wav=torch.float32)
+SERVE_BATCHES = 8  # counted batches on each serving path
+PATHS = (("unfolded", False, False), ("folded+fused", True, False),
+         ("unfolded bf16", False, True), ("folded+fused bf16", True, True))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -328,6 +354,13 @@ def phase_fused_block_vs_plain(card):
     for c in (16, 48):
         args = fused_block_inputs(3, 5, 5, c, seed=99)
         check_refused(f"fused_block C={c}", lambda: fb.fused_basic_block(*args), "multiple of 64")
+    # bf16 x with weights packed for fp32 (the packing of the weights' own type
+    # where the compute dtype is bf16): refused, not read as bf16.
+    x, w1, b1, a1, w2, b2, a2 = fused_block_inputs(3, 5, 5, 64, seed=97, dtype=bf16)
+    check_refused("fused_block bf16 x with fp32-packed weights",
+                  lambda: fb.fused_block_cuda(x, fb.pack_weights(w1, f32), b1, a1,
+                                              fb.pack_weights(w2, f32), b2, a2),
+                  "w1_packed must be torch.bfloat16")
 
     worst = worst_3x = 0.0
     for i, (name, n, h, w, c, dtype, zero_ring) in enumerate(cases):
@@ -446,10 +479,30 @@ def compare_outputs(what, got, want, tol, wav_tol):
     check(rel < wav_tol, f"{what} wav relative L2 {rel:.3e}")
 
 
+def corr_rel(got, want):
+    """Correlation and relative L2 of two tensors, in float64 on the CPU."""
+    g, w = got.cpu().double().flatten(), want.cpu().double().flatten()
+    corr = torch.corrcoef(torch.stack([g, w]))[0, 1].item()
+    return corr, (torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)).item()
+
+
+def compare_bf16(what, got, want):
+    """A bf16 run against another run: mel3 correlation and the spectrogram's
+    relative L2 held to the JAX package's bounds; phon, sent and wav printed."""
+    for name in ("phon", "sent", "mel3", "spec", "wav"):
+        check(torch.isfinite(got[name]).all().item(), f"{what} {name}: non-finite")
+        corr, rel = corr_rel(got[name], want[name])
+        print(f"path {what} {name}: correlation {corr:.6f}, relative L2 {rel:.3e}")
+        if name == "mel3":
+            check(corr > BF16_MEL_CORR, f"{what} mel3 correlation {corr:.6f}")
+        if name == "spec":
+            check(rel < BF16_SPEC_REL, f"{what} spec relative L2 {rel:.3e}")
+
+
 def phase_paths_card_vs_cpu(states):
-    """Both paths on the card against the CPU (plain versions of the
-    kernels), and the folded + fused path against the unfolded one on the
-    card.  Returns the two synthesizers on the card."""
+    """The four paths on the card against the CPU (plain versions of the
+    kernels); on the card, the folded + fused paths against the unfolded
+    ones and the bf16 paths against the fp32 ones."""
     b, t = 2, 75
     rng = np.random.default_rng(1)
     video = rng.standard_normal((b, t, 112, 112, 1)).astype(np.float32)
@@ -457,31 +510,45 @@ def phase_paths_card_vs_cpu(states):
     noise = rng.standard_normal((b, 20, t, 128)).astype(np.float32)
     phase = rng.uniform(-np.pi, np.pi, (b, 4 * t, 321)).astype(np.float32)
 
-    synths, outs = {}, {}
-    for what, variant in (("unfolded", {}),
-                          ("folded+fused", dict(fold_bn=True, fused_blocks=True))):
-        on_card = Synthesizer(device="cuda", **variant).load_state_dicts(states)
+    outs = {}
+    for path, fused, bf16 in PATHS:
+        kw = dict(fold_bn=fused, fused_blocks=fused)
+        config = ModelConfig(use_bfloat16=bf16)
+        on_card = Synthesizer(config, device="cuda", **kw).load_state_dicts(states)
         reset_launches()
         got = on_card(video, lengths, noise=noise, init_phase=phase)
         torch.cuda.synchronize()
-        check_launches(1, bool(variant), what)
+        check_launches(1, fused, path)
         check(got["wav"].shape == (b, 160 * (4 * t - 1)), f"wav shape {tuple(got['wav'].shape)}")
-        want = Synthesizer(device="cpu", **variant).load_state_dicts(states)(
+        want = Synthesizer(config, device="cpu", **kw).load_state_dicts(states)(
             video, lengths, noise=noise, init_phase=phase
         )
-        compare_outputs(f"{what}, card vs CPU", got, want, PATH_TOL, WAV_REL_L2)
-        synths[what], outs[what] = on_card, got
-    # Folding is exact algebra and the kernel computes the same block, so the
-    # two paths differ by fp32 rounding only: the same bounds hold.
+        if bf16:
+            for name, dtype in BF16_DTYPES.items():  # the JAX package's dtypes, on both devices
+                for side, out in (("card", got), ("CPU", want)):
+                    check(out[name].dtype == dtype,
+                          f"{path} {name} on the {side}: {out[name].dtype}, not {dtype}")
+            compare_bf16(f"{path}, card vs CPU", got, want)
+        else:
+            compare_outputs(f"{path}, card vs CPU", got, want, PATH_TOL, WAV_REL_L2)
+        outs[path] = got
+    # Folding is exact algebra and the kernel computes the same block, so in
+    # fp32 the two paths differ by fp32 rounding only: the same bounds hold.
     compare_outputs("folded+fused vs unfolded, card", outs["folded+fused"], outs["unfolded"],
                     PATH_TOL, WAV_REL_L2)
-    return synths["unfolded"], synths["folded+fused"]
+    compare_bf16("folded+fused bf16 vs unfolded bf16, card", outs["folded+fused bf16"],
+                 outs["unfolded bf16"])
+    for path in ("unfolded", "folded+fused"):
+        compare_bf16(f"{path} bf16 vs {path} fp32, card", outs[f"{path} bf16"], outs[path])
 
 
-def phase_serve(synth, card, what, batches, fused):
-    """Serve at full width; returns the launches of the counted batches, by
-    kernel."""
-    b, t = 48, 75
+def phase_serve(states, card, what, fused, bf16):
+    """Serve at full width on one path, its synthesizer the only one on the
+    card; returns the launches of the counted batches, by kernel, and the
+    identity-shortcut blocks' time inside one forward."""
+    synth = Synthesizer(ModelConfig(use_bfloat16=bf16), device="cuda", fold_bn=fused,
+                        fused_blocks=fused).load_state_dicts(states)
+    b, t, batches = 48, 75, SERVE_BATCHES
     video = torch.from_numpy(
         np.random.default_rng(2).standard_normal((b, t, 112, 112, 1)).astype(np.float32)
     ).cuda()
@@ -504,35 +571,141 @@ def phase_serve(synth, card, what, batches, fused):
     check(bool(torch.isfinite(sums).all()) and bool(torch.isfinite(wav).all()), "non-finite wav")
     mel_fps = batches * b * 4 * t / elapsed
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"serve {what} B={b} T={t} fp32: {mel_fps:.1f} mel-frames/s ({elapsed:.3f} s for "
+    print(f"serve {what} B={b} T={t}: {mel_fps:.1f} mel-frames/s ({elapsed:.3f} s for "
           f"{batches} batches), peak {peak_gb:.2f} GB, {launches[0] / batches:g} attention "
           f"and {launches[1] / batches:g} fused-block launches per forward [{card}]")
     del outs
-    stage_breakdown(synth, video, lengths, card, what)
-    return dict(zip(("masked_cross_attention", "fused_basic_block"), launches))
+    blocks_ms = stage_breakdown(synth, video, lengths, card, what)
+    if bf16:
+        device_profile(synth, video, lengths, card, what)
+    return dict(zip(("masked_cross_attention", "fused_basic_block"), launches)), blocks_ms
+
+
+def time_modules(groups):
+    """Forward hooks that record a CUDA event just before and just after every
+    call of each module in ``groups`` ({label: [modules]}).  Returns the
+    hooks (to remove) and, by label, the [start, end] event pairs."""
+    pairs = {label: [] for label in groups}
+    hooks = []
+
+    def record():
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    for label, modules in groups.items():
+        def before(module, args, label=label):
+            pairs[label].append([record()])
+
+        def after(module, args, out, label=label):
+            pairs[label][-1].append(record())
+
+        for m in modules:
+            hooks += [m.register_forward_pre_hook(before), m.register_forward_hook(after)]
+    return hooks, pairs
 
 
 @torch.inference_mode()
 def stage_breakdown(synth, video, lengths, card, what):
     """Device time of each stage of one forward (the composition of
-    ``Synthesizer.__call__``), from CUDA events between the stages."""
+    ``Synthesizer.__call__``), from CUDA events between the stages; and,
+    from events around modules, of the visual front's parts, of the trunk's
+    five identity-shortcut blocks (fused-block launches on the folded +
+    fused paths) and of the decoder's two attentions.  Returns the
+    identity blocks' sum in ms."""
+    v = synth.v_front
+    blocks = [m for m in v.modules() if isinstance(m, BasicBlock) and m.downsample is None]
+    check(len(blocks) == 5, f"{len(blocks)} identity-shortcut blocks, not 5")
+    groups = {"stem": [v.frontend], "trunk": [v.resnet],
+              "biGRU+fc": [v.sentence_encoder, v.fc], "identity blocks": blocks,
+              "attention (denses + kernel)": [synth.gen.att1, synth.gen.att2]}
+    hooks, pairs = time_modules(groups)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    events[0].record()
-    phon, sent = synth.v_front(video)
-    events[1].record()
-    mels = synth.gen(sent, phon, lengths, generator=synth.generator)
-    events[2].record()
-    spec = synth.post(mels[2]).transpose(1, 2)
-    events[3].record()
-    synth.pipe.inverse_spec(spec, generator=synth.generator)
-    events[4].record()
-    torch.cuda.synchronize()
+    try:
+        events[0].record()
+        phon, sent = v(video)
+        events[1].record()
+        mels = synth.gen(sent, phon, lengths, generator=synth.generator)
+        events[2].record()
+        spec = synth.post(mels[2]).transpose(1, 2).float()
+        events[3].record()
+        synth.pipe.inverse_spec(spec, generator=synth.generator)
+        events[4].record()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
     names = ("visual_front", "decoder", "postnet", "griffin_lim+deemphasis")
     ms = [events[i].elapsed_time(events[i + 1]) for i in range(4)]
     total = sum(ms)
     print(f"stages of one {what} B={video.shape[0]} forward [{card}]: " + ", ".join(
         f"{n} {m:.2f} ms ({100 * m / total:.1f}%)" for n, m in zip(names, ms)
     ) + f"; total {total:.2f} ms")
+    parts = {label: [a.elapsed_time(b) for a, b in pairs[label]] for label in groups}
+    check(len(parts["identity blocks"]) == 5 and len(parts["stem"]) == 1, f"hooks: {parts}")
+    print(f"inside that {what} forward [{card}]: " + ", ".join(
+        f"{label} {sum(times):.2f} ms" for label, times in parts.items()))
+    print(f"identity-shortcut blocks inside that {what} forward "
+          f"({'fused-block launches' if blocks[0].fused else 'library convolutions'}): "
+          + ", ".join(f"{m:.3f}" for m in parts["identity blocks"])
+          + f" ms, sum {sum(parts['identity blocks']):.3f} ms [{card}]")
+    return sum(parts["identity blocks"])
+
+
+def profiled(fn):
+    """The device activities (kernels, copies) of one call of ``fn`` under
+    ``torch.profiler``, as (name, start us, end us)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def most_time(activities, top=8):
+    by_name = {}
+    for name, start, end in activities:
+        by_name[name] = by_name.get(name, 0.0) + end - start
+    return "; ".join(f"{name[:70]} {us / 1e3:.2f} ms"
+                     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+
+
+@torch.inference_mode()
+def device_profile(synth, video, lengths, card, what):
+    """One forward under ``torch.profiler``: the device's busy time (the
+    union of its activities' intervals) against the span from the first
+    one's start to the last one's end, and the kernels that take the most
+    time; then the stem alone, the visual front's largest part.  The
+    profiler slows the host, so the idle share is an upper bound."""
+    device = profiled(lambda: synth(video, lengths))
+    check(len(device) > 0, f"{what}: the profiler saw no device activity")
+    spans = sorted((start, end) for _, start, end in device)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    span = end - spans[0][0]
+    print(f"profile of one {what} B={video.shape[0]} forward [{card}]: {len(device)} device "
+          f"activities, busy {busy / 1e3:.2f} ms of a {span / 1e3:.2f} ms span (idle "
+          f"{100 * (1 - busy / span):.1f}%); most time: {most_time(device)}")
+    stem = profiled(lambda: synth.v_front.frontend(video.permute(0, 4, 1, 2, 3)))
+    print(f"profile of the stem alone ({what}) [{card}]: {most_time(stem, top=5)}")
+
+
+def phase_bench(card):
+    """``python3 -m vcagan_torch.bench`` in its bf16 default, both variants;
+    each must print one JSON line with the four keys."""
+    for variant in ((), ("--fold-bn-fused",)):
+        run = subprocess.run([sys.executable, "-m", "vcagan_torch.bench", *variant], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        check(run.returncode == 0, f"vcagan_torch.bench {variant} failed:\n{run.stderr[-4000:]}")
+        last = run.stdout.strip().splitlines()[-1]
+        line = json.loads(last)
+        check(set(line) == {"metric", "value", "unit", "vs_baseline"}, f"bench line {last}")
+        print(f"vcagan_torch.bench {' '.join(variant) or '(bf16, unfolded)'} [{card}]: {last}")
 
 
 def main() -> None:
@@ -565,12 +738,14 @@ def main() -> None:
     attn_worst = phase_kernel_vs_plain(card)
     fb_totals, fb_worst = phase_fused_block_vs_plain(card)
     states = load_serving_npz(SERVING_NPZ)
-    unfolded, folded = phase_paths_card_vs_cpu(states)
-    launches = {"unfolded": phase_serve(unfolded, card, "unfolded", batches=4, fused=False)}
-    del unfolded
-    torch.cuda.empty_cache()
-    launches["folded+fused"] = phase_serve(folded, card, "folded+fused", batches=8, fused=True)
+    phase_paths_card_vs_cpu(states)
+    launches, blocks_ms = {}, {}
+    for path, fused, bf16 in PATHS:
+        launches[path], blocks_ms[path] = phase_serve(states, card, path, fused, bf16)
+        torch.cuda.empty_cache()
     attn_totals = phase_attention_times(card)
+    torch.cuda.empty_cache()
+    phase_bench(card)
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -588,9 +763,11 @@ def main() -> None:
         }
 
     # ms, plain_ms, bound_ms: one forward's launches of the kernel (2
-    # attentions; 5 fused blocks, in the fp32 form the serving path runs:
-    # 3xTF32, so its bound divides by a third of the TF32 rate; the bf16
-    # form's numbers stand beside it).  launches: the counted batches of the
+    # attentions; 5 fused blocks, in the fp32 form: 3xTF32, so its bound
+    # divides by a third of the TF32 rate; the bf16 form's numbers stand
+    # beside it), timed alone.  in_path_ms(_bf16): the five fused blocks'
+    # device time inside one B=48 folded + fused serving forward (CUDA
+    # events around each).  launches: the counted batches of the fp32
     # folded + fused serving run, which goes through both kernels; each
     # serving run's own count stands in launches_by_path.  timer: how ms,
     # plain_ms and library_ms were taken, "graph" (CUDA-graph replay, no host
@@ -603,11 +780,14 @@ def main() -> None:
     fused.update(form="3xTF32", ms_bf16=fb_totals["bf16"]["ms"],
                  plain_ms_bf16=fb_totals["bf16"]["plain_ms"],
                  bound_ms_bf16=bound(fb_totals["bf16"], FB_FLOP_PER_S["bf16"])[0],
-                 convs_ms_bf16=fb_totals["bf16"]["convs_ms"])
+                 convs_ms_bf16=fb_totals["bf16"]["convs_ms"],
+                 in_path_ms=blocks_ms["folded+fused"],
+                 in_path_ms_bf16=blocks_ms["folded+fused bf16"])
     print(f"fused_block one forward (5 launches) [{card}]: fp32 form (3xTF32) "
-          f"{fused['ms']:.2f} ms, plain {fused['plain_ms']:.2f} ms, bound "
-          f"{fused['bound_ms']:.2f} ms; bf16 form "
-          f"{fused['ms_bf16']:.2f} ms, plain {fused['plain_ms_bf16']:.2f} ms, bf16 cuDNN convs "
+          f"{fused['ms']:.2f} ms alone, {fused['in_path_ms']:.2f} ms in the path, plain "
+          f"{fused['plain_ms']:.2f} ms, bound {fused['bound_ms']:.2f} ms; bf16 form "
+          f"{fused['ms_bf16']:.2f} ms alone, {fused['in_path_ms_bf16']:.2f} ms in the path, "
+          f"plain {fused['plain_ms_bf16']:.2f} ms, bf16 cuDNN convs "
           f"{fused['convs_ms_bf16']:.2f} ms, bound {fused['bound_ms_bf16']:.2f} ms")
     attention = kernel_entry("masked_cross_attention", "vcagan_torch/csrc/masked_attention.cu",
                              "vcagan/kernels/masked_attention.py:85", attn_worst, attn_totals,

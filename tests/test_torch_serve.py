@@ -12,10 +12,11 @@
 - ``phon``/``sent`` against the goldens of ``tests/fixtures/
   self_regression.npz`` (the JAX init from ``PRNGKey(0)``, the video from
   ``default_rng(99)``, as ``tests/test_self_regression.py``), at 1e-4.
-- No file of ``vcagan_torch/`` and no line of ``chip_smoke.py`` imports
-  JAX, flax or the JAX package.  The scan is static: an interpreter may
+- No file of ``vcagan_torch/`` (``bench.py`` among them) and no line of
+  ``chip_smoke.py`` imports JAX, flax or the JAX package.  The scan is static: an interpreter may
   import JAX at start-up, so ``sys.modules`` proves nothing.
-- Without CUDA, an entry point that is not told ``device="cpu"`` raises.
+- Without CUDA, an entry point that is not told ``device="cpu"`` raises: the
+  synthesizer in fp32 and in bf16, and ``vcagan_torch.bench``.
 """
 
 import ast
@@ -37,6 +38,7 @@ from vcagan.nn import Postnet as JaxPostnet
 from vcagan.nn import VisualFront as JaxVisualFront
 from vcagan.nn import fold_generator_side as jax_fold_generator_side
 from vcagan.train import VCAGANModules
+from vcagan_torch import bench
 from vcagan_torch.configs import ModelConfig
 from vcagan_torch.serve import Synthesizer
 
@@ -135,7 +137,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     sources = list(_port_sources())
     assert len(sources) > 15 and os.path.exists(sources[-1])
     seen = {os.path.relpath(path, os.path.join(ROOT, "vcagan_torch")) for path in sources}
-    assert {"nn/fold.py", "kernels/fused_block.py", "kernels/masked_attention.py"} <= seen
+    assert {"nn/fold.py", "kernels/fused_block.py", "kernels/masked_attention.py",
+            "bench.py"} <= seen
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -152,7 +155,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Synthesizer.from_jax(*jax_variables(seed=0))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Synthesizer(ModelConfig(), device="cuda")
+    bf16 = ModelConfig(use_bfloat16=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Synthesizer(bf16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Synthesizer(bf16, fold_bn=True, fused_blocks=True)
+    for argv in ([], ["--fold-bn-fused"], ["--fp32"]):  # the bench has no CPU fallback
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench.main(argv)
     assert Synthesizer(ModelConfig(), device="cpu").device.type == "cpu"
+    assert Synthesizer(bf16, device="cpu").device.type == "cpu"
 
 
 def test_noise_and_phase_come_from_the_generator():

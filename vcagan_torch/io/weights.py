@@ -14,7 +14,8 @@ dicts, the same that ``vcagan_torch/nn/fold.py`` makes of the unfolded ones.
 
 ``load_serving_npz`` reads the flat ``params/<mod>/...`` and
 ``stats/<mod>/...`` file of ``vcagan/io/serving_npz.py`` (fp16 leaves, or
-int8 ``q8:`` leaves with fp32 per-output-channel ``q8s:`` scales).
+int8 ``q8:`` leaves with fp32 per-output-channel ``q8s:`` scales), and, as
+that reader does (``:101-103``), raises on a leaf that no module reads.
 """
 
 from __future__ import annotations
@@ -144,9 +145,41 @@ def postnet_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
     return sd
 
 
-def from_jax(params: Tree, batch_stats: Tree) -> Dict[str, Dict[str, torch.Tensor]]:
+class _ReadTree(dict):
+    """A weight tree that adds the path of every leaf read from it to
+    ``read`` (subtrees are wrapped the same way)."""
+
+    def __init__(self, tree: Tree, path: str, read: set):
+        super().__init__({
+            key: _ReadTree(value, f"{path}/{key}", read) if isinstance(value, dict) else value
+            for key, value in tree.items()
+        })
+        self._path, self._read = path, read
+
+    def __getitem__(self, key):
+        value = super().__getitem__(key)
+        if not isinstance(value, dict):
+            self._read.add(f"{self._path}/{key}")
+        return value
+
+
+def _leaf_paths(tree: Tree, path: str):
+    """The ``path/...`` names of every leaf of a tree."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaf_paths(value, f"{path}/{key}")
+        else:
+            yield f"{path}/{key}"
+
+
+def from_jax(params: Tree, batch_stats: Tree,
+             read: set | None = None) -> Dict[str, Dict[str, torch.Tensor]]:
     """{v_front, gen, post} numpy flax trees, unfolded or folded -> the
-    port's state dicts, unfolded or folded."""
+    port's state dicts, unfolded or folded.  ``read``: a set that gets the
+    name of every leaf read (``params/gen/att1/q/kernel``, ``stats/...``)."""
+    if read is not None:
+        params = _ReadTree(params, "params", read)
+        batch_stats = _ReadTree(batch_stats, "stats", read)
     states = {
         "v_front": visual_front_state(params["v_front"], batch_stats.get("v_front", {})),
         "gen": decoder_state(params["gen"], batch_stats["gen"]),
@@ -183,5 +216,14 @@ def read_serving_npz(path: str) -> Tuple[Tree, Tree]:
 
 
 def load_serving_npz(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The serving npz as the port's state dicts."""
-    return from_jax(*read_serving_npz(path))
+    """The serving npz as the port's state dicts; raises ``KeyError`` naming
+    the leaves that no module reads (a ``q8s:`` scale is read with its
+    ``q8:`` leaf)."""
+    params, stats = read_serving_npz(path)
+    read: set = set()
+    states = from_jax(params, stats, read)
+    extra = sorted({*_leaf_paths(params, "params"), *_leaf_paths(stats, "stats")} - read)
+    if extra:
+        more = " ..." if len(extra) > 5 else ""
+        raise KeyError(f"{path} has unmatched leaves: {extra[:5]}{more}")
+    return states

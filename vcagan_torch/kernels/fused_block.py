@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vcagan_torch.kernels import _build
+from vcagan_torch.kernels import _build, refuse_grad
 from vcagan_torch.kernels._tf32 import round_tf32, split_tf32  # noqa: F401  (re-exported)
 
 CHANNEL_MULTIPLE = 64  # the kernel takes C = 64, 128, 192, ...
@@ -343,8 +343,11 @@ def fused_block_cuda(x, w1_packed, b1, a1, w2_packed, b2, a2, plan=None) -> torc
     """Launch the CUDA kernel on the current stream; the weights come packed
     for ``x.dtype`` by ``pack_weights``.  ``plan`` (for timing tilings) takes
     the place of ``plan_fused_block``'s.  Raises on any input the kernel does
-    not take, on a plan that is not of this problem and on a launch error."""
+    not take, on a plan that is not of this problem and on a launch error.
+    Forward only: it raises where autograd would need its result's gradient."""
     global LAUNCHES
+    refuse_grad("fused_block", x=x, w1_packed=w1_packed, b1=b1, a1=a1, w2_packed=w2_packed,
+                b2=b2, a2=a2)
     if x.device.type != "cuda":
         raise ValueError(f"x must lie on a CUDA device, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4:

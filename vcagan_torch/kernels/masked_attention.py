@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from vcagan_torch.kernels import _build
+from vcagan_torch.kernels import _build, refuse_grad
 from vcagan_torch.kernels._tf32 import split_tf32
 
 NEG_INF = -1e30  # mask value; not -inf, so an all-masked row stays finite
@@ -207,8 +207,10 @@ def masked_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; raises on any input it
-    does not take and on a launch error."""
+    does not take and on a launch error.  Forward only: it raises where
+    autograd would need its result's gradient."""
     global LAUNCHES
+    refuse_grad("masked_attention", q=q, k=k, v=v)
     for name, x in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name} must lie on the same CUDA device as q, got {x.device}")

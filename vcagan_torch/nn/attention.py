@@ -3,7 +3,10 @@
 Port of ``vcagan/nn/attention.py:28-50``: the generator's feature map
 queries the sentence features; keys past each clip's length are masked; the
 attended context is projected back to a (freq, channel) map.  The k/v/q/mel
-denses are fp32.
+denses are fp32 in either compute dtype: they take no dtype in JAX, where
+flax promotes a bf16 map with fp32 kernels to fp32
+(``vcagan/nn/attention.py:41-42``), so ``g`` is cast up first and the
+context comes out fp32.
 
 Flatten orders follow the reference state dict, which the converter
 (``tools/convert_torch_ckpt.py:205-214``) maps onto the flax tree: ``q``'s
@@ -34,7 +37,7 @@ class AVAttention(nn.Module):
         b, c, f, t = g.shape
         k = self.k(sent)
         v = self.v(sent)
-        q = self.q(g.permute(0, 3, 1, 2).reshape(b, t, c * f))  # c-major rows
+        q = self.q(g.float().permute(0, 3, 1, 2).reshape(b, t, c * f))  # c-major rows
         ctx = masked_cross_attention(q, k, v, lengths)  # (B, T, D)
         out = self.mel(ctx).reshape(b, t, f, -1)  # f-major rows
         return out.permute(0, 3, 2, 1)

@@ -1,7 +1,17 @@
-"""Shared layers: per-channel PReLU, LeakyReLU(0.2), eval BatchNorm.
+"""Shared layers: per-channel PReLU, LeakyReLU(0.2), eval BatchNorm, and
+convolutions that compute in a given dtype.
 
 The port keeps PyTorch's channels-first layout inside its modules (NCHW,
 NCDHW, (B, C, T)); public inputs and outputs keep the JAX package's layout.
+
+Compute dtypes follow the JAX modules (``vcagan/nn/common.py:20-63``): in
+the bf16 serving mode the parameters stay fp32 and each layer casts them at
+the call.  A convolution casts its input, weight and bias to its
+``compute_dtype`` (flax's ``nn.Conv(dtype=...)``); PReLU casts its slopes to
+the input's dtype; BatchNorm takes bf16 in, normalises with its fp32
+statistics and gives bf16 out.  A Python constant that JAX multiplies into
+a bf16 array is weakly typed, so it is rounded to bf16 first
+(``rounded``).
 """
 
 from __future__ import annotations
@@ -14,20 +24,42 @@ from torch import nn
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 BN_EPS = 1e-5
+LEAKY_SLOPE = 0.2
 
 
-def prelu(channels: int) -> nn.PReLU:
-    """Per-channel parametric ReLU, slopes initialised to 0.25."""
-    return nn.PReLU(channels, init=0.25)
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as JAX applies it to an array of ``dtype``: rounded
+    to that type (the product of two bf16 values is exact in fp32, so the
+    one rounding of the result then matches)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+class PReLU(nn.PReLU):
+    """Per-channel parametric ReLU, slopes initialised to 0.25; the fp32
+    slopes are cast to the input's dtype (``vcagan/nn/common.py:32``)."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, init=0.25)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.prelu(x, self.weight.to(x.dtype))
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, 0.2)
+    return F.leaky_relu(x, rounded(LEAKY_SLOPE, x.dtype))
+
+
+class LeakyReLU(nn.Module):
+    """``leaky_relu`` as a layer (no parameters)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(x)
 
 
 def batch_norm(channels: int, dims: int = 2, folded: bool = False) -> nn.Module:
     """BatchNorm{1,2,3}d with the reference's eps and momentum; the port
-    serves in eval mode, where it is the running-statistics affine.
+    serves in eval mode, where it is the running-statistics affine, computed
+    in fp32 and given out in the input's dtype.
     ``folded``: the affine lives in the preceding convolution
     (``vcagan_torch/nn/fold.py``) and an ``nn.Identity`` keeps its place, so
     the names of the layers after it do not move."""
@@ -35,6 +67,32 @@ def batch_norm(channels: int, dims: int = 2, folded: bool = False) -> nn.Module:
         return nn.Identity()
     cls = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[dims]
     return cls(channels, eps=BN_EPS, momentum=0.1)
+
+
+class _ComputeDtype:
+    """A convolution whose input, weight and bias are cast to
+    ``compute_dtype`` at the call; the parameters keep their own dtype."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
+
+
+class Conv1d(_ComputeDtype, nn.Conv1d):
+    pass
+
+
+class Conv2d(_ComputeDtype, nn.Conv2d):
+    pass
+
+
+class Conv3d(_ComputeDtype, nn.Conv3d):
+    pass
 
 
 class FoldableModule(nn.Module):

@@ -4,7 +4,8 @@ Port of ``vcagan/nn/gru.py:31-111``.  ``torch.nn.GRU`` has the same gate
 order (r|z|n) and gate math as the JAX layer; its weights are (3H, in)
 where the flax tree keeps (in, 3H) (``vcagan_torch.io.weights`` transposes).
 The recurrence is not a TPU kernel of the JAX package, so it runs as
-PyTorch's own GRU (cuDNN on the card).
+PyTorch's own GRU (cuDNN on the card).  It stays fp32 in the bf16 mode: its
+input is cast to fp32 (``vcagan/nn/gru.py:104``).
 """
 
 from __future__ import annotations
@@ -24,4 +25,4 @@ class BiGRU(nn.GRU):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x)[0]
+        return super().forward(x.float())[0]

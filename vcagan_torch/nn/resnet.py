@@ -14,6 +14,11 @@ blocks (5 of the 8) each run as one launch of the fused block kernel
 memory, where the kernel's (N, H, W, C) layout is a view; the projection
 blocks keep the library convolutions.  The state-dict keys are the same
 with and without ``fused``.
+
+``dtype``: the compute dtype (``vcagan/nn/resnet.py:60-164``); in bf16 the
+convolutions, BatchNorm outputs and PReLUs are bf16 and so is the spatial
+mean (summed in fp32), while the parameters stay fp32.  The fused blocks
+take bf16 x with fp32 biases and slopes (``vcagan/nn/resnet.py:86-88``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 from torch import nn
 
 from vcagan_torch.kernels.fused_block import fused_basic_block, pack_weights
-from vcagan_torch.nn.common import FoldableModule, batch_norm, prelu
+from vcagan_torch.nn.common import Conv2d, FoldableModule, PReLU, batch_norm
 
 
 def _hwio(conv: nn.Conv2d) -> torch.Tensor:
@@ -34,20 +39,22 @@ def _hwio(conv: nn.Conv2d) -> torch.Tensor:
 
 class BasicBlock(FoldableModule):
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 fold_bn: bool = False, fused: bool = False):
+                 fold_bn: bool = False, fused: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(fold_bn)
         if fused and not fold_bn:
             raise ValueError("fused requires fold_bn=True (serving mode)")
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=fold_bn)
+        self.dtype = dtype
+        self.conv1 = Conv2d(in_planes, planes, 3, stride, 1, bias=fold_bn, compute_dtype=dtype)
         self.bn1 = batch_norm(planes, folded=fold_bn)
-        self.relu1 = prelu(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=fold_bn)
+        self.relu1 = PReLU(planes)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=fold_bn, compute_dtype=dtype)
         self.bn2 = batch_norm(planes, folded=fold_bn)
-        self.relu2 = prelu(planes)
+        self.relu2 = PReLU(planes)
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_planes, planes, 1, stride, bias=fold_bn),
+                Conv2d(in_planes, planes, 1, stride, bias=fold_bn, compute_dtype=dtype),
                 batch_norm(planes, folded=fold_bn),
             )
         self.fused = fused and self.downsample is None
@@ -55,7 +62,7 @@ class BasicBlock(FoldableModule):
             # The kernel's weight order, repacked when weights are loaded and
             # not per call; not part of the state dict.  The plain version
             # (CPU) reads (kh, kw, I, O); the kernel reads that packed for
-            # the tensor cores, in the type of the weights (and of x).
+            # the tensor cores, in the compute dtype (the type of x).
             for name in ("w1_hwio", "w2_hwio", "w1_packed", "w2_packed"):
                 self.register_buffer(name, None, persistent=False)
             self.repack()
@@ -64,13 +71,13 @@ class BasicBlock(FoldableModule):
             self.eval()
 
     def repack(self) -> None:
-        """Refresh the kernel's copies of the weights; ``load_state_dict`` does
-        it, a caller that writes ``conv1``/``conv2`` weights in place, or
-        casts the module to another type, must."""
+        """Refresh the kernel's copies of the weights, packed for the compute
+        dtype; ``load_state_dict`` does it, a caller that writes
+        ``conv1``/``conv2`` weights in place must."""
         self.w1_hwio = _hwio(self.conv1)
         self.w2_hwio = _hwio(self.conv2)
-        self.w1_packed = pack_weights(self.w1_hwio.float(), self.w1_hwio.dtype)
-        self.w2_packed = pack_weights(self.w2_hwio.float(), self.w2_hwio.dtype)
+        self.w1_packed = pack_weights(self.w1_hwio.float(), self.dtype)
+        self.w2_packed = pack_weights(self.w2_hwio.float(), self.dtype)
 
     @staticmethod
     def _repack_after_load(module: "BasicBlock", incompatible_keys) -> None:
@@ -78,7 +85,8 @@ class BasicBlock(FoldableModule):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
-            x = x.contiguous(memory_format=torch.channels_last)  # no copy when it is
+            # no copy when x is already of the compute dtype and channels-last
+            x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
             out = fused_basic_block(
                 x.permute(0, 2, 3, 1), self.w1_hwio, self.conv1.bias, self.relu1.weight,
                 self.w2_hwio, self.conv2.bias, self.relu2.weight,
@@ -95,7 +103,8 @@ class ResNetTrunk(FoldableModule):
     """(N, 64, H, W) -> stacked BasicBlocks -> global mean -> (N, 512)."""
 
     def __init__(self, layers: Sequence[int] = (2, 2, 2, 2), in_planes: int = 64,
-                 fold_bn: bool = False, fused: bool = False):
+                 fold_bn: bool = False, fused: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(fold_bn)
         plan = [(64, 1), (128, 2), (256, 2), (512, 2)]
         for stage, (planes, first_stride) in enumerate(plan):
@@ -103,7 +112,7 @@ class ResNetTrunk(FoldableModule):
             for block in range(layers[stage]):
                 blocks.append(
                     BasicBlock(in_planes, planes, first_stride if block == 0 else 1,
-                               fold_bn=fold_bn, fused=fused)
+                               fold_bn=fold_bn, fused=fused, dtype=dtype)
                 )
                 in_planes = planes
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))

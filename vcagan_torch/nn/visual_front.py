@@ -10,6 +10,12 @@ computes exactly a k(5,7,7) s(1,2,2) pad (2,3,3) conv; here it is that plain
 BatchNorm as a bias (``vcagan/nn/visual_front.py:75-84``) and the trunk is
 folded too.  ``fused`` is passed to the trunk (``:114-117``), which then
 gets its frames channels-last.
+
+Compute dtype (``config.use_bfloat16``, ``vcagan/nn/visual_front.py:35-130``):
+the stem convolution (its folded bias cast to bf16 too, ``:50``), BatchNorm,
+PReLU, pool and trunk compute in it, so ``phon`` is bf16 in the bf16 mode;
+the biGRU takes its input in fp32 (``vcagan/nn/gru.py:104``) and ``fc`` is an
+fp32 dense, so ``sent`` is fp32.
 """
 
 from __future__ import annotations
@@ -20,9 +26,10 @@ import torch
 from torch import nn
 
 from vcagan_torch.configs import ModelConfig
-from vcagan_torch.nn.common import FoldableModule, batch_norm, prelu
+from vcagan_torch.nn.common import Conv3d, FoldableModule, PReLU, batch_norm
 from vcagan_torch.nn.gru import BiGRU
 from vcagan_torch.nn.resnet import ResNetTrunk
+from vcagan_torch.runtime import compute_dtype
 
 
 class VisualFront(FoldableModule):
@@ -33,14 +40,17 @@ class VisualFront(FoldableModule):
             raise ValueError("fused requires fold_bn=True (serving mode)")
         self.fused = fused
         m = config or ModelConfig()
+        dtype = compute_dtype(m)
         c = m.stem_channels
         self.frontend = nn.Sequential(
-            nn.Conv3d(1, c, (5, 7, 7), stride=(1, 2, 2), padding=(2, 3, 3), bias=fold_bn),
+            Conv3d(1, c, (5, 7, 7), stride=(1, 2, 2), padding=(2, 3, 3), bias=fold_bn,
+                   compute_dtype=dtype),
             batch_norm(c, dims=3, folded=fold_bn),
-            prelu(c),
+            PReLU(c),
             nn.MaxPool3d((1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1)),
         )
-        self.resnet = ResNetTrunk(m.resnet_layers, in_planes=c, fold_bn=fold_bn, fused=fused)
+        self.resnet = ResNetTrunk(m.resnet_layers, in_planes=c, fold_bn=fold_bn, fused=fused,
+                                  dtype=dtype)
         self.dropout = nn.Dropout(m.frontend_dropout)
         self.sentence_encoder = BiGRU(m.feature_dim, m.gru_hidden, m.gru_layers, m.gru_dropout)
         self.fc = nn.Linear(2 * m.gru_hidden, m.feature_dim)

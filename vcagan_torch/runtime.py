@@ -1,4 +1,5 @@
-"""Device selection and fp32 numerics for the port's entry points."""
+"""Device selection and numerics (fp32, or the bf16 serving mode) for the
+port's entry points."""
 
 from __future__ import annotations
 
@@ -26,3 +27,11 @@ def use_full_fp32() -> None:
     numerics need true fp32 everywhere."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def compute_dtype(config) -> torch.dtype:
+    """The dtype the convolutions, BatchNorm outputs and activations compute
+    in: bf16 when ``config.use_bfloat16`` (the JAX package's serving mode,
+    ``vcagan/train/models.py:56``), else fp32.  Parameters stay fp32 either
+    way; each module casts them at the call, as flax's ``dtype`` does."""
+    return torch.bfloat16 if config.use_bfloat16 else torch.float32

@@ -4,7 +4,15 @@ Griffin-Lim + de-emphasis -> waveform.
 The same composition as the JAX package's benchmark path (``bench.py:52-76``
 with the modules of ``vcagan/train/models.py:41-81``): the raw postnet
 output, swapped to (B, T, 321), is the linear spectrogram that
-``MelPipeline.inverse_spec`` vocodes.  fp32 throughout.
+``MelPipeline.inverse_spec`` vocodes.
+
+``Synthesizer(ModelConfig(use_bfloat16=True))`` is the JAX package's bf16
+serving mode (``bench.py:29``, ``VCAGANModules.create(ModelConfig(
+use_bfloat16=True))``): parameters fp32, each module computing in the dtype
+the JAX module gives it (see ``vcagan_torch/nn``), so ``phon``, ``mel1..3``
+and the postnet's output are bf16 and ``sent`` fp32; the spectrogram is
+cast to fp32 before Griffin-Lim, which stays fp32 (``bench.py:74``).
+Otherwise fp32 throughout.
 
 ``Synthesizer(fold_bn=True, fused_blocks=True)`` is the counterpart of
 ``VCAGANModules.create(fold_bn=True, fused_blocks=True)``: the serving
@@ -48,8 +56,6 @@ class Synthesizer:
         if self.device.type == "cuda":
             use_full_fp32()
         self.config = config or ModelConfig()
-        if self.config.use_bfloat16:
-            raise NotImplementedError("bf16 serving is not ported yet; fp32 only")
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
             self.v_front = VisualFront(self.config, fold_bn=fold_bn, fused=fused_blocks)
@@ -99,7 +105,8 @@ class Synthesizer:
 
         Returns ``wav`` (B, 160*(4T-1)) and the intermediates ``phon``,
         ``sent`` (B, T, 512), ``mel1..3`` (B, F, T') and ``spec``
-        (B, 4T, 321)."""
+        (B, 4T, 321); ``wav`` and ``spec`` are fp32, the others of the
+        dtypes the JAX modules give them."""
         gen = self.generator if generator is None else generator
         video = _tensor(video, self.device, torch.float32)
         lengths = _tensor(lengths, self.device, torch.int32)
@@ -109,7 +116,7 @@ class Synthesizer:
             init_phase = _tensor(init_phase, self.device, torch.float32)
         phon, sent = self.v_front(video)
         mel1, mel2, mel3 = self.gen(sent, phon, lengths, noise=noise, generator=gen)
-        spec = self.post(mel3).transpose(1, 2)  # (B, 4T, 321)
+        spec = self.post(mel3).transpose(1, 2).float()  # (B, 4T, 321)
         wav = self.pipe.inverse_spec(spec, init_phase=init_phase, generator=gen)
         return {
             "wav": wav, "phon": phon, "sent": sent,
