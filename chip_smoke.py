@@ -31,15 +31,25 @@ Phases, in order; any failure raises and exits non-zero:
      the kernels that take the most time);
   6. time the attention kernel, its plain version and sdpa, the PyTorch
      call that computes the same function, at the serving shapes (and at
-     the LRS shape, printed only);
+     the LRS shape and the GRID training shapes, printed only);
   7. run ``python3 -m vcagan_torch.bench`` (bf16, both variants) and print
      its JSON line;
+  8. training (``vcagan_torch.train``, fp32, TF32 off): (a) the attention's
+     ``autograd.Function`` at the GRID training shapes with ragged lengths,
+     its forward and dq, dk, dv against the plain version and float64;
+     (b) one full-width step (B=2, 40 frames, 112x112, dropout 0) on the
+     card against the same step on the CPU: losses, metrics, every
+     module's gradient, the updates and the BatchNorm statistics;
+     (c) the GRID training shape, B=88 x 40 frames: 2 warm-up and 5
+     counted steps, their time, clips/s, peak memory, attention launches a
+     step and the time of each part of a step (CUDA events);
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -55,14 +65,17 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from vcagan_torch.configs import ModelConfig  # noqa: E402
+from vcagan_torch.configs import DataConfig, ModelConfig, TrainConfig  # noqa: E402
 from vcagan_torch.io.weights import load_serving_npz  # noqa: E402
 from vcagan_torch.kernels import _build  # noqa: E402
 from vcagan_torch.kernels import fused_block as fb  # noqa: E402
 from vcagan_torch.kernels import masked_attention as attn  # noqa: E402
 from vcagan_torch.nn.resnet import BasicBlock  # noqa: E402
 from vcagan_torch.runtime import use_full_fp32  # noqa: E402
+from vcagan_torch.nn.generator import Decoder  # noqa: E402
 from vcagan_torch.serve import Synthesizer  # noqa: E402
+from vcagan_torch.train import Batch, VCAGANModules, create_train_state, make_train_step  # noqa: E402
+from vcagan_torch.train.models import DISCRIMINATOR_SIDE, GENERATOR_SIDE  # noqa: E402
 
 SERVING_NPZ = os.path.join(ROOT, "data", "soak_serving_q8.npz")
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -101,6 +114,31 @@ BF16_DTYPES = dict(phon=torch.bfloat16, sent=torch.float32, mel1=torch.bfloat16,
                    mel2=torch.bfloat16, mel3=torch.bfloat16, spec=torch.float32,
                    wav=torch.float32)
 SERVE_BATCHES = 8  # counted batches on each serving path
+# Training.  (a) The Function's backward is the plain version's autograd on
+# the saved inputs, so its gradients equal the plain version's on the card
+# (same cuBLAS calls) and are held to float64: fp32 sums of at most T = 80
+# or D = 256 products of order 1, a bound of 1e-4 (atol and rtol).
+ATTN_GRAD_TOL = 1e-4
+# (b) Card against CPU, one full-width step from the same weights, batch and
+# noise.  Losses and metrics: one fp32 forward (cuDNN against oneDNN sums),
+# rtol 1e-3; R1 and the gradient norms come from backward passes, 1e-2.
+# Gradients: the train-mode BatchNorm stack leaves fp32 gradients of this
+# network about 3e-3 from float64 (relative L2 a leaf, measured on the CPU
+# at narrow width against the JAX package and a float64 run,
+# tests/test_torch_train_step.py), so each module's is held to 2e-2.  The
+# first update is lr * sign(g): where g lies within that noise its sign may
+# differ and the update with it, by 2 lr; so the worst element may be 2 lr
+# apart, and at most 1% of them more than lr / 2.  BatchNorm statistics:
+# one step's move of 0.1 x the batch statistics, to 1e-3 of its size.
+STEP_LOSS_RTOL, STEP_NORM_RTOL = 1e-3, 1e-2
+STEP_GRAD_REL = 2e-2
+STEP_FLIP_SHARE = 1e-2
+STEP_STATS_REL = 1e-3
+TRAIN_BATCH = TrainConfig().batch_size  # the GRID recipe: 88 clips
+TRAIN_WINDOW = DataConfig().window_size  # of 40 frames
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+TRAIN_PHASES = ("gen_forward", "d_loss", "d_backward", "d_update", "g_loss", "g_backward",
+                "g_update")
 PATHS = (("unfolded", False, False), ("folded+fused", True, False),
          ("unfolded bf16", False, True), ("folded+fused bf16", True, True))
 
@@ -252,14 +290,16 @@ def phase_attention_times(card):
     of 75 frames), so no key is masked and the work is the whole product.
     Device times from CUDA-graph replays; the kernel's time_ms (events around
     back-to-back calls, host work included, as the attention was timed
-    before) stands beside as ``events_ms``.  The LRS shape is printed only.
+    before) stands beside as ``events_ms``.  The LRS shape and the GRID
+    training shapes (B=88, 40 frames) are printed only.
     Run after the serving phases: capturing the plain version leaves cuBLAS
     a workspace for the capture stream, which would count in their peak
     memory.  Returns the per-forward totals."""
     totals = dict(ms=0.0, events_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
     side = torch.cuda.Stream()
     for name, b, t, s, d in (("att1", 48, 75, 75, 256), ("att2", 48, 150, 75, 256),
-                             ("LRS", 4, 640, 160, 256)):
+                             ("LRS", 4, 640, 160, 256), ("train att1", 88, 40, 40, 256),
+                             ("train att2", 88, 80, 40, 256)):
         q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=7)
         plan = attn.attention_plan(t, s, d)
         ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side)
@@ -275,7 +315,7 @@ def phase_attention_times(card):
               f"back-to-back calls {events_ms:.4f} ms), plain {plain:.4f} ms, "
               f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at 495 TFLOP/s / 3) [{card}]")
-        if name == "LRS":
+        if name not in ("att1", "att2"):  # printed only
             continue
         for key, val in (("ms", ms), ("events_ms", events_ms), ("plain_ms", plain),
                          ("library_ms", lib), ("bytes", nbytes), ("flops", flops)):
@@ -652,17 +692,30 @@ def stage_breakdown(synth, video, lengths, card, what):
     return sum(parts["identity blocks"])
 
 
-def profiled(fn):
-    """The device activities (kernels, copies) of one call of ``fn`` under
-    ``torch.profiler``, as (name, start us, end us)."""
+def profiled(fn, record_shapes=False):
+    """One call of ``fn`` under ``torch.profiler``: its device activities
+    (kernels, copies) as (name, start us, end us), and the profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         fn()
         torch.cuda.synchronize()
     return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA], prof
+
+
+def convolution_backwards(prof, top=8):
+    """The convolution backward (and double backward) calls that take the
+    most device time, grouped by their input shapes."""
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.key in ("aten::convolution_backward", "aten::_convolution_double_backward")]
+    check(len(ops) > 0, "the profile holds no convolution backward")
+    attr = "device_time_total" if hasattr(ops[0], "device_time_total") else "cuda_time_total"
+    ops.sort(key=lambda e: getattr(e, attr), reverse=True)
+    return "; ".join(f"{e.key[6:]} x{e.count} {e.input_shapes[:3]} "
+                     f"{getattr(e, attr) / 1e3:.2f} ms" for e in ops[:top])
 
 
 def most_time(activities, top=8):
@@ -673,14 +726,9 @@ def most_time(activities, top=8):
                      for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
 
 
-@torch.inference_mode()
-def device_profile(synth, video, lengths, card, what):
-    """One forward under ``torch.profiler``: the device's busy time (the
-    union of its activities' intervals) against the span from the first
-    one's start to the last one's end, and the kernels that take the most
-    time; then the stem alone, the visual front's largest part.  The
-    profiler slows the host, so the idle share is an upper bound."""
-    device = profiled(lambda: synth(video, lengths))
+def busy_share(device, what):
+    """The device's busy time (the union of its activities' intervals)
+    against the span from the first one's start to the last one's end."""
     check(len(device) > 0, f"{what}: the profiler saw no device activity")
     spans = sorted((start, end) for _, start, end in device)
     busy, end = 0.0, spans[0][0]
@@ -688,10 +736,21 @@ def device_profile(synth, video, lengths, card, what):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     span = end - spans[0][0]
-    print(f"profile of one {what} B={video.shape[0]} forward [{card}]: {len(device)} device "
-          f"activities, busy {busy / 1e3:.2f} ms of a {span / 1e3:.2f} ms span (idle "
-          f"{100 * (1 - busy / span):.1f}%); most time: {most_time(device)}")
-    stem = profiled(lambda: synth.v_front.frontend(video.permute(0, 4, 1, 2, 3)))
+    return (f"{len(device)} device activities, busy {busy / 1e3:.2f} ms of a {span / 1e3:.2f} "
+            f"ms span (idle {100 * (1 - busy / span):.1f}%)")
+
+
+@torch.inference_mode()
+def device_profile(synth, video, lengths, card, what):
+    """One forward under ``torch.profiler``: the device's busy time (the
+    union of its activities' intervals) against the span from the first
+    one's start to the last one's end, and the kernels that take the most
+    time; then the stem alone, the visual front's largest part.  The
+    profiler slows the host, so the idle share is an upper bound."""
+    device, _ = profiled(lambda: synth(video, lengths))
+    print(f"profile of one {what} B={video.shape[0]} forward [{card}]: "
+          f"{busy_share(device, what)}; most time: {most_time(device)}")
+    stem, _ = profiled(lambda: synth.v_front.frontend(video.permute(0, 4, 1, 2, 3)))
     print(f"profile of the stem alone ({what}) [{card}]: {most_time(stem, top=5)}")
 
 
@@ -706,6 +765,221 @@ def phase_bench(card):
         line = json.loads(last)
         check(set(line) == {"metric", "value", "unit", "vs_baseline"}, f"bench line {last}")
         print(f"vcagan_torch.bench {' '.join(variant) or '(bf16, unfolded)'} [{card}]: {last}")
+
+
+def phase_train_attention(card):
+    """(a) The attention as the train step runs it: through its
+    ``autograd.Function`` (forward by the kernel, backward by the plain
+    version's autograd) at the GRID training shapes, ragged lengths
+    (1 and S among them).  Returns the worst gradient error against
+    float64."""
+    rng = np.random.default_rng(8)
+    worst = 0.0
+    for i, (name, b, t, s_, d) in enumerate((("att1", 88, 40, 40, 256), ("att2", 88, 80, 40, 256))):
+        lengths = rng.integers(1, s_ + 1, b)
+        lengths[:2] = (1, s_)
+        q, k, v, lens = attention_inputs(b, t, s_, d, lengths, seed=200 + i)
+        grad = torch.randn(b, t, d, generator=torch.Generator(device="cuda").manual_seed(9),
+                           device="cuda")
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        out = attn.masked_cross_attention(*leaves, lens)
+        check(isinstance(out.grad_fn, attn.MaskedAttention._backward_cls),
+              f"{name}: the attention did not go through its autograd.Function")
+        got = torch.autograd.grad(out, leaves, grad)
+        plain = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        want = attn.masked_attention_reference(*plain, lens)
+        want_grads = torch.autograd.grad(want, plain, grad)
+        wide = [x.detach().double().requires_grad_() for x in (q, k, v)]
+        want64 = attn.masked_attention_reference(*wide, lens)
+        want64_grads = torch.autograd.grad(want64, wide, grad.double())
+        torch.cuda.synchronize()
+        err = (out.detach() - want.detach()).abs().max().item()
+        err64 = (out.detach().double() - want64.detach()).abs().max().item()
+        check(err < ATTN_TOL and err64 < ATTN_TOL,
+              f"train {name}: forward vs plain {err:.3e}, vs float64 {err64:.3e}")
+        errs = []
+        for gname, g, w, w64 in zip(("dq", "dk", "dv"), got, want_grads, want64_grads):
+            check(torch.isfinite(g).all().item(), f"train {name} {gname}: non-finite")
+            e, e64 = (g - w).abs().max().item(), (g.double() - w64).abs().max().item()
+            check(torch.allclose(g.double(), w64, rtol=ATTN_GRAD_TOL, atol=ATTN_GRAD_TOL),
+                  f"train {name} {gname}: vs float64 max abs err {e64:.3e}")
+            check(torch.allclose(g, w, rtol=ATTN_GRAD_TOL, atol=ATTN_GRAD_TOL),
+                  f"train {name} {gname}: vs plain max abs err {e:.3e}")
+            errs.append(f"{gname} {e:.3e} (vs float64 {e64:.3e})")
+            worst = max(worst, e64)
+        print(f"train attention {name} B={b} T={t} S={s_} D={d} ragged: forward vs plain "
+              f"{err:.3e} (vs float64 {err64:.3e}); gradients vs plain: {', '.join(errs)} ok")
+    return worst
+
+
+def train_batch(b, w, seed, device):
+    """A GRID-shaped batch made with numpy: video (B, W, 112, 112, 1), mel
+    (B, 80, 4W) in [-1, 1], spec (B, 321, 4W) >= 0, ragged lengths."""
+    rng = np.random.default_rng(seed)
+    hw = DataConfig().crop_size
+    vid_len = np.full(b, w, np.int32)
+    vid_len[1::2] = w - 7
+    return Batch(
+        video=torch.from_numpy(rng.standard_normal((b, w, hw, hw, 1), np.float32)),
+        mel=torch.from_numpy(np.clip(rng.standard_normal((b, 80, 4 * w), np.float32), -1, 1)),
+        spec=torch.from_numpy(np.abs(rng.standard_normal((b, 321, 4 * w), np.float32))),
+        vid_len=torch.from_numpy(vid_len), mel_len=torch.from_numpy(4 * vid_len),
+    ).to(device)
+
+
+class FixedNoiseDecoder(Decoder):
+    """The decoder with a given noise tensor, whatever the step draws: the
+    card's and the CPU's generators give other numbers."""
+
+    def __init__(self, config, noise):
+        super().__init__(config)
+        self.register_buffer("fixed_noise", noise, persistent=False)
+
+    def forward(self, sent, phon, lengths, noise=None, generator=None):
+        return super().forward(sent, phon, lengths, noise=self.fixed_noise)
+
+
+def one_step(device, config, noise, batch):
+    """One train step from the weights of seed 0 with the given noise;
+    returns the state and the metrics as floats."""
+    modules = VCAGANModules.create(config, seed=0)
+    gen = FixedNoiseDecoder(config, noise)
+    gen.load_state_dict(modules.gen.state_dict())
+    modules = dataclasses.replace(modules, gen=gen)
+    state, g_tx, d_tx = create_train_state(modules, TrainConfig(), device=device)
+    step = make_train_step(modules, g_tx, d_tx, TrainConfig())
+    state, metrics = step(state, batch.to(device), torch.Generator(device).manual_seed(0))
+    return state, {k: v.item() for k, v in metrics.items()}
+
+
+def phase_train_card_vs_cpu(card):
+    """(b) One full-width step on the card and on the CPU (plain versions of
+    the kernels), the same initial weights, batch and noise, dropout rates
+    0: losses and metrics, each module's gradient (relative L2; from the
+    first moment, (1 - b1) (g + wd p) after one step), the update (against
+    lr) and the BatchNorm statistics."""
+    b, w = 2, TRAIN_WINDOW
+    config = ModelConfig(gru_dropout=0.0, frontend_dropout=0.0)
+    batch = train_batch(b, w, seed=3, device="cpu")
+    noise = torch.from_numpy(np.random.default_rng(4).standard_normal((b, 20, w, 128),
+                                                                      np.float32))
+    start = VCAGANModules.create(config, seed=0)  # the initial weights, for the updates
+    reset_launches()
+    card_state, card_m = one_step("cuda", config, noise.cuda(), batch)
+    check(attn.LAUNCHES == 2 and fb.LAUNCHES == 0,
+          f"card step: {attn.LAUNCHES} attention and {fb.LAUNCHES} fused-block launches")
+    t0 = time.perf_counter()
+    cpu_state, cpu_m = one_step("cpu", config, noise, batch)
+    print(f"train step card vs CPU, B={b} x {w} frames, 112x112, full width (the CPU step "
+          f"{time.perf_counter() - t0:.1f} s):")
+    for k, want in cpu_m.items():
+        got = card_m[k]
+        rtol = STEP_NORM_RTOL if k in ("r1", "g_grad_norm", "d_grad_norm") else STEP_LOSS_RTOL
+        rel = abs(got - want) / max(abs(want), 1e-12)
+        print(f"  {k}: card {got:.7g}, CPU {want:.7g}, relative {rel:.2e} (bound {rtol:g})")
+        check(np.isfinite(got) and rel <= rtol, f"train step {k}: card {got} vs CPU {want}")
+    lr = TrainConfig().lr
+    for side, opt in ((GENERATOR_SIDE, "g_opt_state"), (DISCRIMINATOR_SIDE, "d_opt_state")):
+        mus = (getattr(card_state, opt).mu, getattr(cpu_state, opt).mu)
+        first = 0
+        for name in side:
+            card_mod, cpu_mod = getattr(card_state.modules, name), getattr(cpu_state.modules, name)
+            n = len(list(cpu_mod.parameters()))
+            g = torch.cat([m.flatten().cpu() for m in mus[0][first:first + n]])
+            w_ = torch.cat([m.flatten() for m in mus[1][first:first + n]])
+            first += n
+            grad_rel = (torch.linalg.vector_norm(g - w_) / torch.linalg.vector_norm(w_)).item()
+            before = start.parameters([name])
+            up_card = torch.cat([(p.detach().cpu() - p0).flatten()
+                                 for p, p0 in zip(card_mod.parameters(), before)])
+            up_cpu = torch.cat([(p.detach() - p0).flatten()
+                                for p, p0 in zip(cpu_mod.parameters(), before)])
+            diff = (up_card - up_cpu).abs() / lr
+            worst, flipped = diff.max().item(), (diff > 0.5).float().mean().item()
+            stats = [(k, v) for k, v in cpu_mod.state_dict().items() if "running" in k]
+            stats_rel = 0.0
+            if stats:
+                start_sd, card_sd = start.state_dicts()[name], card_mod.state_dict()
+                moved = torch.cat([(v - start_sd[k]).flatten() for k, v in stats])
+                off = torch.cat([(card_sd[k].cpu() - v).flatten() for k, v in stats])
+                stats_rel = (torch.linalg.vector_norm(off) / torch.linalg.vector_norm(moved)).item()
+            print(f"  {name}: gradient relative L2 {grad_rel:.2e} (bound {STEP_GRAD_REL:g}); "
+                  f"update worst {worst:.3f} lr, share over lr/2 {flipped:.2e} (bound "
+                  f"{STEP_FLIP_SHARE:g}); BatchNorm statistics {stats_rel:.2e} of their move")
+            check(grad_rel <= STEP_GRAD_REL, f"train step {name}: gradient {grad_rel:.3e}")
+            check(worst <= 2.0 + 1e-3 and flipped <= STEP_FLIP_SHARE,
+                  f"train step {name}: update worst {worst:.3f} lr, share {flipped:.3e}")
+            check(stats_rel <= STEP_STATS_REL, f"train step {name}: statistics {stats_rel:.3e}")
+    print(f"train step card vs CPU ok [{card}]")
+
+
+def phase_train_grid(card):
+    """(c) The GRID training shape on the card: B=88 clips x 40 frames,
+    112x112, fp32, random init from seed 0, dropout on, the step's own
+    generator; 2 warm-up steps, then 5 counted steps on the same batch with
+    one sync; then one step under torch.profiler (busy share, the kernels
+    that take the most time).  Returns the attention launches of the
+    counted steps."""
+    b, w = TRAIN_BATCH, TRAIN_WINDOW
+    modules = VCAGANModules.create(ModelConfig(), seed=0)
+    marks = []
+
+    def on_phase(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks[-1].append(event)
+
+    state, g_tx, d_tx = create_train_state(modules, TrainConfig(), device="cuda")
+    step = make_train_step(modules, g_tx, d_tx, TrainConfig(), on_phase=on_phase)
+    batch = train_batch(b, w, seed=5, device="cuda")
+    generator = torch.Generator("cuda").manual_seed(0)
+
+    def run(steps):
+        out = []
+        for _ in range(steps):
+            marks.append([])
+            on_phase("start")
+            out.append(step(state, batch, generator)[1])
+        return out
+
+    run(TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks.clear()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = run(TRAIN_STEPS)
+    table = {k: torch.stack([m[k] for m in metrics]).cpu() for k in metrics[0]}  # the one sync
+    elapsed = time.perf_counter() - t0
+    launches = attn.LAUNCHES
+    check(launches == 2 * TRAIN_STEPS and fb.LAUNCHES == 0,
+          f"train: {launches} attention and {fb.LAUNCHES} fused-block launches in "
+          f"{TRAIN_STEPS} steps, not 2 and 0 a step")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = elapsed / TRAIN_STEPS * 1e3
+    print(f"train GRID B={b} x {w} frames, 112x112, fp32: {ms:.1f} ms a step, "
+          f"{b * TRAIN_STEPS / elapsed:.2f} clips/s, {b * 4 * w * TRAIN_STEPS / elapsed:.1f} "
+          f"mel-frames/s trained, peak {peak_gb:.2f} GB, {launches / TRAIN_STEPS:g} attention "
+          f"launches a step ({TRAIN_STEPS} counted steps after {TRAIN_WARMUP} warm-ups, one "
+          f"sync) [{card}]")
+    parts = {name: statistics.median(m[i].elapsed_time(m[i + 1]) for m in marks)
+             for i, name in enumerate(TRAIN_PHASES)}
+    print(f"train step parts (median of {TRAIN_STEPS} steps, CUDA events) [{card}]: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+          + f"; D phase {parts['d_loss'] + parts['d_backward']:.2f} ms, G phase "
+          f"{parts['g_loss'] + parts['g_backward']:.2f} ms, sum {sum(parts.values()):.2f} ms")
+    for k, v in table.items():
+        check(bool(torch.isfinite(v).all()), f"train metric {k} not finite: {v.tolist()}")
+        print(f"train metric {k}: " + ", ".join(f"{x:.6g}" for x in v.tolist()))
+    recon = table["recon_loss"]
+    check(recon[-1] < recon[0], f"recon_loss did not fall over the counted steps: {recon.tolist()}")
+    # one more step under the profiler (it slows the host: the idle share is an upper bound)
+    device, prof = profiled(lambda: run(1), record_shapes=True)
+    print(f"profile of one train step B={b} [{card}]: {busy_share(device, 'train step')}; "
+          f"most time: {most_time(device, top=12)}")
+    print(f"convolution backwards of that step, by input shapes [{card}]: "
+          f"{convolution_backwards(prof)}")
+    return launches
 
 
 def main() -> None:
@@ -746,6 +1020,10 @@ def main() -> None:
     attn_totals = phase_attention_times(card)
     torch.cuda.empty_cache()
     phase_bench(card)
+    attn_grad_worst = phase_train_attention(card)
+    phase_train_card_vs_cpu(card)
+    torch.cuda.empty_cache()
+    train_launches = phase_train_grid(card)
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -792,7 +1070,8 @@ def main() -> None:
     attention = kernel_entry("masked_cross_attention", "vcagan_torch/csrc/masked_attention.cu",
                              "vcagan/kernels/masked_attention.py:85", attn_worst, attn_totals,
                              ATTN_FLOP_PER_S, "graph")
-    attention.update(form="3xTF32", events_ms=attn_totals["events_ms"])
+    attention.update(form="3xTF32", events_ms=attn_totals["events_ms"],
+                     launches_train=train_launches, grad_max_abs_err=attn_grad_worst)
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the vcagan serving path, for NVIDIA Hopper.
+"""PyTorch + CUDA port of the vcagan serving path and train step, for
+NVIDIA Hopper.
 
 The JAX package ``vcagan`` is the reference; this package imports nothing
 of it and nothing of JAX.  Entry points run on CUDA unless the caller asks

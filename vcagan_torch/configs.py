@@ -1,9 +1,10 @@
-"""Configuration of the serving path.
+"""Configuration of the serving path and the train step.
 
-A copy of the two dataclasses the serving path reads from the JAX package's
-``vcagan/configs/base.py`` (``AudioConfig``, ``ModelConfig``), kept here so
+Copies of what the port reads from the JAX package's
+``vcagan/configs/base.py`` (``AudioConfig``, ``ModelConfig``, the fields of
+``DataConfig`` and ``TrainConfig`` that the train step reads), kept here so
 that the port imports nothing of that package.  Defaults reproduce the
-reference topology.
+reference GRID recipe.
 """
 
 from __future__ import annotations
@@ -63,3 +64,29 @@ class ModelConfig:
     sync_temp: float = 1.0
     # numerics
     use_bfloat16: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The batch's shape: video windows of ``window_size`` frames at
+    ``crop_size``^2 (``vcagan/configs/base.py:71-80``; 50 frames for LRS)."""
+
+    window_size: int = 40
+    crop_size: int = 112
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The optimisation fields of ``vcagan/configs/base.py:126-171`` that the
+    train step reads (GRID defaults; LRS: no amsgrad, milestones (100, 150),
+    sync_dis_weight 0.5, recon on normalised mels)."""
+
+    batch_size: int = 88
+    lr: float = 1e-4
+    weight_decay: float = 1e-5
+    lr_milestones: Tuple[int, ...] = (500, 800)
+    lr_gamma: float = 0.1
+    amsgrad: bool = True
+    recon_weight: float = 50.0
+    sync_dis_weight: float = 1.0
+    recon_on_denormalized: bool = True

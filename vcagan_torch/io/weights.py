@@ -1,13 +1,17 @@
 """Weights from the JAX package's formats into the port's state dicts.
 
 ``from_jax`` maps numpy flax trees of the generator side (``v_front``,
-``gen``, ``post``) onto the port's modules, whose state-dict keys are the
-reference PyTorch names that ``tools/convert_torch_ckpt.py`` reads; the
-converter's ``convert_visual_front/decoder/postnet`` are its exact inverse.
-Layouts: conv HWIO/DHWIO/WIO -> OIHW/OIDHW/OIW, dense (in, out) -> (out, in),
+``gen``, ``post``) and, where the trees hold them, of the discriminators
+(``dis1..3``, ``s_dis``) onto the port's modules, whose state-dict keys are
+the reference PyTorch names that ``tools/convert_torch_ckpt.py`` reads; the
+converter's ``convert_visual_front/decoder/postnet/discriminator/
+sync_discriminator`` are its exact inverse.
+Layouts: conv HWIO/DHWIO/WIO -> OIHW/OIDHW/OIW (the sync critic's
+time-major kernels (W, H, I, O) -> OIHW), dense (in, out) -> (out, in),
 GRU (in, 3H) -> (3H, in), BatchNorm scale/bias + mean/var -> weight/bias +
-running stats, and the attention ``q`` input rows from the JAX f-major to
-the reference c-major flatten order.  Trees folded by the JAX package's
+running stats, and the input rows of the attention ``q`` and of the sync
+critic's ``Linear`` from the JAX f-major to the reference c-major flatten
+order.  Trees folded by the JAX package's
 ``fold_generator_side`` (no paired BatchNorm nodes, a ``bias`` on their
 convolutions, empty ``v_front``/``post`` statistics) give the folded state
 dicts, the same that ``vcagan_torch/nn/fold.py`` makes of the unfolded ones.
@@ -25,12 +29,18 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from vcagan_torch.nn.discriminator import PHASE_BLOCKS
+
 Tree = Dict[str, Any]
 
 
 def _conv(w) -> np.ndarray:  # (spatial..., I, O) -> (O, I, spatial...)
     w = np.asarray(w)
     return w.transpose(w.ndim - 1, w.ndim - 2, *range(w.ndim - 2))
+
+
+def _conv_swapped(w) -> np.ndarray:  # time-major (W, H, I, O) -> (O, I, H, W)
+    return np.asarray(w).transpose(3, 2, 1, 0)
 
 
 def _linear(w) -> np.ndarray:  # (in, out) -> (out, in)
@@ -52,8 +62,8 @@ def _bn(sd: Dict, prefix: str, p: Tree, s: Tree) -> None:
     sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
 
 
-def _conv_bias(sd: Dict, prefix: str, p: Tree) -> None:
-    sd[f"{prefix}.weight"] = _conv(p["kernel"])
+def _conv_bias(sd: Dict, prefix: str, p: Tree, conv=_conv) -> None:
+    sd[f"{prefix}.weight"] = conv(p["kernel"])
     if "bias" in p:
         sd[f"{prefix}.bias"] = p["bias"]
 
@@ -145,6 +155,38 @@ def postnet_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
     return sd
 
 
+def discriminator_state(p: Tree, phase: str) -> Dict[str, np.ndarray]:
+    """One mel discriminator (norm-free, no statistics)."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv_bias(sd, "main.0", p["conv_in"])
+    for i in range(PHASE_BLOCKS[phase]):
+        for conv in ("conv1", "conv2", "conv1x1"):
+            if conv in p[f"block{i}"]:
+                _conv_bias(sd, f"main.{i + 1}.{conv}", p[f"block{i}"][conv])
+    _conv_bias(sd, "uncond.1", p["uncond_conv"])
+    _dense(sd, "uncond.4", p["uncond_out"])
+    _conv_bias(sd, "cond.1", p["cond_conv1"])
+    _conv_bias(sd, "cond.3", p["cond_conv2"])
+    _dense(sd, "cond.6", p["cond_out"])
+    return sd
+
+
+def sync_discriminator_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
+    """The sync critic: time-major kernels back to the reference (freq, time)
+    layout, the projection's rows back to the c-major flatten of (256, F)."""
+    sd: Dict[str, np.ndarray] = {}
+    for i, (conv, bn, act) in enumerate((("conv1", "bn1", "act1"), ("conv2", "bn2", "act2"))):
+        _conv_bias(sd, f"frontend.{3 * i}", p[conv], _conv_swapped)
+        _bn(sd, f"frontend.{3 * i + 1}", p[bn], s[bn])
+        sd[f"frontend.{3 * i + 2}.weight"] = p[act]["alpha"]
+    for i in (1, 2):
+        _conv_bias(sd, f"Res_block.0.conv{i}", p["res"][f"conv{i}"], _conv_swapped)
+        _bn(sd, f"Res_block.0.bn{i}", p["res"][f"bn{i}"], s["res"][f"bn{i}"])
+    f_dim = np.asarray(p["proj"]["kernel"]).shape[0] // 256
+    _dense(sd, "Linear", p["proj"], rows=np.argsort(_perm_cf_to_fc(256, f_dim)))
+    return sd
+
+
 class _ReadTree(dict):
     """A weight tree that adds the path of every leaf read from it to
     ``read`` (subtrees are wrapped the same way)."""
@@ -174,9 +216,10 @@ def _leaf_paths(tree: Tree, path: str):
 
 def from_jax(params: Tree, batch_stats: Tree,
              read: set | None = None) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{v_front, gen, post} numpy flax trees, unfolded or folded -> the
-    port's state dicts, unfolded or folded.  ``read``: a set that gets the
-    name of every leaf read (``params/gen/att1/q/kernel``, ``stats/...``)."""
+    """{v_front, gen, post} numpy flax trees, unfolded or folded, and those
+    of dis1..3 and s_dis where ``params`` has them -> the port's state dicts,
+    unfolded or folded.  ``read``: a set that gets the name of every leaf
+    read (``params/gen/att1/q/kernel``, ``stats/...``)."""
     if read is not None:
         params = _ReadTree(params, "params", read)
         batch_stats = _ReadTree(batch_stats, "stats", read)
@@ -185,6 +228,11 @@ def from_jax(params: Tree, batch_stats: Tree,
         "gen": decoder_state(params["gen"], batch_stats["gen"]),
         "post": postnet_state(params["post"], batch_stats.get("post", {})),
     }
+    for phase in "123":
+        if f"dis{phase}" in params:
+            states[f"dis{phase}"] = discriminator_state(params[f"dis{phase}"], phase)
+    if "s_dis" in params:
+        states["s_dis"] = sync_discriminator_state(params["s_dis"], batch_stats["s_dis"])
     return {mod: as_tensors(sd) for mod, sd in states.items()}
 
 
@@ -221,7 +269,8 @@ def load_serving_npz(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
     ``q8:`` leaf)."""
     params, stats = read_serving_npz(path)
     read: set = set()
-    states = from_jax(params, stats, read)
+    serving = ("v_front", "gen", "post")  # the file's modules; any other tree is unmatched
+    states = from_jax({k: v for k, v in params.items() if k in serving}, stats, read)
     extra = sorted({*_leaf_paths(params, "params"), *_leaf_paths(stats, "stats")} - read)
     if extra:
         more = " ..." if len(extra) > 5 else ""

@@ -5,9 +5,11 @@ import torch
 
 
 def refuse_grad(kernel: str, **inputs: torch.Tensor) -> None:
-    """The kernels are forward only: their results carry no ``grad_fn``, so
-    under grad mode an input that requires grad would silently get none.
-    Raise instead; the plain versions (CPU tensors) stay differentiable."""
+    """The raw kernel launchers are forward only: their results carry no
+    ``grad_fn``, so under grad mode an input that requires grad would
+    silently get none.  Raise instead; the plain versions (CPU tensors) stay
+    differentiable, and so does the attention through ``masked_cross_attention``
+    (its ``autograd.Function``)."""
     if torch.is_grad_enabled():
         needs = [name for name, t in inputs.items() if t.requires_grad]
         if needs:

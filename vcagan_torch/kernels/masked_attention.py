@@ -11,7 +11,12 @@ the cross terms lo*hi + hi*lo summed apart from hi*hi), which keeps about
 ``masked_attention_reference``, which is the einsum/softmax twin of the JAX
 package's ``_attention_xla``.  ``masked_attention_reference_3xtf32`` is the
 kernel's arithmetic in plain PyTorch, for the tests and the card's checks.
-Forward only.
+
+The kernel is forward only, as the TPU kernel is.  Gradients go through
+``MaskedAttention``, an ``autograd.Function`` whose forward is the kernel
+(the plain version on CPU tensors) and whose backward recomputes the plain
+version under autograd and returns its VJP, as the JAX package's custom VJP
+does with ``_attention_xla`` (``vcagan/kernels/masked_attention.py:173-191``).
 
 The tile plan (``attention_plan``: warps a block, key tile, D chunk, shared
 memory, grid) is chosen here, where the CPU tests reach it, and goes to the
@@ -207,8 +212,9 @@ def masked_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; raises on any input it
-    does not take and on a launch error.  Forward only: it raises where
-    autograd would need its result's gradient."""
+    does not take and on a launch error.  Its result has no gradient, so it
+    raises where autograd would need one: ``masked_cross_attention`` is the
+    differentiable entry."""
     global LAUNCHES
     refuse_grad("masked_attention", q=q, k=k, v=v)
     for name, x in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
@@ -249,13 +255,41 @@ def masked_attention_cuda(
     return out
 
 
+class MaskedAttention(torch.autograd.Function):
+    """The attention with a gradient: forward by the kernel on CUDA tensors
+    (the plain version on CPU tensors), backward by autograd of the plain
+    version recomputed from the saved q, k, v (no backward kernel, as in the
+    JAX package).  ``lengths`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths):
+        ctx.save_for_backward(q, k, v, lengths)
+        if q.device.type == "cuda":
+            return masked_attention_cuda(q, k, v, lengths)
+        return masked_attention_reference(q, k, v, lengths)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        q, k, v, lengths = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = masked_attention_reference(*inputs, lengths)
+            dq, dk, dv = torch.autograd.grad(out, inputs, grad)
+        return dq, dk, dv, None
+
+
 def masked_cross_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
 ) -> torch.Tensor:
     """Keys at positions >= lengths[b] get zero weight.  CPU tensors take the
-    plain version; CUDA tensors the kernel; anything else raises."""
+    plain version; CUDA tensors the kernel; anything else raises.  Where
+    autograd needs the result's gradient, both go through
+    ``MaskedAttention``."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no masked attention for device {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return MaskedAttention.apply(q, k, v, lengths)
     if q.device.type == "cpu":
         return masked_attention_reference(q, k, v, lengths)
-    if q.device.type == "cuda":
-        return masked_attention_cuda(q, k, v, lengths)
-    raise ValueError(f"no masked attention for device {q.device}")
+    return masked_attention_cuda(q, k, v, lengths)

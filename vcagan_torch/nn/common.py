@@ -1,4 +1,5 @@
-"""Shared layers: per-channel PReLU, LeakyReLU(0.2), eval BatchNorm, and
+"""Shared layers: per-channel PReLU, LeakyReLU(0.2), BatchNorm (eval, and
+train mode as flax's), dropout from an explicit generator, and
 convolutions that compute in a given dtype.
 
 The port keeps PyTorch's channels-first layout inside its modules (NCHW,
@@ -56,17 +57,61 @@ class LeakyReLU(nn.Module):
         return leaky_relu(x)
 
 
+class _FlaxBatchNorm:
+    """Train mode as flax's ``BatchNorm`` (``vcagan/nn/common.py:46-64``):
+    normalise with the batch's mean and biased variance, and move the
+    running variance with that same biased variance, where PyTorch's own
+    moves it with the unbiased one.  Eval mode is PyTorch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.to(self.running_mean.dtype), dim=[0, *range(2, x.dim())],
+                                       correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    pass
+
+
 def batch_norm(channels: int, dims: int = 2, folded: bool = False) -> nn.Module:
-    """BatchNorm{1,2,3}d with the reference's eps and momentum; the port
-    serves in eval mode, where it is the running-statistics affine, computed
-    in fp32 and given out in the input's dtype.
+    """BatchNorm{1,2,3}d with the reference's eps and momentum.  In eval mode
+    it is the running-statistics affine, computed in fp32 and given out in
+    the input's dtype; in train mode it follows flax (``_FlaxBatchNorm``).
     ``folded``: the affine lives in the preceding convolution
     (``vcagan_torch/nn/fold.py``) and an ``nn.Identity`` keeps its place, so
     the names of the layers after it do not move."""
     if folded:
         return nn.Identity()
-    cls = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[dims]
+    cls = {1: BatchNorm1d, 2: BatchNorm2d, 3: BatchNorm3d}[dims]
     return cls(channels, eps=BN_EPS, momentum=0.1)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: each element kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), the mask drawn from
+    ``generator`` (required whenever a mask is drawn)."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode draws its mask from an explicit generator")
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep * (1.0 / (1.0 - rate))
 
 
 class _ComputeDtype:

@@ -1,0 +1,139 @@
+"""The multi-scale mel discriminators and the audio-visual sync critic.
+
+Port of ``vcagan/nn/discriminator.py`` (reference ``generator.py:51-92``,
+``267-361``), fp32.  Attribute names follow the reference state dicts that
+``tools/convert_torch_ckpt.py:253-308`` reads: ``main.0`` (input conv),
+``main.{i+1}`` (ResBlks), ``uncond.1/4``, ``cond.1/3/6``; for the sync
+critic ``frontend.0-5``, ``Res_block.0`` and ``Linear``.
+
+Layouts: a mel is (B, F, T) as the decoder gives it, seen as a (B, 1, F, T)
+image with frequency as H.  The sync critic keeps that reference layout;
+the JAX module runs time-major with swapped kernels, which the converter
+accounts for (``conv2d_swapped``).  Its ``Linear`` reads the (C=256, F=20)
+map of each step flattened c-major, as the reference does.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vcagan_torch.configs import ModelConfig
+from vcagan_torch.nn.common import INV_SQRT2, LeakyReLU, PReLU, batch_norm, leaky_relu
+from vcagan_torch.nn.resnet import BasicBlock
+
+PHASE_BLOCKS = {"1": 2, "2": 3, "3": 4}
+
+
+class ResBlk(nn.Module):
+    """LReLU-conv5 (+ 2x2 average pool) twice, a learned 1x1 shortcut on a
+    channel change, scaled by 1/sqrt(2) (``vcagan/nn/discriminator.py:27-62``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, downsample: bool = True):
+        super().__init__()
+        self.downsample = downsample
+        self.conv1 = nn.Conv2d(in_channels, in_channels, 5, padding=2)
+        self.conv2 = nn.Conv2d(in_channels, out_channels, 5, padding=2)
+        self.conv1x1 = None
+        if in_channels != out_channels:
+            self.conv1x1 = nn.Conv2d(in_channels, out_channels, 1, bias=False)
+
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        return F.avg_pool2d(x, 2) if self.downsample else x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv2(leaky_relu(self._pool(self.conv1(leaky_relu(x)))))
+        sc = x if self.conv1x1 is None else self.conv1x1(x)
+        return (h + self._pool(sc)) * INV_SQRT2
+
+
+class SpatialMean(nn.Module):
+    """(B, C, H, W) -> (B, C): the heads' global average."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(2, 3))
+
+
+class Discriminator(nn.Module):
+    """One scale of the mel discriminator (``vcagan/nn/discriminator.py:65-130``).
+    ``phase`` "1"/"2"/"3" takes the (20, T) / (40, 2T) / (80, 4T) mel through
+    2/3/4 downsampling blocks to a (ch, 5, T/4) map; two heads, one
+    unconditional and one conditioned on the time mean of ``sent``."""
+
+    def __init__(self, phase: str = "1", config: ModelConfig | None = None,
+                 sent_dim: int = 512, num_class: int = 1):
+        super().__init__()
+        m = config or ModelConfig()
+        self.phase = phase
+        self.repeat = PHASE_BLOCKS[phase]
+        ch = m.disc_base_channels
+        layers: list[nn.Module] = [nn.Conv2d(1, ch, 5, padding=2)]
+        for _ in range(self.repeat):
+            out = min(ch * 2, m.disc_max_channels)
+            layers.append(ResBlk(ch, out))
+            ch = out
+        self.main = nn.Sequential(*layers)
+        self.uncond = nn.Sequential(
+            LeakyReLU(), nn.Conv2d(ch, ch, 5), LeakyReLU(), SpatialMean(), nn.Linear(ch, num_class)
+        )
+        self.cond = nn.Sequential(
+            LeakyReLU(), nn.Conv2d(ch + sent_dim, ch, 5, padding=2), LeakyReLU(),
+            nn.Conv2d(ch, ch, 5), LeakyReLU(), SpatialMean(), nn.Linear(ch, num_class),
+        )
+
+    def forward(self, mel: torch.Tensor, sent: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """mel (B, F, T), sent (B, T_v, 512) -> unconditional and conditional
+        logits, (B, num_class) each."""
+        need = 5 * 2 ** self.repeat
+        if mel.shape[2] // 2 ** self.repeat < 5:
+            raise ValueError(
+                f"Discriminator phase {self.phase}: time dim {mel.shape[2]} downsamples below "
+                f"the 5x5 VALID head (needs >= {need} mel frames, i.e. video window >= 20 frames)"
+            )
+        x = self.main(mel[:, None])
+        b, _, h, w = x.shape
+        c = sent.mean(dim=1)[:, :, None, None].expand(b, sent.shape[2], h, w)
+        return self.uncond(x), self.cond(torch.cat([x, c.to(x.dtype)], dim=1))
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||, eps) over the last axis (``vcagan/nn/discriminator.py:192-194``)."""
+    return x / torch.clamp(torch.sqrt((x * x).sum(-1, keepdim=True)), min=eps)
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """sum(a*b) / max(||a|| ||b||, eps) over the last axis (``:197-202``)."""
+    den = torch.linalg.vector_norm(a, dim=-1) * torch.linalg.vector_norm(b, dim=-1)
+    return (a * b).sum(-1) / torch.clamp(den, min=eps)
+
+
+class SyncDiscriminator(nn.Module):
+    """Audio-visual sync critic (``vcagan/nn/discriminator.py:131-190``): an
+    audio encoder maps the mel (B, 80, 4S) to 512-d features, one per video
+    frame, and ``forward`` gives the per-sample loss against ``v_feat``."""
+
+    def __init__(self, config: ModelConfig | None = None, n_mels: int = 80):
+        super().__init__()
+        m = config or ModelConfig()
+        self.temp = m.sync_temp
+        self.frontend = nn.Sequential(
+            nn.Conv2d(1, 128, 3, 2, 1), batch_norm(128), PReLU(128),
+            nn.Conv2d(128, 256, 3, 2, 1), batch_norm(256), PReLU(256),
+        )
+        self.Res_block = nn.Sequential(BasicBlock(256, 256, relu_type="relu"))
+        self.Linear = nn.Linear(256 * (n_mels // 4), m.feature_dim)
+
+    def forward(self, v_feat: torch.Tensor, mel: torch.Tensor, gen: bool = False) -> torch.Tensor:
+        """v_feat (B, S, 512), mel (B, 80, 4S) -> (B,): symmetric InfoNCE
+        over the cosine matrix / temp; with ``gen``, 5 - mean |cos|."""
+        x = self.Res_block(self.frontend(mel[:, None]))  # (B, 256, 20, S)
+        a_feat = self.Linear(x.permute(0, 3, 1, 2).flatten(2))  # c-major rows
+        if gen:
+            return 5.0 - cosine(v_feat, a_feat).abs().mean(dim=1)
+        sim = torch.einsum("bsd,btd->bst", l2_normalize(v_feat), l2_normalize(a_feat)) / self.temp
+        nce_va = torch.diagonal(torch.log_softmax(sim, dim=2), dim1=1, dim2=2).mean(dim=1)
+        nce_av = torch.diagonal(torch.log_softmax(sim, dim=1), dim1=1, dim2=2).mean(dim=1)
+        return -0.5 * (nce_va + nce_av)

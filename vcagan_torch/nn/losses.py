@@ -1,0 +1,26 @@
+"""GAN losses: the non-saturating softplus loss and the R1 gradient penalty.
+
+Port of ``vcagan/nn/losses.py:19-36`` (reference ``generator.py:363-366``
+and ``train.py:188-194``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def gan_loss(logits: torch.Tensor, real: bool) -> torch.Tensor:
+    """mean softplus(-x) for real targets, mean softplus(x) for fake."""
+    return F.softplus(-logits if real else logits).mean()
+
+
+def r1_penalty(logits: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batch mean of ||d sum(logits) / d x||^2 per sample, ``logits`` the
+    per-sample logits computed from ``x`` (which requires grad).  The
+    gradient is taken with ``create_graph=True``, so the penalty
+    differentiates again into the discriminator's parameters.  The JAX
+    function takes the logit function and runs its own forward; here the
+    caller's forward, which also gives the real-logit loss, is shared."""
+    (grad,) = torch.autograd.grad(logits.sum(), x, create_graph=True)
+    return grad.flatten(1).square().sum(1).mean()

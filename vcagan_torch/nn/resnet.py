@@ -1,7 +1,8 @@
 """ResNet-18 trunk for per-frame lip features, NCHW.
 
 Port of ``vcagan/nn/resnet.py:49-164``: BasicBlock
-conv3x3-BN-PReLU-conv3x3-BN (+ shortcut) -> PReLU, layout [2,2,2,2], a
+conv3x3-BN-PReLU-conv3x3-BN (+ shortcut) -> PReLU (``relu_type="relu"``:
+plain parameter-free ReLUs, as in the sync critic), layout [2,2,2,2], a
 1x1 stride-2 conv + BN projection where the shape changes, and a global
 spatial mean.  Attribute names follow the reference state dict
 (``layer1.0.conv1``, ``bn1``, ``relu1``, ``downsample.0/1``).
@@ -40,17 +41,18 @@ def _hwio(conv: nn.Conv2d) -> torch.Tensor:
 class BasicBlock(FoldableModule):
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  fold_bn: bool = False, fused: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, relu_type: str = "prelu"):
         super().__init__(fold_bn)
-        if fused and not fold_bn:
-            raise ValueError("fused requires fold_bn=True (serving mode)")
+        if fused and (not fold_bn or relu_type != "prelu"):
+            raise ValueError("fused requires fold_bn=True (serving mode) and PReLU")
         self.dtype = dtype
+        act = {"prelu": lambda: PReLU(planes), "relu": nn.ReLU}[relu_type]
         self.conv1 = Conv2d(in_planes, planes, 3, stride, 1, bias=fold_bn, compute_dtype=dtype)
         self.bn1 = batch_norm(planes, folded=fold_bn)
-        self.relu1 = PReLU(planes)
+        self.relu1 = act()
         self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=fold_bn, compute_dtype=dtype)
         self.bn2 = batch_norm(planes, folded=fold_bn)
-        self.relu2 = PReLU(planes)
+        self.relu2 = act()
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(

@@ -1,10 +1,12 @@
 """Visual front: 3-D conv stem -> per-frame ResNet-18 -> biGRU context.
 
-Port of ``vcagan/nn/visual_front.py:54-130`` in eval mode.  The JAX stem
+Port of ``vcagan/nn/visual_front.py:54-130``.  The JAX stem
 conv is a space-to-depth rewrite for the TPU (``s2d_stem_conv3d``) that
 computes exactly a k(5,7,7) s(1,2,2) pad (2,3,3) conv; here it is that plain
 ``nn.Conv3d``.  Public layout as in JAX: video (B, T, H, W, 1) ->
-``phon``, ``sent`` (B, T, 512).
+``phon``, ``sent`` (B, T, 512).  In train mode the dropout after the trunk
+(``:118``) and the biGRU's between its layers draw their masks from the
+``generator`` passed to ``forward``.
 
 ``fold_bn``: serving mode; the stem convolution carries the folded
 BatchNorm as a bias (``vcagan/nn/visual_front.py:75-84``) and the trunk is
@@ -26,7 +28,7 @@ import torch
 from torch import nn
 
 from vcagan_torch.configs import ModelConfig
-from vcagan_torch.nn.common import Conv3d, FoldableModule, PReLU, batch_norm
+from vcagan_torch.nn.common import Conv3d, FoldableModule, PReLU, batch_norm, dropout
 from vcagan_torch.nn.gru import BiGRU
 from vcagan_torch.nn.resnet import ResNetTrunk
 from vcagan_torch.runtime import compute_dtype
@@ -51,14 +53,15 @@ class VisualFront(FoldableModule):
         )
         self.resnet = ResNetTrunk(m.resnet_layers, in_planes=c, fold_bn=fold_bn, fused=fused,
                                   dtype=dtype)
-        self.dropout = nn.Dropout(m.frontend_dropout)
+        self.dropout_rate = m.frontend_dropout
         self.sentence_encoder = BiGRU(m.feature_dim, m.gru_hidden, m.gru_layers, m.gru_dropout)
         self.fc = nn.Linear(2 * m.gru_hidden, m.feature_dim)
         self.feature_dim = m.feature_dim
         if fold_bn:
             self.eval()
 
-    def forward(self, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, video: torch.Tensor,
+                generator: torch.Generator | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
         b, t = video.shape[:2]
         x = self.frontend(video.permute(0, 4, 1, 2, 3))  # (B, C, T, H', W')
         if self.fused:
@@ -68,7 +71,7 @@ class VisualFront(FoldableModule):
             frames = frames.permute(0, 3, 1, 2)
         else:
             frames = x.transpose(1, 2).flatten(0, 1)
-        x = self.dropout(self.resnet(frames))  # (B*T, 512)
-        phon = x.reshape(b, t, self.feature_dim)
-        sent = self.fc(self.sentence_encoder(phon))
+        x = dropout(self.resnet(frames), self.dropout_rate, self.training, generator)
+        phon = x.reshape(b, t, self.feature_dim)  # (B*T, 512) -> (B, T, 512)
+        sent = self.fc(self.sentence_encoder(phon, generator))
         return phon, sent
