@@ -126,9 +126,11 @@ ATTN_GRAD_TOL = 1e-4
 # network about 3e-3 from float64 (relative L2 a leaf, measured on the CPU
 # at narrow width against the JAX package and a float64 run,
 # tests/test_torch_train_step.py), so each module's is held to 2e-2.  The
-# first update is lr * sign(g): where g lies within that noise its sign may
-# differ and the update with it, by 2 lr; so the worst element may be 2 lr
-# apart, and at most 1% of them more than lr / 2.  BatchNorm statistics:
+# first update is lr * sign(g), never much larger than lr, so it is held by
+# the share of elements more than lr / 2 apart (the gradient check above
+# catches a scaled gradient, which leaves the update as it was): where g
+# lies within that noise its sign may differ and the update with it, by
+# 2 lr, in at most 1% of the elements.  BatchNorm statistics:
 # one step's move of 0.1 x the batch statistics, to 1e-3 of its size.
 STEP_LOSS_RTOL, STEP_NORM_RTOL = 1e-3, 1e-2
 STEP_GRAD_REL = 2e-2
@@ -907,7 +909,7 @@ def phase_train_card_vs_cpu(card):
                   f"update worst {worst:.3f} lr, share over lr/2 {flipped:.2e} (bound "
                   f"{STEP_FLIP_SHARE:g}); BatchNorm statistics {stats_rel:.2e} of their move")
             check(grad_rel <= STEP_GRAD_REL, f"train step {name}: gradient {grad_rel:.3e}")
-            check(worst <= 2.0 + 1e-3 and flipped <= STEP_FLIP_SHARE,
+            check(flipped <= STEP_FLIP_SHARE,
                   f"train step {name}: update worst {worst:.3f} lr, share {flipped:.3e}")
             check(stats_rel <= STEP_STATS_REL, f"train step {name}: statistics {stats_rel:.3e}")
     print(f"train step card vs CPU ok [{card}]")

@@ -201,9 +201,6 @@ def test_attention_function_gradients_match_jax_vjp(lengths):
 
 
 def test_serving_only_and_unported_modes_raise():
-    modules = VCAGANModules.create(fold_bn=True, fused_blocks=True)
-    with pytest.raises(RuntimeError, match="eval-only"):
-        modules.train()
     with pytest.raises(NotImplementedError, match="bf16 training"):
         VCAGANModules.create(ModelConfig(use_bfloat16=True))
     small = VCAGANModules.create(ModelConfig(stem_channels=8, gru_hidden=8, noise_dim=8,
@@ -211,9 +208,12 @@ def test_serving_only_and_unported_modes_raise():
                                              postnet_channels=8, disc_base_channels=8,
                                              disc_max_channels=8))
     state, g_tx, d_tx = create_train_state(small, TrainConfig(), device="cpu")
-    for knobs in ({"d_phase": "batched"}, {"remat": "r1"}, {"mesh": None}):
+    for knobs in ({"d_phase": "batched"}, {"remat": "r1"}, {"mesh": "data"},
+                  {"compiler_options": "auto"}, {"donate": True}):
         with pytest.raises(ValueError, match="not ported"):
             make_train_step(small, g_tx, d_tx, **knobs)
+    with pytest.raises(TypeError, match="sync_leek"):
+        make_train_step(small, g_tx, d_tx, sync_leek=False)
 
 
 @pytest.mark.parametrize("flip_tta", [False, True], ids=["plain", "flip_tta"])

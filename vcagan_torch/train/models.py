@@ -35,24 +35,20 @@ class VCAGANModules:
     s_dis: SyncDiscriminator
 
     @classmethod
-    def create(cls, config: ModelConfig | None = None, fold_bn: bool = False,
-               fused_blocks: bool = False, seed: int = 0) -> "VCAGANModules":
-        """All seven modules on the CPU, PyTorch's default initialisation
-        drawn from ``seed`` (the global generator is left as it was).
-        ``fold_bn`` / ``fused_blocks`` build the eval-only serving variant of
-        the generator side, as in the JAX package.  fp32 only: bf16
-        training is not ported."""
-        if fused_blocks and not fold_bn:
-            raise ValueError("fused_blocks requires fold_bn=True (serving mode)")
+    def create(cls, config: ModelConfig | None = None, seed: int = 0) -> "VCAGANModules":
+        """All seven modules on the CPU, unfolded (the training modules),
+        PyTorch's default initialisation drawn from ``seed`` (the global
+        generator is left as it was).  fp32 only: bf16 training is not
+        ported.  The folded and fused serving variant is ``Synthesizer``'s."""
         m = config or ModelConfig()
         if m.use_bfloat16:
             raise NotImplementedError("bf16 training is not ported; the modules are fp32")
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             return cls(
-                v_front=VisualFront(m, fold_bn=fold_bn, fused=fused_blocks),
+                v_front=VisualFront(m),
                 gen=Decoder(m),
-                post=Postnet(m, n_mels=AudioConfig().n_mels, fold_bn=fold_bn),
+                post=Postnet(m, n_mels=AudioConfig().n_mels),
                 dis1=Discriminator("1", m),
                 dis2=Discriminator("2", m),
                 dis3=Discriminator("3", m),

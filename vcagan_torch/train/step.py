@@ -81,11 +81,12 @@ def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
-def _grads(loss: torch.Tensor, params: List[torch.Tensor], retain_graph: bool = False
-           ) -> List[torch.Tensor]:
-    """d loss / d params; a parameter the loss does not reach gets zeros,
-    as in JAX."""
-    grads = torch.autograd.grad(loss, params, retain_graph=retain_graph, allow_unused=True)
+def _grads(outputs: Sequence[torch.Tensor], params: List[torch.Tensor],
+           grad_outputs: Sequence[torch.Tensor | None] | None = None) -> List[torch.Tensor]:
+    """The vector-Jacobian product of ``outputs`` (a scalar loss, or several
+    with ``grad_outputs``) into ``params``; a parameter the outputs do not
+    reach gets zeros, as in JAX."""
+    grads = torch.autograd.grad(outputs, params, grad_outputs, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
@@ -97,7 +98,11 @@ def make_train_step(
     sync_leak: bool = True,
     d_phase: str = "ref",
     on_phase: Callable[[str], None] | None = None,
-    **tpu_options,
+    *,
+    remat: str | None = None,
+    mesh=None,
+    compiler_options=None,
+    donate: bool | None = None,
 ):
     """Returns ``step(state, batch, generator) -> (state, metrics)``, which
     updates the modules and optimizer states in place; the metrics are
@@ -109,17 +114,17 @@ def make_train_step(
     phase g_loss + g_backward).
 
     ``d_phase="batched"``, ``remat``, ``mesh``, ``compiler_options`` and
-    ``donate`` are the JAX step's TPU-compiler knobs and are not ported."""
+    ``donate`` are the JAX step's TPU-compiler knobs and are not ported:
+    setting one raises."""
     cfg = config or TrainConfig()
-    if d_phase != "ref" or tpu_options:
-        raise ValueError(
-            "not ported (TPU-compiler knobs of the JAX step): "
-            + ", ".join([*(["d_phase=" + repr(d_phase)] if d_phase != "ref" else []),
-                         *sorted(tpu_options)])
-        )
+    knobs = dict(d_phase=None if d_phase == "ref" else d_phase, remat=remat, mesh=mesh,
+                 compiler_options=compiler_options, donate=donate)
+    unported = [f"{k}={v!r}" for k, v in knobs.items() if v is not None]
+    if unported:
+        raise ValueError("not ported (TPU-compiler knobs of the JAX step): "
+                         + ", ".join(unported))
     mark = on_phase or (lambda name: None)
     dis = (modules.dis1, modules.dis2, modules.dis3)
-    vf_params = list(modules.v_front.parameters())
     g_params = modules.parameters(GENERATOR_SIDE)  # v_front's first
     d_params = modules.parameters(DISCRIMINATOR_SIDE)
 
@@ -172,11 +177,10 @@ def make_train_step(
 
         dis_loss, d_aux = d_loss(phon, sent_sg, mels, gens)
         mark("d_loss")
-        if sync_leak:
-            grads = _grads(dis_loss, d_params + vf_params, retain_graph=True)
-            d_grads, vf_sync_grads = grads[:len(d_params)], grads[len(d_params):]
-        else:
-            d_grads = _grads(dis_loss, d_params)
+        # with the leak the backward stops at phon, whose gradient the G
+        # phase's backward carries on through the visual front
+        grads = _grads([dis_loss], d_params + [phon] if sync_leak else d_params)
+        d_grads, dphon = grads[:len(d_params)], grads[len(d_params):]
         dis_loss = dis_loss.detach()  # frees the D phase's graph
         mark("d_backward")
         d_grad_norm = _global_norm(d_grads)
@@ -186,9 +190,10 @@ def make_train_step(
 
         gen_loss, g_aux = g_loss(phon, sent_sg, mels, gens, batch.spec)
         mark("g_loss")
-        g_grads = _grads(gen_loss, g_params)
         if sync_leak:  # reference train.py:210 "accumulate v_front grad"
-            torch._foreach_add_(g_grads[:len(vf_params)], vf_sync_grads)
+            g_grads = _grads([gen_loss, phon], g_params, [None, dphon[0]])
+        else:
+            g_grads = _grads([gen_loss], g_params)
         mark("g_backward")
         g_grad_norm = _global_norm(g_grads)
         g_tx.update(g_grads, state.g_opt_state, g_params)
