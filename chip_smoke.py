@@ -43,6 +43,21 @@ Phases, in order; any failure raises and exits non-zero:
      (c) the GRID training shape, B=88 x 40 frames: 2 warm-up and 5
      counted steps, their time, clips/s, peak memory, attention launches a
      step and the time of each part of a step (CUDA events);
+  9. training through its entry points (``vcagan_torch.train.loop.Trainer``
+     on the synthetic GRID clips, fp32): (c) ``Trainer.fit`` at the GRID
+     recipe, B=88 x 40 frames over 616 clips (7 batches, one epoch): 2
+     warm-up and 5 counted steps, the loop's pace beside phase 8 (c)'s
+     fixed-batch step, the producer's collate time, the consumer's waits on
+     the feed queue, peak memory, attention launches (2 a step); then 3
+     more steps under torch.profiler, with the device's busy share and its
+     longest idle gaps labelled by the loop's host range; (d) one
+     validation batch at B=88 x 75 (2 attention launches), and its parts
+     timed apart; (a) the input pipeline on the card against the CPU on
+     one B=88 raw batch, without and with augmentation (the same draws),
+     and its time; (b) STOI/ESTOI on the card against the numpy STOI for 8
+     waveforms; (e) a checkpoint saved and restored on the card, bit for
+     bit; (f) ``python3 -m vcagan_torch.cli.train`` as a subprocess on the
+     card (2 steps at B=8), its metric stream read back;
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -65,7 +80,13 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from vcagan_torch.configs import DataConfig, ModelConfig, TrainConfig  # noqa: E402
+from vcagan_torch.configs import AudioConfig, DataConfig, ModelConfig, TrainConfig  # noqa: E402
+from vcagan_torch.configs import grid_config  # noqa: E402
+from vcagan_torch.data.device_pipeline import make_device_pipeline  # noqa: E402
+from vcagan_torch.data.grid import GridDataset  # noqa: E402
+from vcagan_torch.data.transforms import augment_draws  # noqa: E402
+from vcagan_torch.eval import stoi_np  # noqa: E402
+from vcagan_torch.eval.stoi import stoi_estoi_batch  # noqa: E402
 from vcagan_torch.io.weights import load_serving_npz  # noqa: E402
 from vcagan_torch.kernels import _build  # noqa: E402
 from vcagan_torch.kernels import fused_block as fb  # noqa: E402
@@ -75,6 +96,7 @@ from vcagan_torch.runtime import use_full_fp32  # noqa: E402
 from vcagan_torch.nn.generator import Decoder  # noqa: E402
 from vcagan_torch.serve import Synthesizer  # noqa: E402
 from vcagan_torch.train import Batch, VCAGANModules, create_train_state, make_train_step  # noqa: E402
+from vcagan_torch.train.loop import Trainer  # noqa: E402
 from vcagan_torch.train.models import DISCRIMINATOR_SIDE, GENERATOR_SIDE  # noqa: E402
 
 SERVING_NPZ = os.path.join(ROOT, "data", "soak_serving_q8.npz")
@@ -141,6 +163,19 @@ TRAIN_WINDOW = DataConfig().window_size  # of 40 frames
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 TRAIN_PHASES = ("gen_forward", "d_loss", "d_backward", "d_update", "g_loss", "g_backward",
                 "g_update")
+# Phase 9, the Trainer.  (c) 7 batches of the GRID recipe, one epoch, so
+# that every counted step lies in it; (d) validation at B=88 x 75.
+LOOP_BATCHES, LOOP_WARMUP, LOOP_STEPS, LOOP_PROFILED = 7, 2, 5, 3
+LOOP_RANGES = ("feed.wait", "input_pipeline", "train_step", "readback")
+# (a) The input pipeline, card against CPU on the same raw batch: the video
+# goes through two fp32 resize products (TF32 off) and (x - 0.4136) / 0.17,
+# values up to 3.5, atol 1e-4; the spectrogram is cuFFT against pocketFFT
+# in fp32 on magnitudes up to a few hundred, rtol 1e-4 and atol 1e-3; the
+# normalised mel, a log of mel energies scaled by 2 / 11.5, atol 1e-4.
+PIPE_VIDEO_TOL, PIPE_SPEC_TOL, PIPE_MEL_TOL = 1e-4, (1e-4, 1e-3), 1e-4
+# (b) STOI/ESTOI on the card (fp32) against the float64 numpy STOI: the JAX
+# package's bound for its own batched STOI (tests/test_stoi.py).
+STOI_TOL = 1e-3
 PATHS = (("unfolded", False, False), ("folded+fused", True, False),
          ("unfolded bf16", False, True), ("folded+fused bf16", True, True))
 
@@ -981,7 +1016,339 @@ def phase_train_grid(card):
           f"most time: {most_time(device, top=12)}")
     print(f"convolution backwards of that step, by input shapes [{card}]: "
           f"{convolution_backwards(prof)}")
+    return launches, ms
+
+
+def host_ranges(prof):
+    """The loop's host ranges (``record_function`` in ``Trainer.fit``) as
+    (name, start us, end us), in order."""
+    return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name in LOOP_RANGES and e.device_type != _cuda_device_type()),
+                  key=lambda r: r[1])
+
+
+def _cuda_device_type():
+    from torch.autograd import DeviceType
+    return DeviceType.CUDA
+
+
+def device_activities(prof):
+    """Kernels and copies as (name, start us, end us); the host ranges'
+    mirrors on the device timeline are left out."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == _cuda_device_type() and e.name not in LOOP_RANGES]
+
+
+def idle_gaps(device, ranges, top=5):
+    """The ``top`` longest stretches with no device activity, each with the
+    host range (or "between ranges") that the loop was in when it began."""
+    spans = sorted((a, b) for _, a, b in device)
+    gaps, end = [], spans[0][1]
+    for a, b in spans[1:]:
+        if a > end:
+            gaps.append((a - end, end))
+        end = max(end, b)
+    gaps.sort(reverse=True)
+    out = []
+    for length, start in gaps[:top]:
+        label = next((n for n, a, b in ranges if a <= start < b), "between ranges")
+        out.append(f"{length / 1e3:.2f} ms in {label}")
+    return ", ".join(out)
+
+
+def loop_config(tmp, batches, **overrides):
+    """The GRID recipe over the synthetic clips (no corpus at the missing
+    root): ``batches`` batches of 88 clips an epoch, validation once an
+    epoch (no fit below reaches an epoch's end)."""
+    return grid_config(**{
+        "data.data_root": os.path.join(tmp, "no_corpus"),
+        "data.synthetic_clips": batches * TRAIN_BATCH,
+        "train.batch_size": TRAIN_BATCH,
+        "train.eval_step": 0,
+        "train.checkpoint_dir": os.path.join(tmp, "ckpt"),
+        **overrides,
+    })
+
+
+def train_lines(log_dir):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    return [r for r in lines if "train/gen_loss" in r]
+
+
+def phase_trainer_fit(card, fixed_step_ms, tmp):
+    """(c) ``Trainer.fit`` at the GRID recipe on the card.  Returns the
+    trainer and the attention launches of the fit."""
+    b, w = TRAIN_BATCH, TRAIN_WINDOW
+    log_dir = os.path.join(tmp, "log")
+    t0 = time.perf_counter()
+    trainer = Trainer(loop_config(tmp, LOOP_BATCHES), log_dir=log_dir)
+    check(trainer.device.type == "cuda", f"the Trainer runs on {trainer.device}")
+    check(trainer.steps_per_epoch == LOOP_BATCHES, f"{trainer.steps_per_epoch} steps an epoch")
+    print(f"trainer: built in {time.perf_counter() - t0:.1f} s (modules, state on the card, "
+          f"{len(trainer.train_ds)} synthetic clips, rendered on first use) [{card}]")
+    # A CUDA event after each step that fit queues: the device time between
+    # the end of the last warm-up step and the end of the last counted one
+    # is the loop's pace, idle time included.  (The metric stream's
+    # step_seconds time the readbacks, which fit places a step late.)
+    ends = []
+    step_fn = trainer.train_step
+
+    def stamped_step(*args):
+        out = step_fn(*args)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    trainer.train_step = stamped_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    steps = LOOP_WARMUP + LOOP_STEPS
+    t0 = time.perf_counter()
+    check(trainer.fit(epochs=1, max_steps=steps) == steps, "fit stopped early")
+    elapsed = time.perf_counter() - t0
+    trainer.train_step = step_fn
+    launches = attn.LAUNCHES
+    check(launches == 2 * steps and fb.LAUNCHES == 0,
+          f"fit: {launches} attention and {fb.LAUNCHES} fused-block launches in {steps} steps")
+    lines = train_lines(log_dir)
+    check([r["step"] for r in lines] == list(range(1, steps + 1)), "fit's metric lines")
+    for r in lines:
+        check(all(np.isfinite(v) for k, v in r.items() if k.startswith("train/")),
+              f"fit metrics not finite: {r}")
+    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]  # steps 2, 3, ...
+    counted_ms = step_ms[LOOP_WARMUP - 1:]
+    pace_ms = sum(counted_ms) / LOOP_STEPS
+    waits = [1e3 * x for x in trainer.queue_wait_s]
+    collate = [1e3 * x for x in trainer.collate_s]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"trainer fit GRID B={b} x {w} frames, fp32: {pace_ms:.1f} ms a step (loop pace over "
+          f"{LOOP_STEPS} counted steps after {LOOP_WARMUP} warm-ups, CUDA events at each step's "
+          f"end), {b * LOOP_STEPS / sum(counted_ms) * 1e3:.2f} clips/s; phase 8 (c)'s fixed-batch step "
+          f"{fixed_step_ms:.1f} ms, so the loop is {pace_ms / fixed_step_ms:.3f}x it; whole fit "
+          f"{elapsed:.1f} s for {steps} steps; peak {peak_gb:.2f} GB; {launches / steps:g} "
+          f"attention launches a step [{card}]")
+    print(f"trainer feed, first epoch (each clip rendered on first use): collate ms a batch "
+          f"(producer thread, {trainer.config.train.workers} decode workers) "
+          + ", ".join(f"{x:.1f}" for x in collate)
+          + "; queue wait ms a step (consumer) " + ", ".join(f"{x:.1f}" for x in waits)
+          + f"; counted steps wait {sum(waits[LOOP_WARMUP:]):.1f} ms of "
+          f"{sum(counted_ms):.1f} ms [{card}]")
+    print("trainer device ms from each step's end to the next (steps 2 on): "
+          + ", ".join(f"{x:.1f}" for x in step_ms) + "; metric stream step_seconds (ms): "
+          + ", ".join(f"{1e3 * r['train/step_seconds']:.1f}" for r in lines))
+
+    # Three more steps under the profiler: a new epoch (the clips cached);
+    # the profile starts after its first step, so the epoch's first wait
+    # stays out of it.
+    first = steps + 1
+    t0 = time.perf_counter()
+    trainer.fit(epochs=1, max_steps=first + LOOP_PROFILED,
+                profile_steps=(first, first + LOOP_PROFILED),
+                profile_dir=os.path.join(tmp, "profile"))
+    prof = trainer.last_profile
+    check(prof is not None, "fit kept no profile")
+    device, ranges = device_activities(prof), host_ranges(prof)
+    check(len(ranges) >= 3 * LOOP_PROFILED, f"{len(ranges)} host ranges in the profile")
+    by_range = {name: sum(b_ - a for n, a, b_ in ranges if n == name) / 1e3
+                for name in LOOP_RANGES}
+    print(f"profile of {LOOP_PROFILED} fit steps (second epoch, clips cached; "
+          f"{time.perf_counter() - t0:.1f} s with the profiler) [{card}]: "
+          f"{busy_share(device, 'fit')}; host ms in each range: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in by_range.items())
+          + f"; longest idle gaps: {idle_gaps(device, ranges)}; queue waits (ms) "
+          + ", ".join(f"{1e3 * x:.1f}" for x in trainer.queue_wait_s))
+    return trainer, launches
+
+
+def phase_trainer_validate(card, trainer):
+    """(d) One validation batch at B=88 x 75 through ``validate``, then its
+    parts on the same batch, each timed apart.  Returns its attention
+    launches."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logs = trainer.validate(fast=False, max_batches=1)
+    elapsed = time.perf_counter() - t0
+    launches = attn.LAUNCHES
+    check(launches == 2 and fb.LAUNCHES == 0,
+          f"validate: {launches} attention and {fb.LAUNCHES} fused-block launches")
+    check(all(np.isfinite(x) for x in logs) and logs[0] > 0, f"validate returned {logs}")
+    print(f"trainer validate, one batch B={TRAIN_BATCH} x {DataConfig().max_v_timesteps} frames: "
+          f"{elapsed:.2f} s (first call: the val clips rendered), l1 {logs[0]:.4f}, stoi "
+          f"{logs[1]:.4f}, estoi {logs[2]:.4f}, pesq {logs[3]:.4f}; {launches} attention "
+          f"launches [{card}]")
+
+    from vcagan_torch.dsp.griffin_lim import random_phase
+    from vcagan_torch.eval.pesq_nb import pesq_batch
+    raw = next(trainer._val_ds.epoch(TRAIN_BATCH, shuffle=False, drop_last=False))
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t
+        return out
+
+    with torch.no_grad():
+        batch = timed("copy + input pipeline", lambda: trainer.process_eval(raw))
+        g3, gs = timed("eval forward", lambda: trainer.eval_step(batch.video, batch.vid_len,
+                                                                 trainer.generator))
+        spec, mel_in = gs.transpose(1, 2), g3.transpose(1, 2)
+        phase = random_phase(spec.shape, trainer.generator, spec.device)
+        wav = timed("Griffin-Lim (postnet)", lambda: trainer.pipeline.inverse_spec(
+            spec, init_phase=phase))
+        wav_mel = timed("Griffin-Lim (mel)", lambda: trainer.pipeline.inverse_mel(
+            mel_in, init_phase=phase))
+        gt = torch.as_tensor(raw["wav"], device="cuda")[:, : wav.shape[1]]
+        timed("STOI/ESTOI on the card, both paths", lambda: [
+            stoi_estoi_batch(gt, x) for x in (wav, wav_mel[:, : gt.shape[1]])])
+        gt_host = gt.cpu().numpy()
+        hosts = [x.cpu().numpy() for x in (wav, wav_mel[:, : gt.shape[1]])]
+        timed("PESQ on the host, both paths", lambda: [pesq_batch(gt_host, h, fs=16_000)
+                                                       for h in hosts])
+    print(f"trainer validation batch parts, timed apart (s) [{card}]: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
     return launches
+
+
+def phase_trainer_pipeline(card, trainer):
+    """(a) The input pipeline on the card against the CPU on one B=88 raw
+    batch of the trainer's clips, without and with augmentation (the same
+    draws); its time on the card, and the raw batch's copy."""
+    dataset = GridDataset(trainer.train_ds.source, AudioConfig(), DataConfig(), "train", seed=9)
+    raw = next(dataset.epoch(TRAIN_BATCH))
+    pinned = {k: torch.from_numpy(v).pin_memory() for k, v in raw.items() if v.ndim}
+    on_card = {k: v.to("cuda", non_blocking=True) for k, v in pinned.items()}
+    nbytes = sum(v.numel() * v.element_size() for v in pinned.values())
+    worst = {}
+    for augment in (False, True):
+        card_proc = make_device_pipeline(augment=augment)
+        cpu_proc = make_device_pipeline(augment=augment, device="cpu")
+        draws = augment_draws(TRAIN_BATCH, torch.Generator("cuda").manual_seed(4), "cuda")
+        got = card_proc(on_card, draws=draws)
+        want = cpu_proc(raw, draws=type(draws)(*(d.cpu() for d in draws)))
+        for name, tol in (("video", (0.0, PIPE_VIDEO_TOL)), ("spec", PIPE_SPEC_TOL),
+                          ("mel", (0.0, PIPE_MEL_TOL))):
+            g, w_ = getattr(got, name).cpu(), getattr(want, name)
+            check(torch.isfinite(g).all().item(), f"pipeline {name}: non-finite")
+            err = (g - w_).abs().max().item()
+            worst[(augment, name)] = err
+            check(torch.allclose(g, w_, rtol=tol[0], atol=tol[1]),
+                  f"pipeline augment={augment} {name}: card vs CPU max abs err {err:.3e}")
+        for name in ("vid_len", "mel_len"):
+            check(torch.equal(getattr(got, name).cpu(), getattr(want, name)), f"pipeline {name}")
+    gen = torch.Generator("cuda").manual_seed(5)
+    proc = trainer.process_train
+    ms = time_ms(lambda: proc(on_card, gen), samples=5, calls=4, warmup=1)
+    copy_ms = time_ms(lambda: {k: v.to("cuda", non_blocking=True) for k, v in pinned.items()},
+                      samples=5, calls=4, warmup=1)
+    print(f"input pipeline B={TRAIN_BATCH} x {TRAIN_WINDOW} frames, card vs CPU: "
+          + ", ".join(f"{'augmented' if a else 'plain'} {n} {e:.3e}" for (a, n), e in worst.items())
+          + f" ok; on the card {ms:.3f} ms a batch (augmented, CUDA events), the pinned raw "
+          f"batch's copy ({nbytes / 1e6:.1f} MB) {copy_ms:.3f} ms [{card}]")
+
+
+def phase_trainer_stoi(card, trainer):
+    """(b) STOI/ESTOI on the card against the numpy STOI (float64) on 8
+    waveforms: the trainer's ground-truth windows against noisy copies."""
+    dataset = GridDataset(trainer.train_ds.source, AudioConfig(), DataConfig(), "val", seed=0)
+    clean = next(dataset.epoch(8, shuffle=False, drop_last=False))["wav"]
+    rng = np.random.default_rng(6)
+    noisy = (clean + rng.standard_normal(clean.shape).astype(np.float32)
+             * np.linspace(0.01, 0.3, 8, dtype=np.float32)[:, None] * clean.std()).astype(np.float32)
+    s, e = (x.cpu().numpy() for x in stoi_estoi_batch(torch.from_numpy(clean).cuda(),
+                                                      torch.from_numpy(noisy).cuda()))
+    want_s = np.asarray([stoi_np.stoi_np(c, n, fs=16_000) for c, n in zip(clean, noisy)])
+    want_e = np.asarray([stoi_np.estoi_np(c, n, fs=16_000) for c, n in zip(clean, noisy)])
+    err_s, err_e = np.abs(s - want_s).max(), np.abs(e - want_e).max()
+    check(err_s < STOI_TOL and err_e < STOI_TOL,
+          f"STOI card vs numpy: stoi {err_s:.3e}, estoi {err_e:.3e}")
+    print(f"STOI/ESTOI on the card vs numpy, 8 waveforms of {clean.shape[1]} samples: stoi "
+          + ", ".join(f"{x:.4f}" for x in s) + f" (max err {err_s:.2e}); estoi "
+          + ", ".join(f"{x:.4f}" for x in e) + f" (max err {err_e:.2e}) ok [{card}]")
+
+
+def phase_trainer_checkpoint(card, trainer):
+    """(e) Save the trainer's state on the card, overwrite every tensor,
+    restore: every tensor as saved, bit for bit."""
+    def tensors(state):
+        out = [t for sd in state.modules.state_dicts().values() for t in sd.values()]
+        for opt in (state.g_opt_state, state.d_opt_state):
+            out += opt.mu + opt.nu + (opt.nu_max or [])
+        return out
+
+    state = trainer.state
+    t0 = time.perf_counter()
+    path = trainer.ckpt.save(state, 0, stoi=0.5, estoi=0.5, pesq=2.0)
+    save_s = time.perf_counter() - t0
+    saved = [t.clone() for t in tensors(state)]
+    counts = (state.step, state.g_opt_state.count, state.d_opt_state.count)
+    with torch.no_grad():
+        for t in tensors(state):
+            t.add_(1) if t.is_floating_point() else t.add_(3)
+    state.step, state.g_opt_state.count, state.d_opt_state.count = 0, 0, 0
+    t0 = time.perf_counter()
+    trainer.ckpt.restore(state, path)
+    restore_s = time.perf_counter() - t0
+    back = tensors(state)
+    check(all(t.device.type == "cuda" for t in back), "restored off the card")
+    check(len(back) == len(saved) and all(torch.equal(a, b) for a, b in zip(back, saved)),
+          "checkpoint: a restored tensor differs")
+    check((state.step, state.g_opt_state.count, state.d_opt_state.count) == counts,
+          "checkpoint: step or optimizer counts differ")
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    print(f"checkpoint on the card: {len(saved)} tensors, {size / 1e9:.2f} GB, saved in "
+          f"{save_s:.1f} s, restored in {restore_s:.1f} s, bit for bit ok; Best_* "
+          f"{os.path.basename(trainer.ckpt.best() or '')} [{card}]")
+
+
+def phase_trainer_cli(card, tmp):
+    """(f) ``python3 -m vcagan_torch.cli.train`` on the card (its default
+    device) as a user runs it: 2 steps at B=8 after the pre-train
+    validation; its metric stream must hold 2 train lines."""
+    log_dir = os.path.join(tmp, "cli_log")
+    argv = [sys.executable, "-m", "vcagan_torch.cli.train", "--grid",
+            os.path.join(tmp, "no_corpus"), "--batch_size", "8", "--max_steps", "2",
+            "--epochs", "1", "--eval_step", "0", "--checkpoint_dir",
+            os.path.join(tmp, "cli_ckpt"), "--log_dir", log_dir]
+    t0 = time.perf_counter()
+    run = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    elapsed = time.perf_counter() - t0
+    check(run.returncode == 0, f"the training CLI failed:\n{run.stderr[-4000:]}")
+    lines = train_lines(log_dir)
+    check(len(lines) == 2, f"the CLI's metric stream holds {len(lines)} train lines, not 2")
+    out = run.stdout.strip().splitlines()
+    check("Finishing training" in out, f"the CLI printed {out[-3:]}")
+    print(f"python3 -m vcagan_torch.cli.train --batch_size 8 --max_steps 2 on the card: "
+          f"{elapsed:.1f} s, {out[0]}, 2 train lines (gen_loss "
+          + ", ".join(f"{r['train/gen_loss']:.3f}" for r in lines) + f") ok [{card}]")
+
+
+def phase_trainer(card, fixed_step_ms):
+    """Phase 9: the Trainer, its validation, input pipeline, STOI,
+    checkpoint and CLI on the card.  Returns the attention launches of
+    fit's steps and of one validation batch."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        trainer, fit_launches = phase_trainer_fit(card, fixed_step_ms, tmp)
+        val_launches = phase_trainer_validate(card, trainer)
+        phase_trainer_pipeline(card, trainer)
+        phase_trainer_stoi(card, trainer)
+        phase_trainer_checkpoint(card, trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        phase_trainer_cli(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"fit_steps": LOOP_WARMUP + LOOP_STEPS, "fit": fit_launches,
+            "validation_batch": val_launches}
 
 
 def main() -> None:
@@ -1025,7 +1392,9 @@ def main() -> None:
     attn_grad_worst = phase_train_attention(card)
     phase_train_card_vs_cpu(card)
     torch.cuda.empty_cache()
-    train_launches = phase_train_grid(card)
+    train_launches, fixed_step_ms = phase_train_grid(card)
+    torch.cuda.empty_cache()
+    loop_launches = phase_trainer(card, fixed_step_ms)
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -1073,7 +1442,8 @@ def main() -> None:
                              "vcagan/kernels/masked_attention.py:85", attn_worst, attn_totals,
                              ATTN_FLOP_PER_S, "graph")
     attention.update(form="3xTF32", events_ms=attn_totals["events_ms"],
-                     launches_train=train_launches, grad_max_abs_err=attn_grad_worst)
+                     launches_train=train_launches, grad_max_abs_err=attn_grad_worst,
+                     launches_trainer=loop_launches)
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

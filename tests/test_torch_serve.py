@@ -16,7 +16,9 @@
   ``chip_smoke.py`` imports JAX, flax or the JAX package.  The scan is static: an interpreter may
   import JAX at start-up, so ``sys.modules`` proves nothing.
 - Without CUDA, an entry point that is not told ``device="cpu"`` raises: the
-  synthesizer in fp32 and in bf16, and ``vcagan_torch.bench``.
+  synthesizer in fp32 and in bf16, ``vcagan_torch.bench``, the GRID
+  ``Trainer`` and ``python -m vcagan_torch.cli.train`` without
+  ``--platform cpu``.
 """
 
 import ast
@@ -39,8 +41,10 @@ from vcagan.nn import VisualFront as JaxVisualFront
 from vcagan.nn import fold_generator_side as jax_fold_generator_side
 from vcagan.train import VCAGANModules
 from vcagan_torch import bench
-from vcagan_torch.configs import ModelConfig
+from vcagan_torch.cli import train as train_cli
+from vcagan_torch.configs import ModelConfig, grid_config
 from vcagan_torch.serve import Synthesizer
+from vcagan_torch.train.loop import Trainer
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SERVING_NPZ = os.path.join(ROOT, "data", "soak_serving_q8.npz")
@@ -138,7 +142,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(sources) > 15 and os.path.exists(sources[-1])
     seen = {os.path.relpath(path, os.path.join(ROOT, "vcagan_torch")) for path in sources}
     assert {"nn/fold.py", "kernels/fused_block.py", "kernels/masked_attention.py",
-            "bench.py"} <= seen
+            "bench.py", "train/loop.py", "cli/train.py", "data/grid.py", "eval/stoi.py"} <= seen
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -147,7 +151,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             assert top not in ("jax", "jaxlib", "flax", "vcagan", "optax", "orbax"), (path, mod)
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Synthesizer(ModelConfig())
@@ -163,6 +167,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     for argv in ([], ["--fold-bn-fused"], ["--fp32"]):  # the bench has no CPU fallback
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             bench.main(argv)
+    config = grid_config(**{"data.data_root": "/nonexistent", "data.synthetic_clips": 2,
+                            "train.batch_size": 2, "train.checkpoint_dir": str(tmp_path / "c")})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(config, log_dir=str(tmp_path / "log"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--grid", "/nonexistent", "--checkpoint_dir", str(tmp_path / "c"),
+                        "--log_dir", str(tmp_path / "log")])
     assert Synthesizer(ModelConfig(), device="cpu").device.type == "cpu"
     assert Synthesizer(bf16, device="cpu").device.type == "cpu"
 

@@ -1,10 +1,8 @@
-"""Configuration of the serving path and the train step.
+"""Configuration of the port: serving, the train step and the GRID loop.
 
-Copies of what the port reads from the JAX package's
-``vcagan/configs/base.py`` (``AudioConfig``, ``ModelConfig``, the fields of
-``DataConfig`` and ``TrainConfig`` that the train step reads), kept here so
-that the port imports nothing of that package.  Defaults reproduce the
-reference GRID recipe.
+A copy of the JAX package's ``vcagan/configs/base.py`` (``lrs_config``
+comes with LRS training; the fields that nothing reads are left out),
+kept here so that the port imports nothing of that package.  Defaults reproduce the reference GRID recipe.
 """
 
 from __future__ import annotations
@@ -68,25 +66,112 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The batch's shape: video windows of ``window_size`` frames at
-    ``crop_size``^2 (``vcagan/configs/base.py:71-80``; 50 frames for LRS)."""
+    """Dataset and windowing parameters (``vcagan/configs/base.py:77-123``):
+    video windows of ``window_size`` frames at ``crop_size``^2 (50 frames
+    for LRS).  ``host_crop``, ``host_gray`` and ``host_resize`` move the
+    static crop, the luma and the resize to the host, before the copy to
+    the device; ``collate_process`` (a collate worker process) is not
+    ported, and the Trainer raises on it."""
 
+    data_root: str = "Data_dir"
+    dataset: str = "GRID"  # GRID | LRS2 | LRS3
+    subject: str = "overlap"  # overlap | unseen | s# | four (GRID only)
     window_size: int = 40
+    max_v_timesteps: int = 75  # 160 for LRS
+    augmentations: bool = True
     crop_size: int = 112
+    grid_crop_box: Tuple[int, int, int, int] = (59, 95, 195, 231)
+    host_crop: bool = True
+    host_gray: bool = True
+    host_resize: bool = False
+    collate_process: bool = False
+    pixel_mean: float = 0.4136
+    pixel_std: float = 0.1700
+    erase_size: int = 56
+    synthetic_clips: int = 64  # clips of the synthetic source, when the corpus is absent
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The optimisation fields of ``vcagan/configs/base.py:126-171`` that the
-    train step reads (GRID defaults; LRS: no amsgrad, milestones (100, 150),
-    sync_dis_weight 0.5, recon on normalised mels)."""
+    """Optimisation and loop parameters (``vcagan/configs/base.py:126-171``;
+    GRID defaults; LRS: no amsgrad, milestones (100, 150), sync_dis_weight
+    0.5, recon on normalised mels).  ``remat`` other than "none" and
+    ``d_phase`` "batched" are the JAX step's TPU-compiler knobs and are not
+    ported: the Trainer raises on them."""
 
     batch_size: int = 88
+    epochs: int = 1000
     lr: float = 1e-4
     weight_decay: float = 1e-5
+    seed: int = 1
+    eval_step: int = 720
+    start_epoch: int = 0
     lr_milestones: Tuple[int, ...] = (500, 800)
     lr_gamma: float = 0.1
     amsgrad: bool = True
     recon_weight: float = 50.0
     sync_dis_weight: float = 1.0
     recon_on_denormalized: bool = True
+    checkpoint_dir: str = "./data/checkpoints/GRID"
+    workers: int = 6
+    remat: str = "none"
+    d_phase: str = "ref"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device layout; the port runs on one card (``model_parallel`` 1)."""
+
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class VCAGANConfig:
+    audio: AudioConfig = dataclasses.field(default_factory=AudioConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+
+def unported(config: VCAGANConfig) -> list[str]:
+    """The settings of ``config`` that the port does not run, each with the
+    ROADMAP item (Queue 1) that holds it."""
+    c = config
+    found = []
+    if c.data.dataset in ("LRS2", "LRS3"):
+        found.append(f"data.dataset={c.data.dataset!r} (ROADMAP: LRS data, Trainer on LRS "
+                     "and train_lrs.py)")
+    if c.model.use_bfloat16:
+        found.append("model.use_bfloat16 / --bf16 (ROADMAP: bf16 training)")
+    if c.train.remat != "none":
+        found.append(f"train.remat={c.train.remat!r} / --remat (ROADMAP: the JAX step's "
+                     "TPU-compiler knobs)")
+    if c.train.d_phase != "ref":
+        found.append(f"train.d_phase={c.train.d_phase!r} / --d_phase (ROADMAP: the JAX "
+                     "step's TPU-compiler knobs)")
+    if c.mesh.model_parallel != 1:
+        found.append(f"mesh.model_parallel={c.mesh.model_parallel} / --model_parallel "
+                     "(ROADMAP: multi-GPU)")
+    if c.data.collate_process:
+        found.append("data.collate_process / --collate_process (ROADMAP: ProcessEpoch)")
+    return found
+
+
+def grid_config(**overrides) -> VCAGANConfig:
+    """The reference GRID recipe, with dotted-path overrides such as
+    ``grid_config(**{"train.lr": 3e-4})``."""
+    return _apply(VCAGANConfig(), overrides)
+
+
+def _apply(cfg: VCAGANConfig, overrides: dict) -> VCAGANConfig:
+    """Apply dotted-path overrides, e.g. _apply(cfg, {"train.lr": 3e-4})."""
+    for key, value in overrides.items():
+        parts = key.split(".")
+        if len(parts) == 1:
+            cfg = dataclasses.replace(cfg, **{parts[0]: value})
+        else:
+            sub = getattr(cfg, parts[0])
+            sub = dataclasses.replace(sub, **{parts[1]: value})
+            cfg = dataclasses.replace(cfg, **{parts[0]: sub})
+    return cfg

@@ -1,8 +1,8 @@
-from vcagan_torch.dsp.audio import deemphasis
+from vcagan_torch.dsp.audio import deemphasis, mel_normalize
 from vcagan_torch.dsp.griffin_lim import griffin_lim
 from vcagan_torch.dsp.mel import mel_filterbank
 from vcagan_torch.dsp.pipeline import MelPipeline
-from vcagan_torch.dsp.stft import STFTParams, istft_complex, stft
+from vcagan_torch.dsp.stft import STFTParams, istft_complex, stft, stft_magnitude
 
 __all__ = [
     "MelPipeline",
@@ -11,5 +11,7 @@ __all__ = [
     "griffin_lim",
     "istft_complex",
     "mel_filterbank",
+    "mel_normalize",
     "stft",
+    "stft_magnitude",
 ]

@@ -1,6 +1,8 @@
-"""Waveform- and mel-domain scalar ops of the inverse path.
+"""Waveform- and mel-domain scalar ops: the conditioning of the forward
+path, the log compression and mel normalisation, and the inverse path's
+de-emphasis.
 
-Port of the parts of ``vcagan/dsp/audio.py`` that the serving path uses.
+Port of ``vcagan/dsp/audio.py``.
 """
 
 from __future__ import annotations
@@ -10,6 +12,18 @@ import math
 import torch
 
 LOG1E5 = math.log(1e-5)
+
+
+def peak_normalize(wav: torch.Tensor, target: float = 0.9, dim: int = -1) -> torch.Tensor:
+    """wav / max|wav| * target."""
+    peak = wav.abs().amax(dim=dim, keepdim=True)
+    return wav / torch.clamp(peak, min=1e-8) * target
+
+
+def preemphasis(wav: torch.Tensor, coef: float = 0.97) -> torch.Tensor:
+    """y[n] = x[n] - coef * x[n-1], y[0] = x[0], over the last axis (equals
+    ``scipy.signal.lfilter([1, -coef], [1], x)``)."""
+    return torch.cat([wav[..., :1], wav[..., 1:] - coef * wav[..., :-1]], dim=-1)
 
 
 def deemphasis(wav: torch.Tensor, coef: float = 0.97) -> torch.Tensor:
@@ -36,6 +50,11 @@ def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5) -> torch.
 
 def dynamic_range_decompression(x: torch.Tensor) -> torch.Tensor:
     return torch.exp(x)
+
+
+def mel_normalize(mel: torch.Tensor) -> torch.Tensor:
+    """Map log-mel from [log 1e-5, ~0] to [-1, 1]."""
+    return (mel - LOG1E5) / (-LOG1E5 / 2.0) - 1.0
 
 
 def mel_denormalize(mel: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,7 @@
-"""Inverse mel pipeline: linear or normalised-mel spectrogram -> waveform.
+"""Mel pipeline: waveform -> (log-mel, linear magnitudes), and linear or
+normalised-mel spectrogram -> waveform.
 
-Port of the inverse half of ``vcagan/dsp/pipeline.py:23-131``
-(``compress_mel``, ``mel_to_linear``, ``inverse_mel``, ``inverse_spec``),
-time-major (B, T, bins).
+Port of ``vcagan/dsp/pipeline.py:23-131``, time-major (B, T, bins).
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from vcagan_torch.configs import AudioConfig
 from vcagan_torch.dsp import audio as audio_ops
 from vcagan_torch.dsp.griffin_lim import griffin_lim
 from vcagan_torch.dsp.mel import mel_filterbank
-from vcagan_torch.dsp.stft import STFTParams
+from vcagan_torch.dsp.stft import STFTParams, stft_magnitude
 
 
 class MelPipeline:
@@ -31,6 +30,18 @@ class MelPipeline:
         if self.mel_basis.device != like.device or self.mel_basis.dtype != like.dtype:
             self.mel_basis = self.mel_basis.to(like.device, like.dtype)
         return self.mel_basis
+
+    def condition_waveform(self, wav: torch.Tensor) -> torch.Tensor:
+        """Peak-normalise x0.9, pre-emphasise, clamp to [-1, 1]."""
+        wav = audio_ops.peak_normalize(wav, 0.9)
+        wav = audio_ops.preemphasis(wav, self.config.preemphasis)
+        return torch.clamp(wav, -1.0, 1.0)
+
+    def mel_spectrogram(self, wav: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, L) waveform in [-1, 1] -> (log-mel (B, T, n_mels), linear
+        magnitudes (B, T, n_linear)), centred STFT."""
+        mag, _ = stft_magnitude(wav, self.stft_params)
+        return self.compress_mel(mag), mag
 
     def compress_mel(self, mag: torch.Tensor) -> torch.Tensor:
         """Linear magnitudes (B, T, n_linear) -> log-mel (B, T, n_mels)."""

@@ -1,7 +1,7 @@
 """Batched STFT / ISTFT, time-major (B, frames, bins).
 
-Port of ``vcagan/dsp/stft.py``: periodic Hann window, centred reflect-padded
-framing, ``torch.fft.rfft``/``irfft``, overlap-add by shifted adds, and the
+Port of ``vcagan/dsp/stft.py``: periodic Hann window, framing (centred and
+reflect-padded, or of the signal as it is), ``torch.fft.rfft``/``irfft``, overlap-add by shifted adds, and the
 window-sum-square correction of the reference's librosa-0.6 semantics.
 """
 
@@ -66,12 +66,24 @@ def _wss_correction(
     return torch.as_tensor(corr, dtype=dtype, device=device)
 
 
-def stft(y: torch.Tensor, params: STFTParams) -> torch.Tensor:
-    """Centred complex STFT: (B, L) float -> (B, 1 + L // hop, n_bins) complex."""
-    pad = params.n_fft // 2
-    y = F.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0]
+def stft(y: torch.Tensor, params: STFTParams, center: bool = True) -> torch.Tensor:
+    """Complex STFT: (B, L) float -> (B, T, n_bins) complex.  ``center``
+    reflect-pads n_fft // 2 on each side (T = 1 + L // hop); without it the
+    signal is framed as it is (T = 1 + (L - n_fft) // hop), as the input
+    pipeline frames a segment that the host already padded and positioned
+    (``vcagan_torch/data/audio_host.py`` ``stft_segment``)."""
+    if center:
+        pad = params.n_fft // 2
+        y = F.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0]
     frames = y.unfold(-1, params.n_fft, params.hop_length) * window(params, y.device, y.dtype)
     return torch.fft.rfft(frames, n=params.n_fft, dim=-1)
+
+
+def stft_magnitude(y: torch.Tensor, params: STFTParams, center: bool = True
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Magnitude and phase of :func:`stft`, each (B, T, n_bins)."""
+    z = stft(y, params, center=center)
+    return z.abs(), z.angle()
 
 
 def overlap_add(frames: torch.Tensor, params: STFTParams) -> torch.Tensor:
