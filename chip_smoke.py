@@ -45,10 +45,13 @@ Phases, in order; any failure raises and exits non-zero:
      step and the time of each part of a step (CUDA events);
   9. training through its entry points (``vcagan_torch.train.loop.Trainer``
      on the synthetic GRID clips, fp32): (c) ``Trainer.fit`` at the GRID
-     recipe, B=88 x 40 frames over 616 clips (7 batches, one epoch): 2
-     warm-up and 5 counted steps, the loop's pace beside phase 8 (c)'s
-     fixed-batch step, the producer's collate time, the consumer's waits on
-     the feed queue, peak memory, attention launches (2 a step); then 3
+     recipe, B=88 x 40 frames over 880 clips (10 batches, one epoch, each
+     clip rendered on first use): after 2 warm-ups, 5 counted steps from
+     the first step before which the device waited on the feed (or the
+     last 5, if it never did), the loop's pace beside phase 8 (c)'s
+     fixed-batch step and the producer's collate time of the same batches,
+     the consumer's waits on the feed queue, peak memory, attention
+     launches (2 a step); then 3
      more steps under torch.profiler, with the device's busy share and its
      longest idle gaps labelled by the loop's host range; (d) one
      validation batch at B=88 x 75 (2 attention launches), and its parts
@@ -163,9 +166,14 @@ TRAIN_WINDOW = DataConfig().window_size  # of 40 frames
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 TRAIN_PHASES = ("gen_forward", "d_loss", "d_backward", "d_update", "g_loss", "g_backward",
                 "g_update")
-# Phase 9, the Trainer.  (c) 7 batches of the GRID recipe, one epoch, so
-# that every counted step lies in it; (d) validation at B=88 x 75.
-LOOP_BATCHES, LOOP_WARMUP, LOOP_STEPS, LOOP_PROFILED = 7, 2, 5, 3
+# Phase 9, the Trainer.  (c) One epoch of 10 batches of the GRID recipe:
+# after 2 warm-ups, 5 counted steps from the first step before which the
+# device waited on the feed (from there nothing is buffered, so the pace
+# is the feed's or the step's, whichever binds, and not a backlog's);
+# a wait is a gap of over LOOP_IDLE_MS between a step's end and the next
+# one's start.  (d) validation at B=88 x 75.
+LOOP_BATCHES, LOOP_WARMUP, LOOP_STEPS, LOOP_PROFILED = 10, 2, 5, 3
+LOOP_IDLE_MS = 10.0
 LOOP_RANGES = ("feed.wait", "input_pipeline", "train_step", "readback")
 # (a) The input pipeline, card against CPU on the same raw batch: the video
 # goes through two fp32 resize products (TF32 off) and (x - 0.4136) / 0.17,
@@ -1087,28 +1095,37 @@ def phase_trainer_fit(card, fixed_step_ms, tmp):
     check(trainer.steps_per_epoch == LOOP_BATCHES, f"{trainer.steps_per_epoch} steps an epoch")
     print(f"trainer: built in {time.perf_counter() - t0:.1f} s (modules, state on the card, "
           f"{len(trainer.train_ds)} synthetic clips, rendered on first use) [{card}]")
-    # A CUDA event after each step that fit queues: the device time between
-    # the end of the last warm-up step and the end of the last counted one
-    # is the loop's pace, idle time included.  (The metric stream's
+    # A CUDA event before each step's input pipeline and one after each
+    # step that fit queues: the device time between two step ends is the
+    # loop's pace, idle time included, and a start more than LOOP_IDLE_MS
+    # after the step before it ended is a wait on the feed (the batch's
+    # copy and the readback take about 2 ms).  (The metric stream's
     # step_seconds time the readbacks, which fit places a step late.)
-    ends = []
-    step_fn = trainer.train_step
+    starts, ends = [], []
+    step_fn, pipe_fn = trainer.train_step, trainer.process_train
+
+    def stamp(events):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    def stamped_pipeline(*args):
+        stamp(starts)
+        return pipe_fn(*args)
 
     def stamped_step(*args):
         out = step_fn(*args)
-        ends.append(torch.cuda.Event(enable_timing=True))
-        ends[-1].record()
+        stamp(ends)
         return out
 
-    trainer.train_step = stamped_step
+    trainer.train_step, trainer.process_train = stamped_step, stamped_pipeline
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    steps = LOOP_WARMUP + LOOP_STEPS
+    steps = LOOP_BATCHES
     t0 = time.perf_counter()
     check(trainer.fit(epochs=1, max_steps=steps) == steps, "fit stopped early")
     elapsed = time.perf_counter() - t0
-    trainer.train_step = step_fn
+    trainer.train_step, trainer.process_train = step_fn, pipe_fn
     launches = attn.LAUNCHES
     check(launches == 2 * steps and fb.LAUNCHES == 0,
           f"fit: {launches} attention and {fb.LAUNCHES} fused-block launches in {steps} steps")
@@ -1117,26 +1134,46 @@ def phase_trainer_fit(card, fixed_step_ms, tmp):
     for r in lines:
         check(all(np.isfinite(v) for k, v in r.items() if k.startswith("train/")),
               f"fit metrics not finite: {r}")
-    step_ms = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]  # steps 2, 3, ...
-    counted_ms = step_ms[LOOP_WARMUP - 1:]
-    pace_ms = sum(counted_ms) / LOOP_STEPS
+    check(len(starts) == len(ends) == steps, f"{len(starts)} starts, {len(ends)} ends stamped")
+    # idle[k]: device ms between step k's end and step k + 1's start (0-based)
+    idle = [a.elapsed_time(b_) for a, b_ in zip(ends, starts[1:])]
+    step_ms = [a.elapsed_time(b_) for a, b_ in zip(ends, ends[1:])]  # steps 2, 3, ...
+    fed = [k for k in range(LOOP_WARMUP, steps) if idle[k - 1] > LOOP_IDLE_MS]
+    if fed and fed[0] + LOOP_STEPS <= steps:  # feed-bound from the first wait on
+        first_counted = fed[0]
+        regime = ("feed-bound: from the first step after the warm-ups before which the "
+                  "device waited on the feed")
+    else:  # the step binds (the queue stays full), or the feed began to bind late
+        first_counted = steps - LOOP_STEPS
+        regime = ("the last steps: the device never waited on the feed after the warm-ups"
+                  if not fed else f"the last steps: the device first waited on the feed "
+                  f"before step {fed[0] + 1}")
+    counted = list(range(first_counted, first_counted + LOOP_STEPS))
+    counted_ms = step_ms[counted[0] - 1:counted[-1]]
+    pace_ms = sum(counted_ms) / len(counted)
     waits = [1e3 * x for x in trainer.queue_wait_s]
     collate = [1e3 * x for x in trainer.collate_s]
+    collate_ms = statistics.mean(collate[k] for k in counted)
+    idle_ms = sum(idle[k - 1] for k in counted)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"trainer fit GRID B={b} x {w} frames, fp32: {pace_ms:.1f} ms a step (loop pace over "
-          f"{LOOP_STEPS} counted steps after {LOOP_WARMUP} warm-ups, CUDA events at each step's "
-          f"end), {b * LOOP_STEPS / sum(counted_ms) * 1e3:.2f} clips/s; phase 8 (c)'s fixed-batch step "
-          f"{fixed_step_ms:.1f} ms, so the loop is {pace_ms / fixed_step_ms:.3f}x it; whole fit "
-          f"{elapsed:.1f} s for {steps} steps; peak {peak_gb:.2f} GB; {launches / steps:g} "
-          f"attention launches a step [{card}]")
+          f"{len(counted)} counted steps, steps {counted[0] + 1}-{counted[-1] + 1} of {steps}, "
+          f"{regime}; CUDA events at each step's start and end), "
+          f"{b * len(counted) / sum(counted_ms) * 1e3:.2f} clips/s; the producer's collate of the "
+          f"same batches {collate_ms:.1f} ms a batch; phase 8 (c)'s fixed-batch step "
+          f"{fixed_step_ms:.1f} ms, so the loop is {pace_ms / fixed_step_ms:.3f}x it; device idle "
+          f"before the counted steps {idle_ms:.1f} ms of {sum(counted_ms):.1f} "
+          f"({100 * idle_ms / sum(counted_ms):.1f}%); whole fit {elapsed:.1f} s for {steps} "
+          f"steps; peak {peak_gb:.2f} GB; {launches / steps:g} attention launches a step [{card}]")
     print(f"trainer feed, first epoch (each clip rendered on first use): collate ms a batch "
           f"(producer thread, {trainer.config.train.workers} decode workers) "
           + ", ".join(f"{x:.1f}" for x in collate)
           + "; queue wait ms a step (consumer) " + ", ".join(f"{x:.1f}" for x in waits)
-          + f"; counted steps wait {sum(waits[LOOP_WARMUP:]):.1f} ms of "
-          f"{sum(counted_ms):.1f} ms [{card}]")
+          + f"; counted steps wait {sum(waits[k] for k in counted):.1f} ms [{card}]")
     print("trainer device ms from each step's end to the next (steps 2 on): "
-          + ", ".join(f"{x:.1f}" for x in step_ms) + "; metric stream step_seconds (ms): "
+          + ", ".join(f"{x:.1f}" for x in step_ms) + "; device idle ms before each step "
+          "(steps 2 on): " + ", ".join(f"{x:.1f}" for x in idle)
+          + "; metric stream step_seconds (ms): "
           + ", ".join(f"{1e3 * r['train/step_seconds']:.1f}" for r in lines))
 
     # Three more steps under the profiler: a new epoch (the clips cached);
@@ -1176,7 +1213,7 @@ def phase_trainer_validate(card, trainer):
           f"validate: {launches} attention and {fb.LAUNCHES} fused-block launches")
     check(all(np.isfinite(x) for x in logs) and logs[0] > 0, f"validate returned {logs}")
     print(f"trainer validate, one batch B={TRAIN_BATCH} x {DataConfig().max_v_timesteps} frames: "
-          f"{elapsed:.2f} s (first call: the val clips rendered), l1 {logs[0]:.4f}, stoi "
+          f"{elapsed:.2f} s (first call; its clips rendered in fit: the val set shares the synthetic source), l1 {logs[0]:.4f}, stoi "
           f"{logs[1]:.4f}, estoi {logs[2]:.4f}, pesq {logs[3]:.4f}; {launches} attention "
           f"launches [{card}]")
 
@@ -1273,8 +1310,9 @@ def phase_trainer_stoi(card, trainer):
 
 
 def phase_trainer_checkpoint(card, trainer):
-    """(e) Save the trainer's state on the card, overwrite every tensor,
-    restore: every tensor as saved, bit for bit."""
+    """(e) Save the trainer's state and generator on the card, overwrite
+    every tensor and draw from the generator, restore: every tensor and
+    the generator's state as saved, bit for bit."""
     def tensors(state):
         out = [t for sd in state.modules.state_dicts().values() for t in sd.values()]
         for opt in (state.g_opt_state, state.d_opt_state):
@@ -1283,16 +1321,19 @@ def phase_trainer_checkpoint(card, trainer):
 
     state = trainer.state
     t0 = time.perf_counter()
-    path = trainer.ckpt.save(state, 0, stoi=0.5, estoi=0.5, pesq=2.0)
+    path = trainer.ckpt.save(state, 0, stoi=0.5, estoi=0.5, pesq=2.0,
+                             generator=trainer.generator)
     save_s = time.perf_counter() - t0
     saved = [t.clone() for t in tensors(state)]
+    saved_gen = trainer.generator.get_state()
+    torch.rand(8, device=trainer.device, generator=trainer.generator)
     counts = (state.step, state.g_opt_state.count, state.d_opt_state.count)
     with torch.no_grad():
         for t in tensors(state):
             t.add_(1) if t.is_floating_point() else t.add_(3)
     state.step, state.g_opt_state.count, state.d_opt_state.count = 0, 0, 0
     t0 = time.perf_counter()
-    trainer.ckpt.restore(state, path)
+    trainer.ckpt.restore(state, path, generator=trainer.generator)
     restore_s = time.perf_counter() - t0
     back = tensors(state)
     check(all(t.device.type == "cuda" for t in back), "restored off the card")
@@ -1300,9 +1341,11 @@ def phase_trainer_checkpoint(card, trainer):
           "checkpoint: a restored tensor differs")
     check((state.step, state.g_opt_state.count, state.d_opt_state.count) == counts,
           "checkpoint: step or optimizer counts differ")
+    check(torch.equal(trainer.generator.get_state(), saved_gen),
+          "checkpoint: the generator's state differs")
     size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
     print(f"checkpoint on the card: {len(saved)} tensors, {size / 1e9:.2f} GB, saved in "
-          f"{save_s:.1f} s, restored in {restore_s:.1f} s, bit for bit ok; Best_* "
+          f"{save_s:.1f} s, restored in {restore_s:.1f} s, bit for bit ok (and the generator's state); Best_* "
           f"{os.path.basename(trainer.ckpt.best() or '')} [{card}]")
 
 
@@ -1347,7 +1390,7 @@ def phase_trainer(card, fixed_step_ms):
         phase_trainer_cli(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"fit_steps": LOOP_WARMUP + LOOP_STEPS, "fit": fit_launches,
+    return {"fit_steps": LOOP_BATCHES, "fit": fit_launches,
             "validation_batch": val_launches}
 
 

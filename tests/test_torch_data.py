@@ -3,6 +3,8 @@
 - Raw batches: the port's ``GridDataset`` over its copy of the synthetic
   source equals the JAX package's byte for byte, in train mode (window
   draws) and in val mode (``drop_last=False``, ``n_valid``), for two seeds.
+  Without the corpus, ``make_grid_dataset`` warns, naming the root, and
+  gives the synthetic clips.
 - The host-side resize weights, luma and resize; the clip transform
   (``prepare_clips`` against the JAX package's vmapped ``prepare_clip``,
   with the JAX package's own flip and erase draws replayed from its keys);
@@ -33,7 +35,7 @@ from vcagan.data.synthetic import SyntheticLipSpeech as JaxSynthetic
 from vcagan_torch.configs import AudioConfig, DataConfig
 from vcagan_torch.data import transforms
 from vcagan_torch.data.device_pipeline import make_device_pipeline
-from vcagan_torch.data.grid import GridDataset
+from vcagan_torch.data.grid import GridDataset, make_grid_dataset
 from vcagan_torch.data.prefetch import ParallelEpoch
 from vcagan_torch.data.synthetic import SyntheticLipSpeech
 
@@ -52,6 +54,14 @@ def raw_epochs(mode, seed, data=None):
     ref = JaxGridDataset(JaxSynthetic(num_clips=CLIPS), JaxAudioConfig(), jdata, mode, seed)
     kw = dict(shuffle=True, drop_last=mode == "train")
     return list(port.epoch(BATCH, **kw)), list(ref.epoch(BATCH, **kw))
+
+
+@pytest.mark.parametrize("mode", ["train", "val"])
+def test_missing_corpus_falls_back_to_synthetic_clips_with_a_warning(tmp_path, mode):
+    data = DataConfig(data_root=str(tmp_path / "no_corpus"), synthetic_clips=CLIPS)
+    with pytest.warns(UserWarning, match=f"not found under {tmp_path / 'no_corpus'}"):
+        ds = make_grid_dataset(data, AudioConfig(), mode)
+    assert isinstance(ds.source, SyntheticLipSpeech) and len(ds) == CLIPS
 
 
 @pytest.mark.parametrize("seed", [0, 3])

@@ -10,14 +10,16 @@ A narrow model (the widths of ``tests/test_torch_train_step.py``), B = 2,
 - ``validate`` returns a finite (l1, stoi, estoi, pesq) and writes the JAX
   package's ``val/*`` keys (``vcagan/train/loop.py:476-486``).
 - Checkpoint names are the JAX package's; ``Best_*`` moves only when STOI
-  improves; save, restore into other weights and one more step equals
-  three steps straight, bit for bit.
+  improves and links its checkpoint's files; save, restore into a Trainer
+  of another seed (its weights, optimizer states and generator) and one
+  more step equals three steps straight, bit for bit.
 - The CLI's argv equals the JAX CLI's; what the port does not run raises,
   naming its ROADMAP item; ``main`` runs on the CPU with ``--platform cpu``.
 """
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -41,6 +43,14 @@ SMALL = {
 }
 VAL_KEYS = {"val/stoi", "val/estoi", "val/pesq", "val/stoi_mel", "val/estoi_mel",
             "val/pesq_mel"}
+
+
+@pytest.fixture(autouse=True)
+def _drop_checkpoints(tmp_path):
+    """A checkpoint of this model is about 340 MB (its decoder keeps the
+    full widths): keep none after the test."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def small_trainer(tmp_path, name, **overrides):
@@ -117,6 +127,8 @@ def test_validate_returns_metrics_and_writes_the_val_keys(tmp_path):
     assert -1 <= stoi <= 1 and -1 <= estoi <= 1 and 1 <= pesq <= 4.64
     (line,) = records(trainer)
     assert set(line) - {"step", "time"} == VAL_KEYS and line["val/stoi"] == stoi
+    # both splits fell back to the synthetic clips: one source renders them
+    assert trainer._val_ds.source is trainer.train_ds.source
     # the cached dataset restarts its shuffle: a second pass scores the same clips
     again = trainer.validate(fast=True)
     assert len(records(trainer)) == 2 and np.isfinite(again).all()
@@ -137,26 +149,35 @@ def test_checkpoint_names_and_best(tmp_path):
     assert len([p for p in os.listdir(ckpt.directory) if p.startswith("Best_")]) == 1
     assert ckpt.latest() == third
     assert CheckpointManager(ckpt.directory).best_metric == pytest.approx(0.6)
+    # Best_* holds the same files, linked, not copied
+    (fname,) = os.listdir(ckpt.best())
+    assert os.path.samefile(os.path.join(ckpt.best(), fname), os.path.join(third, fname))
+    with pytest.raises(ValueError, match="no generator state"):  # saved without one
+        ckpt.restore(trainer.state, third, generator=trainer.generator)
 
 
 def test_restore_then_one_step_equals_three_steps(tmp_path):
-    def steps(trainer, batches, generator):
+    """Each Trainer steps with its own generator; the checkpoint carries the
+    first's into the resumed one, whose seed gave other weights and draws.
+    The raw batches are handed in: the data's position is not saved."""
+    def steps(trainer, batches):
         for raw in batches:
-            batch = trainer.process_train(raw, generator)
-            trainer.state, _ = trainer.train_step(trainer.state, batch, generator)
+            batch = trainer.process_train(raw, trainer.generator)
+            trainer.state, _ = trainer.train_step(trainer.state, batch, trainer.generator)
 
     straight = small_trainer(tmp_path, "straight")
     batches = [raw for _ in range(2) for raw in straight.train_ds.epoch(2)][:3]
-    steps(straight, batches, torch.Generator().manual_seed(0))
+    steps(straight, batches)
 
     first = small_trainer(tmp_path, "first")
-    gen = torch.Generator().manual_seed(0)
-    steps(first, batches[:2], gen)
-    path = first.ckpt.save(first.state, 0, stoi=0.3)
-    resumed = small_trainer(tmp_path, "resumed", **{"train.seed": 7})  # other weights
-    resumed.ckpt.restore(resumed.state, path)
+    steps(first, batches[:2])
+    path = first.ckpt.save(first.state, 0, stoi=0.3, generator=first.generator)
+    resumed = small_trainer(tmp_path, "resumed", **{"train.seed": 7})
+    assert not torch.equal(resumed.generator.get_state(), first.generator.get_state())
+    resumed.ckpt.restore(resumed.state, path, generator=resumed.generator)
     assert_same_state(resumed, first)
-    steps(resumed, batches[2:], gen)
+    assert torch.equal(resumed.generator.get_state(), first.generator.get_state())
+    steps(resumed, batches[2:])
     assert_same_state(resumed, straight)
 
 

@@ -5,10 +5,12 @@ train.py (reference: train.py:25-50) and with ``python -m vcagan.cli.train``.
 
 Runs on CUDA; ``--platform cpu`` runs on the CPU (plain versions of the
 kernels).  Without the corpus under ``--grid`` it trains on the synthetic
-clips (``data.synthetic_clips``).  The JAX CLI's flags that the port does
-not run (``--bf16``, ``--remat`` other than none, ``--d_phase batched``,
-``--model_parallel`` above 1, ``--collate_process``) stop the parse with
-an error that names their ROADMAP item.  ``--dataparallel``, ``--gpu``
+clips (``data.synthetic_clips``) and warns, naming the root.
+``--checkpoint`` restores the train state and the run's generator.  The
+JAX CLI's flags that the port does not run (``--bf16``, ``--remat`` other
+than none, ``--d_phase batched``, ``--model_parallel`` above 1,
+``--collate_process``) stop the parse with an error that names their
+ROADMAP item.  ``--dataparallel``, ``--gpu``
 and ``--synthetic`` are accepted and do nothing, as in the JAX CLI.
 """
 
@@ -103,7 +105,7 @@ def main(argv=None):
     cfg = build_config(args)
     trainer = Trainer(cfg, log_dir=args.log_dir, device="cpu" if args.platform == "cpu" else None)
     if args.checkpoint is not None:
-        trainer.ckpt.restore(trainer.state, args.checkpoint)
+        trainer.ckpt.restore(trainer.state, args.checkpoint, generator=trainer.generator)
     # smoke-validate before training (reference train.py:121)
     logs = trainer.validate(fast=True, max_batches=1)
     print(f"pre-train validate: l1={logs[0]:.4f} stoi={logs[1]:.4f}")

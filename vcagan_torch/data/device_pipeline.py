@@ -24,7 +24,7 @@ from vcagan_torch.configs import AudioConfig, DataConfig
 from vcagan_torch.data.transforms import AugmentDraws, augment_draws, prepare_clips
 from vcagan_torch.dsp.audio import mel_normalize
 from vcagan_torch.dsp.pipeline import MelPipeline
-from vcagan_torch.dsp.stft import stft
+from vcagan_torch.dsp.stft import stft_magnitude
 from vcagan_torch.runtime import resolve_device
 from vcagan_torch.train.step import Batch
 
@@ -65,7 +65,7 @@ def make_device_pipeline(
         # The segment gives 4W + 1 frames; the window is the first 4W (the
         # reference's mel[:, :, 4st:4st+4W], vid_aud_grid.py:182).
         aud = torch.as_tensor(raw["aud_cond"], device=dev)
-        mag = stft(aud, pipe.stft_params, center=False).abs()
+        mag, _ = stft_magnitude(aud, pipe.stft_params, center=False)
         n_mel = w * acfg.mel_per_video_frame
         mel = mel_normalize(pipe.compress_mel(mag)[:, :n_mel])
         spec = mag[:, :n_mel]

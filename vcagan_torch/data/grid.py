@@ -21,6 +21,7 @@ When the real corpus is absent, ``SyntheticLipSpeech``
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -304,11 +305,11 @@ def make_grid_dataset(
     config_audio: AudioConfig,
     mode: str,
     splits_dir: str = "./data",
-    synthetic_fallback: bool = True,
     seed: int = 0,
     workers: int = 0,
 ) -> GridDataset:
-    """Real corpus if present, synthetic fixtures otherwise."""
+    """Real corpus if present, synthetic fixtures otherwise (with a
+    warning that names the root, so a mistyped ``--grid`` shows)."""
     use_synthetic = False
     try:
         source = GridClipSource(config_data, mode, splits_dir)
@@ -319,10 +320,11 @@ def make_grid_dataset(
     except (FileNotFoundError, OSError):
         use_synthetic = True
     if use_synthetic:
-        if not synthetic_fallback:
-            raise FileNotFoundError(
-                f"GRID corpus/splits not found under {config_data.data_root} / {splits_dir}"
-            )
+        warnings.warn(
+            f"GRID corpus not found under {config_data.data_root} ({mode} split of "
+            f"{splits_dir}): {mode} runs on {config_data.synthetic_clips} synthetic clips",
+            stacklevel=2,
+        )
         # data.synthetic_clips (64 by default) clips, memoized (~14 MB
         # each); a recipe needs at least batch_size of them for an epoch
         source = SyntheticLipSpeech(num_clips=config_data.synthetic_clips)

@@ -7,7 +7,11 @@ seven state_dicts into files named
 does not save the optimizers.  Here each checkpoint is a directory of that
 name (as the JAX package's orbax checkpoints are) holding one ``torch.save``
 of the whole train state: every module's state dict, both optimizers'
-states and the step.  A restore gives back the state bit for bit.
+states and the step, and the state of the run's ``torch.Generator`` where
+one is given.  A restore gives back all of it bit for bit, so the steps
+after it draw what the run would have drawn.  The data's position (the
+epoch's shuffle and window draws) is not saved: a resumed run starts a new
+epoch (``--start_epoch``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -68,9 +72,10 @@ class CheckpointManager:
     # ---------------------------------------------------------------- save
 
     def save(self, state: GANTrainState, epoch: int, stoi: float = 0.0, estoi: float = 0.0,
-             pesq: float = 0.0) -> str:
-        """Save a checkpoint; replace Best_* when STOI improves (the
-        reference's best-by-STOI, train.py:311-322).  Returns its path."""
+             pesq: float = 0.0, generator: Optional[torch.Generator] = None) -> str:
+        """Save a checkpoint (with ``generator``'s state where given);
+        replace Best_* when STOI improves (the reference's best-by-STOI,
+        train.py:311-322).  Returns its path."""
         name = self._name(epoch, stoi, estoi, pesq)
         path = os.path.join(self.directory, name)
         if os.path.exists(path):
@@ -81,21 +86,27 @@ class CheckpointManager:
             "modules": state.modules.state_dicts(),
             "g_opt_state": _opt_state(state.g_opt_state),
             "d_opt_state": _opt_state(state.d_opt_state),
+            "generator": None if generator is None else generator.get_state(),
         }, os.path.join(path, STATE_FILE))
 
         if stoi > self.best_metric:
             self.best_metric = stoi
             for prev in glob.glob(os.path.join(self.directory, "Best_*")):
                 shutil.rmtree(prev, ignore_errors=True)
-            shutil.copytree(path, os.path.join(self.directory, "Best_" + name))
+            # hard links: Best_* outlives its Epoch_* directory without a
+            # second copy of the state on disk
+            shutil.copytree(path, os.path.join(self.directory, "Best_" + name),
+                            copy_function=os.link)
         return path
 
     # ---------------------------------------------------------------- load
 
-    def restore(self, state: GANTrainState, path: Optional[str] = None) -> GANTrainState:
+    def restore(self, state: GANTrainState, path: Optional[str] = None,
+                generator: Optional[torch.Generator] = None) -> GANTrainState:
         """Load a checkpoint into ``state`` in place (its modules' tensors,
-        both optimizers' and the step) and return it.  Without ``path``, the
-        latest epoch's."""
+        both optimizers' and the step), and into ``generator`` the state
+        saved with it, and return ``state``.  Without ``path``, the latest
+        epoch's."""
         if path is None:
             path = self.latest()
             if path is None:
@@ -107,6 +118,10 @@ class CheckpointManager:
         _load_opt_state(state.g_opt_state, saved["g_opt_state"])
         _load_opt_state(state.d_opt_state, saved["d_opt_state"])
         state.step = int(saved["step"])
+        if generator is not None:
+            if saved["generator"] is None:
+                raise ValueError(f"{path} holds no generator state")
+            generator.set_state(saved["generator"].cpu())
         return state
 
     def latest(self) -> Optional[str]:

@@ -30,6 +30,7 @@ from torch.profiler import record_function
 from vcagan_torch.configs import VCAGANConfig, unported
 from vcagan_torch.data.device_pipeline import make_device_pipeline
 from vcagan_torch.data.grid import make_grid_dataset
+from vcagan_torch.data.synthetic import SyntheticLipSpeech
 from vcagan_torch.data.prefetch import ParallelEpoch
 from vcagan_torch.dsp.griffin_lim import random_phase
 from vcagan_torch.dsp.pipeline import MelPipeline
@@ -84,7 +85,13 @@ class Trainer:
         # (reference train.py:139-146 / 337-353); the synthetic clips where
         # the corpus is absent
         workers = cfg.train.workers if mode == "train" else min(cfg.train.workers, 2)
-        return make_grid_dataset(cfg.data, cfg.audio, mode, seed=seed, workers=workers)
+        ds = make_grid_dataset(cfg.data, cfg.audio, mode, seed=seed, workers=workers)
+        if (mode == "val" and isinstance(ds.source, SyntheticLipSpeech)
+                and isinstance(self.train_ds.source, SyntheticLipSpeech)):
+            # both splits fell back to the same synthetic clips: render each
+            # once for both
+            ds.source = self.train_ds.source
+        return ds
 
     # ------------------------------------------------------------------ train
 
@@ -176,14 +183,14 @@ class Trainer:
                 if tc.eval_step and step % tc.eval_step == 0:
                     flush()
                     logs = self.validate(fast=True)
-                    self.ckpt.save(self.state, epoch, *logs[1:])
+                    self.ckpt.save(self.state, epoch, *logs[1:], generator=self.generator)
                 if max_steps is not None and step >= max_steps:
                     flush()
                     return step
             flush()
             if not tc.eval_step:  # per-epoch validation (LRS recipe)
                 logs = self.validate(fast=True)
-                self.ckpt.save(self.state, epoch, *logs[1:])
+                self.ckpt.save(self.state, epoch, *logs[1:], generator=self.generator)
             self.writer.scalars({"train/epoch_seconds": time.time() - t0}, step)
         return step
 
