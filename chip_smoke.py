@@ -60,7 +60,25 @@ Phases, in order; any failure raises and exits non-zero:
      and its time; (b) STOI/ESTOI on the card against the numpy STOI for 8
      waveforms; (e) a checkpoint saved and restored on the card, bit for
      bit; (f) ``python3 -m vcagan_torch.cli.train`` as a subprocess on the
-     card (2 steps at B=8), its metric stream read back;
+     card (2 steps at B=8), its metric stream read back, run at the end
+     beside phase 10 (d)'s CLI;
+ 10. LRS2 training and bf16 training (the LRS2 recipe: B=16, 50-frame
+     windows, plain Adam, sync weight 0.5; its synthetic clips of 30-90
+     frames): (a) the attention kernel at the LRS shapes with the real
+     lengths of the first training batch and of the first validation
+     bucket, against its plain version and float64, timed beside sdpa and
+     its bound, and its autograd.Function's gradient at (16, 50, 50)
+     against float64 with the masked key rows' gradients exactly 0; (b) the
+     bf16 GRID step at B=2 on the card against the CPU (the CPU test's bf16
+     bounds), all modules in bf16 and then the visual front in fp32, and
+     R1's gradient into each discriminator alone, then the bf16
+     fixed-batch step at B=88 x 40 beside phase 8 (c)'s fp32 one; (c) the LRS2 fixed-batch step at B=16 x 50 (a batch of
+     the LRS input pipeline with clips shorter than the window) in fp32
+     and bf16; (d) ``Trainer.fit`` on LRS2 over 10 batches counted as in
+     phase 9 (c), one validation batch (2 attention launches), a checkpoint
+     round trip, and ``python3 -m vcagan_torch.cli.train_lrs --bf16`` (2
+     steps) as a subprocess at the same time as phase 9 (f)'s, so that
+     their start-ups overlap;
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -84,9 +102,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from vcagan_torch.configs import AudioConfig, DataConfig, ModelConfig, TrainConfig  # noqa: E402
-from vcagan_torch.configs import grid_config  # noqa: E402
+from vcagan_torch.configs import grid_config, lrs_config  # noqa: E402
 from vcagan_torch.data.device_pipeline import make_device_pipeline  # noqa: E402
 from vcagan_torch.data.grid import GridDataset  # noqa: E402
+from vcagan_torch.data.lrs import LRSDataset, SyntheticLRSSource  # noqa: E402
+from vcagan_torch.data.lrs import make_lrs_device_pipeline  # noqa: E402
 from vcagan_torch.data.transforms import augment_draws  # noqa: E402
 from vcagan_torch.eval import stoi_np  # noqa: E402
 from vcagan_torch.eval.stoi import stoi_estoi_batch  # noqa: E402
@@ -94,6 +114,8 @@ from vcagan_torch.io.weights import load_serving_npz  # noqa: E402
 from vcagan_torch.kernels import _build  # noqa: E402
 from vcagan_torch.kernels import fused_block as fb  # noqa: E402
 from vcagan_torch.kernels import masked_attention as attn  # noqa: E402
+from vcagan_torch.nn.discriminator import Discriminator  # noqa: E402
+from vcagan_torch.nn.losses import r1_penalty  # noqa: E402
 from vcagan_torch.nn.resnet import BasicBlock  # noqa: E402
 from vcagan_torch.runtime import use_full_fp32  # noqa: E402
 from vcagan_torch.nn.generator import Decoder  # noqa: E402
@@ -161,6 +183,28 @@ STEP_LOSS_RTOL, STEP_NORM_RTOL = 1e-3, 1e-2
 STEP_GRAD_REL = 2e-2
 STEP_FLIP_SHARE = 1e-2
 STEP_STATS_REL = 1e-3
+# Phase 10 (b), bf16: the bounds of the CPU test of the port's bf16 step
+# against the JAX package's (tests/test_torch_train_bf16.py), the CPU in
+# the JAX package's place.  Each module's first moment is read against
+# the fp32 one of phase 8 (b), each device against its own, as shares of
+# the CPU's fp32 norm: cross (card against CPU), the CPU's spread and the
+# card's (each from its fp32 moment), and alpha, a moment's projection on
+# its fp32 moment (a gradient scaled by s moves it by 1 - s).  Two runs:
+# all seven modules in bf16, where the discriminators' conditional heads
+# magnify the bf16 error of the visual front's sentence features (loose:
+# cross within 4 x the CPU's spread, the card's 0.25-4 x, alphas 0.25
+# apart), and the visual front in fp32 with the six others in bf16 (tight:
+# 1.5 x, 0.5-1.5 x, 0.03).  R1's gradient alone, each discriminator on
+# random real mels (the step's moments cannot see it): 2 x, 0.5-2 x, 0.05.
+# Losses rtol 2e-2, gradient norms 1e-1; statistics 0.05 anywhere and 0.1
+# of their move.
+BF16_STEP_LOSS_RTOL, BF16_STEP_NORM_RTOL = 2e-2, 1e-1
+BF16_RUNS = {"bf16": GENERATOR_SIDE + DISCRIMINATOR_SIDE,
+             "bf16, fp32 visual front": GENERATOR_SIDE[1:] + DISCRIMINATOR_SIDE}
+BF16_BOUNDS = {"bf16": (4.0, (0.25, 4.0), 0.25),
+               "bf16, fp32 visual front": (1.5, (0.5, 1.5), 0.03),
+               "r1": (2.0, (0.5, 2.0), 0.05)}
+BF16_STATS_MAX, BF16_STATS_REL = 0.05, 0.1
 TRAIN_BATCH = TrainConfig().batch_size  # the GRID recipe: 88 clips
 TRAIN_WINDOW = DataConfig().window_size  # of 40 frames
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
@@ -184,6 +228,12 @@ PIPE_VIDEO_TOL, PIPE_SPEC_TOL, PIPE_MEL_TOL = 1e-4, (1e-4, 1e-3), 1e-4
 # (b) STOI/ESTOI on the card (fp32) against the float64 numpy STOI: the JAX
 # package's bound for its own batched STOI (tests/test_stoi.py).
 STOI_TOL = 1e-3
+# Phase 10, the LRS2 recipe: B=16 clips, 50-frame training windows,
+# validation buckets of up to 160 frames; its synthetic clips (30-90
+# frames), LOOP_BATCHES batches of them.
+LRS_CONFIG = lrs_config("LRS2")
+LRS_BATCH, LRS_WINDOW = LRS_CONFIG.train.batch_size, LRS_CONFIG.data.window_size
+LRS_CLIPS = LOOP_BATCHES * LRS_BATCH
 PATHS = (("unfolded", False, False), ("folded+fused", True, False),
          ("unfolded bf16", False, True), ("folded+fused bf16", True, True))
 
@@ -884,11 +934,16 @@ class FixedNoiseDecoder(Decoder):
         return super().forward(sent, phon, lengths, noise=self.fixed_noise)
 
 
-def one_step(device, config, noise, batch):
-    """One train step from the weights of seed 0 with the given noise;
-    returns the state and the metrics as floats."""
+def one_step(device, config, noise, batch, bf16=()):
+    """One train step from the weights of seed 0 with the given noise, the
+    modules named in ``bf16`` computing in bf16; returns the state and the
+    metrics as floats."""
+    half = dataclasses.replace(config, use_bfloat16=True)
     modules = VCAGANModules.create(config, seed=0)
-    gen = FixedNoiseDecoder(config, noise)
+    if bf16:
+        in_bf16 = VCAGANModules.create(half, seed=0)
+        modules = dataclasses.replace(modules, **{n: getattr(in_bf16, n) for n in bf16})
+    gen = FixedNoiseDecoder(half if "gen" in bf16 else config, noise)
     gen.load_state_dict(modules.gen.state_dict())
     modules = dataclasses.replace(modules, gen=gen)
     state, g_tx, d_tx = create_train_state(modules, TrainConfig(), device=device)
@@ -897,76 +952,166 @@ def one_step(device, config, noise, batch):
     return state, {k: v.item() for k, v in metrics.items()}
 
 
-def phase_train_card_vs_cpu(card):
+def first_moments(state):
+    """Each module's first moment after a step, flat on the CPU, by name."""
+    out = {}
+    for side, opt in ((GENERATOR_SIDE, state.g_opt_state), (DISCRIMINATOR_SIDE, state.d_opt_state)):
+        first = 0
+        for name in side:
+            n = len(list(getattr(state.modules, name).parameters()))
+            out[name] = torch.cat([m.flatten().cpu() for m in opt.mu[first:first + n]])
+            first += n
+    return out
+
+
+def rel_l2(a, b):
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+
+def moment_readings(card_m, cpu_m, card_f, cpu_f):
+    """A module's bf16 first moments on the card and the CPU against each
+    device's fp32 one, as shares of the CPU's fp32 norm: (cross, the CPU's
+    spread, the card's, alpha on the card - alpha on the CPU)."""
+    card_m, cpu_m, card_f, cpu_f = (t.double() for t in (card_m, cpu_m, card_f, cpu_f))
+    norm = torch.linalg.vector_norm(cpu_f)
+    alpha = card_m @ card_f / (card_f @ card_f) - cpu_m @ cpu_f / (cpu_f @ cpu_f)
+    return tuple(float(x) for x in (torch.linalg.vector_norm(card_m - cpu_m) / norm,
+                                    torch.linalg.vector_norm(cpu_m - cpu_f) / norm,
+                                    torch.linalg.vector_norm(card_m - card_f) / norm, alpha))
+
+
+def phase_train_card_vs_cpu(card, run=None, fp32_moments=None):
     """(b) One full-width step on the card and on the CPU (plain versions of
     the kernels), the same initial weights, batch and noise, dropout rates
     0: losses and metrics, each module's gradient (relative L2; from the
     first moment, (1 - b1) (g + wd p) after one step), the update (against
-    lr) and the BatchNorm statistics."""
+    lr) and the BatchNorm statistics.  With ``run``, a key of ``BF16_RUNS``
+    (phase 10 (b)), its modules compute in bf16 and the bounds are the CPU
+    test's for bf16 against the JAX package (``BF16_BOUNDS``), the fp32
+    moments ``fp32_moments`` (this phase's fp32 run) the anchors; the
+    updates are not compared.  Returns the first moments of both devices."""
     b, w = 2, TRAIN_WINDOW
     config = ModelConfig(gru_dropout=0.0, frontend_dropout=0.0)
+    bf16 = BF16_RUNS[run] if run else ()
     batch = train_batch(b, w, seed=3, device="cpu")
     noise = torch.from_numpy(np.random.default_rng(4).standard_normal((b, 20, w, 128),
                                                                       np.float32))
     start = VCAGANModules.create(config, seed=0)  # the initial weights, for the updates
     reset_launches()
-    card_state, card_m = one_step("cuda", config, noise.cuda(), batch)
+    card_state, card_m = one_step("cuda", config, noise.cuda(), batch, bf16)
     check(attn.LAUNCHES == 2 and fb.LAUNCHES == 0,
           f"card step: {attn.LAUNCHES} attention and {fb.LAUNCHES} fused-block launches")
     t0 = time.perf_counter()
-    cpu_state, cpu_m = one_step("cpu", config, noise, batch)
-    print(f"train step card vs CPU, B={b} x {w} frames, 112x112, full width (the CPU step "
-          f"{time.perf_counter() - t0:.1f} s):")
+    cpu_state, cpu_m = one_step("cpu", config, noise, batch, bf16)
+    mode = run or "fp32"
+    print(f"train step {mode} card vs CPU, B={b} x {w} frames, 112x112, full width (the CPU "
+          f"step {time.perf_counter() - t0:.1f} s):")
     for k, want in cpu_m.items():
         got = card_m[k]
-        rtol = STEP_NORM_RTOL if k in ("r1", "g_grad_norm", "d_grad_norm") else STEP_LOSS_RTOL
+        norm = k in ("r1", "g_grad_norm", "d_grad_norm")
+        if run:
+            rtol = BF16_STEP_NORM_RTOL if k in ("g_grad_norm", "d_grad_norm") else BF16_STEP_LOSS_RTOL
+        else:
+            rtol = STEP_NORM_RTOL if norm else STEP_LOSS_RTOL
         rel = abs(got - want) / max(abs(want), 1e-12)
         print(f"  {k}: card {got:.7g}, CPU {want:.7g}, relative {rel:.2e} (bound {rtol:g})")
-        check(np.isfinite(got) and rel <= rtol, f"train step {k}: card {got} vs CPU {want}")
+        check(np.isfinite(got) and rel <= rtol, f"train step {mode} {k}: card {got} vs CPU {want}")
     lr = TrainConfig().lr
-    for side, opt in ((GENERATOR_SIDE, "g_opt_state"), (DISCRIMINATOR_SIDE, "d_opt_state")):
-        mus = (getattr(card_state, opt).mu, getattr(cpu_state, opt).mu)
-        first = 0
-        for name in side:
-            card_mod, cpu_mod = getattr(card_state.modules, name), getattr(cpu_state.modules, name)
-            n = len(list(cpu_mod.parameters()))
-            g = torch.cat([m.flatten().cpu() for m in mus[0][first:first + n]])
-            w_ = torch.cat([m.flatten() for m in mus[1][first:first + n]])
-            first += n
-            grad_rel = (torch.linalg.vector_norm(g - w_) / torch.linalg.vector_norm(w_)).item()
-            before = start.parameters([name])
-            up_card = torch.cat([(p.detach().cpu() - p0).flatten()
-                                 for p, p0 in zip(card_mod.parameters(), before)])
-            up_cpu = torch.cat([(p.detach() - p0).flatten()
-                                for p, p0 in zip(cpu_mod.parameters(), before)])
-            diff = (up_card - up_cpu).abs() / lr
-            worst, flipped = diff.max().item(), (diff > 0.5).float().mean().item()
-            stats = [(k, v) for k, v in cpu_mod.state_dict().items() if "running" in k]
-            stats_rel = 0.0
-            if stats:
-                start_sd, card_sd = start.state_dicts()[name], card_mod.state_dict()
-                moved = torch.cat([(v - start_sd[k]).flatten() for k, v in stats])
-                off = torch.cat([(card_sd[k].cpu() - v).flatten() for k, v in stats])
-                stats_rel = (torch.linalg.vector_norm(off) / torch.linalg.vector_norm(moved)).item()
-            print(f"  {name}: gradient relative L2 {grad_rel:.2e} (bound {STEP_GRAD_REL:g}); "
-                  f"update worst {worst:.3f} lr, share over lr/2 {flipped:.2e} (bound "
-                  f"{STEP_FLIP_SHARE:g}); BatchNorm statistics {stats_rel:.2e} of their move")
-            check(grad_rel <= STEP_GRAD_REL, f"train step {name}: gradient {grad_rel:.3e}")
-            check(flipped <= STEP_FLIP_SHARE,
-                  f"train step {name}: update worst {worst:.3f} lr, share {flipped:.3e}")
-            check(stats_rel <= STEP_STATS_REL, f"train step {name}: statistics {stats_rel:.3e}")
-    print(f"train step card vs CPU ok [{card}]")
+    moments = {"card": first_moments(card_state), "cpu": first_moments(cpu_state)}
+    for name in GENERATOR_SIDE + DISCRIMINATOR_SIDE:
+        card_mod, cpu_mod = getattr(card_state.modules, name), getattr(cpu_state.modules, name)
+        grad_rel = rel_l2(moments["card"][name], moments["cpu"][name])
+        stats = [(k, v) for k, v in cpu_mod.state_dict().items() if "running" in k]
+        stats_rel = stats_max = 0.0
+        if stats:
+            start_sd, card_sd = start.state_dicts()[name], card_mod.state_dict()
+            moved = torch.cat([(v - start_sd[k]).flatten() for k, v in stats])
+            off = torch.cat([(card_sd[k].cpu() - v).flatten() for k, v in stats])
+            stats_rel = (torch.linalg.vector_norm(off) / torch.linalg.vector_norm(moved)).item()
+            stats_max = off.abs().max().item()
+        if run:
+            cross, spread, own, alpha = moment_readings(
+                moments["card"][name], moments["cpu"][name], fp32_moments["card"][name],
+                fp32_moments["cpu"][name])
+            k, (least, most), alpha_max = BF16_BOUNDS[run]
+            print(f"  {name}{' (bf16)' if name in bf16 else ''}: gradient cross {cross:.3e}, "
+                  f"the CPU's spread {spread:.3e}, the card's {own:.3e} (cross {cross / spread:.3f}"
+                  f" x the spread, bound {k:g}; the card's {own / spread:.3f} x, bounds {least:g}-"
+                  f"{most:g}), alpha card - CPU {alpha:+.2e} (bound {alpha_max:g}); BatchNorm "
+                  f"statistics {stats_rel:.2e} of their move, at most {stats_max:.2e} apart")
+            check(cross <= k * spread, f"train step {mode} {name}: gradient {cross:.3e}")
+            check(least * spread <= own <= most * spread,
+                  f"train step {mode} {name}: the card's gradient {own:.3e} from fp32")
+            check(abs(alpha) <= alpha_max, f"train step {mode} {name}: alpha {alpha:+.3e}")
+            check(stats_rel <= BF16_STATS_REL and stats_max <= BF16_STATS_MAX,
+                  f"train step {mode} {name}: statistics {stats_rel:.3e}, {stats_max:.3e}")
+            continue
+        before = start.parameters([name])
+        up_card = torch.cat([(p.detach().cpu() - p0).flatten()
+                             for p, p0 in zip(card_mod.parameters(), before)])
+        up_cpu = torch.cat([(p.detach() - p0).flatten()
+                            for p, p0 in zip(cpu_mod.parameters(), before)])
+        diff = (up_card - up_cpu).abs() / lr
+        worst, flipped = diff.max().item(), (diff > 0.5).float().mean().item()
+        print(f"  {name}: gradient relative L2 {grad_rel:.2e} (bound {STEP_GRAD_REL:g}); "
+              f"update worst {worst:.3f} lr, share over lr/2 {flipped:.2e} (bound "
+              f"{STEP_FLIP_SHARE:g}); BatchNorm statistics {stats_rel:.2e} of their move")
+        check(grad_rel <= STEP_GRAD_REL, f"train step {name}: gradient {grad_rel:.3e}")
+        check(flipped <= STEP_FLIP_SHARE,
+              f"train step {name}: update worst {worst:.3f} lr, share {flipped:.3e}")
+        check(stats_rel <= STEP_STATS_REL, f"train step {name}: statistics {stats_rel:.3e}")
+    print(f"train step {mode} card vs CPU ok [{card}]")
+    return moments
 
 
-def phase_train_grid(card):
-    """(c) The GRID training shape on the card: B=88 clips x 40 frames,
-    112x112, fp32, random init from seed 0, dropout on, the step's own
-    generator; 2 warm-up steps, then 5 counted steps on the same batch with
-    one sync; then one step under torch.profiler (busy share, the kernels
-    that take the most time).  Returns the attention launches of the
-    counted steps."""
-    b, w = TRAIN_BATCH, TRAIN_WINDOW
-    modules = VCAGANModules.create(ModelConfig(), seed=0)
+def r1_gradient(device, phase, config, real, sent):
+    """A discriminator's R1 gradient, flat on the CPU, from the weights of
+    seed 0."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        module = Discriminator(phase, config).to(device)
+    x = real.to(device).requires_grad_()
+    logits, _ = module(x, sent.to(device))
+    grads = torch.autograd.grad(r1_penalty(logits, x), list(module.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    return torch.cat([g.flatten().cpu() for g in grads])
+
+
+def phase_r1_card_vs_cpu(card):
+    """(b) R1's gradient into each discriminator alone, full width, B=2 at
+    the GRID window's mel scales, in bf16 on the card against the CPU, each
+    device's fp32 gradient its anchor (``BF16_BOUNDS["r1"]``)."""
+    rng = np.random.default_rng(5)
+    b, w = 2, TRAIN_WINDOW
+    sent = torch.from_numpy(rng.standard_normal((b, w, 512), np.float32))
+    config = ModelConfig()
+    half = dataclasses.replace(config, use_bfloat16=True)
+    k, (least, most), alpha_max = BF16_BOUNDS["r1"]
+    for phase, (f, t) in zip("123", ((20, w), (40, 2 * w), (80, 4 * w))):
+        real = torch.from_numpy(np.clip(rng.standard_normal((b, f, t), np.float32), -1, 1))
+        got = {(dev, cfg.use_bfloat16): r1_gradient(dev, phase, cfg, real, sent)
+               for dev in ("cuda", "cpu") for cfg in (config, half)}
+        cross, spread, own, alpha = moment_readings(
+            got["cuda", True], got["cpu", True], got["cuda", False], got["cpu", False])
+        print(f"  R1 gradient dis{phase} ({f} x {t} mels) bf16: cross {cross:.3e}, the CPU's "
+              f"spread {spread:.3e}, the card's {own:.3e} (cross {cross / spread:.3f} x, bound "
+              f"{k:g}; the card's {own / spread:.3f} x, bounds {least:g}-{most:g}), alpha card - "
+              f"CPU {alpha:+.2e} (bound {alpha_max:g})")
+        check(cross <= k * spread and least * spread <= own <= most * spread
+              and abs(alpha) <= alpha_max, f"R1 gradient dis{phase} bf16 card vs CPU")
+    print(f"R1 gradients bf16 card vs CPU ok [{card}]")
+
+
+def phase_train_fixed(card, what, model_config, train_config, batch):
+    """A fixed batch on the card at full width, random init from seed 0,
+    dropout on, the step's own generator: 2 warm-up steps, then 5 counted
+    steps on the same batch with one sync; then one step under
+    torch.profiler (busy share, the kernels that take the most time, the
+    convolution backwards).  Phase 8 (c): the GRID shape, B=88 clips x 40
+    frames, fp32; phase 10: the same in bf16, and LRS2 batches.  Returns
+    the attention launches of the counted steps and the ms a step."""
+    b, w = batch.video.shape[:2]
+    modules = VCAGANModules.create(model_config, seed=0)
     marks = []
 
     def on_phase(name):
@@ -974,9 +1119,8 @@ def phase_train_grid(card):
         event.record()
         marks[-1].append(event)
 
-    state, g_tx, d_tx = create_train_state(modules, TrainConfig(), device="cuda")
-    step = make_train_step(modules, g_tx, d_tx, TrainConfig(), on_phase=on_phase)
-    batch = train_batch(b, w, seed=5, device="cuda")
+    state, g_tx, d_tx = create_train_state(modules, train_config, device="cuda")
+    step = make_train_step(modules, g_tx, d_tx, train_config, on_phase=on_phase)
     generator = torch.Generator("cuda").manual_seed(0)
 
     def run(steps):
@@ -998,33 +1142,43 @@ def phase_train_grid(card):
     elapsed = time.perf_counter() - t0
     launches = attn.LAUNCHES
     check(launches == 2 * TRAIN_STEPS and fb.LAUNCHES == 0,
-          f"train: {launches} attention and {fb.LAUNCHES} fused-block launches in "
+          f"train {what}: {launches} attention and {fb.LAUNCHES} fused-block launches in "
           f"{TRAIN_STEPS} steps, not 2 and 0 a step")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms = elapsed / TRAIN_STEPS * 1e3
-    print(f"train GRID B={b} x {w} frames, 112x112, fp32: {ms:.1f} ms a step, "
-          f"{b * TRAIN_STEPS / elapsed:.2f} clips/s, {b * 4 * w * TRAIN_STEPS / elapsed:.1f} "
-          f"mel-frames/s trained, peak {peak_gb:.2f} GB, {launches / TRAIN_STEPS:g} attention "
-          f"launches a step ({TRAIN_STEPS} counted steps after {TRAIN_WARMUP} warm-ups, one "
-          f"sync) [{card}]")
+    lengths = batch.vid_len.tolist()
+    print(f"train {what} B={b} x {w} frames (vid_len {min(lengths)}-{max(lengths)}), 112x112: "
+          f"{ms:.1f} ms a step, {b * TRAIN_STEPS / elapsed:.2f} clips/s, "
+          f"{b * 4 * w * TRAIN_STEPS / elapsed:.1f} mel-frames/s trained, peak {peak_gb:.2f} GB, "
+          f"{launches / TRAIN_STEPS:g} attention launches a step ({TRAIN_STEPS} counted steps "
+          f"after {TRAIN_WARMUP} warm-ups, one sync) [{card}]")
     parts = {name: statistics.median(m[i].elapsed_time(m[i + 1]) for m in marks)
              for i, name in enumerate(TRAIN_PHASES)}
-    print(f"train step parts (median of {TRAIN_STEPS} steps, CUDA events) [{card}]: "
+    print(f"train {what} step parts (median of {TRAIN_STEPS} steps, CUDA events) [{card}]: "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
           + f"; D phase {parts['d_loss'] + parts['d_backward']:.2f} ms, G phase "
           f"{parts['g_loss'] + parts['g_backward']:.2f} ms, sum {sum(parts.values()):.2f} ms")
     for k, v in table.items():
-        check(bool(torch.isfinite(v).all()), f"train metric {k} not finite: {v.tolist()}")
-        print(f"train metric {k}: " + ", ".join(f"{x:.6g}" for x in v.tolist()))
+        check(bool(torch.isfinite(v).all()), f"train {what} metric {k} not finite: {v.tolist()}")
+        print(f"train {what} metric {k}: " + ", ".join(f"{x:.6g}" for x in v.tolist()))
     recon = table["recon_loss"]
-    check(recon[-1] < recon[0], f"recon_loss did not fall over the counted steps: {recon.tolist()}")
+    check(recon[-1] < recon[0],
+          f"train {what}: recon_loss did not fall over the counted steps: {recon.tolist()}")
     # one more step under the profiler (it slows the host: the idle share is an upper bound)
     device, prof = profiled(lambda: run(1), record_shapes=True)
-    print(f"profile of one train step B={b} [{card}]: {busy_share(device, 'train step')}; "
+    print(f"profile of one train step {what} B={b} [{card}]: {busy_share(device, 'train step')}; "
           f"most time: {most_time(device, top=12)}")
     print(f"convolution backwards of that step, by input shapes [{card}]: "
           f"{convolution_backwards(prof)}")
     return launches, ms
+
+
+def phase_train_grid(card, bf16=False):
+    """(c) The GRID training shape on the card: B=88 clips x 40 frames,
+    112x112, fp32 (phase 10 (b): bf16)."""
+    return phase_train_fixed(card, f"GRID {'bf16' if bf16 else 'fp32'}",
+                             ModelConfig(use_bfloat16=bf16), TrainConfig(),
+                             train_batch(TRAIN_BATCH, TRAIN_WINDOW, seed=5, device="cuda"))
 
 
 def host_ranges(prof):
@@ -1084,13 +1238,15 @@ def train_lines(log_dir):
     return [r for r in lines if "train/gen_loss" in r]
 
 
-def phase_trainer_fit(card, fixed_step_ms, tmp):
-    """(c) ``Trainer.fit`` at the GRID recipe on the card.  Returns the
-    trainer and the attention launches of the fit."""
-    b, w = TRAIN_BATCH, TRAIN_WINDOW
+def phase_trainer_fit(card, fixed_step_ms, tmp, config=None, what="GRID fp32"):
+    """(c) ``Trainer.fit`` at the GRID recipe on the card (phase 10 (d):
+    ``config`` the LRS2 recipe).  Returns the trainer and the attention
+    launches of the fit."""
+    config = config or loop_config(tmp, LOOP_BATCHES)
+    b, w = config.train.batch_size, config.data.window_size
     log_dir = os.path.join(tmp, "log")
     t0 = time.perf_counter()
-    trainer = Trainer(loop_config(tmp, LOOP_BATCHES), log_dir=log_dir)
+    trainer = Trainer(config, log_dir=log_dir)
     check(trainer.device.type == "cuda", f"the Trainer runs on {trainer.device}")
     check(trainer.steps_per_epoch == LOOP_BATCHES, f"{trainer.steps_per_epoch} steps an epoch")
     print(f"trainer: built in {time.perf_counter() - t0:.1f} s (modules, state on the card, "
@@ -1156,11 +1312,11 @@ def phase_trainer_fit(card, fixed_step_ms, tmp):
     collate_ms = statistics.mean(collate[k] for k in counted)
     idle_ms = sum(idle[k - 1] for k in counted)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"trainer fit GRID B={b} x {w} frames, fp32: {pace_ms:.1f} ms a step (loop pace over "
+    print(f"trainer fit {what} B={b} x {w} frames: {pace_ms:.1f} ms a step (loop pace over "
           f"{len(counted)} counted steps, steps {counted[0] + 1}-{counted[-1] + 1} of {steps}, "
           f"{regime}; CUDA events at each step's start and end), "
           f"{b * len(counted) / sum(counted_ms) * 1e3:.2f} clips/s; the producer's collate of the "
-          f"same batches {collate_ms:.1f} ms a batch; phase 8 (c)'s fixed-batch step "
+          f"same batches {collate_ms:.1f} ms a batch; the fixed-batch step "
           f"{fixed_step_ms:.1f} ms, so the loop is {pace_ms / fixed_step_ms:.3f}x it; device idle "
           f"before the counted steps {idle_ms:.1f} ms of {sum(counted_ms):.1f} "
           f"({100 * idle_ms / sum(counted_ms):.1f}%); whole fit {elapsed:.1f} s for {steps} "
@@ -1349,31 +1505,62 @@ def phase_trainer_checkpoint(card, trainer):
           f"{os.path.basename(trainer.ckpt.best() or '')} [{card}]")
 
 
-def phase_trainer_cli(card, tmp):
-    """(f) ``python3 -m vcagan_torch.cli.train`` on the card (its default
-    device) as a user runs it: 2 steps at B=8 after the pre-train
-    validation; its metric stream must hold 2 train lines."""
-    log_dir = os.path.join(tmp, "cli_log")
-    argv = [sys.executable, "-m", "vcagan_torch.cli.train", "--grid",
-            os.path.join(tmp, "no_corpus"), "--batch_size", "8", "--max_steps", "2",
-            "--epochs", "1", "--eval_step", "0", "--checkpoint_dir",
-            os.path.join(tmp, "cli_ckpt"), "--log_dir", log_dir]
-    t0 = time.perf_counter()
-    run = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    elapsed = time.perf_counter() - t0
-    check(run.returncode == 0, f"the training CLI failed:\n{run.stderr[-4000:]}")
-    lines = train_lines(log_dir)
-    check(len(lines) == 2, f"the CLI's metric stream holds {len(lines)} train lines, not 2")
-    out = run.stdout.strip().splitlines()
-    check("Finishing training" in out, f"the CLI printed {out[-3:]}")
-    print(f"python3 -m vcagan_torch.cli.train --batch_size 8 --max_steps 2 on the card: "
-          f"{elapsed:.1f} s, {out[0]}, 2 train lines (gen_loss "
-          + ", ".join(f"{r['train/gen_loss']:.3f}" for r in lines) + f") ok [{card}]")
+# Phase 9 (f) and 10 (d): the two training CLIs, "{tmp}" their own
+# directory, 2 steps each after the pre-train validation.
+CLI_RUNS = (("vcagan_torch.cli.train", ["--grid", "{tmp}/no_corpus", "--batch_size", "8",
+                                        "--eval_step", "0"]),
+            ("vcagan_torch.cli.train_lrs", ["--data", "{tmp}/no_corpus", "--bf16"]))
+
+
+def phase_clis(card):
+    """Phase 9 (f) and 10 (d): ``python3 -m vcagan_torch.cli.train`` (B=8)
+    and ``python3 -m vcagan_torch.cli.train_lrs --bf16`` (its recipe's
+    B=16) on the card (their default device) as a user runs them, both at
+    once, so that their start-ups overlap (they share the card and the
+    host's cores: neither's time is a pace); each metric stream must hold
+    2 train lines."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    runs = []
+    try:
+        t0 = time.perf_counter()
+        for module, args in CLI_RUNS:
+            own = os.path.join(tmp, module.rsplit(".", 1)[1])
+            os.makedirs(own)
+            args = [a.replace("{tmp}", own) for a in args]
+            argv = [sys.executable, "-m", module, *args, "--max_steps", "2", "--epochs", "1",
+                    "--checkpoint_dir", os.path.join(own, "ckpt"),
+                    "--log_dir", os.path.join(own, "log")]
+            with open(os.path.join(own, "out"), "w") as out, \
+                    open(os.path.join(own, "err"), "w") as err:
+                proc = subprocess.Popen(argv, cwd=ROOT, stdout=out, stderr=err, text=True)
+            runs.append((module, args, own, proc))
+        for module, args, own, proc in runs:
+            code = proc.wait(timeout=600)
+            elapsed = time.perf_counter() - t0
+            with open(os.path.join(own, "err")) as f:
+                check(code == 0, f"{module} failed:\n{f.read()[-4000:]}")
+            lines = train_lines(os.path.join(own, "log"))
+            check(len(lines) == 2, f"{module}'s metric stream holds {len(lines)} train lines, not 2")
+            with open(os.path.join(own, "out")) as f:
+                out = f.read().strip().splitlines()
+            check("Finishing training" in out, f"{module} printed {out[-3:]}")
+            print(f"python3 -m {module} {' '.join(args)} --max_steps 2 on the card: done "
+                  f"{elapsed:.1f} s after both started, {out[0]}, 2 train lines (gen_loss "
+                  + ", ".join(f"{r['train/gen_loss']:.3f}" for r in lines) + f") ok [{card}]")
+    finally:
+        for _, _, _, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_trainer(card, fixed_step_ms):
-    """Phase 9: the Trainer, its validation, input pipeline, STOI,
-    checkpoint and CLI on the card.  Returns the attention launches of
+    """Phase 9: the Trainer, its validation, input pipeline, STOI and
+    checkpoint on the card (its CLI runs in ``phase_clis``).  Returns the attention launches of
     fit's steps and of one validation batch."""
     import shutil
     import tempfile
@@ -1385,13 +1572,164 @@ def phase_trainer(card, fixed_step_ms):
         phase_trainer_pipeline(card, trainer)
         phase_trainer_stoi(card, trainer)
         phase_trainer_checkpoint(card, trainer)
-        del trainer
-        torch.cuda.empty_cache()
-        phase_trainer_cli(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"fit_steps": LOOP_BATCHES, "fit": fit_launches,
             "validation_batch": val_launches}
+
+
+def attention_work_lengths(b, t, s, d, lengths):
+    """(bytes, flops) this run's data needs: q and lengths read and out
+    written in full, k and v only in their min(length, S) unmasked rows;
+    4 T D flops a valid key (two products)."""
+    valid = sum(min(max(int(n), 0), s) for n in lengths)
+    return 4 * (2 * b * t * d + 2 * valid * d + b), 4 * t * valid * d
+
+
+def lrs_raw_batches():
+    """The first training batch (50-frame windows, seed 1 as the recipe's
+    Trainer draws them) and the first validation batch (the bucket of its
+    longest clip) of the LRS2 recipe over LRS_CLIPS synthetic clips: the
+    batches that ``Trainer.fit`` and ``validate`` of phase 10 (d) start
+    with."""
+    source = SyntheticLRSSource(num_clips=LRS_CLIPS)
+    cfg = LRS_CONFIG
+    train = next(LRSDataset(source, cfg.audio, cfg.data, "train", cfg.train.seed)
+                 .epoch(LRS_BATCH))
+    val = next(LRSDataset(source, cfg.audio, cfg.data, "val", 0)
+               .epoch(LRS_BATCH, shuffle=False, drop_last=False))
+    return train, val
+
+
+def phase_lrs_attention(card, train_len, val_len, val_t):
+    """(a) The attention kernel at the LRS shapes with the real lengths of
+    the first training and validation batch, against its plain version and
+    float64, timed by CUDA-graph replay beside its plain version and sdpa;
+    then its ``autograd.Function`` at (16, 50, 50) against float64, the
+    masked key and value rows' gradients exactly 0.  Returns the rows for
+    the kernels line, the worst forward error and the gradient's."""
+    rows, worst = [], 0.0
+    side = torch.cuda.Stream()
+    d = 256
+    cases = (("train att1", LRS_WINDOW, LRS_WINDOW, train_len),
+             ("train att2", 2 * LRS_WINDOW, LRS_WINDOW, train_len),
+             ("val att1", val_t, val_t, val_len), ("val att2", 2 * val_t, val_t, val_len))
+    for i, (name, t, s_, lengths) in enumerate(cases):
+        b = len(lengths)
+        q, k, v, lens = attention_inputs(b, t, s_, d, lengths, seed=300 + i)
+        got = attn.masked_attention_cuda(q, k, v, lens)
+        want = attn.masked_attention_reference(q, k, v, lens)
+        want64 = attn.masked_attention_reference(q.double(), k.double(), v.double(), lens)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err64 = (got.double() - want64).abs().max().item()
+        worst = max(worst, err)
+        check(torch.isfinite(got).all().item(), f"LRS {name}: non-finite kernel output")
+        check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL) and err64 < ATTN_TOL,
+              f"LRS {name}: kernel vs plain {err:.3e}, vs float64 {err64:.3e}")
+        ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side)
+        events_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
+        plain = graph_ms(lambda: attn.masked_attention_reference(q, k, v, lens), side)
+        mask = key_mask(k, lens)
+        lib = graph_ms(lambda: sdpa(q, k, v, mask), side)
+        nbytes, flops = attention_work_lengths(b, t, s_, d, lengths)
+        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
+        bound, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+        masked = sum(s_ - min(int(n), s_) for n in lengths)
+        print(f"attention LRS {name} B={b} T={t} S={s_} D={d}, lengths {min(lengths)}-"
+              f"{max(lengths)} ({masked} of {b * s_} keys masked): max_abs_err {err:.3e} (vs "
+              f"float64 {err64:.3e}) ok; kernel {ms:.4f} ms (events {events_ms:.4f}), plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP of the unmasked keys) [{card}]")
+        rows.append({"shape": [b, t, s_, d], "masked_keys": masked, "ms": ms,
+                     "events_ms": events_ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err})
+
+    # The gradient as a train step takes it: the Function's backward is the
+    # plain version's autograd, where a masked key's softmax weight is exactly 0.
+    b, t = len(train_len), LRS_WINDOW
+    q, k, v, lens = attention_inputs(b, t, t, d, train_len, seed=310)
+    grad = torch.randn(b, t, d, generator=torch.Generator(device="cuda").manual_seed(11),
+                       device="cuda")
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    out = attn.masked_cross_attention(*leaves, lens)
+    check(isinstance(out.grad_fn, attn.MaskedAttention._backward_cls),
+          "LRS: the attention did not go through its autograd.Function")
+    got = torch.autograd.grad(out, leaves, grad)
+    wide = [x.detach().double().requires_grad_() for x in (q, k, v)]
+    want64 = torch.autograd.grad(attn.masked_attention_reference(*wide, lens), wide,
+                                 grad.double())
+    masked = torch.arange(t, device="cuda")[None, :] >= lens[:, None].long()  # (B, S)
+    check(bool(masked.any()), "LRS: no key of the training batch is masked")
+    errs = []
+    for gname, g, w64 in zip(("dq", "dk", "dv"), got, want64):
+        e64 = (g.double() - w64).abs().max().item()
+        check(torch.allclose(g.double(), w64, rtol=ATTN_GRAD_TOL, atol=ATTN_GRAD_TOL),
+              f"LRS attention {gname}: vs float64 max abs err {e64:.3e}")
+        errs.append(e64)
+    for gname, g in (("dk", got[1]), ("dv", got[2])):
+        check(bool((g[masked] == 0).all()), f"LRS attention {gname}: a masked row's gradient is not 0")
+    print(f"attention LRS train B={b} T=S={t} D={d} through MaskedAttention: dq, dk, dv vs "
+          f"float64 {', '.join(f'{e:.3e}' for e in errs)}; the {int(masked.sum())} masked key "
+          f"rows' dk and dv exactly 0 ok [{card}]")
+    return rows, worst, max(errs)
+
+
+def phase_lrs_train(card, train_raw):
+    """(c) The LRS2 fixed-batch step at full width, B=16 x 50 frames, in fp32
+    and bf16, on the first training batch through the LRS input pipeline on
+    the card (augmented).  Returns the fp32 step's ms and the launches."""
+    process = make_lrs_device_pipeline(LRS_CONFIG.audio, augment=True, device="cuda")
+    raw = {k: torch.as_tensor(v).cuda() if np.ndim(v) else v for k, v in train_raw.items()}
+    batch = process(raw, torch.Generator("cuda").manual_seed(0))
+    check(int(batch.vid_len.min()) < LRS_WINDOW, "the LRS batch holds no clip shorter "
+          f"than {LRS_WINDOW} frames: {batch.vid_len.tolist()}")
+    out = {}
+    for bf16 in (False, True):
+        mode = "bf16" if bf16 else "fp32"
+        out[mode] = phase_train_fixed(card, f"LRS2 {mode}", ModelConfig(use_bfloat16=bf16),
+                                      LRS_CONFIG.train, batch)
+        torch.cuda.empty_cache()
+    print(f"train LRS2 B={LRS_BATCH} x {LRS_WINDOW}: bf16 {out['bf16'][1]:.1f} ms a step against "
+          f"fp32 {out['fp32'][1]:.1f} ms ({out['fp32'][1] / out['bf16'][1]:.3f}x) [{card}]")
+    return out
+
+
+def phase_lrs_trainer(card, fixed_step_ms):
+    """(d) ``Trainer.fit`` on LRS2 (the recipe, fp32, its synthetic clips:
+    LOOP_BATCHES batches an epoch) counted as phase 9 (c) counts it, one
+    validation batch and a checkpoint round trip (``python3 -m
+    vcagan_torch.cli.train_lrs --bf16`` runs in ``phase_clis``).  Returns the attention launches
+    of fit's steps and of the validation batch."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lrs_")
+    try:
+        config = lrs_config("LRS2", **{
+            "data.data_root": os.path.join(tmp, "no_corpus"), "data.synthetic_clips": LRS_CLIPS,
+            "train.checkpoint_dir": os.path.join(tmp, "ckpt")})
+        trainer, fit_launches = phase_trainer_fit(card, fixed_step_ms, tmp, config, "LRS2 fp32")
+        check(trainer.is_lrs and isinstance(trainer.train_ds.source, SyntheticLRSSource),
+              "the LRS2 Trainer does not run on the synthetic LRS clips")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logs = trainer.validate(fast=False, max_batches=1)
+        elapsed = time.perf_counter() - t0
+        val_launches = attn.LAUNCHES
+        check(val_launches == 2 and fb.LAUNCHES == 0,
+              f"LRS validate: {val_launches} attention and {fb.LAUNCHES} fused-block launches")
+        check(all(np.isfinite(x) for x in logs) and logs[0] > 0, f"LRS validate returned {logs}")
+        raw = next(trainer._val_ds.epoch(LRS_BATCH, shuffle=False, drop_last=False))
+        print(f"trainer validate LRS2, one batch B={LRS_BATCH} x {raw['video_raw'].shape[1]} "
+              f"frames (the bucket; vid_len {raw['vid_len'].min()}-{raw['vid_len'].max()}): "
+              f"{elapsed:.2f} s, l1 {logs[0]:.4f}, stoi {logs[1]:.4f}, estoi {logs[2]:.4f}, pesq "
+              f"{logs[3]:.4f}; {val_launches} attention launches [{card}]")
+        phase_trainer_checkpoint(card, trainer)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"fit_steps": LOOP_BATCHES, "fit": fit_launches, "validation_batch": val_launches}
 
 
 def main() -> None:
@@ -1433,11 +1771,33 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_bench(card)
     attn_grad_worst = phase_train_attention(card)
-    phase_train_card_vs_cpu(card)
+    fp32_moments = phase_train_card_vs_cpu(card)
     torch.cuda.empty_cache()
     train_launches, fixed_step_ms = phase_train_grid(card)
     torch.cuda.empty_cache()
     loop_launches = phase_trainer(card, fixed_step_ms)
+    torch.cuda.empty_cache()
+
+    # Phase 10: LRS2 training and bf16 training.
+    t10 = time.perf_counter()
+    train_raw, val_raw = lrs_raw_batches()
+    lrs_rows, lrs_worst, lrs_grad_worst = phase_lrs_attention(
+        card, train_raw["vid_len"].tolist(), val_raw["vid_len"].tolist(),
+        val_raw["video_raw"].shape[1])
+    for run in BF16_RUNS:
+        phase_train_card_vs_cpu(card, run, fp32_moments)
+    phase_r1_card_vs_cpu(card)
+    torch.cuda.empty_cache()
+    bf16_launches, bf16_ms = phase_train_grid(card, bf16=True)
+    print(f"train GRID B={TRAIN_BATCH} x {TRAIN_WINDOW}: bf16 {bf16_ms:.1f} ms a step against "
+          f"phase 8 (c)'s fp32 {fixed_step_ms:.1f} ms ({fixed_step_ms / bf16_ms:.3f}x) [{card}]")
+    torch.cuda.empty_cache()
+    lrs_steps = phase_lrs_train(card, train_raw)
+    lrs_loop_launches = phase_lrs_trainer(card, lrs_steps["fp32"][1])
+    torch.cuda.empty_cache()
+    phase_clis(card)
+    print(f"phase 10 (LRS2 and bf16 training, and both training CLIs): "
+          f"{time.perf_counter() - t10:.1f} s")
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -1486,7 +1846,10 @@ def main() -> None:
                              ATTN_FLOP_PER_S, "graph")
     attention.update(form="3xTF32", events_ms=attn_totals["events_ms"],
                      launches_train=train_launches, grad_max_abs_err=attn_grad_worst,
-                     launches_trainer=loop_launches)
+                     launches_trainer=loop_launches, launches_train_bf16=bf16_launches,
+                     launches_train_lrs={k: v[0] for k, v in lrs_steps.items()},
+                     launches_trainer_lrs=lrs_loop_launches, lrs_shapes=lrs_rows,
+                     lrs_max_abs_err=lrs_worst, lrs_grad_max_abs_err=lrs_grad_worst)
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

@@ -15,6 +15,8 @@ A narrow model (the widths of ``tests/test_torch_train_step.py``), B = 2,
   more step equals three steps straight, bit for bit.
 - The CLI's argv equals the JAX CLI's; what the port does not run raises,
   naming its ROADMAP item; ``main`` runs on the CPU with ``--platform cpu``.
+  ``--bf16`` parses, and the Trainer builds on LRS2, LRS3 and in bf16
+  (LRS2 training itself: ``tests/test_torch_train_lrs.py``).
 """
 
 import json
@@ -28,7 +30,8 @@ import torch
 from vcagan.cli import train as jax_cli
 from vcagan.io.checkpoint import CheckpointManager as JaxCheckpointManager
 from vcagan_torch.cli import train as cli
-from vcagan_torch.configs import grid_config
+from vcagan_torch.configs import grid_config, lrs_config
+from vcagan_torch.data.lrs import LRSDataset, SyntheticLRSSource
 from vcagan_torch.io.checkpoint import CheckpointManager
 from vcagan_torch.train.loop import Trainer
 
@@ -53,9 +56,24 @@ def _drop_checkpoints(tmp_path):
     shutil.rmtree(tmp_path, ignore_errors=True)
 
 
+LRS_SMALL = {
+    **{f"model.{k}": v for k, v in NARROW.items()},
+    "data.window_size": 20, "data.max_v_timesteps": 40,
+    "data.data_root": "/nonexistent", "data.synthetic_clips": 4,
+    "train.batch_size": 2, "train.workers": 2,
+}
+
+
 def small_trainer(tmp_path, name, **overrides):
     cfg = grid_config(**{**SMALL, "train.checkpoint_dir": str(tmp_path / name / "ckpt"),
                          **overrides})
+    return Trainer(cfg, log_dir=str(tmp_path / name / "log"), device="cpu")
+
+
+def small_lrs_trainer(tmp_path, name, dataset="LRS2", **overrides):
+    cfg = lrs_config(dataset, **{**LRS_SMALL,
+                                 "train.checkpoint_dir": str(tmp_path / name / "ckpt"),
+                                 **overrides})
     return Trainer(cfg, log_dir=str(tmp_path / name / "log"), device="cpu")
 
 
@@ -70,7 +88,8 @@ def tensors(trainer):
     out = {f"{m}.{k}": v for m, sd in state.modules.state_dicts().items() for k, v in sd.items()}
     for side, opt in (("g", state.g_opt_state), ("d", state.d_opt_state)):
         for name in ("mu", "nu", "nu_max"):
-            out.update({f"{side}.{name}.{i}": t for i, t in enumerate(getattr(opt, name))})
+            # nu_max is None without AMSGrad (the LRS recipe)
+            out.update({f"{side}.{name}.{i}": t for i, t in enumerate(getattr(opt, name) or [])})
         out[f"{side}.count"] = torch.tensor(opt.count)
     out["step"] = torch.tensor(state.step)
     return out
@@ -201,30 +220,46 @@ def test_parse_args_and_config_equal_the_jax_clis(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--bf16"], "bf16 training"),
+    # ported since: the flag parses into the config (the case keeps its id)
+    pytest.param(["--bf16"], None, id="argv0-bf16 training"),
     (["--remat", "r1"], "TPU-compiler knobs"),
     (["--d_phase", "batched"], "TPU-compiler knobs"),
     (["--model_parallel", "2"], "multi-GPU"),
     (["--collate_process"], "ProcessEpoch"),
 ])
 def test_unported_flags_stop_the_parse(argv, item, capsys):
+    if item is None:
+        assert cli.build_config(cli.parse_args(argv)).model.use_bfloat16
+        return
     with pytest.raises(SystemExit):
         cli.parse_args(argv)
     assert item in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"data.dataset": "LRS2"}, "LRS data"),
-    ({"data.dataset": "LRS3"}, "LRS data"),
-    ({"model.use_bfloat16": True}, "bf16 training"),
+    # ported since: the Trainer builds (the cases keep their ids)
+    pytest.param({"data.dataset": "LRS2"}, None, id="override0-LRS data"),
+    pytest.param({"data.dataset": "LRS3"}, None, id="override1-LRS data"),
+    pytest.param({"model.use_bfloat16": True}, None, id="override2-bf16 training"),
     ({"train.remat": "stem"}, "TPU-compiler knobs"),
     ({"train.d_phase": "batched"}, "TPU-compiler knobs"),
     ({"mesh.model_parallel": 2}, "multi-GPU"),
     ({"data.collate_process": True}, "ProcessEpoch"),
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        small_trainer(tmp_path, "refused", **override)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            small_trainer(tmp_path, "refused", **override)
+        return
+    if "data.dataset" in override:  # the LRS recipe on its synthetic clips
+        with pytest.warns(UserWarning, match="not found under /nonexistent"):
+            trainer = small_lrs_trainer(tmp_path, "built", override["data.dataset"])
+        assert trainer.is_lrs and isinstance(trainer.train_ds, LRSDataset)
+        assert isinstance(trainer.train_ds.source, SyntheticLRSSource)
+    else:
+        trainer = small_trainer(tmp_path, "built", **override)
+        assert trainer.modules.dis1.main[0].compute_dtype == torch.bfloat16
+    assert trainer.device.type == "cpu" and trainer.steps_per_epoch == 2
 
 
 def test_cli_main_trains_on_the_cpu(tmp_path, monkeypatch, capsys):

@@ -118,12 +118,22 @@ def make_batch():
     )
 
 
-def jax_steps(params, stats, batch, sync_leak, steps):
-    modules = JaxModules.create(JaxModelConfig(**NARROW))
+def mixed(create, config, model, bf16):
+    """``create(config(**model))``, with the modules named in ``bf16`` taken
+    from the same bundle in bf16."""
+    modules = create(config(**model))
+    if not bf16:
+        return modules
+    half = create(config(**{**model, "use_bfloat16": True}))
+    return dataclasses.replace(modules, **{name: getattr(half, name) for name in bf16})
+
+
+def jax_steps(params, stats, batch, sync_leak, steps, model=NARROW, train=TRAIN, bf16=()):
+    modules = mixed(JaxModules.create, JaxModelConfig, model, bf16)
     modules = dataclasses.replace(modules, gen=FixedNoiseDecoder(**{
         f.name: getattr(modules.gen, f.name) for f in dataclasses.fields(JaxDecoder)
         if f.name not in ("parent", "name")}))
-    cfg = JaxTrainConfig(**TRAIN)
+    cfg = JaxTrainConfig(**train)
     txs = [jax_make_optimizer(cfg.lr, cfg.weight_decay, cfg.amsgrad, cfg.lr_milestones,
                               cfg.lr_gamma, 1) for _ in range(2)]
     g_params = {k: params[k] for k in ("v_front", "gen", "post")}
@@ -142,10 +152,10 @@ def jax_steps(params, stats, batch, sync_leak, steps):
     return state, metrics, moments
 
 
-def port_steps(params, stats, batch, sync_leak, steps):
-    modules = VCAGANModules.create(ModelConfig(**NARROW)).load_state_dicts(
+def port_steps(params, stats, batch, sync_leak, steps, model=NARROW, train=TRAIN, bf16=()):
+    modules = mixed(VCAGANModules.create, ModelConfig, model, bf16).load_state_dicts(
         from_jax(params, stats))
-    cfg = TrainConfig(**TRAIN)
+    cfg = TrainConfig(**train)
     state, g_tx, d_tx = create_train_state(modules, cfg, steps_per_epoch=1, device="cpu")
     step = make_train_step(modules, g_tx, d_tx, cfg, sync_leak=sync_leak)
     tbatch = Batch(**{k: torch.from_numpy(v) for k, v in batch.items()})

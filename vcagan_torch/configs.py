@@ -1,8 +1,10 @@
-"""Configuration of the port: serving, the train step and the GRID loop.
+"""Configuration of the port: serving, the train step and the GRID and LRS
+loops.
 
-A copy of the JAX package's ``vcagan/configs/base.py`` (``lrs_config``
-comes with LRS training; the fields that nothing reads are left out),
-kept here so that the port imports nothing of that package.  Defaults reproduce the reference GRID recipe.
+A copy of the JAX package's ``vcagan/configs/base.py`` (the fields that
+nothing reads are left out), kept here so that the port imports nothing of
+that package.  Defaults reproduce the reference GRID recipe;
+``lrs_config`` the LRS2/LRS3 one.
 """
 
 from __future__ import annotations
@@ -139,11 +141,6 @@ def unported(config: VCAGANConfig) -> list[str]:
     ROADMAP item (Queue 1) that holds it."""
     c = config
     found = []
-    if c.data.dataset in ("LRS2", "LRS3"):
-        found.append(f"data.dataset={c.data.dataset!r} (ROADMAP: LRS data, Trainer on LRS "
-                     "and train_lrs.py)")
-    if c.model.use_bfloat16:
-        found.append("model.use_bfloat16 / --bf16 (ROADMAP: bf16 training)")
     if c.train.remat != "none":
         found.append(f"train.remat={c.train.remat!r} / --remat (ROADMAP: the JAX step's "
                      "TPU-compiler knobs)")
@@ -162,6 +159,27 @@ def grid_config(**overrides) -> VCAGANConfig:
     """The reference GRID recipe, with dotted-path overrides such as
     ``grid_config(**{"train.lr": 3e-4})``."""
     return _apply(VCAGANConfig(), overrides)
+
+
+def lrs_config(dataset: str = "LRS2", **overrides) -> VCAGANConfig:
+    """The reference LRS recipe (train_LRS.py defaults,
+    ``vcagan/configs/base.py:204-219``): batch 16, 200 epochs, 50-frame
+    windows, up to 160 frames, f_max 7600, plain Adam with milestones
+    (100, 150), sync D-loss weight 0.5, L1 on normalised mels."""
+    cfg = VCAGANConfig(
+        audio=AudioConfig(f_max=7600.0),
+        data=DataConfig(dataset=dataset, window_size=50, max_v_timesteps=160),
+        train=TrainConfig(
+            batch_size=16,
+            epochs=200,
+            lr_milestones=(100, 150),
+            amsgrad=False,
+            sync_dis_weight=0.5,
+            recon_on_denormalized=False,
+            checkpoint_dir=f"./data/checkpoints/{dataset}",
+        ),
+    )
+    return _apply(cfg, overrides)
 
 
 def _apply(cfg: VCAGANConfig, overrides: dict) -> VCAGANConfig:

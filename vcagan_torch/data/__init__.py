@@ -1,1 +1,1 @@
-"""GRID data: clip sources, host collation, the prefetch thread and the input pipeline on the device."""
+"""GRID and LRS data: clip sources, host collation, the prefetch thread and the input pipelines on the device."""

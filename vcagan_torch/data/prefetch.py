@@ -12,6 +12,7 @@ the same seed.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -27,7 +28,10 @@ def prefetch_iterator(iterable: Iterable, depth: int = 2) -> Iterator:
     The producer stops when the consumer abandons the generator (break,
     exception, garbage collection): every ``put`` is a short-timeout poll
     against a stop event that the generator's ``finally`` sets, so no
-    thread is left blocked on a full queue."""
+    thread is left blocked on a full queue.  The ``finally`` then waits for
+    the producer to end (at most the item it is making): a thread left
+    inside a native call, pinning memory or decoding, can abort the process
+    when the interpreter exits under it."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     end = object()
     errors = []
@@ -53,7 +57,8 @@ def prefetch_iterator(iterable: Iterable, depth: int = 2) -> Iterator:
         finally:
             put(end)
 
-    threading.Thread(target=producer, daemon=True).start()
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -64,6 +69,7 @@ def prefetch_iterator(iterable: Iterable, depth: int = 2) -> Iterator:
             yield item
     finally:
         stop.set()
+        thread.join()
 
 
 def _as_tensors(raw: dict, pin: bool) -> dict:
@@ -115,8 +121,9 @@ class ParallelEpoch:
             yield raw
 
     def __iter__(self) -> Iterator[dict]:
-        for raw in prefetch_iterator(self._host_batches(), self.depth):
-            if self.device is not None:
-                raw = {k: v.to(self.device, non_blocking=True) if torch.is_tensor(v) else v
-                       for k, v in raw.items()}
-            yield raw
+        with contextlib.closing(prefetch_iterator(self._host_batches(), self.depth)) as items:
+            for raw in items:
+                if self.device is not None:
+                    raw = {k: v.to(self.device, non_blocking=True) if torch.is_tensor(v) else v
+                           for k, v in raw.items()}
+                yield raw

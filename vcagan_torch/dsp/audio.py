@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from vcagan_torch.nn.common import rounded
+
 LOG1E5 = math.log(1e-5)
 
 
@@ -58,5 +60,7 @@ def mel_normalize(mel: torch.Tensor) -> torch.Tensor:
 
 
 def mel_denormalize(mel: torch.Tensor) -> torch.Tensor:
-    """Map [-1, 1] back to log-mel in [log 1e-5, ~0]."""
-    return (mel + 1.0) * (-LOG1E5 / 2.0) + LOG1E5
+    """Map [-1, 1] back to log-mel in [log 1e-5, ~0].  The constants are
+    rounded to the mel's dtype first, as JAX applies them to a bf16 array
+    (the generator's mels in bf16 training)."""
+    return (mel + 1.0) * rounded(-LOG1E5 / 2.0, mel.dtype) + rounded(LOG1E5, mel.dtype)

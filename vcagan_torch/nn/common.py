@@ -1,6 +1,6 @@
 """Shared layers: per-channel PReLU, LeakyReLU(0.2), BatchNorm (eval, and
-train mode as flax's), dropout from an explicit generator, and
-convolutions that compute in a given dtype.
+train mode as flax's), dropout from an explicit generator, convolutions
+that compute in a given dtype and a dense layer that computes in fp32.
 
 The port keeps PyTorch's channels-first layout inside its modules (NCHW,
 NCDHW, (B, C, T)); public inputs and outputs keep the JAX package's layout.
@@ -110,13 +110,22 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
         return x
     if generator is None:
         raise ValueError("dropout in train mode draws its mask from an explicit generator")
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
-    return x * keep * (1.0 / (1.0 - rate))
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
+    # flax divides by the keep probability, a constant rounded to x's dtype
+    return torch.where(keep.bool(), x / rounded(1.0 - rate, x.dtype), 0.0)
 
 
 class _ComputeDtype:
     """A convolution whose input, weight and bias are cast to
-    ``compute_dtype`` at the call; the parameters keep their own dtype."""
+    ``compute_dtype`` at the call; the parameters keep their own dtype.
+
+    On the CPU a bf16 convolution runs in fp32 on the bf16-rounded operands
+    and rounds its result to bf16, as XLA's CPU backend computes one (and as
+    the card accumulates in fp32).  PyTorch's own CPU bf16 convolution
+    differentiates twice wrongly once a map reaches 80 x 80: with it, the
+    R1 penalty's gradient into the largest discriminator lay 6.7 times as
+    far from fp32 as the JAX package's
+    (``tests/test_torch_train_bf16.py::test_bf16_r1_gradient``)."""
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -124,8 +133,21 @@ class _ComputeDtype:
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dtype)
-        return self._conv_forward(x.to(dtype), self.weight.to(dtype), bias)
+        operands = [x.to(dtype), self.weight.to(dtype),
+                    None if self.bias is None else self.bias.to(dtype)]
+        if dtype == torch.float32 or x.device.type != "cpu":
+            return self._conv_forward(*operands)
+        return self._conv_forward(*(t if t is None else t.float() for t in operands)).to(dtype)
+
+
+class Linear(nn.Linear):
+    """A dense layer that computes in its parameters' dtype (fp32): a bf16
+    input is cast up, as flax's ``nn.Dense`` with no ``dtype`` promotes its
+    input to the fp32 kernel's type (the discriminators' heads and the sync
+    critic's projection, ``vcagan/nn/discriminator.py:109, 126, 173``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
 
 
 class Conv1d(_ComputeDtype, nn.Conv1d):

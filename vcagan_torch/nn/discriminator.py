@@ -1,7 +1,7 @@
 """The multi-scale mel discriminators and the audio-visual sync critic.
 
 Port of ``vcagan/nn/discriminator.py`` (reference ``generator.py:51-92``,
-``267-361``), fp32.  Attribute names follow the reference state dicts that
+``267-361``).  Attribute names follow the reference state dicts that
 ``tools/convert_torch_ckpt.py:253-308`` reads: ``main.0`` (input conv),
 ``main.{i+1}`` (ResBlks), ``uncond.1/4``, ``cond.1/3/6``; for the sync
 critic ``frontend.0-5``, ``Res_block.0`` and ``Linear``.
@@ -11,6 +11,15 @@ image with frequency as H.  The sync critic keeps that reference layout;
 the JAX module runs time-major with swapped kernels, which the converter
 accounts for (``conv2d_swapped``).  Its ``Linear`` reads the (C=256, F=20)
 map of each step flattened c-major, as the reference does.
+
+Compute dtype (``config.use_bfloat16``, ``vcagan/nn/discriminator.py:34,
+77, 146``): the convolutions, the sync critic's BatchNorms, PReLUs and
+``BasicBlock`` compute in it, the parameters stay fp32.  The dense layers
+take no dtype in JAX, so they promote a bf16 input to fp32: the logits and
+the sync critic's audio features are fp32 in either mode, and so is every
+loss taken from them.  Constants that meet a bf16 array (the ResBlk's
+1/sqrt(2), the leaky slope) are rounded to bf16 first, as JAX's weak typing
+does.
 """
 
 from __future__ import annotations
@@ -22,8 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from vcagan_torch.configs import ModelConfig
-from vcagan_torch.nn.common import INV_SQRT2, LeakyReLU, PReLU, batch_norm, leaky_relu
+from vcagan_torch.nn.common import (
+    INV_SQRT2, Conv2d, LeakyReLU, Linear, PReLU, batch_norm, leaky_relu, rounded)
 from vcagan_torch.nn.resnet import BasicBlock
+from vcagan_torch.runtime import compute_dtype
 
 PHASE_BLOCKS = {"1": 2, "2": 3, "3": 4}
 
@@ -32,14 +43,15 @@ class ResBlk(nn.Module):
     """LReLU-conv5 (+ 2x2 average pool) twice, a learned 1x1 shortcut on a
     channel change, scaled by 1/sqrt(2) (``vcagan/nn/discriminator.py:27-62``)."""
 
-    def __init__(self, in_channels: int, out_channels: int, downsample: bool = True):
+    def __init__(self, in_channels: int, out_channels: int, downsample: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.downsample = downsample
-        self.conv1 = nn.Conv2d(in_channels, in_channels, 5, padding=2)
-        self.conv2 = nn.Conv2d(in_channels, out_channels, 5, padding=2)
+        self.conv1 = Conv2d(in_channels, in_channels, 5, padding=2, compute_dtype=dtype)
+        self.conv2 = Conv2d(in_channels, out_channels, 5, padding=2, compute_dtype=dtype)
         self.conv1x1 = None
         if in_channels != out_channels:
-            self.conv1x1 = nn.Conv2d(in_channels, out_channels, 1, bias=False)
+            self.conv1x1 = Conv2d(in_channels, out_channels, 1, bias=False, compute_dtype=dtype)
 
     def _pool(self, x: torch.Tensor) -> torch.Tensor:
         return F.avg_pool2d(x, 2) if self.downsample else x
@@ -47,7 +59,8 @@ class ResBlk(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv2(leaky_relu(self._pool(self.conv1(leaky_relu(x)))))
         sc = x if self.conv1x1 is None else self.conv1x1(x)
-        return (h + self._pool(sc)) * INV_SQRT2
+        h = h + self._pool(sc)
+        return h * rounded(INV_SQRT2, h.dtype)
 
 
 class SpatialMean(nn.Module):
@@ -67,21 +80,24 @@ class Discriminator(nn.Module):
                  sent_dim: int = 512, num_class: int = 1):
         super().__init__()
         m = config or ModelConfig()
+        dtype = compute_dtype(m)
         self.phase = phase
         self.repeat = PHASE_BLOCKS[phase]
         ch = m.disc_base_channels
-        layers: list[nn.Module] = [nn.Conv2d(1, ch, 5, padding=2)]
+        layers: list[nn.Module] = [Conv2d(1, ch, 5, padding=2, compute_dtype=dtype)]
         for _ in range(self.repeat):
             out = min(ch * 2, m.disc_max_channels)
-            layers.append(ResBlk(ch, out))
+            layers.append(ResBlk(ch, out, dtype=dtype))
             ch = out
         self.main = nn.Sequential(*layers)
         self.uncond = nn.Sequential(
-            LeakyReLU(), nn.Conv2d(ch, ch, 5), LeakyReLU(), SpatialMean(), nn.Linear(ch, num_class)
+            LeakyReLU(), Conv2d(ch, ch, 5, compute_dtype=dtype), LeakyReLU(), SpatialMean(),
+            Linear(ch, num_class),
         )
         self.cond = nn.Sequential(
-            LeakyReLU(), nn.Conv2d(ch + sent_dim, ch, 5, padding=2), LeakyReLU(),
-            nn.Conv2d(ch, ch, 5), LeakyReLU(), SpatialMean(), nn.Linear(ch, num_class),
+            LeakyReLU(), Conv2d(ch + sent_dim, ch, 5, padding=2, compute_dtype=dtype),
+            LeakyReLU(), Conv2d(ch, ch, 5, compute_dtype=dtype), LeakyReLU(), SpatialMean(),
+            Linear(ch, num_class),
         )
 
     def forward(self, mel: torch.Tensor, sent: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,13 +134,14 @@ class SyncDiscriminator(nn.Module):
     def __init__(self, config: ModelConfig | None = None, n_mels: int = 80):
         super().__init__()
         m = config or ModelConfig()
+        dtype = compute_dtype(m)
         self.temp = m.sync_temp
         self.frontend = nn.Sequential(
-            nn.Conv2d(1, 128, 3, 2, 1), batch_norm(128), PReLU(128),
-            nn.Conv2d(128, 256, 3, 2, 1), batch_norm(256), PReLU(256),
+            Conv2d(1, 128, 3, 2, 1, compute_dtype=dtype), batch_norm(128), PReLU(128),
+            Conv2d(128, 256, 3, 2, 1, compute_dtype=dtype), batch_norm(256), PReLU(256),
         )
-        self.Res_block = nn.Sequential(BasicBlock(256, 256, relu_type="relu"))
-        self.Linear = nn.Linear(256 * (n_mels // 4), m.feature_dim)
+        self.Res_block = nn.Sequential(BasicBlock(256, 256, dtype=dtype, relu_type="relu"))
+        self.Linear = Linear(256 * (n_mels // 4), m.feature_dim)
 
     def forward(self, v_feat: torch.Tensor, mel: torch.Tensor, gen: bool = False) -> torch.Tensor:
         """v_feat (B, S, 512), mel (B, 80, 4S) -> (B,): symmetric InfoNCE
@@ -133,7 +150,9 @@ class SyncDiscriminator(nn.Module):
         a_feat = self.Linear(x.permute(0, 3, 1, 2).flatten(2))  # c-major rows
         if gen:
             return 5.0 - cosine(v_feat, a_feat).abs().mean(dim=1)
-        sim = torch.einsum("bsd,btd->bst", l2_normalize(v_feat), l2_normalize(a_feat)) / self.temp
+        v_n, a_n = l2_normalize(v_feat), l2_normalize(a_feat)  # bf16 phon in bf16, fp32 a_feat
+        dtype = torch.promote_types(v_n.dtype, a_n.dtype)
+        sim = torch.einsum("bsd,btd->bst", v_n.to(dtype), a_n.to(dtype)) / self.temp
         nce_va = torch.diagonal(torch.log_softmax(sim, dim=2), dim1=1, dim2=2).mean(dim=1)
         nce_av = torch.diagonal(torch.log_softmax(sim, dim=1), dim1=1, dim2=2).mean(dim=1)
         return -0.5 * (nce_va + nce_av)

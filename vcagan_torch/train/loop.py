@@ -1,6 +1,8 @@
-"""GRID training and validation: the loop of ``python -m vcagan_torch.cli.train``.
+"""GRID and LRS training and validation: the loop of ``python -m
+vcagan_torch.cli.train`` and ``python -m vcagan_torch.cli.train_lrs``.
 
-Port of ``vcagan/train/loop.py:31-490`` (reference: train.py:124-468): a
+Port of ``vcagan/train/loop.py:31-490`` (reference: train.py:124-468,
+train_LRS.py:140-320): a
 producer thread feeds collated host batches, the input pipeline turns them
 into a ``Batch`` on the device, the GAN step updates the state in place;
 every ``eval_step`` steps (or once an epoch) a validation vocodes with
@@ -10,11 +12,16 @@ checkpoint is saved under the metric-named, best-by-STOI convention.
 One ``torch.Generator`` on the device, seeded from ``train.seed``, draws
 for the input pipeline and then for the step, batch after batch.
 
-Not ported: LRS (``vcagan/data/lrs.py``), the JAX step's TPU-compiler
-knobs (``remat``, ``d_phase="batched"``), several devices
-(``mesh.model_parallel``, the multi-host feed), the collate worker process
-(``data.collate_process``) and bf16 training.  The Trainer raises on each,
-naming the ROADMAP item that holds it.
+LRS2/LRS3 (``data.dataset``): variable-length clips with dynamic lip crops
+(``vcagan_torch/data/lrs.py``), the LRS spec chain, and a validation that
+vocodes each bucket at its static length with the frames past each clip's
+``mel_len`` silenced, then scores every clip at its own length.  Without
+the corpus the loop runs on ``data.synthetic_clips`` synthetic clips.
+
+Not ported: the JAX step's TPU-compiler knobs (``remat``,
+``d_phase="batched"``), several devices (``mesh.model_parallel``, the
+multi-host feed) and the collate worker process (``data.collate_process``).
+The Trainer raises on each, naming the ROADMAP item that holds it.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from torch.profiler import record_function
 from vcagan_torch.configs import VCAGANConfig, unported
 from vcagan_torch.data.device_pipeline import make_device_pipeline
 from vcagan_torch.data.grid import make_grid_dataset
+from vcagan_torch.data.lrs import (
+    SyntheticLRSSource, lrs_denormalize_spec, make_lrs_dataset, make_lrs_device_pipeline)
 from vcagan_torch.data.synthetic import SyntheticLipSpeech
 from vcagan_torch.data.prefetch import ParallelEpoch
 from vcagan_torch.dsp.griffin_lim import random_phase
@@ -56,15 +65,23 @@ class Trainer:
         self.pipeline = MelPipeline(config.audio)
         self.writer = MetricWriter(log_dir)
         self.ckpt = CheckpointManager(tc.checkpoint_dir)
+        self.is_lrs = config.data.dataset in ("LRS2", "LRS3")
 
         self.train_ds = self._make_dataset("train", seed=tc.seed)
         self.steps_per_epoch = max(len(self.train_ds) // tc.batch_size, 1)
         self.state, self.g_tx, self.d_tx = create_train_state(
             self.modules, tc, self.steps_per_epoch, device=self.device)
-        self.process_train = make_device_pipeline(
-            config.audio, config.data, augment=config.data.augmentations, device=self.device)
-        self.process_eval = make_device_pipeline(
-            config.audio, config.data, augment=False, device=self.device)
+        if self.is_lrs:
+            self.process_train = make_lrs_device_pipeline(
+                config.audio, augment=config.data.augmentations, device=self.device)
+            self.process_eval = make_lrs_device_pipeline(config.audio, augment=False,
+                                                         device=self.device)
+        else:
+            self.process_train = make_device_pipeline(
+                config.audio, config.data, augment=config.data.augmentations,
+                device=self.device)
+            self.process_eval = make_device_pipeline(
+                config.audio, config.data, augment=False, device=self.device)
         self.train_step = make_train_step(self.modules, self.g_tx, self.d_tx, tc)
         self.eval_step = make_eval_step(self.modules)
         self.generator = torch.Generator(self.device).manual_seed(tc.seed)
@@ -85,9 +102,11 @@ class Trainer:
         # (reference train.py:139-146 / 337-353); the synthetic clips where
         # the corpus is absent
         workers = cfg.train.workers if mode == "train" else min(cfg.train.workers, 2)
-        ds = make_grid_dataset(cfg.data, cfg.audio, mode, seed=seed, workers=workers)
-        if (mode == "val" and isinstance(ds.source, SyntheticLipSpeech)
-                and isinstance(self.train_ds.source, SyntheticLipSpeech)):
+        make = make_lrs_dataset if self.is_lrs else make_grid_dataset
+        ds = make(cfg.data, cfg.audio, mode, seed=seed, workers=workers)
+        synthetic = (SyntheticLRSSource, SyntheticLipSpeech)
+        if (mode == "val" and isinstance(ds.source, synthetic)
+                and type(ds.source) is type(self.train_ds.source)):
             # both splits fell back to the same synthetic clips: render each
             # once for both
             ds.source = self.train_ds.source
@@ -186,6 +205,7 @@ class Trainer:
                     self.ckpt.save(self.state, epoch, *logs[1:], generator=self.generator)
                 if max_steps is not None and step >= max_steps:
                     flush()
+                    batches.close()  # the producer has ended when fit returns
                     return step
             flush()
             if not tc.eval_step:  # per-epoch validation (LRS recipe)
@@ -211,11 +231,14 @@ class Trainer:
     def _log_train_media(self, batch, step: int) -> None:
         """Spectrogram images and Griffin-Lim audio of the batch's first
         clip (reference logs these every 100 steps, train.py:239-278)."""
-        g3, gs = self.eval_step(batch.video, batch.vid_len, self.generator)
+        g3, gs = (x.float() for x in self.eval_step(batch.video, batch.vid_len, self.generator))
         self.writer.spectrogram("train_mel/g3", g3[0].cpu().numpy(), step)
         self.writer.spectrogram("train_mel/gt", batch.mel[0].cpu().numpy(), step)
         self.writer.spectrogram("train_spec/gen", gs[0].cpu().numpy(), step)
-        wav = self.pipeline.inverse_spec(gs[:1].transpose(1, 2), generator=self.generator)
+        spec = gs[:1].transpose(1, 2)
+        if self.is_lrs:
+            spec = lrs_denormalize_spec(spec)
+        wav = self.pipeline.inverse_spec(spec, generator=self.generator)
         self.writer.audio("train_aud/pred_spec", wav[0].cpu().numpy(), step)
 
     # --------------------------------------------------------------- validate
@@ -224,7 +247,8 @@ class Trainer:
     def validate(self, fast: bool = False, max_batches: Optional[int] = None):
         """Returns (recon_l1, stoi, estoi, pesq) of the POSTNET path.
 
-        As the reference's validate (train.py:331-468): the eval forward,
+        As the reference's validate (train.py:331-468; for LRS the JAX
+        Trainer's bucketed form, ``vcagan/train/loop.py:383-432``): the eval forward,
         Griffin-Lim on both paths, inverse_spec(gs) and inverse_mel(g3),
         from one initial phase, STOI/ESTOI and PESQ of each (the mel path's
         go to the metric stream as val/*_mel), figures and audio of the
@@ -248,22 +272,42 @@ class Trainer:
             nv = int(raw.get("n_valid", bs))
             batch = self.process_eval(raw)
             g3, gs = self.eval_step(batch.video, batch.vid_len, self.generator)
+            g3, gs = g3.float(), gs.float()  # bf16 in bf16 training: vocoded in fp32
             losses.append((g3 - batch.mel).abs()[:nv].mean().item())
-            # vocode the valid frames, cut at the first clip's length as the
-            # reference's g3[:, :, :, :mel_len[0]] (train.py:389-391); the
-            # raw postnet output, unclamped (train.py:390)
-            ml0 = int(np.asarray(raw["mel_len"])[0])
-            spec = gs.transpose(1, 2)[:, :ml0]
-            mel_in = g3.transpose(1, 2)[:, :ml0]
+            if self.is_lrs:
+                # the bucket's static length, frames past each clip's mel_len
+                # silenced (spec 0, normalised mel -1), as the JAX Trainer
+                # vocodes LRS (vcagan/train/loop.py:393-402)
+                spec = lrs_denormalize_spec(gs.transpose(1, 2))
+                frame_ok = (torch.arange(spec.shape[1], device=self.device)[None, :]
+                            < batch.mel_len[:, None])[:, :, None]
+                spec = torch.where(frame_ok, spec, 0.0)
+                mel_in = torch.where(frame_ok, g3.transpose(1, 2), -1.0)
+            else:
+                # the valid frames, cut at the first clip's length as the
+                # reference's g3[:, :, :, :mel_len[0]] (train.py:389-391); the
+                # raw postnet output, unclamped (train.py:390)
+                ml0 = int(np.asarray(raw["mel_len"])[0])
+                spec = gs.transpose(1, 2)[:, :ml0]
+                mel_in = g3.transpose(1, 2)[:, :ml0]
             phase = random_phase(spec.shape, self.generator, spec.device)
             wav_pred = self.pipeline.inverse_spec(spec, init_phase=phase)
             wav_mel = self.pipeline.inverse_mel(mel_in, init_phase=phase)
             wav_gt = torch.as_tensor(raw["wav"], device=self.device)[:, : wav_pred.shape[1]]
             wav_mel = wav_mel[:, : wav_gt.shape[1]]
+            lens = None
+            if self.is_lrs:
+                # each clip scored at its own length, zeros past it
+                # (vcagan/train/loop.py:418-432)
+                lens = torch.clamp(batch.mel_len.long() * self.config.audio.hop_length,
+                                   max=wav_pred.shape[1])
+                ok = torch.arange(wav_pred.shape[1], device=self.device)[None, :] < lens[:, None]
+                wav_pred, wav_mel, wav_gt = (torch.where(ok, x, 0.0)
+                                             for x in (wav_pred, wav_mel, wav_gt))
             gt_host = wav_gt.cpu().numpy()
             for wav, s_out, e_out, p_out in ((wav_pred, stois, estois, pesqs),
                                              (wav_mel, stois_mel, estois_mel, pesqs_mel)):
-                s_b, e_b = stoi_estoi_batch(wav_gt, wav)
+                s_b, e_b = stoi_estoi_batch(wav_gt, wav, lengths=lens)
                 s_out.append(s_b.cpu().numpy()[:nv])
                 e_out.append(e_b.cpu().numpy()[:nv])
                 p_out.append(np.asarray(pesq_batch(gt_host, wav.cpu().numpy(), fs=16_000))[:nv])

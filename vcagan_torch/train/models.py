@@ -38,11 +38,11 @@ class VCAGANModules:
     def create(cls, config: ModelConfig | None = None, seed: int = 0) -> "VCAGANModules":
         """All seven modules on the CPU, unfolded (the training modules),
         PyTorch's default initialisation drawn from ``seed`` (the global
-        generator is left as it was).  fp32 only: bf16 training is not
-        ported.  The folded and fused serving variant is ``Synthesizer``'s."""
+        generator is left as it was).  With ``use_bfloat16`` every module
+        computes in bf16 where the JAX package's does
+        (``vcagan/train/models.py:56-101``); the parameters stay fp32.  The
+        folded and fused serving variant is ``Synthesizer``'s."""
         m = config or ModelConfig()
-        if m.use_bfloat16:
-            raise NotImplementedError("bf16 training is not ported; the modules are fp32")
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             return cls(

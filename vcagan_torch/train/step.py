@@ -1,7 +1,9 @@
 """The adversarial train step.
 
 Port of ``vcagan/train/step.py`` (reference GRID/LRS step,
-``train.py:155-237``), fp32 with TF32 off, in the JAX step's order of work:
+``train.py:155-237``, ``train_LRS.py:168-248``), in fp32 with TF32 off or
+with the modules in bf16 (``ModelConfig.use_bfloat16``), in the JAX step's
+order of work:
 
 1. one generator-side forward in train mode (visual front, decoder), its
    dropout masks and the decoder's noise drawn from the step's generator.
@@ -18,6 +20,11 @@ Port of ``vcagan/train/step.py`` (reference GRID/LRS step,
    on a detached ``phon``, L1 reconstruction at three scales (on
    denormalised mels for GRID) plus L1 of the postnet against ``spec``;
 5. the G update, with the leaked gradients added.
+
+In bf16 every loss is fp32, as in the JAX step (``vcagan/train/step.py:22``):
+the discriminators' logits and the sync critic's features come out of fp32
+dense layers, R1 differentiates into the fp32 mel (its gradient and square
+are fp32), and the L1 terms cast both sides.  The attention stays fp32.
 
 The sync critic runs in both phases, so its statistics move twice a step
 (real mel, then ``g3``), as in the reference.  Gradients are taken with
