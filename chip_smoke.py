@@ -79,6 +79,23 @@ Phases, in order; any failure raises and exits non-zero:
      round trip, and ``python3 -m vcagan_torch.cli.train_lrs --bf16`` (2
      steps) as a subprocess at the same time as phase 9 (f)'s, so that
      their start-ups overlap;
+ 11. evaluation (the test CLIs' functions, ``vcagan_torch/cli/test.py`` and
+     ``test_lrs.py``, and the ASR scorers): (a) the attention kernel at the
+     GRID test shapes, B=100 x 75 frames, and at the LRS test bucket of
+     160 frames, B=8 with the real lengths of such a batch, against its
+     plain version and float64, timed beside sdpa and its bound, and that
+     LRS batch through the flip-TTA eval forward, 4 attention launches
+     asserted; (b) the
+     GRID and LRS per-batch functions card against CPU on the trained
+     weights with the same noise and Griffin-Lim phase, bf16 against fp32
+     on the card, and both ASR models card against CPU at full width;
+     (c) one GRID test batch at the recipe, B=100 x 75 real clips with flip TTA, in
+     fp32 and bf16, each part timed (the two forwards, Griffin-Lim, STOI
+     on the card, PESQ on the host, the dump), 4 attention launches
+     asserted; (d) ``python3 -m vcagan_torch.cli.test`` and ``test_lrs
+     --time_breakdown`` as subprocesses at once on a port checkpoint of
+     the trained weights, their artifacts read back, then ``cli.asr_grid``
+     and ``cli.asr_lrw`` on them, and the ASR models' ms a batch;
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -107,6 +124,7 @@ from vcagan_torch.data.device_pipeline import make_device_pipeline  # noqa: E402
 from vcagan_torch.data.grid import GridDataset  # noqa: E402
 from vcagan_torch.data.lrs import LRSDataset, SyntheticLRSSource  # noqa: E402
 from vcagan_torch.data.lrs import make_lrs_device_pipeline  # noqa: E402
+from vcagan_torch.data.synthetic import SyntheticLipSpeech  # noqa: E402
 from vcagan_torch.data.transforms import augment_draws  # noqa: E402
 from vcagan_torch.eval import stoi_np  # noqa: E402
 from vcagan_torch.eval.stoi import stoi_estoi_batch  # noqa: E402
@@ -1512,6 +1530,34 @@ CLI_RUNS = (("vcagan_torch.cli.train", ["--grid", "{tmp}/no_corpus", "--batch_si
             ("vcagan_torch.cli.train_lrs", ["--data", "{tmp}/no_corpus", "--bf16"]))
 
 
+def run_clis(runs, what, card):
+    """Run (module, argv, directory) CLIs as subprocesses at once, on the
+    card; check each ends with 0 and return their output lines, in order."""
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    try:
+        for module, args, own in runs:
+            os.makedirs(own, exist_ok=True)
+            with open(os.path.join(own, "out"), "w") as out, \
+                    open(os.path.join(own, "err"), "w") as err:
+                procs.append(subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT,
+                                              stdout=out, stderr=err, text=True))
+        for (module, args, own), proc in zip(runs, procs):
+            code = proc.wait(timeout=600)
+            with open(os.path.join(own, "err")) as f:
+                check(code == 0, f"{module} failed:\n{f.read()[-4000:]}")
+            with open(os.path.join(own, "out")) as f:
+                outs.append(f.read().strip().splitlines())
+            print(f"python3 -m {module} {' '.join(args)}: done {time.perf_counter() - t0:.1f} s "
+                  f"after the {what} started [{card}]")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
 def phase_clis(card):
     """Phase 9 (f) and 10 (d): ``python3 -m vcagan_torch.cli.train`` (B=8)
     and ``python3 -m vcagan_torch.cli.train_lrs --bf16`` (its recipe's
@@ -1523,38 +1569,21 @@ def phase_clis(card):
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    runs = []
     try:
-        t0 = time.perf_counter()
+        runs = []
         for module, args in CLI_RUNS:
             own = os.path.join(tmp, module.rsplit(".", 1)[1])
-            os.makedirs(own)
-            args = [a.replace("{tmp}", own) for a in args]
-            argv = [sys.executable, "-m", module, *args, "--max_steps", "2", "--epochs", "1",
-                    "--checkpoint_dir", os.path.join(own, "ckpt"),
-                    "--log_dir", os.path.join(own, "log")]
-            with open(os.path.join(own, "out"), "w") as out, \
-                    open(os.path.join(own, "err"), "w") as err:
-                proc = subprocess.Popen(argv, cwd=ROOT, stdout=out, stderr=err, text=True)
-            runs.append((module, args, own, proc))
-        for module, args, own, proc in runs:
-            code = proc.wait(timeout=600)
-            elapsed = time.perf_counter() - t0
-            with open(os.path.join(own, "err")) as f:
-                check(code == 0, f"{module} failed:\n{f.read()[-4000:]}")
+            runs.append((module, [a.replace("{tmp}", own) for a in args] + [
+                "--max_steps", "2", "--epochs", "1", "--checkpoint_dir", os.path.join(own, "ckpt"),
+                "--log_dir", os.path.join(own, "log")], own))
+        outs = run_clis(runs, "two training CLIs", card)
+        for (module, _, own), out in zip(runs, outs):
             lines = train_lines(os.path.join(own, "log"))
             check(len(lines) == 2, f"{module}'s metric stream holds {len(lines)} train lines, not 2")
-            with open(os.path.join(own, "out")) as f:
-                out = f.read().strip().splitlines()
             check("Finishing training" in out, f"{module} printed {out[-3:]}")
-            print(f"python3 -m {module} {' '.join(args)} --max_steps 2 on the card: done "
-                  f"{elapsed:.1f} s after both started, {out[0]}, 2 train lines (gen_loss "
+            print(f"{module}: {out[0]}, 2 train lines (gen_loss "
                   + ", ".join(f"{r['train/gen_loss']:.3f}" for r in lines) + f") ok [{card}]")
     finally:
-        for _, _, _, proc in runs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1601,6 +1630,41 @@ def lrs_raw_batches():
     return train, val
 
 
+def attention_row(card, name, t, s_, d, lengths, seed, side):
+    """The attention kernel at (len(lengths), t, s_, d) with these lengths,
+    against its plain version and float64, then timed by CUDA-graph replay
+    beside its plain version and sdpa, its bound counting the unmasked
+    keys only.  Returns the row for the kernels line."""
+    b = len(lengths)
+    q, k, v, lens = attention_inputs(b, t, s_, d, lengths, seed=seed)
+    got = attn.masked_attention_cuda(q, k, v, lens)
+    want = attn.masked_attention_reference(q, k, v, lens)
+    want64 = attn.masked_attention_reference(q.double(), k.double(), v.double(), lens)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    err64 = (got.double() - want64).abs().max().item()
+    check(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
+    check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL) and err64 < ATTN_TOL,
+          f"{name}: kernel vs plain {err:.3e}, vs float64 {err64:.3e}")
+    ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side)
+    events_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
+    plain = graph_ms(lambda: attn.masked_attention_reference(q, k, v, lens), side)
+    mask = key_mask(k, lens)
+    lib = graph_ms(lambda: sdpa(q, k, v, mask), side)
+    nbytes, flops = attention_work_lengths(b, t, s_, d, lengths)
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
+    bound, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+    masked = sum(s_ - min(int(n), s_) for n in lengths)
+    print(f"attention {name} B={b} T={t} S={s_} D={d}, lengths {min(lengths)}-"
+          f"{max(lengths)} ({masked} of {b * s_} keys masked): max_abs_err {err:.3e} (vs "
+          f"float64 {err64:.3e}) ok; kernel {ms:.4f} ms (events {events_ms:.4f}), plain "
+          f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP of the unmasked keys) [{card}]")
+    return {"shape": [b, t, s_, d], "masked_keys": masked, "ms": ms,
+            "events_ms": events_ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err}
+
+
 def phase_lrs_attention(card, train_len, val_len, val_t):
     """(a) The attention kernel at the LRS shapes with the real lengths of
     the first training and validation batch, against its plain version and
@@ -1608,42 +1672,14 @@ def phase_lrs_attention(card, train_len, val_len, val_t):
     then its ``autograd.Function`` at (16, 50, 50) against float64, the
     masked key and value rows' gradients exactly 0.  Returns the rows for
     the kernels line, the worst forward error and the gradient's."""
-    rows, worst = [], 0.0
     side = torch.cuda.Stream()
     d = 256
     cases = (("train att1", LRS_WINDOW, LRS_WINDOW, train_len),
              ("train att2", 2 * LRS_WINDOW, LRS_WINDOW, train_len),
              ("val att1", val_t, val_t, val_len), ("val att2", 2 * val_t, val_t, val_len))
-    for i, (name, t, s_, lengths) in enumerate(cases):
-        b = len(lengths)
-        q, k, v, lens = attention_inputs(b, t, s_, d, lengths, seed=300 + i)
-        got = attn.masked_attention_cuda(q, k, v, lens)
-        want = attn.masked_attention_reference(q, k, v, lens)
-        want64 = attn.masked_attention_reference(q.double(), k.double(), v.double(), lens)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        err64 = (got.double() - want64).abs().max().item()
-        worst = max(worst, err)
-        check(torch.isfinite(got).all().item(), f"LRS {name}: non-finite kernel output")
-        check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL) and err64 < ATTN_TOL,
-              f"LRS {name}: kernel vs plain {err:.3e}, vs float64 {err64:.3e}")
-        ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side)
-        events_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
-        plain = graph_ms(lambda: attn.masked_attention_reference(q, k, v, lens), side)
-        mask = key_mask(k, lens)
-        lib = graph_ms(lambda: sdpa(q, k, v, mask), side)
-        nbytes, flops = attention_work_lengths(b, t, s_, d, lengths)
-        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
-        bound, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
-        masked = sum(s_ - min(int(n), s_) for n in lengths)
-        print(f"attention LRS {name} B={b} T={t} S={s_} D={d}, lengths {min(lengths)}-"
-              f"{max(lengths)} ({masked} of {b * s_} keys masked): max_abs_err {err:.3e} (vs "
-              f"float64 {err64:.3e}) ok; kernel {ms:.4f} ms (events {events_ms:.4f}), plain "
-              f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
-              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP of the unmasked keys) [{card}]")
-        rows.append({"shape": [b, t, s_, d], "masked_keys": masked, "ms": ms,
-                     "events_ms": events_ms, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err})
+    rows = [attention_row(card, f"LRS {name}", t, s_, d, lengths, 300 + i, side)
+            for i, (name, t, s_, lengths) in enumerate(cases)]
+    worst = max(row["max_abs_err"] for row in rows)
 
     # The gradient as a train step takes it: the Function's backward is the
     # plain version's autograd, where a masked key's softmax weight is exactly 0.
@@ -1732,6 +1768,365 @@ def phase_lrs_trainer(card, fixed_step_ms):
     return {"fit_steps": LOOP_BATCHES, "fit": fit_launches, "validation_batch": val_launches}
 
 
+# Phase 11: evaluation.  The GRID test recipe: B=100 clips of up to 75
+# frames, flip TTA (2 forwards, so 4 attention launches a batch); test_lrs:
+# B=8 length-sorted clips in buckets of up to 160 frames.  ASR_TOL: the ASR
+# models' logits card vs CPU (cuDNN convolutions and GRU against oneDNN, in
+# fp32 with TF32 off: sums of up to 25 x 64 terms in another order, then
+# two GRU layers), atol and rtol.
+EVAL_BATCH, EVAL_FRAMES = 100, DataConfig().max_v_timesteps
+LRS_TEST_BATCH = 8
+ASR_TOL = 1e-3
+
+
+def lrs_test_batch(lengths):
+    """The raw batch ``test_lrs`` makes of clips of these frame counts: the
+    LRS2 recipe's test split (length-sorted, the bucket of the longest)."""
+    cfg = LRS_CONFIG
+    ds = LRSDataset(SyntheticLRSSource(lengths=lengths), cfg.audio, cfg.data, "test", 0)
+    return next(ds.epoch(len(lengths), shuffle=False, drop_last=False, sort_by_length=True))
+
+
+def eval_modules(states, device, bf16=False):
+    """The generator side of ``states`` (trained weights) in a seven-module
+    bundle on ``device``, as the test CLIs hold it."""
+    return VCAGANModules.create(ModelConfig(use_bfloat16=bf16)).load_state_dicts(states).to(device)
+
+
+def phase_eval_attention(card):
+    """(a) The attention kernel at the test shapes: GRID's B=100 x 75 clips
+    (all 75 frames, as the synthetic clips are), and LRS test's B=8 at the
+    160-frame bucket with the real lengths of such a batch (clips of
+    121-160 frames).  Returns the rows, the worst error and that LRS raw
+    batch."""
+    lengths = np.random.default_rng(11).integers(121, 161, LRS_TEST_BATCH).tolist()
+    raw = lrs_test_batch(lengths)
+    t = raw["video_raw"].shape[1]
+    check(t == 160, f"the LRS test batch's bucket is {t}, not 160")
+    lrs_len = raw["vid_len"].tolist()
+    side = torch.cuda.Stream()
+    grid_len = [EVAL_FRAMES] * EVAL_BATCH
+    cases = (("GRID test att1", EVAL_FRAMES, EVAL_FRAMES, grid_len),
+             ("GRID test att2", 2 * EVAL_FRAMES, EVAL_FRAMES, grid_len),
+             ("LRS test att1", t, t, lrs_len), ("LRS test att2", 2 * t, t, lrs_len))
+    rows = [attention_row(card, name, tq, s_, 256, lens, 400 + i, side)
+            for i, (name, tq, s_, lens) in enumerate(cases)]
+    return rows, max(row["max_abs_err"] for row in rows), raw
+
+
+def phase_eval_lrs_batch(card, states, raw):
+    """One ``test_lrs`` batch at its recipe (B=8, the 160-frame bucket,
+    real lengths) through the LRS input pipeline and the flip-TTA eval
+    forward on the card, after one warm-up: 4 attention launches asserted
+    and the forwards timed by CUDA events.  Returns the launches."""
+    from vcagan_torch.train.step import make_eval_step
+
+    step = make_eval_step(eval_modules(states, "cuda"), flip_tta=True)
+    batch = make_lrs_device_pipeline(LRS_CONFIG.audio, augment=False, device="cuda")(raw)
+    gen = torch.Generator("cuda").manual_seed(1)
+    step(batch.video, batch.vid_len, gen)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    g3, gs = step(batch.video, batch.vid_len, gen)
+    ev[1].record()
+    ev[1].synchronize()
+    launches = attn.LAUNCHES
+    check(launches == 4 and fb.LAUNCHES == 0,
+          f"LRS test batch: {launches} attention and {fb.LAUNCHES} fused-block launches")
+    check(torch.isfinite(g3).all().item() and torch.isfinite(gs).all().item(),
+          "LRS test batch: non-finite output")
+    print(f"LRS test batch B={LRS_TEST_BATCH} x {batch.video.shape[1]} (lengths "
+          f"{batch.vid_len.tolist()}): the two eval forwards {ev[0].elapsed_time(ev[1]):.1f} ms "
+          f"(CUDA events), {launches} attention launches [{card}]")
+    return launches
+
+
+def phase_eval_card_vs_cpu(card, states):
+    """(b) The test CLIs' per-batch functions card against CPU on the
+    trained weights, the same noise and Griffin-Lim phase on both: GRID's
+    flip-TTA forward at B=2 x 75 and ``vocode_grid``; an LRS test batch
+    (B=2, the 40-frame bucket) through the LRS input pipeline and the
+    forward, and ``vocode_lrs`` on its normalised target spectrogram (the
+    trained weights are GRID's, whose postnet gives linear magnitudes, not
+    the LRS normalised log-spectrogram); on the card the bf16 forward
+    against the fp32 one; then both ASR models at full width on the same
+    mels."""
+    from vcagan_torch.cli.test import vocode_grid
+    from vcagan_torch.cli.test_lrs import vocode_lrs
+    from vcagan_torch.dsp.pipeline import MelPipeline
+    from vcagan_torch.eval.asr_models import load_asr
+    from vcagan_torch.train.step import make_eval_step
+
+    rng = np.random.default_rng(12)
+    b, t = 2, EVAL_FRAMES
+    video = torch.from_numpy(rng.standard_normal((b, t, 112, 112, 1)).astype(np.float32))
+    lengths = torch.tensor([t, 60], dtype=torch.int32)
+    noise = torch.from_numpy(rng.standard_normal((2, b, 20, t, 128)).astype(np.float32))
+    phase = torch.from_numpy(rng.uniform(-np.pi, np.pi, (b, 4 * t, 321)).astype(np.float32))
+    wav = rng.uniform(-0.5, 0.5, (b, 4 * t * 160)).astype(np.float32)
+    lrs_raw = lrs_test_batch([40, 31])
+    lrs_pipe = make_lrs_device_pipeline(LRS_CONFIG.audio, augment=False, device="cuda")
+    lrs_batch = lrs_pipe(lrs_raw)
+    tl = lrs_batch.video.shape[1]
+    lrs_noise = torch.from_numpy(rng.standard_normal((2, b, 20, tl, 128)).astype(np.float32))
+    lrs_phase = torch.from_numpy(rng.uniform(-np.pi, np.pi, (b, 4 * tl, 321)).astype(np.float32))
+    hop = LRS_CONFIG.audio.hop_length
+
+    outs = {}
+    for name, device, bf16 in (("card", "cuda", False), ("CPU", "cpu", False),
+                               ("card bf16", "cuda", True)):
+        step = make_eval_step(eval_modules(states, device, bf16), flip_tta=True)
+        g3, gs = step(video.to(device), lengths.to(device), None, noise.to(device))
+        wav_pred, wav_gt = vocode_grid(MelPipeline(), gs, wav, 4 * t, init_phase=phase.to(device))
+        lg3, lgs = step(lrs_batch.video.to(device), lrs_batch.vid_len.to(device), None,
+                        lrs_noise.to(device))
+        lwav, lgt, n_wav = vocode_lrs(MelPipeline(LRS_CONFIG.audio), lrs_batch.spec.to(device),
+                                      lrs_raw["wav"], lrs_batch.mel_len.to(device), hop,
+                                      init_phase=lrs_phase.to(device))
+        outs[name] = {k: v.float().cpu() for k, v in dict(
+            g3=g3, spec=gs, wav=wav_pred, wav_gt=wav_gt, lrs_g3=lg3, lrs_spec=lgs,
+            lrs_wav=lwav, lrs_wav_gt=lgt, n_wav=n_wav).items()}
+    got, want = outs["card"], outs["CPU"]
+    for key in ("g3", "spec", "lrs_g3", "lrs_spec"):
+        g, w = got[key], want[key]
+        err = (g - w).abs().max().item()
+        check(torch.isfinite(g).all().item(), f"eval {key}: non-finite")
+        check(torch.allclose(g, w, rtol=PATH_TOL, atol=PATH_TOL),
+              f"eval {key}: card vs CPU {err:.3e}")
+        print(f"eval {key} card vs CPU: max abs err {err:.3e} (max |CPU| "
+              f"{w.abs().max().item():.3e})")
+    for key in ("wav", "lrs_wav"):
+        rel = rel_l2(got[key], want[key])
+        check(rel < WAV_REL_L2, f"eval {key}: card vs CPU relative L2 {rel:.3e}")
+        print(f"eval {key} card vs CPU: relative L2 {rel:.3e}")
+    for key in ("wav_gt", "lrs_wav_gt", "n_wav"):
+        check(torch.equal(got[key], want[key]), f"eval {key}: card and CPU differ")
+    check(got["wav"].shape == (b, 160 * (4 * t - 1)), f"GRID wav {tuple(got['wav'].shape)}")
+    n = got["n_wav"].long()
+    check(bool((got["lrs_wav"][torch.arange(got["lrs_wav"].shape[1])[None, :] >= n[:, None]]
+                == 0).all()), "eval LRS: a waveform is not 0 past its length")
+    for key, other in (("g3", "mel3"), ("spec", "spec"), ("lrs_g3", "LRS mel3"),
+                       ("lrs_spec", "LRS spec")):
+        corr, rel = corr_rel(outs["card bf16"][key], got[key])
+        print(f"eval {other} bf16 vs fp32 on the card: correlation {corr:.6f}, relative L2 "
+              f"{rel:.3e}")
+        if key.endswith("g3"):
+            check(corr > BF16_MEL_CORR, f"eval bf16 {key} correlation {corr:.6f}")
+        else:
+            check(rel < BF16_SPEC_REL, f"eval bf16 {key} relative L2 {rel:.3e}")
+
+    for kind, frames in (("grid", 4 * EVAL_FRAMES), ("lrw", 116)):
+        mel = torch.from_numpy(rng.uniform(-11.5, 0.0, (2, 80, frames)).astype(np.float32))
+        g = load_asr(kind, device="cuda")(mel.cuda()).cpu()
+        w = load_asr(kind, device="cpu")(mel)
+        err = (g - w).abs().max().item()
+        check(torch.allclose(g, w, rtol=ASR_TOL, atol=ASR_TOL),
+              f"ASR {kind}: card vs CPU {err:.3e}")
+        print(f"ASR {kind} {tuple(g.shape)} logits card vs CPU: max abs err {err:.3e} (max |CPU| "
+              f"{w.abs().max().item():.3e}) [{card}]")
+
+
+def grid_test_raw(card):
+    """A GRID test raw batch at the recipe, B=100 synthetic clips, every
+    one real (``n_valid`` 100), as the test CLI collates them."""
+    cfg = DataConfig()
+    t0 = time.perf_counter()
+    ds = GridDataset(SyntheticLipSpeech(num_clips=EVAL_BATCH), AudioConfig(), cfg,
+                     "test", 0, workers=6)
+    raw = next(ds.epoch(EVAL_BATCH, shuffle=False, drop_last=False))
+    ds.close()
+    check(int(raw["n_valid"]) == EVAL_BATCH, f"GRID test batch: {int(raw['n_valid'])} real clips")
+    print(f"GRID test batch: {int(raw['n_valid'])} clips rendered and collated into B="
+          f"{EVAL_BATCH} x {raw['video_raw'].shape[1]} in {time.perf_counter() - t0:.2f} s "
+          f"(6 threads) [{card}]")
+    return raw
+
+
+def phase_eval_grid_batch(card, states, raw, bf16):
+    """(c) One GRID test batch at the recipe through the CLI's functions,
+    after one warm-up on it: the input pipeline, the two eval forwards and
+    Griffin-Lim timed by CUDA events, STOI/ESTOI (to its sync) and PESQ on
+    the host and the artifact dump by the host's clock; 4 attention
+    launches asserted.  Returns the parts."""
+    import shutil
+    import tempfile
+
+    from vcagan_torch.cli.test import score, vocode_grid, write_clip
+    from vcagan_torch.dsp.pipeline import MelPipeline
+    from vcagan_torch.train.step import make_eval_step
+
+    mode = "bf16" if bf16 else "fp32"
+    step = make_eval_step(eval_modules(states, "cuda", bf16), flip_tta=True)
+    process = make_device_pipeline(AudioConfig(), DataConfig(), augment=False, device="cuda")
+    pipe = MelPipeline()
+    gen = torch.Generator("cuda").manual_seed(1)
+    nv, ml0 = int(raw["n_valid"]), int(raw["mel_len"][0])
+    batch = process(raw)
+    score(*vocode_grid(pipe, step(batch.video, batch.vid_len, gen)[1], raw["wav"], ml0, gen),
+          nv)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        batch = process(raw)
+        ev[1].record()
+        g3, gs = step(batch.video, batch.vid_len, gen)
+        ev[2].record()
+        wav_pred, wav_gt = vocode_grid(pipe, gs, raw["wav"], ml0, gen)
+        ev[3].record()
+        ev[3].synchronize()
+        launches = attn.LAUNCHES
+        times = {}
+        stoi, estoi, pesq = score(wav_gt, wav_pred, nv, times=times)
+        t1 = time.perf_counter()
+        mel, spec, wavs = (x.float().cpu().numpy() for x in (g3, gs, wav_pred))
+        for i in range(nv):
+            write_clip(os.path.join(tmp, "spec_mel"), os.path.join(tmp, "wav"), f"clip_{i:05d}",
+                       mel[i], spec[i], int(raw["mel_len"][i]), wavs[i])
+        wall = time.perf_counter() - t0
+        dump = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(launches == 4 and fb.LAUNCHES == 0,
+          f"GRID test batch {mode}: {launches} attention and {fb.LAUNCHES} fused-block launches")
+    check(np.isfinite(stoi).all() and np.isfinite(estoi).all(),
+          f"GRID test {mode}: STOI not finite")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    parts = {"input_pipeline_ms": ev[0].elapsed_time(ev[1]),
+             "forwards_ms": ev[1].elapsed_time(ev[2]), "griffin_lim_ms": ev[2].elapsed_time(ev[3]),
+             "stoi_estoi_ms": 1e3 * times["stoi_estoi_s"], "pesq_host_ms": 1e3 * times["pesq_s"],
+             "dump_ms": 1e3 * dump, "wall_ms": 1e3 * wall}
+    print(f"GRID test batch {mode} B={EVAL_BATCH} x {EVAL_FRAMES} ({nv} scored): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; {nv / wall:.2f} clips/s, peak {peak:.2f} GB, {launches} attention "
+          f"launches; STOI {np.nanmean(stoi):.4f} ESTOI {np.nanmean(estoi):.4f} PESQ "
+          f"{np.nanmean(pesq):.4f} [{card}]")
+    return {**parts, "launches": launches, "peak_gb": peak, "clips_per_s": nv / wall}
+
+
+def phase_eval_clis(card, states):
+    """(d) ``python3 -m vcagan_torch.cli.test`` (B=100, 2 batches asked; the
+    64 synthetic clips make one) and ``cli.test_lrs --time_breakdown`` (B=8,
+    4 batches of 32 synthetic clips) at once, on a port checkpoint of the
+    trained generator; their artifact trees and ``metric.txt`` read back;
+    then ``cli.asr_grid`` on ``test``'s ``spec_mel`` (B=160) and
+    ``cli.asr_lrw`` on a tree of 120 116-frame mels (B=120), both random
+    init (no trained ASR weights are in the repository), at once; then
+    each ASR model's forward and ``evaluate`` timed in this process."""
+    import glob
+    import re
+    import shutil
+    import tempfile
+
+    from vcagan_torch.eval import asr_grid, asr_lrw
+    from vcagan_torch.eval.asr_models import load_asr
+    from vcagan_torch.io.checkpoint import CheckpointManager
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_cli_")
+    try:
+        # a checkpoint of each recipe: its train state holds the recipe's
+        # optimizer (AMSGrad for GRID, Adam for LRS), which the CLI restores
+        ckpts = {}
+        for recipe, train_config in (("grid", TrainConfig()), ("lrs", LRS_CONFIG.train)):
+            state, _, _ = create_train_state(VCAGANModules.create().load_state_dicts(states),
+                                             train_config, 1, device="cuda")
+            ckpts[recipe] = CheckpointManager(os.path.join(tmp, f"ckpt_{recipe}")).save(state, 0)
+            del state
+        torch.cuda.empty_cache()
+        grid_out, lrs_out = os.path.join(tmp, "grid"), os.path.join(tmp, "lrs")
+        no_corpus = os.path.join(tmp, "no_corpus")
+        outs = run_clis([
+            ("vcagan_torch.cli.test", ["--grid", no_corpus, "--checkpoint", ckpts["grid"],
+                                       "--max_batches", "2", "--out_dir", grid_out], grid_out),
+            ("vcagan_torch.cli.test_lrs", ["--data", no_corpus, "--checkpoint", ckpts["lrs"],
+                                           "--time_breakdown", "--max_batches", "4",
+                                           "--synthetic_clips", "32", "--out_dir", lrs_out],
+             lrs_out)], "two test CLIs", card)
+        metric = re.compile(r"STOI : \S+ESTOI : \S+PESQ : \S+")
+        lrs_base = os.path.join(lrs_out, "LRS2")
+        for what, base, tree, n in (("test", grid_out, ("spec_mel/synthetic", "wav/synthetic"), 64),
+                                    ("test_lrs", lrs_base, ("mel", "wav"), 32)):
+            npz = sorted(glob.glob(os.path.join(base, tree[0], "*.npz")))
+            wavs = sorted(glob.glob(os.path.join(base, tree[1], "*.wav")))
+            check(len(npz) == len(wavs) == n,
+                  f"{what}: {len(npz)} npz and {len(wavs)} wav, not {n}")
+            with np.load(npz[0]) as z:
+                shapes = {k: z[k].shape for k in z.files}
+            check(set(shapes) == {"mel", "spec"} and shapes["mel"][:2] == (1, 80)
+                  and shapes["spec"][:2] == (1, 321), f"{what}: npz {shapes}")
+            with open(os.path.join(base, "metric.txt")) as f:
+                text = f.read()
+            check(metric.fullmatch(text) is not None, f"{what}: metric.txt {text!r}")
+            print(f"{what} artifacts: {n} npz ({shapes}) and wav; metric.txt {text} [{card}]")
+        breakdown = json.loads(next(line for line in outs[1] if line.startswith("{")))
+        print(f"test_lrs --time_breakdown: {json.dumps(breakdown)} [{card}]")
+
+        lrw = os.path.join(tmp, "lrw")
+        classes = [f"W{i:03d}" for i in range(500)]
+        rng = np.random.default_rng(13)
+        for i in range(120):
+            word = classes[i % 10]
+            os.makedirs(os.path.join(lrw, word, "test"), exist_ok=True)
+            np.savez(os.path.join(lrw, word, "test", f"{word}_{i:05d}.npz"),
+                     mel=rng.uniform(-1, 1, (1, 80, 116)).astype(np.float32))
+        with open(os.path.join(tmp, "classes.txt"), "w") as f:
+            f.write("\n".join(classes))
+        spec_mel = os.path.join(grid_out, "spec_mel")
+        outs = run_clis([
+            ("vcagan_torch.cli.asr_grid", ["--data", spec_mel, "--gtpath", no_corpus,
+                                           "--batch_size", "160"], os.path.join(tmp, "asr_grid")),
+            ("vcagan_torch.cli.asr_lrw", ["--data", lrw, "--class_list",
+                                          os.path.join(tmp, "classes.txt"), "--batch_size", "120"],
+             os.path.join(tmp, "asr_lrw"))], "two ASR CLIs", card)
+        check(outs[0][-2].startswith("test_cer:") and outs[0][-1].startswith("test_wer:"),
+              f"asr_grid printed {outs[0][-2:]}")
+        check(outs[1][-1].startswith("test_ACC:"), f"asr_lrw printed {outs[1][-1:]}")
+        print(f"asr_grid: {outs[0][-2]}, {outs[0][-1]}; asr_lrw: {outs[1][-1]} (random init) "
+              f"[{card}]")
+
+        rows = {}
+        for kind, b, frames, run in (
+                ("grid", 160, 4 * EVAL_FRAMES, lambda m: asr_grid.evaluate(
+                    spec_mel, no_corpus, m, batch_size=160)),
+                ("lrw", 120, 116, lambda m: asr_lrw.evaluate(lrw, classes, m, batch_size=120))):
+            model = load_asr(kind, device="cuda")
+            mel = torch.from_numpy(rng.uniform(-11.5, 0, (b, 80, frames)).astype(np.float32)).cuda()
+            forward_ms = time_ms(lambda: model(mel), samples=5, calls=5, warmup=2)
+            run(model)
+            t0 = time.perf_counter()
+            run(model)
+            rows[kind] = {"forward_ms": forward_ms, "evaluate_ms": 1e3 * (time.perf_counter() - t0)}
+            print(f"ASR {kind} B={b} x {frames} mel frames: forward {forward_ms:.2f} ms a batch "
+                  f"(CUDA events), evaluate {rows[kind]['evaluate_ms']:.1f} ms for its one batch "
+                  f"(files loaded on the host) [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return breakdown, rows
+
+
+def phase_eval(card, states):
+    """Phase 11: evaluation on the card.  Returns the attention rows, their
+    worst error and the attention launches of one LRS and one GRID test
+    batch (fp32 and bf16)."""
+    rows, worst, lrs_raw = phase_eval_attention(card)
+    launches = {"lrs_test_batch": phase_eval_lrs_batch(card, states, lrs_raw)}
+    phase_eval_card_vs_cpu(card, states)
+    torch.cuda.empty_cache()
+    raw = grid_test_raw(card)
+    for bf16 in (False, True):
+        parts = phase_eval_grid_batch(card, states, raw, bf16)
+        launches["grid_test_batch" + ("_bf16" if bf16 else "")] = parts["launches"]
+        torch.cuda.empty_cache()
+    phase_eval_clis(card, states)
+    return rows, worst, launches
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1798,6 +2193,11 @@ def main() -> None:
     phase_clis(card)
     print(f"phase 10 (LRS2 and bf16 training, and both training CLIs): "
           f"{time.perf_counter() - t10:.1f} s")
+    torch.cuda.empty_cache()
+    t11 = time.perf_counter()
+    eval_rows, eval_worst, eval_launches = phase_eval(card, states)
+    print(f"phase 11 (evaluation: the test CLIs and the ASR scorers): "
+          f"{time.perf_counter() - t11:.1f} s")
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -1849,7 +2249,9 @@ def main() -> None:
                      launches_trainer=loop_launches, launches_train_bf16=bf16_launches,
                      launches_train_lrs={k: v[0] for k, v in lrs_steps.items()},
                      launches_trainer_lrs=lrs_loop_launches, lrs_shapes=lrs_rows,
-                     lrs_max_abs_err=lrs_worst, lrs_grad_max_abs_err=lrs_grad_worst)
+                     lrs_max_abs_err=lrs_worst, lrs_grad_max_abs_err=lrs_grad_worst,
+                     launches_eval=eval_launches, eval_shapes=eval_rows,
+                     eval_max_abs_err=eval_worst)
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

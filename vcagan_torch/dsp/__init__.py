@@ -1,4 +1,4 @@
-from vcagan_torch.dsp.audio import deemphasis, mel_normalize
+from vcagan_torch.dsp.audio import deemphasis, mel_denormalize, mel_normalize
 from vcagan_torch.dsp.griffin_lim import griffin_lim
 from vcagan_torch.dsp.mel import mel_filterbank
 from vcagan_torch.dsp.pipeline import MelPipeline
@@ -10,6 +10,7 @@ __all__ = [
     "deemphasis",
     "griffin_lim",
     "istft_complex",
+    "mel_denormalize",
     "mel_filterbank",
     "mel_normalize",
     "stft",

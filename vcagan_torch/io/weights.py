@@ -6,11 +6,13 @@
 the reference PyTorch names that ``tools/convert_torch_ckpt.py`` reads; the
 converter's ``convert_visual_front/decoder/postnet/discriminator/
 sync_discriminator`` are its exact inverse.
-Layouts: conv HWIO/DHWIO/WIO -> OIHW/OIDHW/OIW (the sync critic's
+``asr_from_jax`` does the same for the ASR models, the inverse of
+``convert_grid_asr`` / ``convert_lrw_asr``.
+Layouts: conv HWIO/DHWIO/WIO -> OIHW/OIDHW/OIW (the audio fronts'
 time-major kernels (W, H, I, O) -> OIHW), dense (in, out) -> (out, in),
 GRU (in, 3H) -> (3H, in), BatchNorm scale/bias + mean/var -> weight/bias +
-running stats, and the input rows of the attention ``q`` and of the sync
-critic's ``Linear`` from the JAX f-major to the reference c-major flatten
+running stats, and the input rows of the attention ``q`` and of the audio
+fronts' ``Linear`` from the JAX f-major to the reference c-major flatten
 order.  Trees folded by the JAX package's
 ``fold_generator_side`` (no paired BatchNorm nodes, a ``bias`` on their
 convolutions, empty ``v_front``/``post`` statistics) give the folded state
@@ -83,6 +85,17 @@ def _dense(sd: Dict, prefix: str, p: Tree, rows=None) -> None:
     sd[f"{prefix}.bias"] = p["bias"]
 
 
+def _gru(sd: Dict, prefix: str, p: Tree) -> None:
+    """A BiGRU's layers ``l{k}`` -> ``nn.GRU`` keys (``_reverse``: backward)."""
+    for layer, lp in p.items():
+        k = layer[1:]
+        for ours, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            sd[f"{prefix}.weight_ih_l{k}{suffix}"] = _linear(lp[f"{ours}_w_i"])
+            sd[f"{prefix}.weight_hh_l{k}{suffix}"] = _linear(lp[f"{ours}_w_h"])
+            sd[f"{prefix}.bias_ih_l{k}{suffix}"] = lp[f"{ours}_b_i"]
+            sd[f"{prefix}.bias_hh_l{k}{suffix}"] = lp[f"{ours}_b_h"]
+
+
 def _gen_res_blk(sd: Dict, prefix: str, p: Tree, s: Tree) -> None:
     for conv in ("conv1", "conv2", "conv1x1"):
         if conv in p:
@@ -105,13 +118,7 @@ def visual_front_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
         if "down_conv" in bp:
             _conv_then_bn(sd, f"{prefix}.downsample.0", f"{prefix}.downsample.1", bp, bs,
                           "down_conv", "down_bn")
-    for layer, lp in p["sentence_encoder"].items():  # l{k}
-        k = layer[1:]
-        for ours, suffix in (("fwd", ""), ("bwd", "_reverse")):
-            sd[f"sentence_encoder.weight_ih_l{k}{suffix}"] = _linear(lp[f"{ours}_w_i"])
-            sd[f"sentence_encoder.weight_hh_l{k}{suffix}"] = _linear(lp[f"{ours}_w_h"])
-            sd[f"sentence_encoder.bias_ih_l{k}{suffix}"] = lp[f"{ours}_b_i"]
-            sd[f"sentence_encoder.bias_hh_l{k}{suffix}"] = lp[f"{ours}_b_h"]
+    _gru(sd, "sentence_encoder", p["sentence_encoder"])
     _dense(sd, "fc", p["fc"])
     return sd
 
@@ -171,9 +178,12 @@ def discriminator_state(p: Tree, phase: str) -> Dict[str, np.ndarray]:
     return sd
 
 
-def sync_discriminator_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
-    """The sync critic: time-major kernels back to the reference (freq, time)
-    layout, the projection's rows back to the c-major flatten of (256, F)."""
+def audio_front_state(p: Tree, s: Tree, prelu_block: bool = False) -> Dict[str, np.ndarray]:
+    """An audio front (``vcagan_torch/nn/audio_front.py``; the sync critic's
+    encoder): time-major kernels back to the reference (freq, time) layout,
+    the projection's rows back to the c-major flatten of (C, F), C the
+    second convolution's output channels.  ``prelu_block``: the block's
+    activations are PReLUs with slopes (the GRID ASR front), not ReLUs."""
     sd: Dict[str, np.ndarray] = {}
     for i, (conv, bn, act) in enumerate((("conv1", "bn1", "act1"), ("conv2", "bn2", "act2"))):
         _conv_bias(sd, f"frontend.{3 * i}", p[conv], _conv_swapped)
@@ -182,8 +192,11 @@ def sync_discriminator_state(p: Tree, s: Tree) -> Dict[str, np.ndarray]:
     for i in (1, 2):
         _conv_bias(sd, f"Res_block.0.conv{i}", p["res"][f"conv{i}"], _conv_swapped)
         _bn(sd, f"Res_block.0.bn{i}", p["res"][f"bn{i}"], s["res"][f"bn{i}"])
-    f_dim = np.asarray(p["proj"]["kernel"]).shape[0] // 256
-    _dense(sd, "Linear", p["proj"], rows=np.argsort(_perm_cf_to_fc(256, f_dim)))
+        if prelu_block:
+            sd[f"Res_block.0.relu{i}.weight"] = p["res"][f"act{i}"]["alpha"]
+    c_dim = np.asarray(p["conv2"]["kernel"]).shape[-1]
+    f_dim = np.asarray(p["proj"]["kernel"]).shape[0] // c_dim
+    _dense(sd, "Linear", p["proj"], rows=np.argsort(_perm_cf_to_fc(c_dim, f_dim)))
     return sd
 
 
@@ -232,8 +245,39 @@ def from_jax(params: Tree, batch_stats: Tree,
         if f"dis{phase}" in params:
             states[f"dis{phase}"] = discriminator_state(params[f"dis{phase}"], phase)
     if "s_dis" in params:
-        states["s_dis"] = sync_discriminator_state(params["s_dis"], batch_stats["s_dis"])
+        # the sync critic: an audio front with a ReLU block
+        states["s_dis"] = audio_front_state(params["s_dis"], batch_stats["s_dis"])
     return {mod: as_tensors(sd) for mod, sd in states.items()}
+
+
+# The ASR models' front has a PReLU block in the GRID recognizer, a ReLU
+# block in the LRW classifier (``vcagan/eval/asr_models.py:31-33, 46-48``).
+ASR_PRELU_BLOCK = {"grid": True, "lrw": False}
+
+
+def asr_from_jax(variables: Tree, kind: str) -> Tuple[Dict[str, torch.Tensor],
+                                                      Dict[str, torch.Tensor]]:
+    """A ``GridASR`` (``kind="grid"``) or ``LRWClassifier`` (``"lrw"``) flax
+    variables tree ({params, batch_stats}, numpy) -> the port's front and
+    back state dicts, the exact inverse of ``convert_grid_asr`` /
+    ``convert_lrw_asr`` (``tools/convert_torch_ckpt.py:311-383``).  Raises
+    ``KeyError`` naming the leaves that no module reads."""
+    if kind not in ASR_PRELU_BLOCK:
+        raise ValueError(f"kind {kind!r}: one of {sorted(ASR_PRELU_BLOCK)}")
+    read: set = set()
+    params = _ReadTree(variables["params"], "params", read)
+    stats = _ReadTree(variables["batch_stats"], "stats", read)
+    front = audio_front_state(params["audio_front"], stats["audio_front"],
+                              prelu_block=ASR_PRELU_BLOCK[kind])
+    back: Dict[str, np.ndarray] = {}
+    _gru(back, "gru", params["gru"])
+    _dense(back, "fc", params["fc"])
+    extra = sorted({*_leaf_paths(variables["params"], "params"),
+                    *_leaf_paths(variables["batch_stats"], "stats")} - read)
+    if extra:
+        more = " ..." if len(extra) > 5 else ""
+        raise KeyError(f"{kind} ASR variables have unmatched leaves: {extra[:5]}{more}")
+    return as_tensors(front), as_tensors(back)
 
 
 def as_tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,5 @@
 from vcagan_torch.nn.attention import AVAttention
+from vcagan_torch.nn.audio_front import AudioFront
 from vcagan_torch.nn.discriminator import Discriminator, SyncDiscriminator
 from vcagan_torch.nn.generator import Decoder, GenResBlk, Postnet, ResBlk1D
 from vcagan_torch.nn.gru import BiGRU
@@ -8,6 +9,7 @@ from vcagan_torch.nn.visual_front import VisualFront
 
 __all__ = [
     "AVAttention",
+    "AudioFront",
     "BasicBlock",
     "BiGRU",
     "Decoder",

@@ -31,9 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vcagan_torch.configs import ModelConfig
-from vcagan_torch.nn.common import (
-    INV_SQRT2, Conv2d, LeakyReLU, Linear, PReLU, batch_norm, leaky_relu, rounded)
-from vcagan_torch.nn.resnet import BasicBlock
+from vcagan_torch.nn.common import INV_SQRT2, Conv2d, LeakyReLU, Linear, leaky_relu, rounded
+from vcagan_torch.nn.audio_front import AudioFront
 from vcagan_torch.runtime import compute_dtype
 
 PHASE_BLOCKS = {"1": 2, "2": 3, "3": 4}
@@ -126,28 +125,21 @@ def cosine(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return (a * b).sum(-1) / torch.clamp(den, min=eps)
 
 
-class SyncDiscriminator(nn.Module):
-    """Audio-visual sync critic (``vcagan/nn/discriminator.py:131-190``): an
-    audio encoder maps the mel (B, 80, 4S) to 512-d features, one per video
-    frame, and ``forward`` gives the per-sample loss against ``v_feat``."""
+class SyncDiscriminator(AudioFront):
+    """Audio-visual sync critic (``vcagan/nn/discriminator.py:131-190``): the
+    reference audio front (128/256 channels, k = 3, plain-ReLU block) maps
+    the mel (B, 80, 4S) to 512-d features, one per video frame, and
+    ``forward`` gives the per-sample loss against ``v_feat``."""
 
     def __init__(self, config: ModelConfig | None = None, n_mels: int = 80):
-        super().__init__()
         m = config or ModelConfig()
-        dtype = compute_dtype(m)
+        super().__init__(128, 256, m.feature_dim, 3, "relu", n_mels, compute_dtype(m))
         self.temp = m.sync_temp
-        self.frontend = nn.Sequential(
-            Conv2d(1, 128, 3, 2, 1, compute_dtype=dtype), batch_norm(128), PReLU(128),
-            Conv2d(128, 256, 3, 2, 1, compute_dtype=dtype), batch_norm(256), PReLU(256),
-        )
-        self.Res_block = nn.Sequential(BasicBlock(256, 256, dtype=dtype, relu_type="relu"))
-        self.Linear = Linear(256 * (n_mels // 4), m.feature_dim)
 
     def forward(self, v_feat: torch.Tensor, mel: torch.Tensor, gen: bool = False) -> torch.Tensor:
         """v_feat (B, S, 512), mel (B, 80, 4S) -> (B,): symmetric InfoNCE
         over the cosine matrix / temp; with ``gen``, 5 - mean |cos|."""
-        x = self.Res_block(self.frontend(mel[:, None]))  # (B, 256, 20, S)
-        a_feat = self.Linear(x.permute(0, 3, 1, 2).flatten(2))  # c-major rows
+        a_feat = super().forward(mel)
         if gen:
             return 5.0 - cosine(v_feat, a_feat).abs().mean(dim=1)
         v_n, a_n = l2_normalize(v_feat), l2_normalize(a_feat)  # bf16 phon in bf16, fp32 a_feat
