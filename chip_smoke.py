@@ -96,6 +96,22 @@ Phases, in order; any failure raises and exits non-zero:
      --time_breakdown`` as subprocesses at once on a port checkpoint of
      the trained weights, their artifacts read back, then ``cli.asr_grid``
      and ``cli.asr_lrw`` on them, and the ASR models' ms a batch;
+ 12. past 512 keys, the collate worker process, JAX train states and
+     serving npz: (a) the key-blocked attention kernel (S > 512, keys in
+     blocks of 256 with an online softmax) at (B, T, S) = (4, 750, 750),
+     (4, 1500, 750), (8, 1026, 513), (2, 1280, 640) and (1, 4096, 4096)
+     with lengths 0 and S among them, against its plain version, float64
+     and its arithmetic in plain PyTorch, a length-0 row against the mean
+     of its values, the launch counted, timed beside its bound, plain and
+     sdpa; its gradient at S = 640; the serving rows (S <= 512) timed
+     again; (b) ``Synthesizer`` on B=4 clips of 750 frames (30 s), fp32 and
+     bf16, card against CPU, 2 attention launches a forward; (c)
+     ``Trainer.fit`` in bf16 on GRID and LRS2 with the thread producer and
+     with ``ProcessEpoch``, first epoch and cached: ms a step, idle share,
+     collate ms; (d) a train state in the exporter's format loaded on the
+     card, every tensor equal, and scored by ``cli.test`` for one batch;
+     (e) phase 9's Trainer written as serving npz (q8) and served by
+     ``Synthesizer.from_serving_npz`` on the card;
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -355,6 +371,7 @@ def phase_kernel_vs_plain(card):
         ("S=16", 3, 40, 16, 256, [0, 16, 11]),
         ("S=160", 3, 40, 160, 256, [0, 160, 97]),
         ("S=S_MAX", 2, 20, attn.S_MAX, 256, [0, 300]),
+        ("S=S_MAX+1", 2, 20, attn.S_MAX + 1, 256, [0, attn.S_MAX + 1]),  # key-blocked
         ("T=1", 5, 1, 75, 256, [75, 0, 1, 40, 80]),
         ("T=17", 3, 17, 75, 256, [75, 0, 33]),
         ("B=1", 1, 75, 75, 256, [60]),
@@ -366,7 +383,6 @@ def phase_kernel_vs_plain(card):
     # computing something else.
     for what, (b, t, s, d), words in (
         ("D=100", (2, 9, 21, 100), "multiple of 8"),
-        (f"S={attn.S_MAX + 1}", (2, 9, attn.S_MAX + 1, 256), "keys"),
     ):
         q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=98)
         check_refused(f"attention {what}", lambda: attn.masked_attention_cuda(q, k, v, lens), words)
@@ -383,16 +399,18 @@ def phase_kernel_vs_plain(card):
         # arithmetic (three TF32 products a multiply) in plain PyTorch.
         want64 = attn.masked_attention_reference(q.double(), k.double(), v.double(), lens)
         err64 = (got.double() - want64).abs().max().item()
-        err3x = (got - attn.masked_attention_reference_3xtf32(q, k, v, lens)).abs().max().item()
+        plan = attn.attention_plan(t, s, d)
+        err3x = (got - attn.masked_attention_reference_3xtf32(
+            q, k, v, lens, key_block=plan.key_block)).abs().max().item()
         worst, worst_3x = max(worst, err), max(worst_3x, err3x)
         check(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
         check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
               f"{name} {b, t, s, d}: kernel vs plain max abs err {err:.3e}")
         check(err64 < ATTN_TOL, f"{name} {b, t, s, d}: kernel vs float64 max abs err {err64:.3e}")
         check(err3x < ATTN_TOL, f"{name} {b, t, s, d}: kernel vs plain 3xTF32 {err3x:.3e}")
-        plan = attn.attention_plan(t, s, d)
         print(f"attention {name:10s} B={b} T={t} S={s} D={d} ({plan.row_tiles} x {plan.tiles} "
-              f"tiles of 16 rows, {plan.split} warps a tile, D chunk {plan.d_chunk}): "
+              f"tiles of 16 rows, {plan.split} warps a tile, D chunk {plan.d_chunk}, key block "
+              f"{plan.key_block or 'none'}): "
               f"max_abs_err {err:.3e} (vs float64 {err64:.3e}, vs plain 3xTF32 {err3x:.3e}) ok")
     print(f"attention (3xTF32) vs plain 3xTF32, worst of the cases: {worst_3x:.3e}")
     return worst
@@ -1590,7 +1608,8 @@ def phase_clis(card):
 def phase_trainer(card, fixed_step_ms):
     """Phase 9: the Trainer, its validation, input pipeline, STOI and
     checkpoint on the card (its CLI runs in ``phase_clis``).  Returns the attention launches of
-    fit's steps and of one validation batch."""
+    fit's steps and of one validation batch, and the Trainer's generator
+    side (CPU copies; phase 12 (e) serves them)."""
     import shutil
     import tempfile
 
@@ -1601,10 +1620,13 @@ def phase_trainer(card, fixed_step_ms):
         phase_trainer_pipeline(card, trainer)
         phase_trainer_stoi(card, trainer)
         phase_trainer_checkpoint(card, trainer)
+        trained = {name: {k: v.detach().cpu().clone() for k, v in sd.items()}
+                   for name, sd in trainer.state.modules.state_dicts().items()
+                   if name in GENERATOR_SIDE}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"fit_steps": LOOP_BATCHES, "fit": fit_launches,
-            "validation_batch": val_launches}
+            "validation_batch": val_launches}, trained
 
 
 def attention_work_lengths(b, t, s, d, lengths):
@@ -2127,6 +2149,458 @@ def phase_eval(card, states):
     return rows, worst, launches
 
 
+# Phase 12: past 512 keys, the collate worker process, JAX train states and
+# serving npz.  (a) The key-blocked attention at the shapes of 30 s clips
+# (750 frames: att1 (4, 750, 750), att2 (4, 1500, 750)), LRS buckets past
+# 512 frames, and 4096 keys; (B, T, S).
+LONG_CASES = (("30 s att1", 4, 750, 750), ("30 s att2", 4, 1500, 750),
+              ("513 att2", 8, 1026, 513), ("640 att2", 2, 1280, 640),
+              ("4096", 1, 4096, 4096))
+LONG_FRAMES = 750  # a 30 s clip at 25 fps
+
+
+def long_lengths(b, s_, rng):
+    """Mixed lengths with 0 and S among them (S alone for one sample)."""
+    if b == 1:
+        return [s_]
+    lengths = rng.integers(1, s_ + 1, b)
+    lengths[:2] = (0, s_)
+    return lengths.tolist()
+
+
+def phase_long_attention(card):
+    """(a) The key-blocked attention kernel (S > S_MAX) at LONG_CASES against
+    its plain version, float64 and its own arithmetic in plain PyTorch
+    (the key-blocked 3xTF32), a length-0 row's output against the mean of
+    its S values, the launch counted on each shape; timed by CUDA-graph
+    replay beside its bound, plain and sdpa.  Then its autograd.Function's
+    gradient at S = 640 against float64, and the serving rows (S <= 512,
+    the strip plan) timed again.  Returns the rows, the worst forward and
+    gradient errors."""
+    side = torch.cuda.Stream()
+    rng = np.random.default_rng(12)
+    d = 256
+    rows, worst = [], 0.0
+    for i, (name, b, t, s_) in enumerate(LONG_CASES):
+        lengths = long_lengths(b, s_, rng)
+        q, k, v, lens = attention_inputs(b, t, s_, d, lengths, seed=500 + i)
+        plan = attn.attention_plan(t, s_, d)
+        check(plan.key_block == attn.KEY_BLOCK, f"{name}: plan {plan}")
+        before = attn.LAUNCHES
+        got = attn.masked_attention_cuda(q, k, v, lens)
+        torch.cuda.synchronize()
+        check(attn.LAUNCHES == before + 1, f"{name}: the kernel was not launched")
+        want = attn.masked_attention_reference(q, k, v, lens)
+        want64 = attn.masked_attention_reference(q.double(), k.double(), v.double(), lens)
+        want3x = attn.masked_attention_reference_3xtf32(q, k, v, lens, key_pad=attn.N_TILE,
+                                                        key_block=plan.key_block)
+        err = (got - want).abs().max().item()
+        err64 = (got.double() - want64).abs().max().item()
+        err3x = (got - want3x).abs().max().item()
+        check(torch.isfinite(got).all().item(), f"long {name}: non-finite kernel output")
+        check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL) and err64 < ATTN_TOL
+              and err3x < ATTN_TOL, f"long {name} {b, t, s_, d}: kernel vs plain {err:.3e}, "
+              f"vs float64 {err64:.3e}, vs key-blocked 3xTF32 {err3x:.3e}")
+        zero_err = 0.0
+        for j, n in enumerate(lengths):
+            if n <= 0:
+                mean = v[j].double().mean(0).expand(t, d)
+                zero_err = max(zero_err, (got[j].double() - mean).abs().max().item())
+        check(zero_err < ATTN_TOL, f"long {name}: a length-0 row is {zero_err:.3e} from the "
+              "mean of its S values")
+        del want64, want3x
+        ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side, samples=10,
+                      calls=10)
+        plain = graph_ms(lambda: attn.masked_attention_reference(q, k, v, lens), side,
+                         samples=10, calls=10)
+        mask = key_mask(k, lens)
+        lib = graph_ms(lambda: sdpa(q, k, v, mask), side, samples=10, calls=10)
+        nbytes, flops = attention_work_lengths(b, t, s_, d, lengths)
+        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
+        bound, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+        worst = max(worst, err, err64)
+        print(f"attention long {name} B={b} T={t} S={s_} D={d} (key blocks of "
+              f"{plan.key_block}, {len(plan.key_blocks())} a row; {plan.row_tiles} x "
+              f"{plan.tiles} tiles; {plan.smem_bytes} B shared), lengths {lengths[:4]}"
+              f"{' ...' if b > 4 else ''}: max_abs_err {err:.3e} (vs float64 {err64:.3e}, vs "
+              f"key-blocked 3xTF32 {err3x:.3e}, length-0 rows vs the mean {zero_err:.3e}) ok; "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+              f"{bound:.4f} ms ({bound_by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP of "
+              f"the unmasked keys) [{card}]")
+        rows.append({"shape": [b, t, s_, d], "key_block": plan.key_block, "ms": ms,
+                     "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                     "bound_by": bound_by, "max_abs_err": max(err, err64)})
+        del q, k, v, got, want, mask
+        torch.cuda.empty_cache()
+
+    # The gradient at S = 640 as a train step takes it (MaskedAttention).
+    b, t, s_ = 2, 1280, 640
+    q, k, v, lens = attention_inputs(b, t, s_, d, [0, 500], seed=520)
+    grad = torch.randn(b, t, d, generator=torch.Generator(device="cuda").manual_seed(12),
+                       device="cuda")
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    before = attn.LAUNCHES
+    out = attn.masked_cross_attention(*leaves, lens)
+    check(isinstance(out.grad_fn, attn.MaskedAttention._backward_cls) and
+          attn.LAUNCHES == before + 1, "long: the attention did not launch under autograd")
+    got = torch.autograd.grad(out, leaves, grad)
+    wide = [x.detach().double().requires_grad_() for x in (q, k, v)]
+    want64 = torch.autograd.grad(attn.masked_attention_reference(*wide, lens), wide,
+                                 grad.double())
+    errs = []
+    for gname, g, w64 in zip(("dq", "dk", "dv"), got, want64):
+        e64 = (g.double() - w64).abs().max().item()
+        check(torch.allclose(g.double(), w64, rtol=ATTN_GRAD_TOL, atol=ATTN_GRAD_TOL),
+              f"long attention {gname}: vs float64 max abs err {e64:.3e}")
+        errs.append(e64)
+    print(f"attention long B={b} T={t} S={s_} D={d} through MaskedAttention: dq, dk, dv vs "
+          f"float64 {', '.join(f'{e:.3e}' for e in errs)} ok [{card}]")
+
+    # The strip plan's serving rows, timed again beside the key-blocked ones.
+    for name, b, t, s_ in (("att1", 48, 75, 75), ("att2", 48, 150, 75)):
+        q, k, v, lens = attention_inputs(b, t, s_, d, [s_] * b, seed=7)
+        ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side)
+        print(f"attention {name} B={b} T={t} S={s_} D={d} (strip plan) again: {ms:.4f} ms "
+              f"[{card}]")
+    return rows, worst, max(errs)
+
+
+def phase_synth_long(card, states):
+    """(b) ``Synthesizer`` on B=4 clips of 750 frames (30 s; lengths 750,
+    600, 513 and 1), fp32 and bf16, on the trained weights: 2 attention
+    launches (both key-blocked) a forward, the card held to the CPU with the
+    same noise and Griffin-Lim phase (fp32: ``PATH_TOL`` and ``WAV_REL_L2``;
+    bf16: the JAX package's bf16 bounds), one forward timed on the card.
+    Returns the launches of the two card forwards."""
+    b, t = 4, LONG_FRAMES
+    rng = np.random.default_rng(13)
+    video = rng.standard_normal((b, t, 112, 112, 1)).astype(np.float32)
+    lengths = np.asarray([t, 600, 513, 1], np.int32)
+    noise = rng.standard_normal((b, 20, t, 128)).astype(np.float32)
+    phase = rng.uniform(-np.pi, np.pi, (b, 4 * t, 321)).astype(np.float32)
+    launches = {}
+    for bf16 in (False, True):
+        mode = "bf16" if bf16 else "fp32"
+        config = ModelConfig(use_bfloat16=bf16)
+        on_card = Synthesizer(config, device="cuda").load_state_dicts(states)
+        on_card(video, lengths, noise=noise, init_phase=phase)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = on_card(video, lengths, noise=noise, init_phase=phase)
+        ev[1].record()
+        torch.cuda.synchronize()
+        launches[mode] = attn.LAUNCHES
+        check(attn.LAUNCHES == 2 and fb.LAUNCHES == 0,
+              f"30 s clips {mode}: {attn.LAUNCHES} attention launches a forward, not 2")
+        check(got["wav"].shape == (b, 160 * (4 * t - 1)), f"wav shape {tuple(got['wav'].shape)}")
+        del on_card
+        t0 = time.perf_counter()
+        want = Synthesizer(config, device="cpu").load_state_dicts(states)(
+            video, lengths, noise=noise, init_phase=phase)
+        cpu_s = time.perf_counter() - t0
+        if bf16:
+            compare_bf16(f"30 s clips {mode}, card vs CPU", got, want)
+        else:
+            compare_outputs(f"30 s clips {mode}, card vs CPU", got, want, PATH_TOL, WAV_REL_L2)
+        print(f"serve 30 s clips {mode} B={b} x {t} frames (lengths {lengths.tolist()}; the "
+              f"attention at (4, {t}, {t}) and (4, {2 * t}, {t}), key-blocked): one forward "
+              f"{ev[0].elapsed_time(ev[1]):.1f} ms on the card, {launches[mode]} attention "
+              f"launches; card vs CPU ok (the CPU's forward {cpu_s:.1f} s) [{card}]")
+        del got, want
+        torch.cuda.empty_cache()
+    return launches
+
+
+FIT_BATCHES = 4  # batches an epoch in (c): the first step a warm-up, 3 paced
+
+
+def fit_epoch(trainer, what, card):
+    """One epoch of ``trainer.fit`` (FIT_BATCHES steps, stopped at the last
+    one), each step's start and end stamped with CUDA events.  Returns its
+    readings: ms a step (device ms from the first step's end to the last's,
+    over the steps after it), the device's idle share over them, the
+    producer's collate ms a batch and the attention launches."""
+    starts, ends = [], []
+    step_fn, pipe_fn = trainer.train_step, trainer.process_train
+
+    def stamped_pipeline(*args):
+        starts.append(torch.cuda.Event(enable_timing=True))
+        starts[-1].record()
+        return pipe_fn(*args)
+
+    def stamped_step(*args):
+        out = step_fn(*args)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    trainer.train_step, trainer.process_train = stamped_step, stamped_pipeline
+    torch.cuda.synchronize()
+    reset_launches()
+    first = trainer.state.step
+    t0 = time.perf_counter()
+    try:
+        done = trainer.fit(epochs=1, max_steps=first + FIT_BATCHES)
+    finally:
+        trainer.train_step, trainer.process_train = step_fn, pipe_fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(done == first + FIT_BATCHES, f"{what}: fit stopped at step {done}")
+    check(attn.LAUNCHES == 2 * FIT_BATCHES and fb.LAUNCHES == 0,
+          f"{what}: {attn.LAUNCHES} attention launches in {FIT_BATCHES} steps")
+    step_ms = [a.elapsed_time(b_) for a, b_ in zip(ends, ends[1:])]
+    idle = [a.elapsed_time(b_) for a, b_ in zip(ends, starts[1:])]
+    collate = [1e3 * x for x in trainer.collate_s]
+    out = {"ms_a_step": sum(step_ms) / len(step_ms), "idle_share": sum(idle) / sum(step_ms),
+           "collate_ms": statistics.mean(collate), "wall_s": wall, "launches": attn.LAUNCHES}
+    print(f"fit {what}: {out['ms_a_step']:.1f} ms a step (steps 2-{FIT_BATCHES}, CUDA events), "
+          f"device idle {100 * out['idle_share']:.1f}%, collate {out['collate_ms']:.1f} ms a "
+          f"batch (" + ", ".join(f"{x:.0f}" for x in collate) + f"), {wall:.1f} s for the "
+          f"epoch, {attn.LAUNCHES} attention launches [{card}]")
+    return out
+
+
+def phase_fit_producers(card):
+    """(c) ``Trainer.fit`` in bf16 on GRID (B=88 x 40) and on LRS2 (B=16 x
+    50) over FIT_BATCHES batches of synthetic clips an epoch: the thread
+    producer (``ParallelEpoch``) on its first epoch (each clip rendered on
+    first use) and on the next (cached), then the collate worker process
+    (``ProcessEpoch``) on the cached clips (the worker inherits them) and
+    on a fresh source (the worker renders every clip; what it renders does
+    not come back).  Returns the readings by run."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    runs = {}
+    try:
+        recipes = (
+            ("GRID", loop_config(tmp, FIT_BATCHES, **{"model.use_bfloat16": True})),
+            ("LRS2", lrs_config("LRS2", **{
+                "data.data_root": os.path.join(tmp, "no_corpus"),
+                "data.synthetic_clips": FIT_BATCHES * LRS_BATCH,
+                "train.checkpoint_dir": os.path.join(tmp, "ckpt"),
+                "model.use_bfloat16": True})),
+        )
+        for name, config in recipes:
+            trainer = Trainer(config, log_dir=os.path.join(tmp, f"log_{name}"))
+            check(trainer.steps_per_epoch == FIT_BATCHES, f"{trainer.steps_per_epoch} steps")
+            b = config.train.batch_size
+            # one step on a batch made with numpy first: a new bundle's first
+            # step (kernel loads, cuDNN's choices) would let the feed buffer
+            # the first epoch and hide its pace
+            trainer.state, _ = trainer.train_step(
+                trainer.state, train_batch(b, config.data.window_size, 0, "cuda"),
+                trainer.generator)
+            torch.cuda.synchronize()
+            runs[f"{name} thread, first epoch"] = fit_epoch(
+                trainer, f"{name} bf16 B={b}, thread producer, first epoch", card)
+            runs[f"{name} thread, cached"] = fit_epoch(
+                trainer, f"{name} bf16 B={b}, thread producer, clips cached", card)
+            trainer.config = dataclasses.replace(
+                config, data=dataclasses.replace(config.data, collate_process=True))
+            runs[f"{name} process, cached"] = fit_epoch(
+                trainer, f"{name} bf16 B={b}, ProcessEpoch, clips cached", card)
+            source = trainer.train_ds.source
+            trainer.train_ds.source = (
+                SyntheticLRSSource(num_clips=len(source)) if name == "LRS2"
+                else dataclasses.replace(source, _cache={}))
+            runs[f"{name} process, first epoch"] = fit_epoch(
+                trainer, f"{name} bf16 B={b}, ProcessEpoch, first epoch (rendered in the "
+                "worker)", card)
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+def exported_state_leaves(state):
+    """A port train state as the leaves of ``tools/export_jax_train_state.py``'s
+    ``.npz`` (what it writes of a JAX train state), through the reference
+    converter (numpy only)."""
+    from tools.convert_torch_ckpt import (convert_decoder, convert_discriminator,
+                                          convert_postnet, convert_sync_discriminator,
+                                          convert_visual_front)
+
+    converters = {"v_front": convert_visual_front, "gen": convert_decoder,
+                  "post": convert_postnet, "s_dis": convert_sync_discriminator,
+                  **{f"dis{p}": (lambda sd, p=p: convert_discriminator(sd, p)) for p in "123"}}
+    leaves = {"step": np.asarray(state.step, np.int32)}
+
+    def put(prefix, tree):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                put(f"{prefix}/{key}", value)
+            else:
+                leaves[f"{prefix}/{key}"] = np.array(value)
+
+    for side, names, opt in (("g", GENERATOR_SIDE, state.g_opt_state),
+                             ("d", DISCRIMINATOR_SIDE, state.d_opt_state)):
+        leaves[f"{side}_opt/count"] = np.asarray(opt.count, np.int32)
+        moments = {"mu": opt.mu, "nu": opt.nu, "nu_max": opt.nu_max}
+        values = {k: iter(v) for k, v in moments.items()}
+        for name in names:
+            module = getattr(state.modules, name)
+            sd = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+            tree = converters[name](sd)
+            put(f"{side}_params/{name}", tree["params"])
+            if tree.get("batch_stats"):
+                put(f"batch_stats/{name}", tree["batch_stats"])
+            buffers = {k: v.cpu() for k, v in module.named_buffers()}
+            for moment, it in values.items():
+                msd = {k: next(it).detach().cpu() for k, _ in module.named_parameters()}
+                put(f"{side}_opt/{moment}/{name}", converters[name]({**msd, **buffers})["params"])
+    return leaves
+
+
+def phase_jax_state(card, states):
+    """(d) A train state in the exporter's format (the trained generator
+    side, the seeded discriminators, seeded non-zero moments, count and
+    step 7), written by the reference converter, loaded on the card by
+    ``load_jax_train_state``: every tensor equal to its source; then
+    ``python -m vcagan_torch.cli.test`` (in this process) scores one batch
+    of 16 synthetic clips with it as ``--checkpoint``.  Returns the test
+    batch's attention launches."""
+    import shutil
+    import tempfile
+
+    from vcagan_torch.cli import test as cli_test
+    from vcagan_torch.io.jax_state import load_jax_train_state
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jax_state_")
+    try:
+        source, _, _ = create_train_state(VCAGANModules.create(seed=3).load_state_dicts(states),
+                                          TrainConfig(), 1, device="cpu")
+        gen = torch.Generator().manual_seed(12)
+        for opt in (source.g_opt_state, source.d_opt_state):
+            for t in opt.mu:
+                t.copy_(torch.randn(t.shape, generator=gen) * 1e-3)
+            for t in opt.nu + opt.nu_max:
+                t.copy_(torch.rand(t.shape, generator=gen) * 1e-6)
+            opt.count = 7
+        source.step = 7
+        path = os.path.join(tmp, "state.npz")
+        t0 = time.perf_counter()
+        leaves = exported_state_leaves(source)
+        np.savez(path, **leaves)
+        write_s = time.perf_counter() - t0
+        state, _, _ = create_train_state(VCAGANModules.create(seed=5), TrainConfig(), 1)
+        t0 = time.perf_counter()
+        load_jax_train_state(path, state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+
+        def tensors(st):
+            out = [t for sd in st.modules.state_dicts().values() for k, t in sd.items()
+                   if not k.endswith("num_batches_tracked")]
+            for opt in (st.g_opt_state, st.d_opt_state):
+                out += opt.mu + opt.nu + opt.nu_max
+            return out
+
+        got, want = tensors(state), tensors(source)
+        check(len(got) == len(want) and all(a.device.type == "cuda" for a in got) and
+              all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+              "the loaded JAX-format state differs from its source")
+        check((state.step, state.g_opt_state.count, state.d_opt_state.count) == (7, 7, 7),
+              "the loaded step or counts differ")
+        size = os.path.getsize(path)
+        print(f"JAX train state in the exporter's format: {len(leaves)} leaves, "
+              f"{size / 1e9:.2f} GB, written in {write_s:.1f} s, loaded onto the card in "
+              f"{load_s:.1f} s, {len(got)} tensors equal to the source bit for bit [{card}]")
+        del state, source
+        torch.cuda.empty_cache()
+        reset_launches()
+        t0 = time.perf_counter()
+        cli_test.main(["--grid", os.path.join(tmp, "no_corpus"), "--checkpoint", path,
+                       "--batch_size", "16", "--max_batches", "1",
+                       "--out_dir", os.path.join(tmp, "test")])
+        torch.cuda.synchronize()
+        launches = attn.LAUNCHES
+        check(launches == 4, f"cli.test: {launches} attention launches in one batch, not 4")
+        with open(os.path.join(tmp, "test", "metric.txt")) as f:
+            metric = f.read().strip()
+        check(metric.startswith("STOI : "), f"cli.test wrote {metric!r}")
+        print(f"cli.test with the exported state as --checkpoint, one batch of 16 clips: "
+              f"{time.perf_counter() - t0:.1f} s, {launches} attention launches; {metric} "
+              f"[{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def phase_serving_npz(card, trained_states):
+    """(e) The generator side of phase 9's Trainer (trained on the card)
+    written by ``save_serving_npz`` in q8, read back by ``Synthesizer.
+    from_serving_npz`` on the card: each tensor within half a quantisation
+    step of the Trainer's (fp16 where not quantised), one forward at B=2
+    x 75 finite, 2 attention launches.  Returns the launches."""
+    import shutil
+    import tempfile
+
+    from vcagan_torch.io.serving_npz import save_serving_npz
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_npz_")
+    try:
+        path = os.path.join(tmp, "serving_q8.npz")
+        t0 = time.perf_counter()
+        save_serving_npz(trained_states, path, quantize="q8")
+        save_s = time.perf_counter() - t0
+        synth = Synthesizer.from_serving_npz(path, device="cuda")
+        worst = 0.0
+        loaded = load_serving_npz(path)
+        for name in GENERATOR_SIDE:
+            for key, want in trained_states[name].items():
+                if key.endswith("num_batches_tracked"):
+                    continue
+                got, want = loaded[name][key], want.float().cpu()
+                err = (got - want).abs()
+                if want.numel() > 4096 and "running" not in key:  # q8: half a step
+                    ok = bool(err.max() <= 0.5 * want.abs().max() / 127 * (1 + 1e-4))
+                else:  # fp16: its rounding, 2^-11 relative (subnormals below 6e-5)
+                    ok = bool((err <= want.abs() * 2.0 ** -11 + 1e-7).all())
+                check(ok, f"serving npz {name}.{key}: {float(err.max()):.3e} from the Trainer's")
+                worst = max(worst, float(err.max()))
+        rng = np.random.default_rng(14)
+        video = rng.standard_normal((2, 75, 112, 112, 1)).astype(np.float32)
+        reset_launches()
+        out = synth(video, np.asarray([75, 60], np.int32))
+        torch.cuda.synchronize()
+        launches = attn.LAUNCHES
+        check(launches == 2, f"serving npz forward: {launches} attention launches")
+        check(all(bool(torch.isfinite(v.float()).all()) for v in out.values()),
+              "serving npz forward: non-finite outputs")
+        print(f"serving npz (q8) of phase 9's Trainer: {os.path.getsize(path) / 1e6:.1f} MB "
+              f"written in {save_s:.1f} s, read by Synthesizer.from_serving_npz on the card "
+              f"(largest tensor difference {worst:.3e}, within the quantisation), one forward "
+              f"B=2 x 75 finite, {launches} attention launches [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def phase_twelve(card, states, trained_states):
+    """Phase 12.  Returns the attention's rows and errors and the launches
+    of each path, each read just after it ran with the counts set to 0."""
+    rows, long_worst, long_grad = phase_long_attention(card)
+    synth_launches = phase_synth_long(card, states)
+    torch.cuda.empty_cache()
+    fit_runs = phase_fit_producers(card)
+    torch.cuda.empty_cache()
+    test_launches = phase_jax_state(card, states)
+    torch.cuda.empty_cache()
+    npz_launches = phase_serving_npz(card, trained_states)
+    return {"long_shapes": rows, "long_max_abs_err": long_worst,
+            "long_grad_max_abs_err": long_grad,
+            "launches_long": {"synth_750_forward": synth_launches,
+                              "fit_bf16": {k: v["launches"] for k, v in fit_runs.items()},
+                              "cli_test_jax_state_batch": test_launches,
+                              "serving_npz_forward": npz_launches},
+            "fit_bf16": fit_runs}
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2170,7 +2644,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_launches, fixed_step_ms = phase_train_grid(card)
     torch.cuda.empty_cache()
-    loop_launches = phase_trainer(card, fixed_step_ms)
+    loop_launches, trained_states = phase_trainer(card, fixed_step_ms)
     torch.cuda.empty_cache()
 
     # Phase 10: LRS2 training and bf16 training.
@@ -2198,6 +2672,11 @@ def main() -> None:
     eval_rows, eval_worst, eval_launches = phase_eval(card, states)
     print(f"phase 11 (evaluation: the test CLIs and the ASR scorers): "
           f"{time.perf_counter() - t11:.1f} s")
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    twelve = phase_twelve(card, states, trained_states)
+    print(f"phase 12 (past 512 keys, the collate worker process, JAX train states, serving "
+          f"npz): {time.perf_counter() - t12:.1f} s")
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -2251,7 +2730,7 @@ def main() -> None:
                      launches_trainer_lrs=lrs_loop_launches, lrs_shapes=lrs_rows,
                      lrs_max_abs_err=lrs_worst, lrs_grad_max_abs_err=lrs_grad_worst,
                      launches_eval=eval_launches, eval_shapes=eval_rows,
-                     eval_max_abs_err=eval_worst)
+                     eval_max_abs_err=eval_worst, **twelve)
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

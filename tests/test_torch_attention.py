@@ -146,7 +146,8 @@ def test_plan_fits_shared_memory_and_covers_every_row_once(case):
     # strides put a fragment's rows on different banks
     assert plan.q_stride % 8 == 4 and plan.k_stride % 8 == 4 and plan.p_stride % 8 == 4
     assert plan.v_stride % 32 in (8, 24)
-    assert plan.ints(3) == [3, t, s, d, plan.warps, plan.d_chunk, plan.row_tiles,
+    assert plan.key_block == 0 and plan.key_blocks() == [(0, s)]  # one strip of all S keys
+    assert plan.ints(3) == [3, t, s, d, plan.warps, plan.d_chunk, plan.row_tiles, 0,
                             plan.smem_bytes]
     assert len(plan.ints(3)) == port.PLAN_INTS
 
@@ -158,11 +159,20 @@ def test_plan_spreads_the_tiles_over_the_blocks(t, tiles, blocks):
     assert (plan.tiles, plan.row_tiles, plan.warps) == (tiles, blocks, tiles * port.SPLIT)
 
 
-@pytest.mark.parametrize("t,s,d", [(75, 75, 100), (75, 75, 4), (75, port.S_MAX + 1, 256),
-                                   (75, 0, 256), (0, 75, 256), (64, 512, 4096)])
+@pytest.mark.parametrize("t,s,d", [(75, 75, 100), (75, 75, 4), (75, 0, 256), (0, 75, 256),
+                                   (64, 512, 4096)])
 def test_plan_refuses_what_the_kernel_does_not_take(t, s, d):
     with pytest.raises(ValueError):
         port.attention_plan(t, s, d)
+
+
+def test_plan_takes_keys_past_s_max():
+    """S_MAX + 1 keys, once refused, take the key-blocked plan; S_MAX keys
+    keep the one-strip plan."""
+    assert port.attention_plan(75, port.S_MAX, 256).key_block == 0
+    plan = port.attention_plan(75, port.S_MAX + 1, 256)
+    assert plan.key_block == port.KEY_BLOCK and plan.smem_bytes <= port.MAX_SMEM
+    assert plan.key_blocks() == [(0, 256), (256, 256), (512, 1)]
 
 
 def test_an_edited_shared_header_rebuilds_every_kernel(tmp_path, monkeypatch):

@@ -20,8 +20,8 @@ vcagan_torch.cli.test`` (GRID) and ``python -m vcagan_torch.cli.test_lrs``.
   model patched in: the JAX CLIs' artifact paths, npz keys and shapes, the
   ``metric.txt`` format, ``--time_breakdown``'s keys; ``asr_grid`` on
   ``test``'s own ``spec_mel``; the argv equal to the JAX CLIs'; an orbax
-  checkpoint, ``--max_timesteps`` above the kernel's ``S_MAX`` and
-  ``--model_parallel`` above 1 refused by name.
+  checkpoint (with the exporter's name) and ``--model_parallel`` above 1
+  refused by name; ``--max_timesteps`` past 512 keys parses.
 - bf16 evaluation: the eval step on bf16 modules equals the bf16
   ``Synthesizer`` (the same modules and operations: bit for bit).
 """
@@ -276,22 +276,29 @@ def test_test_lrs_cli_argv_equals_the_jax_cli(argv):
 
 
 @pytest.mark.parametrize("cli,argv,words", [
-    (cli_test, ["--max_timesteps", "513"], "S_MAX = 512"),
-    (cli_lrs, ["--max_timesteps", "513"], "S_MAX = 512"),
     (cli_lrs, ["--model_parallel", "2"], "multi-GPU"),
-], ids=["test max_timesteps", "test_lrs max_timesteps", "test_lrs model_parallel"])
+], ids=["test_lrs model_parallel"])
 def test_what_the_port_does_not_run_stops_the_parse(cli, argv, words, capsys):
     with pytest.raises(SystemExit):
         cli.parse_args(argv)
     assert words in capsys.readouterr().err
-    cli.parse_args(["--max_timesteps", "512"])  # the kernel's limit itself parses
+
+
+@pytest.mark.parametrize("cli", [cli_test, cli_lrs], ids=["test max_timesteps",
+                                                          "test_lrs max_timesteps"])
+def test_max_timesteps_past_512_keys_parses(cli):
+    """The attention takes any number of keys (the key-blocked plan past
+    512), so a bucket of 640 frames is the JAX CLI's config."""
+    for n in (512, 513, 640):
+        args = cli.parse_args(["--max_timesteps", str(n)])
+        assert args.max_timesteps == n and cli.build_config(args).data.max_v_timesteps == n
 
 
 def test_checkpoints_load_and_orbax_is_refused(tmp_path):
     """``--checkpoint``: one of the port's checkpoints gives the modules its
     weights (not those of ``--seed``); an orbax directory is refused before
-    anything is built, naming its ROADMAP item; without CUDA the CLI
-    raises unless ``--platform cpu``."""
+    anything is built, naming the exporter that turns it into an ``.npz``
+    the CLI takes; without CUDA the CLI raises unless ``--platform cpu``."""
     cfg = grid_config(**NARROW_CFG)
     saved, _, _ = create_train_state(VCAGANModules.create(cfg.model, seed=5), cfg.train, 1,
                                      device="cpu")
@@ -307,7 +314,7 @@ def test_checkpoints_load_and_orbax_is_refused(tmp_path):
     orbax.mkdir()
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
     for cli in (cli_test, cli_lrs):
-        with pytest.raises(NotImplementedError, match="reading orbax checkpoints"):
+        with pytest.raises(NotImplementedError, match="export_jax_train_state.py"):
             cli.main(["--checkpoint", str(orbax), "--platform", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -225,11 +225,12 @@ def test_parse_args_and_config_equal_the_jax_clis(argv):
     (["--remat", "r1"], "TPU-compiler knobs"),
     (["--d_phase", "batched"], "TPU-compiler knobs"),
     (["--model_parallel", "2"], "multi-GPU"),
-    (["--collate_process"], "ProcessEpoch"),
+    pytest.param(["--collate_process"], None, id="argv4-ProcessEpoch"),
 ])
 def test_unported_flags_stop_the_parse(argv, item, capsys):
     if item is None:
-        assert cli.build_config(cli.parse_args(argv)).model.use_bfloat16
+        cfg = cli.build_config(cli.parse_args(argv))
+        assert cfg.model.use_bfloat16 if argv == ["--bf16"] else cfg.data.collate_process
         return
     with pytest.raises(SystemExit):
         cli.parse_args(argv)
@@ -244,7 +245,7 @@ def test_unported_flags_stop_the_parse(argv, item, capsys):
     ({"train.remat": "stem"}, "TPU-compiler knobs"),
     ({"train.d_phase": "batched"}, "TPU-compiler knobs"),
     ({"mesh.model_parallel": 2}, "multi-GPU"),
-    ({"data.collate_process": True}, "ProcessEpoch"),
+    pytest.param({"data.collate_process": True}, None, id="override6-ProcessEpoch"),
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, override, item):
     if item is not None:
@@ -256,6 +257,9 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, override, item):
             trainer = small_lrs_trainer(tmp_path, "built", override["data.dataset"])
         assert trainer.is_lrs and isinstance(trainer.train_ds, LRSDataset)
         assert isinstance(trainer.train_ds.source, SyntheticLRSSource)
+    elif "data.collate_process" in override:  # fit feeds from the collate worker process
+        trainer = small_trainer(tmp_path, "built", **override)
+        assert trainer.config.data.collate_process
     else:
         trainer = small_trainer(tmp_path, "built", **override)
         assert trainer.modules.dis1.main[0].compute_dtype == torch.bfloat16

@@ -6,8 +6,9 @@ vcagan.cli.asr_grid`` (counterpart of ASR_model/GRID/test.py).
 
 ``--checkpoint``: an ``.npz`` holding ``variables``, a ``GridASR`` flax tree
 (the JAX CLI's format; a reference torch checkpoint converted with
-``tools/convert_torch_ckpt.py``); an orbax directory is refused (ROADMAP:
-reading orbax checkpoints); none: random init, the smoke mode.  Runs on
+``tools/convert_torch_ckpt.py``, or an orbax directory exported with
+``tools/export_jax_train_state.py --asr``); an orbax directory itself is
+refused with that command; none: random init, the smoke mode.  Runs on
 CUDA; ``--platform cpu`` runs on the CPU.
 """
 

@@ -6,9 +6,9 @@ vcagan.cli.asr_lrw`` (counterpart of ASR_model/LRW/test.py).
 
 ``--checkpoint``: the reference torch checkpoint (``a_front_state_dict`` +
 ``a_back_state_dict``, loaded as they are), or an ``.npz`` holding
-``variables``, an ``LRWClassifier`` flax tree; an orbax directory is
-refused (ROADMAP: reading orbax checkpoints); none: random init, the smoke
-mode.  Runs on CUDA; ``--platform cpu`` runs on the CPU.
+``variables``, an ``LRWClassifier`` flax tree (an orbax directory exported
+with ``tools/export_jax_train_state.py --asr``); an orbax directory itself
+is refused with that command; none: random init, the smoke mode.  Runs on CUDA; ``--platform cpu`` runs on the CPU.
 """
 
 from __future__ import annotations

@@ -9,9 +9,10 @@ host, and the dump of ``<out_dir>/spec_mel/<sub>/<file>.npz`` (``mel`` (1,
 80, n) and ``spec`` (1, 321, n)), ``<out_dir>/wav/<sub>/<file>.wav`` and
 ``metric.txt`` (reference: test.py:131-170).  Runs on CUDA; ``--platform
 cpu`` runs on the CPU (plain versions of the kernels).  ``--checkpoint`` is
-one of the port's checkpoint directories (its generator side is used; an
-orbax checkpoint of the JAX package is refused: ROADMAP, reading orbax
-checkpoints); without one the weights are the random init of ``--seed``.
+one of the port's checkpoint directories or a JAX package's train state
+exported to ``.npz`` by ``tools/export_jax_train_state.py`` (its generator
+side is used; an orbax directory is refused with the exporter's command);
+without one the weights are the random init of ``--seed``.
 Without the corpus under ``--grid`` it runs on ``data.synthetic_clips``
 synthetic clips and warns.  The noise and the Griffin-Lim phase come from
 one generator on the device seeded by ``--seed``.  ``--dataparallel``,
@@ -31,7 +32,6 @@ import numpy as np
 import torch
 
 from vcagan_torch.configs import grid_config
-from vcagan_torch.kernels.masked_attention import S_MAX
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,19 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_max_timesteps(p: argparse.ArgumentParser, args) -> None:
-    """The attention's keys are the clip's frames: the kernel takes at most
-    ``S_MAX`` of them."""
-    if args.max_timesteps > S_MAX:
-        p.error(f"--max_timesteps {args.max_timesteps}: the attention kernel takes at most "
-                f"S_MAX = {S_MAX} frames")
-
-
 def parse_args(argv=None):
-    p = build_parser()
-    args = p.parse_args(argv)
-    check_max_timesteps(p, args)
-    return args
+    return build_parser().parse_args(argv)
 
 
 def build_config(args):
@@ -99,20 +88,19 @@ def build_config(args):
 
 def load_modules(cfg, args, device):
     """The seven modules, initialised from ``--seed``, on ``device``, with
-    ``--checkpoint``'s weights where one is given."""
-    from vcagan_torch.io.checkpoint import CheckpointManager
+    ``--checkpoint``'s weights where one is given (a port checkpoint or an
+    exported JAX train state; an orbax directory raises before anything is
+    built)."""
+    from vcagan_torch.io.jax_state import is_orbax, orbax_refusal, restore_train_state
     from vcagan_torch.train.models import VCAGANModules
     from vcagan_torch.train.state import create_train_state
 
-    if args.checkpoint is not None and os.path.exists(
-            os.path.join(args.checkpoint, "_CHECKPOINT_METADATA")):
-        raise NotImplementedError(
-            f"{args.checkpoint} is an orbax checkpoint of the JAX package: not ported "
-            "(ROADMAP: reading orbax checkpoints)")
+    if args.checkpoint is not None and is_orbax(args.checkpoint):
+        raise orbax_refusal(args.checkpoint)
     modules = VCAGANModules.create(cfg.model, seed=args.seed)
     state, _, _ = create_train_state(modules, cfg.train, 1, device=device)
     if args.checkpoint is not None:
-        CheckpointManager(os.path.dirname(args.checkpoint) or ".").restore(state, args.checkpoint)
+        restore_train_state(state, args.checkpoint)
     return modules
 
 

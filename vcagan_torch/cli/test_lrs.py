@@ -14,8 +14,7 @@ under ``./data/<data_name>`` it runs on ``--synthetic_clips`` synthetic
 clips and warns.  ``--time_breakdown`` prints one JSON line of wall
 seconds: the vocoding (from the queued forward to the waveforms on the
 host), STOI/ESTOI, PESQ, the dump and the rest.  ``--model_parallel``
-above 1 stops the parse (ROADMAP: multi-GPU), and so does a
-``--max_timesteps`` above the attention kernel's ``S_MAX``.
+above 1 stops the parse (ROADMAP: multi-GPU).
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ from typing import Optional
 import torch
 
 from vcagan_torch.cli.test import (
-    check_max_timesteps, load_modules, score, write_clip, write_metrics)
+    load_modules, score, write_clip, write_metrics)
 from vcagan_torch.cli.train_lrs import build_config
 from vcagan_torch.configs import unported
 
@@ -83,7 +82,6 @@ def parse_args(argv=None):
     """The JAX CLI's argv; a setting the port does not run stops the parse."""
     p = build_parser()
     args = p.parse_args(argv)
-    check_max_timesteps(p, args)
     missing = unported(build_config(args))
     if missing:
         p.error("not ported: " + "; ".join(missing))

@@ -103,8 +103,10 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = build_config(args)
     trainer = Trainer(cfg, log_dir=args.log_dir, device="cpu" if args.platform == "cpu" else None)
-    if args.checkpoint is not None:
-        trainer.ckpt.restore(trainer.state, args.checkpoint, generator=trainer.generator)
+    if args.checkpoint is not None:  # a port checkpoint, or an exported JAX train state
+        from vcagan_torch.io.jax_state import restore_train_state
+
+        restore_train_state(trainer.state, args.checkpoint, generator=trainer.generator)
     # smoke-validate before training (reference train_LRS.py)
     logs = trainer.validate(fast=True, max_batches=1)
     print(f"pre-train validate: l1={logs[0]:.4f} stoi={logs[1]:.4f}")

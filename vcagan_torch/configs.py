@@ -72,8 +72,9 @@ class DataConfig:
     video windows of ``window_size`` frames at ``crop_size``^2 (50 frames
     for LRS).  ``host_crop``, ``host_gray`` and ``host_resize`` move the
     static crop, the luma and the resize to the host, before the copy to
-    the device; ``collate_process`` (a collate worker process) is not
-    ported, and the Trainer raises on it."""
+    the device; ``collate_process`` collates in a worker process
+    (``vcagan_torch/data/prefetch.py`` ``ProcessEpoch``) instead of a
+    producer thread."""
 
     data_root: str = "Data_dir"
     dataset: str = "GRID"  # GRID | LRS2 | LRS3
@@ -150,8 +151,6 @@ def unported(config: VCAGANConfig) -> list[str]:
     if c.mesh.model_parallel != 1:
         found.append(f"mesh.model_parallel={c.mesh.model_parallel} / --model_parallel "
                      "(ROADMAP: multi-GPU)")
-    if c.data.collate_process:
-        found.append("data.collate_process / --collate_process (ROADMAP: ProcessEpoch)")
     return found
 
 

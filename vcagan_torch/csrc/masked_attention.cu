@@ -1,7 +1,7 @@
 // Length-masked cross-attention, forward, fp32:
 //   out[b] = softmax(q[b] k[b]^T / sqrt(D), keys >= lengths[b] -> -1e30) v[b]
 // q (B,T,D), k/v (B,S,D), lengths (B,) int32, out (B,T,D); all contiguous,
-// 16-byte aligned; D a multiple of 8, 1 <= S <= 512.
+// 16-byte aligned; D a multiple of 8, any S >= 1.
 //
 // Replaces the TPU kernel vcagan/kernels/masked_attention.py:50-121
 // (_attention_kernel / _attention_pallas), which holds one sample's whole
@@ -75,6 +75,31 @@
 //   the strip are read as rows g, columns t (stride 4 mod 8 floats); V as
 //   rows t, columns g (stride 8 or 24 mod 32 floats).
 //
+// - Past 512 keys (the key-blocked instance, BLOCKED = true).  The strip of
+//   16 x S scores a tile is what caps S: four of them, Q and the K/V ring
+//   fill the 227 KB at S = 512 and D = 256.  So for S > 512 the keys go in
+//   blocks of `key_block` (256; the plan's) through the same strip, with an
+//   online softmax: after a block's scores, each row's block maximum m_blk,
+//   m_new = max(m, m_blk), alpha = exp(m - m_new) (0 where m is still -inf,
+//   before the first block, never NaN), e = exp(s - m_new) written back in
+//   the strip, l = l * alpha + sum(e); then P.V over the block's V pieces
+//   with e as P, and at the end of each D chunk the tile's output sum in
+//   shared memory (16 x D fp32 a tile: 16 KB at D = 256, too many registers
+//   for a thread) becomes O * alpha + (this block's e.V).  The last block
+//   writes (O * alpha + e.V) / l to the output.  Every block holds a real
+//   key (blocks start at multiples of 256 < S; padding is under 8 keys and
+//   sits in the last block), so m is finite after the first block: -1e30
+//   keys average as in the strip form and -inf keys weigh exactly 0.  The
+//   K/V ring walks (block, K pieces, V pieces), so the copy of the next
+//   block's first K piece runs under the last V piece of this one.  One
+//   pass over the keys, as the strip form: each key's scores are computed
+//   once.  S <= 512 takes the strip instance (BLOCKED = false), as before.
+//   Past 512 keys the bound is the operations (4 T S D flops against
+//   4 (2 T D + 2 S D) bytes): 10.2 us at (4, 750, 750), 0.104 ms at
+//   (1, 4096, 4096).  The first version runs 35x and 16x those
+//   (chip_smoke, phase 12): (4, 750, 750) is 48 blocks of 4 tiles for 132
+//   SMs, and each tile's chain of products over all S keys is the time.
+//
 // What holds it back (9x its bound): for every 3 products a warp loads 2 B
 // values and splits them, and every warp of a block splits the same K and
 // V values again.  Later work: K/V pieces and Q split once into shared
@@ -94,13 +119,14 @@ constexpr int kKeyTile = 32;       // keys of a piece
 constexpr int kKeyNT = kKeyTile / 8;
 constexpr int kMaxChunk = 64;      // D columns of a piece, at most
 constexpr int kMaxWarps = 8;
-constexpr int kMaxKeys = 512;
+constexpr int kMaxKeys = 512;       // the strip form's keys, and a key block's
 constexpr int kMaxSmem = 232448;   // 227 KB a block may use
-constexpr int kPlanInts = 8;
+constexpr int kPlanInts = 9;
 constexpr float kMasked = -1e30f;
 
+// key_block 0: one strip of all S <= 512 keys; else keys in blocks of it.
 struct Plan {
-  int B, T, S, D, warps, d_chunk, row_tiles, smem;
+  int B, T, S, D, warps, d_chunk, row_tiles, key_block, smem;
 };
 
 // Warps a 16-row tile: two share the n-tiles of a chunk of 64 columns; a
@@ -112,19 +138,30 @@ __host__ __device__ constexpr int q_stride(int D) { return D + 4; }
 __host__ __device__ constexpr int p_stride(int S) { return (S + 7) / 8 * 8 + 4; }
 __host__ __device__ constexpr int k_stride(int dc) { return dc + 4; }
 __host__ __device__ constexpr int v_stride(int dc) { return dc % 16 == 8 ? dc : dc + 8; }
+// The output sums (key-blocked form): float2 at rows g, columns 2t, so the
+// stride is 8 (mod 32) floats.
+__host__ __device__ constexpr int o_stride(int D) { return D + ((8 - D) % 32 + 32) % 32; }
 __host__ __device__ constexpr int buf_floats(int dc) {
   return kKeyTile * (k_stride(dc) > v_stride(dc) ? k_stride(dc) : v_stride(dc));
 }
 
-// Q rows, one score strip a 16-row tile, two K/V buffers.
-size_t smem_bytes(int tiles, int S, int D, int dc) {
-  return sizeof(float) * (static_cast<size_t>(kRows) * tiles * q_stride(D) +
-                          static_cast<size_t>(kRows) * tiles * p_stride(S) +
-                          2 * static_cast<size_t>(buf_floats(dc)));
+// Q rows, one score strip a 16-row tile (of S keys, or of a key block),
+// two K/V buffers; key-blocked, also the output sums and a tile's alpha
+// and l by row.
+size_t smem_bytes(int tiles, int S, int D, int dc, int key_block) {
+  const size_t rows = static_cast<size_t>(kRows) * tiles;
+  size_t floats = rows * q_stride(D) + rows * p_stride(key_block ? key_block : S) +
+                  2 * static_cast<size_t>(buf_floats(dc));
+  if (key_block) floats += rows * o_stride(D) + 2 * rows;
+  return sizeof(float) * floats;
 }
 
 bool plan_ok(const Plan& p) {
-  if (p.B < 1 || p.B > 65535 || p.T < 1 || p.S < 1 || p.S > kMaxKeys) return false;
+  if (p.B < 1 || p.B > 65535 || p.T < 1 || p.S < 1) return false;
+  if (p.key_block == 0 ? p.S > kMaxKeys
+                       : p.key_block % kKeyTile != 0 || p.key_block < kKeyTile ||
+                             p.key_block > kMaxKeys)
+    return false;
   if (p.D < 8 || p.D % 8 != 0) return false;
   if (p.d_chunk != 8 && p.d_chunk != kMaxChunk) return false;
   if (p.D % p.d_chunk != 0) return false;
@@ -132,7 +169,7 @@ bool plan_ok(const Plan& p) {
   if (p.warps < 1 || p.warps > kMaxWarps || p.warps % split != 0) return false;
   const int rows = kRows * (p.warps / split);
   if (p.row_tiles != (p.T + rows - 1) / rows) return false;
-  const size_t smem = smem_bytes(p.warps / split, p.S, p.D, p.d_chunk);
+  const size_t smem = smem_bytes(p.warps / split, p.S, p.D, p.d_chunk, p.key_block);
   return smem == static_cast<size_t>(p.smem) && smem <= static_cast<size_t>(kMaxSmem);
 }
 
@@ -204,7 +241,9 @@ __device__ __forceinline__ void add_fresh(float (&sum)[N][4], const float (&hihi
 
 // SPLIT warps compute a 16-row tile; warp `part` of them takes the n-tiles
 // part, part + SPLIT, ... of every product (its i-th is n = i * SPLIT + part).
-template <int DC, int SPLIT = split_of(DC)>
+// BLOCKED: the keys in blocks of p.key_block with an online softmax (S > 512);
+// else one block of all S keys, P normalised in the strip.
+template <int DC, bool BLOCKED, int SPLIT = split_of(DC)>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ lengths,
@@ -215,11 +254,15 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   static_assert(kMV >= 1, "a D chunk of 8 is not split");
   extern __shared__ __align__(16) float smem[];
   const int T = p.T, S = p.S, D = p.D;
+  const int KB = BLOCKED ? p.key_block : S;        // keys of a block (the last: the rest)
   const int tiles = p.warps / SPLIT;               // 16-row tiles of the block
-  const int qst = q_stride(D), pst = p_stride(S);
+  const int qst = q_stride(D), pst = p_stride(KB), ost = o_stride(D);
   float* qs = smem;                                // 16 tiles x qst
   float* strips = qs + kRows * tiles * qst;        // tiles x 16 x pst
   float* ring = strips + kRows * tiles * pst;      // 2 x buf
+  float* osum = ring + 2 * buf;                    // BLOCKED: tiles x 16 x ost
+  float* alpha_s = osum + kRows * tiles * ost;     // BLOCKED: a row's rescale
+  float* l_s = alpha_s + kRows * tiles;            // BLOCKED: a row's running sum
 
   const int tid = threadIdx.x, nthreads = 32 * p.warps;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
@@ -232,12 +275,39 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   const float sqrt_d = sqrtf(static_cast<float>(D));
   float* strip = strips + tile * kRows * pst;
 
-  const float* kb = k + static_cast<size_t>(b) * S * D;
-  const float* vb = v + static_cast<size_t>(b) * S * D;
-  const int key_tiles = (S + kKeyTile - 1) / kKeyTile;
+  const float* kb_ptr = k + static_cast<size_t>(b) * S * D;
+  const float* vb_ptr = v + static_cast<size_t>(b) * S * D;
   const int chunks = D / DC;
-  const int k_pieces = key_tiles * chunks;
-  const int pieces = 2 * k_pieces;
+  const int blocks = BLOCKED ? (S + KB - 1) / KB : 1;
+  const int kt_full = (KB + kKeyTile - 1) / kKeyTile;  // key tiles of a block
+  const int kt_last = (S - (blocks - 1) * KB + kKeyTile - 1) / kKeyTile;
+  const int per_block = 2 * kt_full * chunks;           // K then V pieces of a block
+  const int pieces = (blocks - 1) * per_block + 2 * kt_last * chunks;
+
+  // Piece pc: its key block kb, the block's key tiles kt, K or V, its key
+  // tile j within the block and its D chunk c.  K pieces walk (j, c), V
+  // pieces (c, j).
+  struct Piece {
+    int kb, kt, i;
+    bool is_v;
+    int j, c;
+  };
+  auto piece_of = [&](int pc) {
+    Piece x;
+    x.kb = 0;
+    x.i = pc;
+    if constexpr (BLOCKED) {
+      x.kb = min(pc / per_block, blocks - 1);
+      x.i = pc - x.kb * per_block;
+    }
+    x.kt = x.kb == blocks - 1 ? kt_last : kt_full;
+    const int kp = x.kt * chunks;
+    x.is_v = x.i >= kp;
+    if (x.is_v) x.i -= kp;
+    x.j = x.is_v ? x.i % x.kt : x.i / chunks;
+    x.c = x.is_v ? x.i / x.kt : x.i % chunks;
+    return x;
+  };
 
   // The block's query rows (zeros past T).
   {
@@ -251,23 +321,24 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
   // Piece `pc` into its ring buffer: 32 keys x DC columns, zeros past S.
   auto load_piece = [&](int pc) {
-    const bool is_v = pc >= k_pieces;
-    const int i = is_v ? pc - k_pieces : pc;
-    const int j = is_v ? i % key_tiles : i / chunks;
-    const int c = is_v ? i / key_tiles : i % chunks;
-    const float* src = (is_v ? vb : kb) + static_cast<size_t>(j) * kKeyTile * D + c * DC;
+    const Piece x = piece_of(pc);
+    const int key0 = x.kb * KB + x.j * kKeyTile;
+    const float* src = (x.is_v ? vb_ptr : kb_ptr) + static_cast<size_t>(key0) * D + x.c * DC;
     float* dst = ring + (pc & 1) * buf;
-    const int st = is_v ? vst : kst;
+    const int st = x.is_v ? vst : kst;
     constexpr int vecs = DC / 4;
     for (int e = tid; e < kKeyTile * vecs; e += nthreads) {
-      const int r = e / vecs, x = e % vecs;
-      const bool ok = j * kKeyTile + r < S;
-      cp_async16(dst + r * st + 4 * x, ok ? src + static_cast<size_t>(r) * D + 4 * x : kb, ok);
+      const int r = e / vecs, c4 = e % vecs;
+      const bool ok = key0 + r < S;
+      cp_async16(dst + r * st + 4 * c4, ok ? src + static_cast<size_t>(r) * D + 4 * c4 : kb_ptr,
+                 ok);
     }
   };
 
   float score[kMK][4];   // a key tile's scores, summed over the D chunks
-  float acc[kMV][4];     // a D chunk of the output, summed over the keys
+  float acc[kMV][4];     // a D chunk of the output, summed over a block's keys
+  float m_run[2] = {-INFINITY, -INFINITY};  // BLOCKED: rows g, g + 8: max so far
+  float l_run[2] = {0.f, 0.f};              // and the sum of exp(s - max)
 
   load_piece(0);
   cp_async_commit();  // with the query rows
@@ -277,10 +348,13 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
     cp_async_wait_1();
     __syncthreads();  // piece pc (and the query rows) visible to all warps
     const float* piece = ring + (pc & 1) * buf;
-    if (pc < k_pieces) {
+    const Piece x = piece_of(pc);
+    const int kbase = x.kb * KB;                  // the block's first key
+    const int key0 = kbase + x.j * kKeyTile;      // the piece's first key
+    if (!x.is_v) {
       // ---- scores: 16 rows x (up to) 4 n-tiles of keys, over DC columns
-      const int j = pc / chunks, c = pc % chunks;
-      const int n_tiles = min(kKeyNT, (S - j * kKeyTile + 7) / 8);
+      const int j = x.j, c = x.c;
+      const int n_tiles = min(kKeyNT, (S - key0 + 7) / 8);
       const int m = (n_tiles - part + SPLIT - 1) / SPLIT;  // of them this warp's
       if (c == 0) {
 #pragma unroll
@@ -310,9 +384,10 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
             if (i < m) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                const int key = j * kKeyTile + 8 * (i * SPLIT + part) + 2 * t4 + (e & 1);
+                const int col = j * kKeyTile + 8 * (i * SPLIT + part) + 2 * t4 + (e & 1);
+                const int key = kbase + col;
                 const float sc = score[i][e] / sqrt_d;
-                strip[(g + 8 * (e >> 1)) * pst + key] =
+                strip[(g + 8 * (e >> 1)) * pst + col] =
                     key >= S ? -INFINITY : (key < length ? sc : kMasked);
               }
             }
@@ -320,30 +395,50 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
         }
       }
     } else {
-      const int i = pc - k_pieces, c = i / key_tiles, j = i % key_tiles;
-      if (pc == k_pieces) {
+      const int c = x.c, j = x.j;
+      if (x.i == 0) {
         // ---- softmax of the tile's strip; lane 4g + t: rows g, g + 8 (one
         // of them each if the tile has two warps)
-        const int cols = (S + 7) / 8 * 8;
+        const int cols = (min(KB, S - kbase) + 7) / 8 * 8;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (!active || h % SPLIT != part) continue;
           float* row = strip + (g + 8 * h) * pst;
           float m = -INFINITY;
-          for (int x = t4; x < cols; x += 4) m = fmaxf(m, row[x]);
+          for (int xx = t4; xx < cols; xx += 4) m = fmaxf(m, row[xx]);
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-          float sum = 0.f;
-          for (int x = t4; x < cols; x += 4) {
-            const float e = expf(row[x] - m);
-            row[x] = e;
-            sum += e;
+          if constexpr (BLOCKED) {
+            // m is finite: the block holds a real key (score or -1e30)
+            const float m_new = fmaxf(m_run[h], m);
+            const float alpha = m_run[h] == -INFINITY ? 0.f : expf(m_run[h] - m_new);
+            float sum = 0.f;
+            for (int xx = t4; xx < cols; xx += 4) {
+              const float e = expf(row[xx] - m_new);
+              row[xx] = e;
+              sum += e;
+            }
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            l_run[h] = l_run[h] * alpha + sum;
+            m_run[h] = m_new;
+            if (t4 == 0) {
+              alpha_s[kRows * tile + g + 8 * h] = alpha;
+              l_s[kRows * tile + g + 8 * h] = l_run[h];
+            }
+          } else {
+            float sum = 0.f;
+            for (int xx = t4; xx < cols; xx += 4) {
+              const float e = expf(row[xx] - m);
+              row[xx] = e;
+              sum += e;
+            }
+            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            for (int xx = t4; xx < cols; xx += 4) row[xx] = row[xx] / sum;
           }
-          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-          for (int x = t4; x < cols; x += 4) row[x] = row[x] / sum;
         }
-        __syncthreads();  // P of the whole tile visible to its warps
+        __syncthreads();  // P of the whole tile (and alpha, l) visible to its warps
       }
       // ---- P.V: 16 rows x DC columns, over (up to) 32 keys
       if (j == 0) {
@@ -353,13 +448,13 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
           for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
       }
       if (active) {
-        const int k_steps = min(kKeyNT, (S - j * kKeyTile + 7) / 8);
+        const int k_steps = min(kKeyNT, (S - key0 + 7) / 8);
         float hihi[kMV][4] = {}, cross[kMV][4] = {};
         const float* pa = strip + g * pst + j * kKeyTile + t4;
         const float* vv = piece + t4 * vst + 8 * part + g;  // key t, column 8n + g
 #pragma unroll
         for (int ks = 0; ks < kKeyNT; ++ks) {
-          if (ks < k_steps) {  // the strip ends at S rounded up to 8
+          if (ks < k_steps) {  // the strip ends at the block's keys rounded up to 8
             uint32_t a_hi[4], a_lo[4], b_hi[kMV][2], b_lo[kMV][2];
             load_a(pa + 8 * ks, pst, a_hi, a_lo);
 #pragma unroll
@@ -371,17 +466,32 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
           }
         }
         add_fresh<kMV>(acc, hihi, cross);
-        if (j == key_tiles - 1) {  // the chunk is complete: store it
+        if (j == x.kt - 1) {  // the chunk is complete over the block's keys
 #pragma unroll
           for (int i = 0; i < kMV; ++i) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const int row = row0 + g + 8 * h;
+              const int r = kRows * tile + g + 8 * h;  // the row within the block
+              const int row = t0 + r;
+              const int col = c * DC + 8 * (i * SPLIT + part) + 2 * t4;
+              float2 val = make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
+              if constexpr (BLOCKED) {
+                float2* o = reinterpret_cast<float2*>(osum + r * ost + col);
+                if (x.kb > 0) {  // O * alpha + this block's e.V
+                  const float a = alpha_s[r];
+                  const float2 prev = *o;
+                  val = make_float2(prev.x * a + val.x, prev.y * a + val.y);
+                }
+                if (x.kb < blocks - 1) {
+                  *o = val;
+                  continue;
+                }
+                const float l = l_s[r];
+                val = make_float2(val.x / l, val.y / l);
+              }
               if (row < T) {
-                const int col = c * DC + 8 * (i * SPLIT + part) + 2 * t4;
-                float2* o = reinterpret_cast<float2*>(
-                    out + (static_cast<size_t>(b) * T + row) * D + col);
-                *o = make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
+                *reinterpret_cast<float2*>(out + (static_cast<size_t>(b) * T + row) * D + col) =
+                    val;
               }
             }
           }
@@ -392,10 +502,10 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <int DC>
+template <int DC, bool BLOCKED>
 cudaError_t launch(const Plan& p, const float* q, const float* k, const float* v,
                    const int* lengths, float* out, cudaStream_t stream) {
-  const auto kernel = masked_attention_kernel<DC>;
+  const auto kernel = masked_attention_kernel<DC, BLOCKED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
@@ -415,13 +525,19 @@ extern "C" {
 int vcagan_masked_attention(const float* q, const float* k, const float* v, const int* lengths,
                             float* out, const int* plan, int plan_len, int device, void* stream) {
   if (plan_len != kPlanInts) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6], plan[7]};
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
+               plan[5], plan[6], plan[7], plan[8]};
   if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = p.d_chunk == kMaxChunk ? launch<kMaxChunk>(p, q, k, v, lengths, out, s)
-                               : launch<8>(p, q, k, v, lengths, out, s);
+  if (p.key_block == 0) {
+    err = p.d_chunk == kMaxChunk ? launch<kMaxChunk, false>(p, q, k, v, lengths, out, s)
+                                 : launch<8, false>(p, q, k, v, lengths, out, s);
+  } else {
+    err = p.d_chunk == kMaxChunk ? launch<kMaxChunk, true>(p, q, k, v, lengths, out, s)
+                                 : launch<8, true>(p, q, k, v, lengths, out, s);
+  }
   return static_cast<int>(err);
 }
 

@@ -105,7 +105,9 @@ def load_asr(kind: str, checkpoint: Optional[str] = None, num_classes: int = 500
 
     ``checkpoint``: an ``.npz`` holding ``variables``, the JAX package's
     flax tree (``asr_from_jax``); for LRW any other file is the reference
-    torch checkpoint; a directory (an orbax checkpoint) is refused.  None:
+    torch checkpoint; a directory (an orbax checkpoint) is refused with the
+    command of ``tools/export_jax_train_state.py --asr`` that exports it to
+    such an ``.npz``.  None:
     PyTorch's random init from seed 0, the JAX CLIs' smoke mode."""
     device = resolve_device(device)
     if device.type == "cuda":
@@ -116,8 +118,9 @@ def load_asr(kind: str, checkpoint: Optional[str] = None, num_classes: int = 500
     if checkpoint is not None:
         if os.path.isdir(checkpoint):
             raise NotImplementedError(
-                f"{checkpoint} is a directory (an orbax checkpoint of the JAX package): "
-                "not ported (ROADMAP: reading orbax checkpoints)")
+                f"{checkpoint} is a directory (an orbax checkpoint of the JAX package), which "
+                "the port does not read: export it with `python tools/export_jax_train_state.py "
+                "--asr --checkpoint <orbax_dir> --out variables.npz` and pass the .npz")
         if kind == "lrw" and not checkpoint.endswith(".npz"):
             states = _reference_lrw(checkpoint)
         else:

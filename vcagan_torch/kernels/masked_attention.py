@@ -18,10 +18,13 @@ The kernel is forward only, as the TPU kernel is.  Gradients go through
 version under autograd and returns its VJP, as the JAX package's custom VJP
 does with ``_attention_xla`` (``vcagan/kernels/masked_attention.py:173-191``).
 
-The tile plan (``attention_plan``: warps a block, key tile, D chunk, shared
-memory, grid) is chosen here, where the CPU tests reach it, and goes to the
-C entry point as plain ints, which refuses one that does not match.  The
-kernel takes D a multiple of 8 and 1 <= S <= ``S_MAX``; other shapes raise.
+The tile plan (``attention_plan``: warps a block, key tile, D chunk, key
+block, shared memory, grid) is chosen here, where the CPU tests reach it,
+and goes to the C entry point as plain ints, which refuses one that does not
+match.  The kernel takes D a multiple of 8 and any S >= 1: up to ``S_MAX``
+keys in one score strip a tile, past it in blocks of ``KEY_BLOCK`` keys
+with an online softmax (``masked_attention_reference_3xtf32(...,
+key_block=)`` is that arithmetic in plain PyTorch).  Other shapes raise.
 """
 
 from __future__ import annotations
@@ -47,8 +50,9 @@ ROWS = 16  # query rows of one tile (the m16n8k8 fragment's M)
 KEY_TILE = 32  # keys of one streamed K or V piece
 N_TILE = 8  # keys (QK^T) or columns (PV) of one tensor-core product
 D_CHUNKS = (64, 8)  # the D chunk: 64 where it divides D (the model's 256), else 8
-S_MAX = 512  # keys at most: the score strips of 4 tiles at D = 256 fit
-PLAN_INTS = 8
+S_MAX = 512  # keys of the one-strip plan: the score strips of 4 tiles at D = 256 fit
+KEY_BLOCK = 256  # keys of a block past S_MAX (a multiple of KEY_TILE)
+PLAN_INTS = 9
 
 
 def masked_attention_reference(
@@ -65,7 +69,7 @@ def masked_attention_reference(
 
 def masked_attention_reference_3xtf32(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
-    passes: int = 3, key_pad: int = 1,
+    passes: int = 3, key_pad: int = 1, key_block: int = 0,
 ) -> torch.Tensor:
     """The fp32 function with both products done as the kernel does them:
     operands split into TF32 parts, lo*hi + hi*lo first, then hi*hi, summed
@@ -73,11 +77,15 @@ def masked_attention_reference_3xtf32(
     ``passes=1`` keeps the hi*hi products only (single-pass TF32), to show
     what the split buys.  ``key_pad``: pad the keys with zero rows of K and V
     to a multiple of it, as the kernel's tiles do, and give the padded keys
-    weight exactly 0 (score -inf), so the result does not change."""
-    s = k.shape[1]
-    pad = -s % key_pad
-    if pad:
-        k, v = (torch.cat([x, x.new_zeros(x.shape[0], pad, x.shape[2])], 1) for x in (k, v))
+    weight exactly 0 (score -inf), so the result does not change.
+
+    ``key_block`` > 0: the key-blocked kernel's arithmetic (S > ``S_MAX``).
+    The keys go in blocks of ``key_block`` (the last one padded to
+    ``key_pad``); each row keeps its running maximum m, the sum l of
+    exp(s - m) and the unnormalised output O: a block with maximum m_blk
+    sets m_new = max(m, m_blk), alpha = exp(m - m_new) (0 before the first
+    block), e = exp(s - m_new), l = l alpha + sum e, O = O alpha + e V; the
+    result is O / l."""
 
     def product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a_hi, a_lo = split_tf32(a)
@@ -88,13 +96,39 @@ def masked_attention_reference_3xtf32(
             eq, a_hi, b_hi
         )
 
-    scores = product("btd,bsd->bts", q, k) / math.sqrt(q.shape[-1])
-    key_idx = torch.arange(k.shape[1], device=q.device)[None, None, :]
-    mask = key_idx < lengths.to(q.device)[:, None, None]
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    scores = torch.where(key_idx < s, scores, torch.full_like(scores, -math.inf))
-    probs = torch.softmax(scores, dim=-1)
-    return product("bts,bsd->btd", probs, v)
+    def scores(k_blk: torch.Tensor, start: int) -> torch.Tensor:
+        """Scaled, masked scores of keys start..., padded to ``key_pad``."""
+        n = k_blk.shape[1]
+        sc = product("btd,bsd->bts", q, k_blk) / math.sqrt(q.shape[-1])
+        key_idx = start + torch.arange(n, device=q.device)[None, None, :]
+        mask = key_idx < lengths.to(q.device)[:, None, None]
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        return torch.where(key_idx < s, sc, torch.full_like(sc, -math.inf))
+
+    def pad(x: torch.Tensor) -> torch.Tensor:
+        extra = -x.shape[1] % key_pad
+        return torch.cat([x, x.new_zeros(x.shape[0], extra, x.shape[2])], 1) if extra else x
+
+    s = k.shape[1]
+    if not key_block:
+        k, v = pad(k), pad(v)
+        probs = torch.softmax(scores(k, 0), dim=-1)
+        return product("bts,bsd->btd", probs, v)
+    m = l = o = None
+    for start in range(0, s, key_block):
+        k_blk, v_blk = pad(k[:, start:start + key_block]), pad(v[:, start:start + key_block])
+        sc = scores(k_blk, start)
+        m_blk = sc.amax(-1, keepdim=True)
+        m_new = m_blk if m is None else torch.maximum(m, m_blk)
+        e = torch.exp(sc - m_new)
+        pv = product("bts,bsd->btd", e, v_blk)
+        if m is None:
+            l, o = e.sum(-1, keepdim=True), pv
+        else:
+            alpha = torch.exp(m - m_new)
+            l, o = l * alpha + e.sum(-1, keepdim=True), o * alpha + pv
+        m = m_new
+    return o / l
 
 
 # ---- the tile plan
@@ -111,10 +145,13 @@ class AttentionPlan:
     query rows, each computed by ``split`` warps (``warps`` in all, which
     share the n-tiles of every product); the grid is (``row_tiles``, B).
     K, then V, stream through a ring of two buffers in pieces of
-    ``key_tile`` keys x ``d_chunk`` columns.  Row strides in floats
-    (``*_stride``) are padded so that the rows of a tensor-core fragment
-    fall on different shared-memory banks.  ``split`` and ``key_tile`` are
-    fixed by the kernel (its D-chunk instance and a constant), not chosen."""
+    ``key_tile`` keys x ``d_chunk`` columns.  ``key_block`` 0: all S keys
+    in one score strip a tile; else the keys in blocks of ``key_block``
+    (``key_blocks``), K then V pieces a block, with an online softmax and
+    the output sums in shared memory.  Row strides in floats (``*_stride``)
+    are padded so that the rows of a tensor-core fragment fall on different
+    shared-memory banks.  ``split`` and ``key_tile`` are fixed by the kernel
+    (its D-chunk instance and a constant), not chosen."""
 
     t: int
     s: int
@@ -122,6 +159,7 @@ class AttentionPlan:
     warps: int
     d_chunk: int
     row_tiles: int
+    key_block: int = 0
 
     @property
     def split(self) -> int:
@@ -141,7 +179,12 @@ class AttentionPlan:
 
     @property
     def p_stride(self) -> int:
-        return -(-self.s // N_TILE) * N_TILE + 4  # S padded to the n-tile
+        keys = self.key_block or self.s
+        return -(-keys // N_TILE) * N_TILE + 4  # the strip's keys padded to the n-tile
+
+    @property
+    def o_stride(self) -> int:
+        return self.d + (8 - self.d) % 32  # float2 at rows g, cols 2t: 8 (mod 32)
 
     @property
     def k_stride(self) -> int:
@@ -154,28 +197,36 @@ class AttentionPlan:
 
     @property
     def smem_bytes(self) -> int:
-        """Q rows, one score strip a tile, two K/V buffers (the formula of
+        """Q rows, one score strip a tile, two K/V buffers, and key-blocked
+        the output sums and each row's alpha and l (the formula of
         ``smem_bytes`` in the CUDA source)."""
         rows = ROWS * self.tiles
         ring = 2 * self.key_tile * max(self.k_stride, self.v_stride)
-        return 4 * (rows * self.q_stride + rows * self.p_stride + ring)
+        blocked = rows * self.o_stride + 2 * rows if self.key_block else 0
+        return 4 * (rows * self.q_stride + rows * self.p_stride + ring + blocked)
+
+    def key_blocks(self) -> list[tuple[int, int]]:
+        """(first key, keys) of each block the kernel walks, in order."""
+        step = self.key_block or self.s
+        return [(k0, min(step, self.s - k0)) for k0 in range(0, self.s, step)]
 
     def ints(self, b: int) -> list[int]:
         """What the C entry point takes, in its order."""
         return [b, self.t, self.s, self.d, self.warps, self.d_chunk, self.row_tiles,
-                self.smem_bytes]
+                self.key_block, self.smem_bytes]
 
 
 @functools.lru_cache(maxsize=256)
 def attention_plan(t: int, s: int, d: int) -> AttentionPlan:
     """The plan for q (B,t,d), k and v (B,s,d); raises for a shape the kernel
-    does not take.  The 16-row tiles are spread evenly over the blocks (75
-    rows: 2 blocks of 3 tiles, not 4 + 1); a plan over the shared-memory
-    budget takes fewer tiles a block."""
+    does not take.  Up to ``S_MAX`` keys one strip a tile, past it blocks of
+    ``KEY_BLOCK`` keys.  The 16-row tiles are spread evenly over the blocks
+    (75 rows: 2 blocks of 3 tiles, not 4 + 1); a plan over the
+    shared-memory budget takes fewer tiles a block."""
     if d < N_TILE or d % N_TILE:
         raise ValueError(f"the attention kernel takes D a multiple of {N_TILE}, got D={d}")
-    if not 1 <= s <= S_MAX:
-        raise ValueError(f"the attention kernel takes 1 <= S <= {S_MAX} keys, got S={s}")
+    if s < 1:
+        raise ValueError(f"the attention kernel takes S >= 1 keys, got S={s}")
     if t < 1:
         raise ValueError(f"no plan for T={t} query rows")
     d_chunk = next(c for c in D_CHUNKS if d % c == 0)
@@ -183,7 +234,8 @@ def attention_plan(t: int, s: int, d: int) -> AttentionPlan:
     all_tiles = -(-t // ROWS)
     tiles = -(-all_tiles // -(-all_tiles // TILES))
     while True:
-        plan = AttentionPlan(t, s, d, tiles * split, d_chunk, -(-all_tiles // tiles))
+        plan = AttentionPlan(t, s, d, tiles * split, d_chunk, -(-all_tiles // tiles),
+                             0 if s <= S_MAX else KEY_BLOCK)
         if plan.smem_bytes <= MAX_SMEM:
             return plan
         if tiles == 1:

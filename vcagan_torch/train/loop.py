@@ -18,10 +18,13 @@ vocodes each bucket at its static length with the frames past each clip's
 ``mel_len`` silenced, then scores every clip at its own length.  Without
 the corpus the loop runs on ``data.synthetic_clips`` synthetic clips.
 
+``data.collate_process`` feeds from a forked collate worker process
+(``ProcessEpoch``) instead of the producer thread (``ParallelEpoch``).
+
 Not ported: the JAX step's TPU-compiler knobs (``remat``,
-``d_phase="batched"``), several devices (``mesh.model_parallel``, the
-multi-host feed) and the collate worker process (``data.collate_process``).
-The Trainer raises on each, naming the ROADMAP item that holds it.
+``d_phase="batched"``) and several devices (``mesh.model_parallel``, the
+multi-host feed).  The Trainer raises on each, naming the ROADMAP item
+that holds it.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from vcagan_torch.data.grid import make_grid_dataset
 from vcagan_torch.data.lrs import (
     SyntheticLRSSource, lrs_denormalize_spec, make_lrs_dataset, make_lrs_device_pipeline)
 from vcagan_torch.data.synthetic import SyntheticLipSpeech
-from vcagan_torch.data.prefetch import ParallelEpoch
+from vcagan_torch.data.prefetch import ParallelEpoch, ProcessEpoch
 from vcagan_torch.dsp.griffin_lim import random_phase
 from vcagan_torch.dsp.pipeline import MelPipeline
 from vcagan_torch.eval.pesq_nb import pesq_batch
@@ -173,7 +176,10 @@ class Trainer:
 
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
-            feed = ParallelEpoch(self.train_ds, tc.batch_size, depth=2, device=self.device)
+            # the collate worker process where configured (as the JAX
+            # Trainer, vcagan/train/loop.py:204-215), else the thread
+            producer = ProcessEpoch if self.config.data.collate_process else ParallelEpoch
+            feed = producer(self.train_ds, tc.batch_size, depth=2, device=self.device)
             self.collate_s = feed.collate_s
             batches = iter(feed)
             while True:
