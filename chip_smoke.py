@@ -112,6 +112,18 @@ Phases, in order; any failure raises and exits non-zero:
      card, every tensor equal, and scored by ``cli.test`` for one batch;
      (e) phase 9's Trainer written as serving npz (q8) and served by
      ``Synthesizer.from_serving_npz`` on the card;
+ 13. data parallel (``vcagan_torch.parallel``): (a) under a one-rank NCCL
+     group, ``Trainer.fit`` in bf16 at the GRID recipe (B=88 x 40) on phase
+     12 (c)'s cached clips: ms a step beside phase 12 (c)'s without a
+     group, the gradient all-reduce's ms a step (CUDA events at the step's
+     marks) and bytes, 2 attention launches a step; one fp32 step with the
+     layout against one without it on the same batch (phase 8 (b)'s
+     bounds); (b) ``python3 -m vcagan_torch.parallel.dryrun`` with two gloo
+     ranks on the one card at full width, B=88 x 40 frames, 44 clips a
+     rank, against one process on all 88 at the gate's tolerances, each
+     rank's attention launches and shape, then the attention kernel alone
+     at the rank's shapes (44, 40 | 80, 40, 256), beside its bound, plain
+     and sdpa;
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -2314,6 +2326,7 @@ def phase_synth_long(card, states):
 
 
 FIT_BATCHES = 4  # batches an epoch in (c): the first step a warm-up, 3 paced
+RENDERED_SOURCES = {}  # (c)'s synthetic sources, their clips rendered, by recipe
 
 
 def fit_epoch(trainer, what, card):
@@ -2403,7 +2416,7 @@ def phase_fit_producers(card):
                 config, data=dataclasses.replace(config.data, collate_process=True))
             runs[f"{name} process, cached"] = fit_epoch(
                 trainer, f"{name} bf16 B={b}, ProcessEpoch, clips cached", card)
-            source = trainer.train_ds.source
+            source = RENDERED_SOURCES[name] = trainer.train_ds.source  # phase 13 (a) reuses it
             trainer.train_ds.source = (
                 SyntheticLRSSource(num_clips=len(source)) if name == "LRS2"
                 else dataclasses.replace(source, _cache={}))
@@ -2601,6 +2614,191 @@ def phase_twelve(card, states, trained_states):
             "fit_bf16": fit_runs}
 
 
+# Phase 13, data parallel.  (a) One rank over NCCL: the bf16 GRID recipe's
+# fit, and one fp32 step with the layout against the step without it on the
+# same batch (phase 8 (b)'s card-vs-CPU bounds).  (b) Two gloo ranks on the
+# one card (NCCL refuses two ranks on one device; gloo all-reduces CUDA
+# tensors): the dryrun gate at full width, B=88 x 40 frames of 112 x 112,
+# 44 clips a rank, against one process on all 88, each in a process of its
+# own (the single process first, so the ranks' memory fits).  Each module's
+# gradient is held there (dryrun.py MODULE_GRAD_RTOL, this file's
+# STEP_GRAD_REL): at full width the gradients fill several of the
+# all-reduce's buckets, which only this phase crosses on the card.
+DP_WORLD = 2
+DP_STEP_BATCH = 8  # (a)'s fp32 step with and without the layout
+DP_TIMEOUT_S = 420
+
+
+def phase_dp_fit_world1(card, cached_ms):
+    """(a) ``Trainer.fit`` under a one-rank NCCL group (the step's gradient
+    all-reduce and metric mean run, on a group of one): FIT_BATCHES steps
+    in bf16 at B=88 x 40 on cached synthetic clips, the all-reduce's ms a
+    step (CUDA events at the step's marks) and bytes; then one fp32 step
+    with the layout against one without it.  Returns the readings."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vcagan_torch.parallel import make_layout
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        layout = make_layout(batch_size=TRAIN_BATCH)
+        check(layout.world == 1 and layout.group is not None and layout.device.type == "cuda",
+              f"layout {layout}")
+        config = loop_config(tmp, FIT_BATCHES, **{"model.use_bfloat16": True})
+        trainer = Trainer(config, log_dir=os.path.join(tmp, "log"), layout=layout)
+        if "GRID" in RENDERED_SOURCES:
+            trainer.train_ds.source = RENDERED_SOURCES["GRID"]
+        marks = []
+
+        def mark(name):
+            if name in ("d_backward", "d_reduce", "g_backward", "g_reduce"):
+                marks.append((name, torch.cuda.Event(enable_timing=True)))
+                marks[-1][1].record()
+
+        trainer.train_step = make_train_step(trainer.modules, trainer.g_tx, trainer.d_tx,
+                                             config.train, mesh=layout, on_phase=mark)
+        trainer.state, _ = trainer.train_step(
+            trainer.state, train_batch(TRAIN_BATCH, TRAIN_WINDOW, 0, "cuda"), trainer.generator)
+        torch.cuda.synchronize()
+        marks.clear()
+        first = fit_epoch(trainer, f"GRID bf16 B={TRAIN_BATCH}, one NCCL rank", card)
+        if "GRID" not in RENDERED_SOURCES:  # the clips rendered in that epoch: again, cached
+            marks.clear()
+            first = fit_epoch(trainer, f"GRID bf16 B={TRAIN_BATCH}, one NCCL rank, cached", card)
+        torch.cuda.synchronize()
+        steps = [marks[i:i + 4] for i in range(0, len(marks), 4)]
+        check(len(steps) == FIT_BATCHES and all([n for n, _ in m] == [
+            "d_backward", "d_reduce", "g_backward", "g_reduce"] for m in steps),
+            f"step marks {[n for n, _ in marks]}")
+        reduce_ms = [m[0][1].elapsed_time(m[1][1]) + m[2][1].elapsed_time(m[3][1])
+                     for m in steps]
+        nbytes = 4 * sum(p.numel() for p in trainer.modules.parameters(
+            GENERATOR_SIDE + DISCRIMINATOR_SIDE))
+        out = dict(first, reduce_ms=statistics.mean(reduce_ms[1:]), reduce_bytes=nbytes,
+                   cached_ms_no_group=cached_ms)
+        print(f"data parallel (a) fit GRID bf16 B={TRAIN_BATCH} x {TRAIN_WINDOW}, one NCCL rank: "
+              f"{out['ms_a_step']:.1f} ms a step against {cached_ms:.1f} ms without a group "
+              f"(phase 12 (c), cached); gradient all-reduce "
+              f"{out['reduce_ms']:.2f} ms a step (" + ", ".join(f"{x:.2f}" for x in reduce_ms)
+              + f") over {nbytes / 1e6:.1f} MB of fp32 gradients; "
+              f"{out['launches']} attention launches in {FIT_BATCHES} steps [{card}]")
+        del trainer
+        torch.cuda.empty_cache()
+        out["fp32_step"] = dp_step_vs_plain(card, layout)
+        return out
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dp_step_vs_plain(card, layout):
+    """(a) One fp32 step at full width (B=DP_STEP_BATCH x 40, dropout on)
+    with the one-rank layout and one without it, from the same weights,
+    batch and generator: metrics, each module's gradient and update, by
+    phase 8 (b)'s card-vs-CPU bounds."""
+    batch = train_batch(DP_STEP_BATCH, TRAIN_WINDOW, seed=5, device="cuda")
+    runs = {}
+    for what, mesh in (("plain", None), ("layout", layout)):
+        modules = VCAGANModules.create(ModelConfig(), seed=0)
+        state, g_tx, d_tx = create_train_state(modules, TrainConfig(), device="cuda")
+        step = make_train_step(modules, g_tx, d_tx, TrainConfig(), mesh=mesh)
+        state, metrics = step(state, batch, torch.Generator("cuda").manual_seed(0))
+        runs[what] = (state, {k: v.item() for k, v in metrics.items()})
+    (plain, want), (dp, got) = runs["plain"], runs["layout"]
+    metric_rel = max(abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items())
+    for k, v in want.items():
+        rtol = STEP_NORM_RTOL if k in ("r1", "g_grad_norm", "d_grad_norm") else STEP_LOSS_RTOL
+        check(abs(got[k] - v) <= rtol * max(abs(v), 1e-12), f"dp step {k}: {got[k]} vs {v}")
+    moments = first_moments(dp), first_moments(plain)
+    worst_grad = worst_share = 0.0
+    lr, equal = TrainConfig().lr, True
+    for name in GENERATOR_SIDE + DISCRIMINATOR_SIDE:
+        grad = rel_l2(moments[0][name], moments[1][name])
+        a, b_ = getattr(dp.modules, name).parameters(), getattr(plain.modules, name).parameters()
+        diff = torch.cat([(p - q).detach().flatten() for p, q in zip(a, b_)]).abs() / lr
+        share = (diff > 0.5).float().mean().item()
+        equal = equal and diff.max().item() == 0.0
+        check(grad <= STEP_GRAD_REL and share <= STEP_FLIP_SHARE,
+              f"dp step {name}: gradient {grad:.3e}, share {share:.3e}")
+        worst_grad, worst_share = max(worst_grad, grad), max(worst_share, share)
+    print(f"data parallel (a) fp32 step B={DP_STEP_BATCH} x {TRAIN_WINDOW} with the one-rank "
+          f"layout vs without: metrics within {metric_rel:.2e}, gradients {worst_grad:.2e} "
+          f"(bound {STEP_GRAD_REL:g}), updates over lr/2 {worst_share:.2e} (bound "
+          f"{STEP_FLIP_SHARE:g}), parameters {'bit for bit equal' if equal else 'not equal'} "
+          f"[{card}]")
+    del runs, plain, dp
+    torch.cuda.empty_cache()
+    return dict(metric_rel=metric_rel, grad_rel=worst_grad, flip_share=worst_share,
+                bitwise_equal=equal)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_dp_two_ranks(card):
+    """(b) ``python -m vcagan_torch.parallel.dryrun`` with two gloo ranks on
+    the card at full width, fp32: its deltas at its tolerances, each rank's
+    attention launches and shapes; then the attention alone at the rank's
+    shapes.  Returns the readings and the two attention rows."""
+    torch.cuda.empty_cache()
+    print(f"data parallel (b): this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+          f"of the card while the gate runs")
+    cmd = [sys.executable, "-m", "vcagan_torch.parallel.dryrun", "--world", str(DP_WORLD),
+           "--device", "cuda", "--backend", "gloo", "--batch", str(TRAIN_BATCH), "--frames",
+           str(TRAIN_WINDOW), "--image", str(DataConfig().crop_size), "--timeout",
+           str(DP_TIMEOUT_S)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=DP_TIMEOUT_S + 60)
+    wall = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    check(proc.returncode == 0 and lines and json.loads(lines[-1])["ok"],
+          f"dryrun failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    r = json.loads(lines[-1])
+    per_rank = TRAIN_BATCH // DP_WORLD
+    shapes = [[per_rank, TRAIN_WINDOW, TRAIN_WINDOW, 256], [per_rank, 2 * TRAIN_WINDOW,
+                                                           TRAIN_WINDOW, 256]]
+    check(r["launches"] == [2] * DP_WORLD and all(a == shapes for a in r["attention"]),
+          f"per-rank attention: launches {r['launches']}, shapes {r['attention']}")
+    print(f"data parallel (b) dryrun, {DP_WORLD} gloo ranks on one card, fp32, B={TRAIN_BATCH} x "
+          f"{TRAIN_WINDOW} frames (112 x 112), {per_rank} clips a rank, against one process on "
+          f"all {TRAIN_BATCH}: metrics within {r['metric_rel']:.3e} relative (bound 5e-4), "
+          f"generator-side leaf mean|p| within {r['leaf_stat']:.3e} (bound "
+          f"{r['leaf_stat_bound']:.1e}), each module's gradient through the first moments "
+          f"within {r['module_grad_bound']:g} relative L2 (" + ", ".join(
+              f"{m} {v:.2e}" for m, v in r["module_grad_rel"].items()) + "), a leaf's "
+          f"{r['grad_rel']:.3e} at worst ({r['grad_rel_leaf']}; reported, not bounded in fp32), "
+          f"the ranks' states equal bit for bit; attention launches a rank {r['launches']} at "
+          f"{shapes}, the single process {r['reference_launches']}; the single process "
+          f"{r['single_process_s']:.1f} s, the ranks {r['ranks_s']:.1f} s, {wall:.1f} s in all "
+          f"[{card}]")
+    side = torch.cuda.Stream()
+    rows = [attention_row(card, f"per rank att{i + 1}", t, s_, d, [s_] * b, 400 + i, side)
+            for i, (b, t, s_, d) in enumerate(shapes)]
+    keep = ("world", "metric_rel", "leaf_stat", "leaf_stat_bound", "grad_rel", "grad_rel_leaf",
+            "module_grad_rel", "module_grad_bound", "launches", "attention", "reference_launches", "single_process_s", "ranks_s")
+    return {k: r[k] for k in keep}, rows
+
+
+def phase_thirteen(card, cached_ms):
+    """Phase 13.  Returns the readings for the kernels line."""
+    fit = phase_dp_fit_world1(card, cached_ms)
+    torch.cuda.empty_cache()
+    dryrun, rows = phase_dp_two_ranks(card)
+    return {"launches_fit_nccl_world1": fit["launches"], "fit_nccl_world1": fit,
+            "data_parallel_dryrun": dryrun, "per_rank_shapes": rows}
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2677,6 +2875,10 @@ def main() -> None:
     twelve = phase_twelve(card, states, trained_states)
     print(f"phase 12 (past 512 keys, the collate worker process, JAX train states, serving "
           f"npz): {time.perf_counter() - t12:.1f} s")
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    thirteen = phase_thirteen(card, twelve["fit_bf16"]["GRID thread, cached"]["ms_a_step"])
+    print(f"phase 13 (data parallel): {time.perf_counter() - t13:.1f} s")
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -2730,7 +2932,7 @@ def main() -> None:
                      launches_trainer_lrs=lrs_loop_launches, lrs_shapes=lrs_rows,
                      lrs_max_abs_err=lrs_worst, lrs_grad_max_abs_err=lrs_grad_worst,
                      launches_eval=eval_launches, eval_shapes=eval_rows,
-                     eval_max_abs_err=eval_worst, **twelve)
+                     eval_max_abs_err=eval_worst, **twelve, **thirteen)
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

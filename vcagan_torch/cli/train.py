@@ -2,6 +2,11 @@
 train.py (reference: train.py:25-50) and with ``python -m vcagan.cli.train``.
 
     python -m vcagan_torch.cli.train --grid <GRID_root> --subject overlap ...
+    torchrun --nproc_per_node 4 -m vcagan_torch.cli.train ...   # one rank a card
+
+Under ``torchrun`` each rank trains on its slice of the global
+``--batch_size`` on ``cuda:LOCAL_RANK`` (gloo on the CPU with
+``--platform cpu``); rank 0 validates, logs and checkpoints.
 
 Runs on CUDA; ``--platform cpu`` runs on the CPU (plain versions of the
 kernels).  Without the corpus under ``--grid`` it trains on the synthetic
@@ -14,7 +19,8 @@ checkpoint exported to ``.npz`` by ``tools/export_jax_train_state.py``.
 The JAX CLI's flags that the port does not run (``--remat`` other than
 none, ``--d_phase batched``, ``--model_parallel`` above 1) stop the parse
 with an error that names their ROADMAP item.  ``--dataparallel``, ``--gpu``
-and ``--synthetic`` are accepted and do nothing, as in the JAX CLI.
+and ``--synthetic`` are accepted and do nothing, as in the JAX CLI (the
+ranks come from ``torchrun``).
 """
 
 from __future__ import annotations
@@ -104,26 +110,45 @@ def build_config(args):
     )
 
 
-def main(argv=None):
+def run(args, cfg) -> None:
+    """The training run of both training CLIs: join the process group when
+    started by ``torchrun`` (``initialize_distributed``: NCCL, or gloo with
+    ``--platform cpu``), build the Trainer (each rank on its card), restore
+    ``--checkpoint``, validate once on rank 0 and fit."""
+    import torch.distributed as dist
+
+    from vcagan_torch.parallel import initialize_distributed
     from vcagan_torch.train.loop import Trainer
 
-    args = parse_args(argv)
-    cfg = build_config(args)
-    trainer = Trainer(cfg, log_dir=args.log_dir, device="cpu" if args.platform == "cpu" else None)
-    if args.checkpoint is not None:  # a port checkpoint, or an exported JAX train state
-        from vcagan_torch.io.jax_state import restore_train_state
+    cpu = args.platform == "cpu"
+    initialize_distributed(backend="gloo" if cpu else None)
+    try:
+        trainer = Trainer(cfg, log_dir=args.log_dir, device="cpu" if cpu else None)
+        if args.checkpoint is not None:  # a port checkpoint, or an exported JAX train state
+            from vcagan_torch.io.jax_state import restore_train_state
 
-        restore_train_state(trainer.state, args.checkpoint, generator=trainer.generator)
-    # smoke-validate before training (reference train.py:121)
-    logs = trainer.validate(fast=True, max_batches=1)
-    print(f"pre-train validate: l1={logs[0]:.4f} stoi={logs[1]:.4f}")
-    trainer.fit(
-        epochs=args.epochs,
-        start_epoch=args.start_epoch,
-        max_steps=args.max_steps,
-        media_every=args.media_every,
-    )
-    print("Finishing training")
+            restore_train_state(trainer.state, args.checkpoint, generator=trainer.generator)
+
+        def smoke_validate():  # before training (reference train.py:121)
+            logs = trainer.validate(fast=True, max_batches=1)
+            print(f"pre-train validate: l1={logs[0]:.4f} stoi={logs[1]:.4f}")
+
+        trainer.on_rank0(smoke_validate)
+        trainer.fit(
+            epochs=args.epochs,
+            start_epoch=args.start_epoch,
+            max_steps=args.max_steps,
+            media_every=args.media_every,
+        )
+        print("Finishing training")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    run(args, build_config(args))
 
 
 if __name__ == "__main__":

@@ -3,6 +3,7 @@ train_LRS.py (reference: train_LRS.py:27-53) and with ``python -m
 vcagan.cli.train_lrs``.
 
     python -m vcagan_torch.cli.train_lrs --data <LRS_root> --data_name LRS2 ...
+    torchrun --nproc_per_node 4 -m vcagan_torch.cli.train_lrs ...   # one rank a card
 
 The recipe is ``lrs_config``'s: batch 16, 200 epochs, 50-frame windows, up
 to 160 frames, plain Adam, milestones (100, 150), sync D-loss weight 0.5,
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 
+from vcagan_torch.cli.train import run
 from vcagan_torch.configs import lrs_config, unported
 
 
@@ -98,25 +100,8 @@ def build_config(args):
 
 
 def main(argv=None):
-    from vcagan_torch.train.loop import Trainer
-
     args = parse_args(argv)
-    cfg = build_config(args)
-    trainer = Trainer(cfg, log_dir=args.log_dir, device="cpu" if args.platform == "cpu" else None)
-    if args.checkpoint is not None:  # a port checkpoint, or an exported JAX train state
-        from vcagan_torch.io.jax_state import restore_train_state
-
-        restore_train_state(trainer.state, args.checkpoint, generator=trainer.generator)
-    # smoke-validate before training (reference train_LRS.py)
-    logs = trainer.validate(fast=True, max_batches=1)
-    print(f"pre-train validate: l1={logs[0]:.4f} stoi={logs[1]:.4f}")
-    trainer.fit(
-        epochs=args.epochs,
-        start_epoch=args.start_epoch,
-        max_steps=args.max_steps,
-        media_every=args.media_every,
-    )
-    print("Finishing training")
+    run(args, build_config(args))
 
 
 if __name__ == "__main__":

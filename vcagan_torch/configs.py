@@ -121,9 +121,16 @@ class TrainConfig:
     d_phase: str = "ref"
 
 
+MODEL_AXIS_ITEM = (
+    "ROADMAP Queue 1 item 5, multi-GPU on the model axis: the column-sharded att1/q, att2/q, "
+    "att1/mel and att2/mel kernels of vcagan/parallel/mesh.py:60-75")
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device layout; the port runs on one card (``model_parallel`` 1)."""
+    """Device layout: data-parallel ranks, one device each
+    (``vcagan_torch.parallel``); ``model_parallel`` stays 1 (the model axis
+    is not ported)."""
 
     model_parallel: int = 1
 
@@ -150,7 +157,7 @@ def unported(config: VCAGANConfig) -> list[str]:
                      "step's TPU-compiler knobs)")
     if c.mesh.model_parallel != 1:
         found.append(f"mesh.model_parallel={c.mesh.model_parallel} / --model_parallel "
-                     "(ROADMAP: multi-GPU)")
+                     f"({MODEL_AXIS_ITEM})")
     return found
 
 

@@ -185,6 +185,7 @@ class GridDataset:
         batch_size: int,
         shuffle: bool = True,
         drop_last: bool = True,
+        process_slice: Optional[slice] = None,
     ) -> Iterator[dict]:
         """Yield raw (host-side) batches; the caller feeds them through the
         device pipeline.
@@ -195,6 +196,13 @@ class GridDataset:
         DataLoader never drops, train.py:139-146).  With ``drop_last=True``
         (training), a dataset smaller than the batch is a loud error, not a
         silent zero-step epoch.
+
+        ``process_slice`` (data-parallel ranks, ``vcagan/data/grid.py:183-230``):
+        ``batch_size`` is the GLOBAL batch, and this rank decodes and
+        yields only its slice of each batch.  Every rank seeds the same
+        rng, and the shuffle and the window-start draws are made for the
+        whole global batch before slicing, so the ranks' slices
+        concatenate to the single-process batch.
         """
         n = len(self.source)
         if n == 0 or (drop_last and n < batch_size):
@@ -202,21 +210,25 @@ class GridDataset:
                 f"dataset has {n} clips < batch_size {batch_size}: "
                 "every epoch would yield zero batches"
             )
+        sl = process_slice if process_slice is not None else slice(None)
         order = np.arange(n)
         if shuffle:
             self.rng.shuffle(order)
 
         def _starts_u():
-            return self.rng.random(batch_size) if self.sample_window else None
+            return self.rng.random(batch_size)[sl] if self.sample_window else None
 
         for start in range(0, n - batch_size + 1, batch_size):
-            yield self._collate(order[start : start + batch_size], starts_u=_starts_u())
+            yield self._collate(order[start : start + batch_size][sl], starts_u=_starts_u())
         rem = n % batch_size
         if not drop_last and rem:
             idxs = np.concatenate(
                 [order[n - rem :], np.resize(order, batch_size - rem)]
             )
-            yield self._collate(idxs, n_valid=rem, starts_u=_starts_u())
+            # the real clips hold global positions [0, rem): a slice of
+            # padding only counts 0
+            local_valid = int((np.arange(batch_size)[sl] < rem).sum())
+            yield self._collate(idxs[sl], n_valid=local_valid, starts_u=_starts_u())
 
     def _collate(
         self,

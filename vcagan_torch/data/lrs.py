@@ -46,6 +46,7 @@ from vcagan_torch.data.transforms import host_luma_u8, prepare_clips
 from vcagan_torch.dsp.audio import dynamic_range_compression, mel_denormalize, mel_normalize
 from vcagan_torch.dsp.pipeline import MelPipeline
 from vcagan_torch.dsp.stft import stft_magnitude
+from vcagan_torch.parallel.mesh import draw_rows
 from vcagan_torch.runtime import resolve_device
 from vcagan_torch.train.step import Batch
 
@@ -362,12 +363,17 @@ class LRSDataset:
         batch_size: int,
         shuffle: bool = True,
         drop_last: bool = True,
+        process_slice: Optional[slice] = None,
         sort_by_length: bool = False,
     ) -> Iterator[dict]:
         """Raw batches, as ``GridDataset.epoch`` (``drop_last=False`` pads
         the tail batch by wrapping earlier clips and marks the real count in
-        ``n_valid``).  An evaluation batch's length is the bucket of its
-        longest clip, from the source's frame counts.
+        ``n_valid``; ``process_slice``: this rank's slice of each global
+        batch).  An evaluation batch's length is the bucket of its longest
+        clip, from the source's frame counts, over the GLOBAL batch before
+        slicing (``vcagan/data/lrs.py:380-440``): BatchNorm's statistics
+        include the padded frames, so a bucket of the rank's own clips would
+        change the numbers, not only the shapes.
 
         ``sort_by_length`` (evaluation only, ignored under shuffle): order
         the clips by frame count, so each batch lands in the smallest bucket
@@ -378,6 +384,7 @@ class LRSDataset:
                 f"dataset has {n} clips < batch_size {batch_size}: "
                 "every epoch would yield zero batches"
             )
+        sl = process_slice if process_slice is not None else slice(None)
         order = np.arange(n)
         if shuffle:
             self.rng.shuffle(order)
@@ -386,7 +393,7 @@ class LRSDataset:
             order = order[np.argsort(counts, kind="stable")]
 
         def _starts_u():
-            return self.rng.random(batch_size) if self.sample_window else None
+            return self.rng.random(batch_size)[sl] if self.sample_window else None
 
         def _bucket_of(idxs) -> Optional[int]:
             if self.sample_window:
@@ -397,11 +404,13 @@ class LRSDataset:
 
         for start in range(0, n - batch_size + 1, batch_size):
             idxs = order[start : start + batch_size]
-            yield self._collate(idxs, starts_u=_starts_u(), bucket=_bucket_of(idxs))
+            yield self._collate(idxs[sl], starts_u=_starts_u(), bucket=_bucket_of(idxs))
         rem = n % batch_size
         if not drop_last and rem:
             idxs = np.concatenate([order[n - rem :], np.resize(order, batch_size - rem)])
-            yield self._collate(idxs, n_valid=rem, starts_u=_starts_u(), bucket=_bucket_of(idxs))
+            local_valid = int((np.arange(batch_size)[sl] < rem).sum())  # as GridDataset's
+            yield self._collate(idxs[sl], n_valid=local_valid, starts_u=_starts_u(),
+                                bucket=_bucket_of(idxs))
 
     def _collate(
         self,
@@ -527,10 +536,15 @@ class LRSDraws(NamedTuple):
 
 
 def lrs_augment_draws(batch: int, generator: Optional[torch.Generator], device) -> LRSDraws:
-    """A jitter and a flip bit for each of ``batch`` clips."""
-    jitter = torch.randint(-JITTER, JITTER + 1, (batch,), generator=generator, device=device)
-    flip = torch.rand(batch, generator=generator, device=device) < 0.5
-    return LRSDraws(jitter, flip)
+    """A jitter and a flip bit for each of ``batch`` clips (drawn for the
+    global batch under a data-parallel layout, ``draw_rows``)."""
+
+    def draw(n):
+        jitter = torch.randint(-JITTER, JITTER + 1, (n,), generator=generator, device=device)
+        flip = torch.rand(n, generator=generator, device=device) < 0.5
+        return LRSDraws(jitter, flip)
+
+    return draw_rows(draw, batch)
 
 
 def make_lrs_device_pipeline(audio_config: AudioConfig, augment: bool = False, device=None):

@@ -100,18 +100,20 @@ class ParallelEpoch:
     allocator records the copy on the stream).
 
     ``collate_s`` gets the producer's seconds for each batch (collate and
-    pin) as it makes them."""
+    pin) as it makes them.  ``process_slice``: the rank's slice of each
+    global batch of ``batch_size`` (``dataset.epoch(..., process_slice=)``)."""
 
     def __init__(self, dataset, batch_size: int, depth: int = 2,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, process_slice: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.depth = depth
         self.device = None if device is None else torch.device(device)
+        self.process_slice = process_slice
         self.collate_s: list[float] = []
 
     def _host_batches(self) -> Iterator[dict]:
-        batches = self.dataset.epoch(self.batch_size)
+        batches = _epoch(self.dataset, self.batch_size, self.process_slice)
         pin = self.device is not None and self.device.type == "cuda"
         while True:
             t0 = time.perf_counter()
@@ -132,7 +134,16 @@ class ParallelEpoch:
                 yield raw
 
 
-def _shm_collate_worker(dataset, batch_size: int, ready_q) -> None:
+def _epoch(dataset, batch_size: int, process_slice: Optional[slice]) -> Iterator[dict]:
+    """``dataset.epoch(batch_size)``, with the rank's ``process_slice``
+    where there is one."""
+    if process_slice is None:
+        return dataset.epoch(batch_size)
+    return dataset.epoch(batch_size, process_slice=process_slice)
+
+
+def _shm_collate_worker(dataset, batch_size: int, process_slice: Optional[slice],
+                        ready_q) -> None:
     """Body of the forked collate worker: run one epoch of ``dataset`` and
     publish each batch in a new ``SharedMemory`` block.
 
@@ -154,7 +165,7 @@ def _shm_collate_worker(dataset, batch_size: int, ready_q) -> None:
             from concurrent.futures import ThreadPoolExecutor
 
             dataset._pool = ThreadPoolExecutor(max_workers=pool._max_workers)
-        batches = dataset.epoch(batch_size)
+        batches = _epoch(dataset, batch_size, process_slice)
         while True:
             t0 = time.perf_counter()
             raw = next(batches, None)
@@ -214,14 +225,16 @@ class ProcessEpoch:
     ``ProcessEpoch`` never advances the parent's rng: every epoch repeats
     the first one's draws.)  What the worker renders or caches (synthetic
     clips rendered on first use) stays in the worker: clips that this
-    process has not rendered are rendered again each epoch."""
+    process has not rendered are rendered again each epoch.
+    ``process_slice`` as ``ParallelEpoch``'s (the worker yields the slice)."""
 
     def __init__(self, dataset, batch_size: int, depth: int = 2,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, process_slice: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.depth = depth
         self.device = None if device is None else torch.device(device)
+        self.process_slice = process_slice
         self.collate_s: list[float] = []
 
     def _copy_out(self, name: str, meta) -> dict:
@@ -301,7 +314,8 @@ class ProcessEpoch:
         ctx = mp.get_context("fork")
         ready_q = ctx.Queue(maxsize=self.depth)
         child = ctx.Process(target=_shm_collate_worker,
-                            args=(self.dataset, self.batch_size, ready_q), daemon=True)
+                            args=(self.dataset, self.batch_size, self.process_slice, ready_q),
+                            daemon=True)
         child.start()
         with contextlib.closing(prefetch_iterator(self._host_batches(child, ready_q), 1)) as items:
             for raw in items:

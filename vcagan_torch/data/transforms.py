@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from vcagan_torch.parallel.mesh import draw_rows
+
 GRID_CROP = (59, 95, 195, 231)  # (x0, y0, x1, y1), reference vid_aud_grid.py:99
 PIXEL_MEAN = 0.4136
 PIXEL_STD = 0.1700
@@ -99,11 +101,16 @@ class AugmentDraws(NamedTuple):
 
 
 def augment_draws(batch: int, generator: torch.Generator, device) -> AugmentDraws:
-    """A flip bit and two erase offsets for each of ``batch`` clips."""
-    flip = torch.rand(batch, generator=generator, device=device) < 0.5
-    x0, y0 = (torch.randint(ERASE_LOW, ERASE_HIGH, (batch,), generator=generator, device=device)
-              for _ in range(2))
-    return AugmentDraws(flip, x0, y0)
+    """A flip bit and two erase offsets for each of ``batch`` clips (drawn
+    for the global batch under a data-parallel layout, ``draw_rows``)."""
+
+    def draw(n):
+        flip = torch.rand(n, generator=generator, device=device) < 0.5
+        x0, y0 = (torch.randint(ERASE_LOW, ERASE_HIGH, (n,), generator=generator, device=device)
+                  for _ in range(2))
+        return AugmentDraws(flip, x0, y0)
+
+    return draw_rows(draw, batch)
 
 
 def prepare_clips(

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from vcagan_torch.kernels.masked_attention import masked_cross_attention
+from vcagan_torch.nn.common import fp32_or_wider
 
 
 class AVAttention(nn.Module):
@@ -37,7 +38,7 @@ class AVAttention(nn.Module):
         b, c, f, t = g.shape
         k = self.k(sent)
         v = self.v(sent)
-        q = self.q(g.float().permute(0, 3, 1, 2).reshape(b, t, c * f))  # c-major rows
+        q = self.q(fp32_or_wider(g).permute(0, 3, 1, 2).reshape(b, t, c * f))  # c-major rows
         ctx = masked_cross_attention(q, k, v, lengths)  # (B, T, D)
         out = self.mel(ctx).reshape(b, t, f, -1)  # f-major rows
         return out.permute(0, 3, 2, 1)

@@ -23,9 +23,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vcagan_torch.parallel.collectives import all_reduce_sum
+from vcagan_torch.parallel.mesh import active_layout, draw_rows
+
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 BN_EPS = 1e-5
 LEAKY_SLOPE = 0.2
+
+
+def fp32_or_wider(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cast up to fp32 where it is narrower (bf16); fp32 and float64
+    stay as they are (float64: the data-parallel gate's exact check,
+    ``vcagan_torch/parallel/dryrun.py``)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def rounded(value: float, dtype: torch.dtype) -> float:
@@ -61,12 +71,22 @@ class _FlaxBatchNorm:
     """Train mode as flax's ``BatchNorm`` (``vcagan/nn/common.py:46-64``):
     normalise with the batch's mean and biased variance, and move the
     running variance with that same biased variance, where PyTorch's own
-    moves it with the unbiased one.  Eval mode is PyTorch's."""
+    moves it with the unbiased one.  Eval mode is PyTorch's.
+
+    Under an active data-parallel layout of more than one rank
+    (``vcagan_torch.parallel``) the batch is the global one, as in the JAX
+    package's sharded step: one differentiable all-reduce of the
+    per-channel [count, sum, sum of squares] in the statistics' dtype
+    (fp32), and the variance E[x^2] - E[x]^2 (flax's
+    ``use_fast_variance``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        layout = active_layout()
+        if layout is not None and layout.world > 1:
+            return self._global_forward(x, layout.group)
         with torch.no_grad():
             var, mean = torch.var_mean(x.to(self.running_mean.dtype), dim=[0, *range(2, x.dim())],
                                        correction=0)
@@ -74,6 +94,22 @@ class _FlaxBatchNorm:
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        dims = [0, *range(2, x.dim())]
+        xf = x.to(self.running_mean.dtype)
+        count = xf.new_full((x.shape[1],), x.numel() // x.shape[1])
+        stats = all_reduce_sum(torch.stack([count, xf.sum(dims), xf.square().sum(dims)]), group)
+        mean = stats[1] / stats[0]
+        var = torch.clamp(stats[2] / stats[0] - mean.square(), min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * scale
+        return (xf * scale.view(shape) + shift.view(shape)).to(x.dtype)
 
 
 class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
@@ -105,12 +141,15 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: each element kept with
     probability 1 - rate and scaled by 1 / (1 - rate), the mask drawn from
-    ``generator`` (required whenever a mask is drawn)."""
+    ``generator`` (required whenever a mask is drawn), at the global batch's
+    shape under a data-parallel layout (``draw_rows``; the leading axis is
+    the batch's, or batch x time's)."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode draws its mask from an explicit generator")
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
+    keep = draw_rows(lambda n: torch.empty((n, *x.shape[1:]), device=x.device).bernoulli_(
+        1.0 - rate, generator=generator), x.shape[0])
     # flax divides by the keep probability, a constant rounded to x's dtype
     return torch.where(keep.bool(), x / rounded(1.0 - rate, x.dtype), 0.0)
 
@@ -135,7 +174,7 @@ class _ComputeDtype:
         dtype = self.compute_dtype
         operands = [x.to(dtype), self.weight.to(dtype),
                     None if self.bias is None else self.bias.to(dtype)]
-        if dtype == torch.float32 or x.device.type != "cpu":
+        if dtype != torch.bfloat16 or x.device.type != "cpu":
             return self._conv_forward(*operands)
         return self._conv_forward(*(t if t is None else t.float() for t in operands)).to(dtype)
 

@@ -33,6 +33,7 @@ from vcagan_torch.nn.common import (
     leaky_relu,
     rounded,
 )
+from vcagan_torch.parallel.mesh import draw_rows
 from vcagan_torch.runtime import compute_dtype
 
 
@@ -142,11 +143,11 @@ class Decoder(nn.Module):
         the compute dtype (an injected one is cast to it)."""
         b, t, c = phon.shape
         f = self.base_bins
-        if noise is None:
-            noise = torch.randn(
-                (b, f, t, self.noise_dim), generator=generator, device=phon.device,
+        if noise is None:  # at the global batch's shape under a data-parallel layout
+            noise = draw_rows(lambda n: torch.randn(
+                (n, f, t, self.noise_dim), generator=generator, device=phon.device,
                 dtype=self.dtype,
-            )
+            ), b)
         x = torch.cat(
             [phon.to(self.dtype).transpose(1, 2)[:, :, None, :].expand(b, c, f, t),
              noise.to(self.dtype).permute(0, 3, 1, 2)],

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vcagan_torch.nn.common import dropout
+from vcagan_torch.nn.common import dropout, fp32_or_wider
 
 
 class BiGRU(nn.GRU):
@@ -32,7 +32,7 @@ class BiGRU(nn.GRU):
         )
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        x = x.float()
+        x = fp32_or_wider(x)
         if not self.training:
             return super().forward(x)[0]
         per_layer = len(self._flat_weights) // self.num_layers  # both directions' 4 tensors

@@ -1,0 +1,87 @@
+"""The collectives of the data-parallel step.
+
+- ``all_reduce_sum``: a sum over the ranks that autograd differentiates
+  (its backward sums the incoming gradient over the ranks), for the global
+  BatchNorm statistics.  ``torch.distributed.nn.functional.all_reduce``
+  does this too, but warns that it is deprecated, and its replacement in
+  ``torch.distributed._functional_collectives`` has no autograd.
+- ``all_reduce_mean_``: the gradients' mean over the ranks, coalesced into
+  fp32 buckets, one call a bucket, written back into the tensors.
+- ``mean_metrics``: a dict of 0-dim tensors averaged over the ranks in one
+  call.
+
+The step takes its gradients with ``torch.autograd.grad`` into lists and
+R1 differentiates twice, so ``DistributedDataParallel``'s hooks on
+``.grad`` do not apply.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import torch
+import torch.distributed as dist
+
+BUCKET_BYTES = 64 << 20  # fp32 bytes a gradient all-reduce call
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        # each rank's loss reads the sum, so its gradient is the sum of theirs
+        return _AllReduceSum.apply(grad, ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``, differentiable."""
+    return _AllReduceSum.apply(x, group)
+
+
+def _bucket_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group) -> int:
+    """Replace each tensor of ``tensors`` (in place) by its mean over the
+    ranks: the tensors are flattened in order into fp32 buckets (float64
+    ones for float64 tensors) of up to ``BUCKET_BYTES``, one all-reduce a
+    bucket.  Returns the bytes reduced."""
+    world = dist.get_world_size(group)
+    total = 0
+    bucket: List[torch.Tensor] = []
+    size = 0
+
+    def reduce(items):
+        flat = torch.cat([t.reshape(-1).to(_bucket_dtype(t)) for t in items])
+        dist.all_reduce(flat, group=group)
+        flat.div_(world)
+        for t, part in zip(items, flat.split([t.numel() for t in items])):
+            t.copy_(part.view_as(t))
+        return flat.numel() * flat.element_size()
+
+    for t in tensors:
+        nbytes = t.numel() * _bucket_dtype(t).itemsize
+        if bucket and size + nbytes > BUCKET_BYTES:
+            total += reduce(bucket)
+            bucket, size = [], 0
+        bucket.append(t)
+        size += nbytes
+    if bucket:
+        total += reduce(bucket)
+    return total
+
+
+def mean_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Each 0-dim metric averaged over the ranks, in one all-reduce."""
+    keys = list(metrics)
+    stacked = torch.stack([metrics[k] for k in keys])
+    dist.all_reduce(stacked, group=group)
+    stacked.div_(dist.get_world_size(group))
+    return dict(zip(keys, stacked.unbind()))

@@ -21,10 +21,19 @@ the corpus the loop runs on ``data.synthetic_clips`` synthetic clips.
 ``data.collate_process`` feeds from a forked collate worker process
 (``ProcessEpoch``) instead of the producer thread (``ParallelEpoch``).
 
+Data parallel (``layout``, ``vcagan_torch.parallel``; the JAX Trainer's
+mesh and multi-host feed, ``vcagan/train/loop.py:66-79, 169-235``): one
+process a device, each feeding its slice of the global batch
+(``train.batch_size``, which also sets ``steps_per_epoch`` and so the
+learning-rate schedule) to a step that reduces over the ranks.  The state
+stays replicated, so validation, checkpoints, the metric stream and the
+media run on rank 0 alone; the others wait at the broadcast of rank 0's
+generator state that follows, which keeps every rank's generator where one
+process's would be.
+
 Not ported: the JAX step's TPU-compiler knobs (``remat``,
-``d_phase="batched"``) and several devices (``mesh.model_parallel``, the
-multi-host feed).  The Trainer raises on each, naming the ROADMAP item
-that holds it.
+``d_phase="batched"``) and the model axis (``mesh.model_parallel`` > 1).
+The Trainer raises on each, naming the ROADMAP item that holds it.
 """
 
 from __future__ import annotations
@@ -50,24 +59,31 @@ from vcagan_torch.eval.pesq_nb import pesq_batch
 from vcagan_torch.eval.stoi import stoi_estoi_batch
 from vcagan_torch.io.checkpoint import CheckpointManager
 from vcagan_torch.io.metrics import MetricWriter
-from vcagan_torch.runtime import resolve_device
+from vcagan_torch.parallel.mesh import DataLayout, make_layout
 from vcagan_torch.train.models import VCAGANModules
 from vcagan_torch.train.state import create_train_state
 from vcagan_torch.train.step import make_eval_step, make_train_step
 
 
 class Trainer:
-    def __init__(self, config: VCAGANConfig, log_dir: str = "./runs", device=None):
+    """``layout``: the data-parallel layout (``make_layout``'s by default:
+    the process group's ranks where one is initialised, else one process on
+    ``device``).  ``writer`` and ``ckpt`` are None on the ranks past 0."""
+
+    def __init__(self, config: VCAGANConfig, log_dir: str = "./runs", device=None,
+                 layout: Optional[DataLayout] = None):
         missing = unported(config)
         if missing:
             raise NotImplementedError("not ported: " + "; ".join(missing))
         self.config = config
         tc = config.train
-        self.device = resolve_device(device)
+        self.layout = layout or make_layout(config.mesh.model_parallel, tc.batch_size, device)
+        self.device = self.layout.device
+        self.is_main = self.layout.rank == 0
         self.modules = VCAGANModules.create(config.model, seed=tc.seed)
         self.pipeline = MelPipeline(config.audio)
-        self.writer = MetricWriter(log_dir)
-        self.ckpt = CheckpointManager(tc.checkpoint_dir)
+        self.writer = MetricWriter(log_dir) if self.is_main else None
+        self.ckpt = CheckpointManager(tc.checkpoint_dir) if self.is_main else None
         self.is_lrs = config.data.dataset in ("LRS2", "LRS3")
 
         self.train_ds = self._make_dataset("train", seed=tc.seed)
@@ -85,7 +101,8 @@ class Trainer:
                 device=self.device)
             self.process_eval = make_device_pipeline(
                 config.audio, config.data, augment=False, device=self.device)
-        self.train_step = make_train_step(self.modules, self.g_tx, self.d_tx, tc)
+        mesh = self.layout if self.layout.group is not None else None
+        self.train_step = make_train_step(self.modules, self.g_tx, self.d_tx, tc, mesh=mesh)
         self.eval_step = make_eval_step(self.modules)
         self.generator = torch.Generator(self.device).manual_seed(tc.seed)
         # built once and reused by every validation (a dataset per call
@@ -98,6 +115,17 @@ class Trainer:
         self.last_profile = None
 
     # --------------------------------------------------------------- datasets
+
+    def on_rank0(self, work) -> None:
+        """``work()`` on rank 0 alone; then every rank takes rank 0's
+        generator state (a broadcast, which holds the other ranks until
+        rank 0 is done), so the ranks draw on as one process would."""
+        if self.is_main:
+            work()
+        if self.layout.group is not None:
+            state = self.generator.get_state().to(self.device)
+            torch.distributed.broadcast(state, src=0, group=self.layout.group)
+            self.generator.set_state(state.cpu())
 
     def _make_dataset(self, mode: str, seed: int = 0):
         cfg = self.config
@@ -134,7 +162,10 @@ class Trainer:
         to ``stop`` with ``torch.profiler`` (host and device), writes the
         trace to ``profile_dir`` and keeps the profile in
         ``last_profile``.  The host's ranges are named ``feed.wait``,
-        ``input_pipeline``, ``train_step`` and ``readback``."""
+        ``input_pipeline``, ``train_step`` and ``readback``.
+
+        Under a layout of several ranks each feeds its slice of every
+        global batch, and only rank 0 logs, validates and checkpoints."""
         tc = self.config.train
         epochs = epochs if epochs is not None else tc.epochs
         step = self.state.step
@@ -174,12 +205,18 @@ class Trainer:
             step_t0 = time.time()
             self.writer.scalars({f"train/{k}": v for k, v in host.items()}, pstep)
 
+        def validate_and_save(epoch):
+            logs = self.validate(fast=True)
+            self.ckpt.save(self.state, epoch, *logs[1:], generator=self.generator)
+
+        process_slice = self.layout.batch_slice(tc.batch_size)
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
             # the collate worker process where configured (as the JAX
             # Trainer, vcagan/train/loop.py:204-215), else the thread
             producer = ProcessEpoch if self.config.data.collate_process else ParallelEpoch
-            feed = producer(self.train_ds, tc.batch_size, depth=2, device=self.device)
+            feed = producer(self.train_ds, tc.batch_size, depth=2, device=self.device,
+                            process_slice=process_slice)
             self.collate_s = feed.collate_s
             batches = iter(feed)
             while True:
@@ -192,32 +229,31 @@ class Trainer:
                 if raw is None:
                     break
                 self.queue_wait_s.append(time.perf_counter() - wait_t0)
-                with record_function("input_pipeline"):
+                with record_function("input_pipeline"), self.layout.active():
                     batch = self.process_train(raw, self.generator)
                 with record_function("train_step"):
                     self.state, metrics = self.train_step(self.state, batch, self.generator)
                 step += 1
                 flush()  # read back step - 1's metrics while this step runs
-                pending = queue_readback(step, metrics)
+                pending = queue_readback(step, metrics) if self.is_main else None
                 if prof is not None and step == profile_steps[1]:
                     flush()
                     self._stop_profile(prof, profile_dir)
                     prof = None
                 if media_every and step % media_every == 0:
-                    self._log_train_media(batch, step)
+                    self.on_rank0(lambda: self._log_train_media(batch, step))
                 if tc.eval_step and step % tc.eval_step == 0:
                     flush()
-                    logs = self.validate(fast=True)
-                    self.ckpt.save(self.state, epoch, *logs[1:], generator=self.generator)
+                    self.on_rank0(lambda: validate_and_save(epoch))
                 if max_steps is not None and step >= max_steps:
                     flush()
                     batches.close()  # the producer has ended when fit returns
                     return step
             flush()
             if not tc.eval_step:  # per-epoch validation (LRS recipe)
-                logs = self.validate(fast=True)
-                self.ckpt.save(self.state, epoch, *logs[1:], generator=self.generator)
-            self.writer.scalars({"train/epoch_seconds": time.time() - t0}, step)
+                self.on_rank0(lambda: validate_and_save(epoch))
+            if self.is_main:
+                self.writer.scalars({"train/epoch_seconds": time.time() - t0}, step)
         return step
 
     def _activities(self):
@@ -231,13 +267,18 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         prof.stop()
         os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, f"trace_step{self.state.step}.json"))
+        rank = f"_rank{self.layout.rank}" if self.layout.world > 1 else ""
+        prof.export_chrome_trace(os.path.join(profile_dir,
+                                              f"trace_step{self.state.step}{rank}.json"))
         self.last_profile = prof
 
     def _log_train_media(self, batch, step: int) -> None:
         """Spectrogram images and Griffin-Lim audio of the batch's first
-        clip (reference logs these every 100 steps, train.py:239-278)."""
-        g3, gs = (x.float() for x in self.eval_step(batch.video, batch.vid_len, self.generator))
+        clip (reference logs these every 100 steps, train.py:239-278).  The
+        noise is drawn under the layout, at the global batch's shape."""
+        with self.layout.active():
+            g3, gs = (x.float() for x in self.eval_step(batch.video, batch.vid_len,
+                                                        self.generator))
         self.writer.spectrogram("train_mel/g3", g3[0].cpu().numpy(), step)
         self.writer.spectrogram("train_mel/gt", batch.mel[0].cpu().numpy(), step)
         self.writer.spectrogram("train_spec/gen", gs[0].cpu().numpy(), step)
@@ -259,7 +300,10 @@ class Trainer:
         from one initial phase, STOI/ESTOI and PESQ of each (the mel path's
         go to the metric stream as val/*_mel), figures and audio of the
         first batch; ``fast`` scores 5 batches, else ``max_batches`` or
-        all; only the ``n_valid`` real clips of a padded batch count."""
+        all; only the ``n_valid`` real clips of a padded batch count.  Rank
+        0's work (``on_rank0``) under a layout of several ranks."""
+        if not self.is_main:
+            raise RuntimeError("validate runs on rank 0 (Trainer.on_rank0)")
         cfg = self.config
         if self._val_ds is None:
             self._val_ds = self._make_dataset("val", seed=0)

@@ -33,6 +33,7 @@ The sync critic runs in both phases, so its statistics move twice a step
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, NamedTuple, Sequence
 
 import torch
@@ -40,7 +41,10 @@ import torch.nn.functional as F
 
 from vcagan_torch.configs import TrainConfig
 from vcagan_torch.dsp.audio import mel_denormalize
+from vcagan_torch.nn.common import fp32_or_wider
 from vcagan_torch.nn.losses import gan_loss, r1_penalty
+from vcagan_torch.parallel.collectives import all_reduce_mean_, mean_metrics
+from vcagan_torch.parallel.mesh import DataLayout, draw_rows
 from vcagan_torch.train.models import DISCRIMINATOR_SIDE, GENERATOR_SIDE, VCAGANModules
 from vcagan_torch.train.state import GANTrainState, Optimizer
 
@@ -81,7 +85,7 @@ def mel_pyramid(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a.float() - b.float()).abs().mean()
+    return (fp32_or_wider(a) - fp32_or_wider(b)).abs().mean()
 
 
 def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -120,16 +124,29 @@ def make_train_step(
     "g_backward", "g_update" (the D phase is d_loss + d_backward, the G
     phase g_loss + g_backward).
 
-    ``d_phase="batched"``, ``remat``, ``mesh``, ``compiler_options`` and
-    ``donate`` are the JAX step's TPU-compiler knobs and are not ported:
-    setting one raises."""
+    ``mesh``: a data-parallel layout (``vcagan_torch.parallel.DataLayout``)
+    with a process group, each rank stepping on its rows of the global
+    batch.  The step then runs under the layout (BatchNorm over the global
+    batch, draws at its shape), takes the mean over the ranks of the D
+    gradients and of the G gradients (the leaked ``phon`` gradient joined
+    in; ``dphon`` itself is local), so the gradient norms are the reduced
+    gradients', and returns the metrics' means; ``on_phase`` is then also
+    called with "d_reduce" and "g_reduce" after each reduction.
+
+    ``d_phase="batched"``, ``remat``, ``compiler_options`` and ``donate``
+    are the JAX step's TPU-compiler knobs and are not ported: setting one
+    raises."""
     cfg = config or TrainConfig()
-    knobs = dict(d_phase=None if d_phase == "ref" else d_phase, remat=remat, mesh=mesh,
+    knobs = dict(d_phase=None if d_phase == "ref" else d_phase, remat=remat,
                  compiler_options=compiler_options, donate=donate)
     unported = [f"{k}={v!r}" for k, v in knobs.items() if v is not None]
     if unported:
         raise ValueError("not ported (TPU-compiler knobs of the JAX step): "
                          + ", ".join(unported))
+    if mesh is not None and not (isinstance(mesh, DataLayout) and mesh.group is not None):
+        raise ValueError(f"mesh={mesh!r} is not ported: the port's mesh is a DataLayout "
+                         "with a process group (vcagan_torch.parallel.make_layout)")
+    group = None if mesh is None else mesh.group
     mark = on_phase or (lambda name: None)
     dis = (modules.dis1, modules.dis2, modules.dis3)
     g_params = modules.parameters(GENERATOR_SIDE)  # v_front's first
@@ -170,12 +187,18 @@ def make_train_step(
 
     def step(state: GANTrainState, batch: Batch, generator: torch.Generator
              ) -> tuple[GANTrainState, Metrics]:
+        with contextlib.nullcontext() if mesh is None else mesh.active():
+            return local_step(state, batch, generator)
+
+    def local_step(state: GANTrainState, batch: Batch, generator: torch.Generator
+                   ) -> tuple[GANTrainState, Metrics]:
         if state.modules is not modules:
             raise ValueError("the state holds other modules than this step's")
         b, w = batch.video.shape[:2]
         gen = modules.gen
-        noise = torch.randn((b, gen.base_bins, w, gen.noise_dim), generator=generator,
-                            device=batch.video.device)
+        noise = draw_rows(lambda n: torch.randn((n, gen.base_bins, w, gen.noise_dim),
+                                                generator=generator, device=batch.video.device),
+                          b)
         phon, sent = modules.v_front(batch.video, generator)
         gens = gen(sent, phon, batch.vid_len, noise=noise)
         sent_sg = sent.detach()
@@ -190,6 +213,9 @@ def make_train_step(
         d_grads, dphon = grads[:len(d_params)], grads[len(d_params):]
         dis_loss = dis_loss.detach()  # frees the D phase's graph
         mark("d_backward")
+        if group is not None:
+            all_reduce_mean_(d_grads, group)
+            mark("d_reduce")
         d_grad_norm = _global_norm(d_grads)
         d_tx.update(d_grads, state.d_opt_state, d_params)
         del d_grads
@@ -202,6 +228,9 @@ def make_train_step(
         else:
             g_grads = _grads([gen_loss], g_params)
         mark("g_backward")
+        if group is not None:
+            all_reduce_mean_(g_grads, group)
+            mark("g_reduce")
         g_grad_norm = _global_norm(g_grads)
         g_tx.update(g_grads, state.g_opt_state, g_params)
         mark("g_update")
@@ -215,6 +244,8 @@ def make_train_step(
             "g_grad_norm": g_grad_norm,
             "d_grad_norm": d_grad_norm,
         }
+        if group is not None:
+            metrics = mean_metrics(metrics, group)
         return state, metrics
 
     return step
