@@ -124,6 +124,18 @@ Phases, in order; any failure raises and exits non-zero:
      rank's attention launches and shape, then the attention kernel alone
      at the rank's shapes (44, 40 | 80, 40, 256), beside its bound, plain
      and sdpa;
+ 14. the model axis (``vcagan_torch.parallel.shard``: ``q`` and ``mel`` of
+     both attentions split by column over a model group): (a) ``python3 -m
+     vcagan_torch.parallel.dryrun --world 4 --model_parallel 2`` with four
+     gloo ranks on the one card at full width, B=16 x 40 frames, 8 clips a
+     data rank, against one process on all 16 at the gate's tolerances,
+     each rank's attention launches, shapes, peak memory and the model
+     axis's ms a step (one more step profiled), then the attention kernel
+     alone at the rank's shapes (8, 40 | 80, 40, 256) beside its bound,
+     plain and sdpa; (b) ``python3 -m torch.distributed.run
+     --nproc_per_node 2 -m vcagan_torch.cli.train --model_parallel 2`` with
+     gloo ranks on the card, 2 steps at B=8, its checkpoint held to one
+     process's keys, shapes and dtypes and loaded into one process;
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -2799,6 +2811,194 @@ def phase_thirteen(card, cached_ms):
             "data_parallel_dryrun": dryrun, "per_rank_shapes": rows}
 
 
+# Phase 14: the model axis (model_parallel > 1; vcagan_torch/parallel/shard.py).
+# (a) the dryrun gate with 4 gloo ranks on the one card at full width, 2 data
+# x 2 model ranks, B=16 x 40 frames of 112 x 112 (8 clips a data rank),
+# against one process on all 16 (first, so its memory is given back), and one
+# more step of each rank under torch.profiler for the collectives' ms; (b) the
+# training CLI under torch.distributed.run with 2 gloo ranks on the card, one
+# model group of 2 (VCAGAN_DIST_BACKEND=gloo: NCCL refuses two ranks on one
+# device), B=8, 2 steps, the checkpoint of step 2 against one process's.
+MA_WORLD, MA_MODEL = 4, 2
+MA_BATCH = 16
+MA_CLI_BATCH = 8
+MA_TIMEOUT_S = 420
+SPLIT_LEAVES = sorted(f"gen.att{i}.{d}.weight" for i in (1, 2) for d in ("q", "mel"))
+
+
+def model_axis_ms(profile):
+    """A rank's ms a step in the model axis's collectives (host time of the
+    ``model_axis.*`` ranges: the call, its transfer and the wait for the
+    group) and in the data axis's, from ``dryrun.profile_step``."""
+    def total(prefix):
+        return sum(v["host_ms"] for k, v in profile.items()
+                   if k.startswith(prefix) and v is not None)
+
+    return total("model_axis."), total("data_axis.")
+
+
+def phase_model_axis_gate(card):
+    """(a) ``python -m vcagan_torch.parallel.dryrun --world 4
+    --model_parallel 2`` with gloo ranks sharing the card, fp32, at its
+    tolerances: the deltas, the states' equality, each rank's attention
+    launches and shapes, peak memory and the model axis's ms a step; then
+    the attention alone at the rank's shapes.  Returns the readings and the
+    two attention rows."""
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "vcagan_torch.parallel.dryrun", "--world", str(MA_WORLD),
+           "--model_parallel", str(MA_MODEL), "--device", "cuda", "--backend", "gloo",
+           "--batch", str(MA_BATCH), "--frames", str(TRAIN_WINDOW), "--image",
+           str(DataConfig().crop_size), "--timeout", str(MA_TIMEOUT_S), "--profile"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=MA_TIMEOUT_S + 60)
+    wall = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    check(proc.returncode == 0 and lines and json.loads(lines[-1])["ok"],
+          f"model axis dryrun failed ({proc.returncode}):\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    r = json.loads(lines[-1])
+    per_rank = MA_BATCH // (MA_WORLD // MA_MODEL)
+    shapes = [[per_rank, TRAIN_WINDOW, TRAIN_WINDOW, 256],
+              [per_rank, 2 * TRAIN_WINDOW, TRAIN_WINDOW, 256]]
+    check((r["data"], r["model"]) == (MA_WORLD // MA_MODEL, MA_MODEL)
+          and r["split_leaves"] == SPLIT_LEAVES, f"layout {r['data']} x {r['model']}, split "
+          f"{r['split_leaves']}")
+    check(r["launches"] == [2] * MA_WORLD and all(a == shapes for a in r["attention"]),
+          f"per-rank attention: launches {r['launches']}, shapes {r['attention']}")
+    axis_ms = [model_axis_ms(p) for p in r["profile"]]
+    print(f"model axis (a) dryrun, {MA_WORLD} gloo ranks on one card ({MA_WORLD // MA_MODEL} "
+          f"data x {MA_MODEL} model; (b) beside it), fp32, B={MA_BATCH} x {TRAIN_WINDOW} frames (112 x 112), "
+          f"{per_rank} clips a data rank, the four attention projections split by column, "
+          f"against one process on all {MA_BATCH}: metrics within {r['metric_rel']:.3e} "
+          f"relative (bound 5e-4), generator-side leaf mean|p| (the split leaves "
+          f"concatenated) within {r['leaf_stat']:.3e} (bound {r['leaf_stat_bound']:.1e}), "
+          f"each module's gradient within {r['module_grad_bound']:g} relative L2 ("
+          + ", ".join(f"{m} {v:.2e}" for m, v in r["module_grad_rel"].items()) + "), a leaf's "
+          f"{r['grad_rel']:.3e} at worst ({r['grad_rel_leaf']}; reported, not bounded in fp32), "
+          f"the replicated states equal bit for bit and the split leaves equal within each "
+          f"model index; attention launches a rank {r['launches']} at {shapes}, the single "
+          f"process {r['reference_launches']}; peak memory a rank "
+          + ", ".join(f"{b / 1e9:.2f}" for b in r["peak_bytes"])
+          + f" GB, the single process {r['reference_peak_bytes'] / 1e9:.2f} GB; the single "
+          f"process {r['single_process_s']:.1f} s, the ranks {r['ranks_s']:.1f} s, {wall:.1f} s "
+          f"in all [{card}]")
+    for rank, (p, (model_ms, data_ms)) in enumerate(zip(r["profile"], axis_ms)):
+        print(f"model axis (a) rank {rank}, one profiled step: {p['step_ms']:.1f} ms, the model "
+              f"axis's collectives {model_ms:.2f} ms (" + ", ".join(
+                  f"{k.split('.', 1)[1]} {v['host_ms']:.2f} ms (device {v['device_ms']:.2f}) x "
+                  f"{v['calls']}"
+                  for k, v in p.items() if k.startswith("model_axis.") and v)
+              + f"), the data axis's {data_ms:.2f} ms (host time of the ranges, the wait for "
+              f"the other ranks in it; 4 ranks share the card and gloo moves each collective "
+              f"through the host) [{card}]")
+    side = torch.cuda.Stream()
+    rows = [attention_row(card, f"model axis per rank att{i + 1}", t, s_, d, [s_] * b, 410 + i,
+                          side)
+            for i, (b, t, s_, d) in enumerate(shapes)]
+    keep = ("world", "data", "model", "split_leaves", "metric_rel", "leaf_stat",
+            "leaf_stat_bound", "grad_rel", "grad_rel_leaf", "module_grad_rel",
+            "module_grad_bound", "launches", "attention", "reference_launches", "peak_bytes",
+            "reference_peak_bytes", "single_process_s", "ranks_s")
+    out = {k: r[k] for k in keep}
+    out.update(model_axis_ms=[a for a, _ in axis_ms], data_axis_ms=[b for _, b in axis_ms],
+               profiled_step_ms=[p["step_ms"] for p in r["profile"]])
+    return out, rows
+
+
+def state_layout(tree):
+    """The keys, shapes and dtypes of a saved train state."""
+    if isinstance(tree, dict):
+        return {k: state_layout(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [state_layout(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), str(tree.dtype))
+    return type(tree).__name__
+
+
+def start_model_axis_cli(tmp):
+    """(b) ``python -m torch.distributed.run --nproc_per_node 2 -m
+    vcagan_torch.cli.train --model_parallel 2`` with gloo ranks on the card
+    (synthetic GRID clips, B=8, 2 steps, the validation and checkpoint of
+    step 2 on rank 0), started in the background.  Returns the process and
+    its start time."""
+    env = dict(os.environ, VCAGAN_DIST_BACKEND="gloo")
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(name, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(MA_MODEL),
+           "--master_addr", "localhost", "--master_port", str(_free_port()), "-m",
+           "vcagan_torch.cli.train", "--model_parallel", str(MA_MODEL), "--grid",
+           os.path.join(tmp, "no_corpus"), "--batch_size", str(MA_CLI_BATCH), "--max_steps",
+           "2", "--eval_step", "2", "--epochs", "1", "--media_every", "0", "--checkpoint_dir",
+           os.path.join(tmp, "ckpt"), "--log_dir", os.path.join(tmp, "log")]
+    with open(os.path.join(tmp, "out"), "w") as out, open(os.path.join(tmp, "err"), "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out, stderr=err, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_model_axis_cli(card, tmp, proc, t0):
+    """(b) its end: exit 0, 2 train lines, and a checkpoint with one
+    process's keys, shapes and dtypes that loads into one process.
+    Returns the readings."""
+    from vcagan_torch.io.checkpoint import STATE_FILE, CheckpointManager
+
+    code = proc.wait(timeout=max(MA_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    wall = time.perf_counter() - t0
+    with open(os.path.join(tmp, "out")) as f:
+        out = f.read()
+    with open(os.path.join(tmp, "err")) as f:
+        check(code == 0 and "Finishing training" in out,
+              f"torchrun cli.train --model_parallel {MA_MODEL} failed ({code}):\n{out[-3000:]}"
+              f"\n{f.read()[-3000:]}")
+    lines = train_lines(os.path.join(tmp, "log"))
+    check(len(lines) == 2, f"the metric stream holds {len(lines)} train lines, not 2")
+    ckpt = os.path.join(tmp, "ckpt")
+    paths = sorted(p for p in os.listdir(ckpt) if p.startswith("Epoch_"))
+    check(len(paths) == 1, f"checkpoints {os.listdir(ckpt)}")
+    path = os.path.join(ckpt, paths[0])
+    modules = VCAGANModules.create(ModelConfig(), seed=0)
+    state, _, _ = create_train_state(modules, TrainConfig(), device="cuda")
+    one = CheckpointManager(os.path.join(tmp, "one")).save(
+        state, 0, generator=torch.Generator("cuda"))
+    saved, want = (torch.load(os.path.join(p, STATE_FILE), map_location="cpu", weights_only=True)
+                   for p in (path, one))
+    check(state_layout(saved) == state_layout(want),
+          "the model axis's checkpoint differs from one process's in keys, shapes or dtypes")
+    CheckpointManager(ckpt).restore(state, path)
+    check(state.step == 2, f"restored step {state.step}")
+    print(f"model axis (b) torch.distributed.run --nproc_per_node {MA_MODEL} -m "
+          f"vcagan_torch.cli.train --model_parallel {MA_MODEL} (gloo ranks on one card, "
+          f"B={MA_CLI_BATCH}, beside (a)): exit 0 in {wall:.1f} s, 2 train lines (gen_loss "
+          + ", ".join(f"{x['train/gen_loss']:.3f}" for x in lines) + f"), its checkpoint "
+          f"{paths[0]} with one process's keys, shapes and dtypes, restored into one process "
+          f"at step {state.step} [{card}]")
+    del modules, state, saved, want
+    torch.cuda.empty_cache()
+    return dict(cli_s=wall, checkpoint_layout_equal=True)
+
+
+def phase_fourteen(card):
+    """Phase 14: (b) started first, then (a) beside it.  Returns the
+    readings for the kernels line."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_model_axis_")
+    proc, t0 = start_model_axis_cli(tmp)
+    try:
+        gate, rows = phase_model_axis_gate(card)
+        torch.cuda.empty_cache()
+        cli = finish_model_axis_cli(card, tmp, proc, t0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches_model_axis_dryrun": gate["launches"], "model_axis_dryrun": gate,
+            "model_axis_cli": cli, "per_rank_shapes_model_axis": rows}
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2879,6 +3079,10 @@ def main() -> None:
     t13 = time.perf_counter()
     thirteen = phase_thirteen(card, twelve["fit_bf16"]["GRID thread, cached"]["ms_a_step"])
     print(f"phase 13 (data parallel): {time.perf_counter() - t13:.1f} s")
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    fourteen = phase_fourteen(card)
+    print(f"phase 14 (the model axis): {time.perf_counter() - t14:.1f} s")
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -2932,7 +3136,7 @@ def main() -> None:
                      launches_trainer_lrs=lrs_loop_launches, lrs_shapes=lrs_rows,
                      lrs_max_abs_err=lrs_worst, lrs_grad_max_abs_err=lrs_grad_worst,
                      launches_eval=eval_launches, eval_shapes=eval_rows,
-                     eval_max_abs_err=eval_worst, **twelve, **thirteen)
+                     eval_max_abs_err=eval_worst, **twelve, **thirteen, **fourteen)
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

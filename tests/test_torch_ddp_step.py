@@ -31,6 +31,12 @@ processes, so a rank left waiting in a collective fails the test:
    each module's update by the share of elements more than lr / 2 apart
    (below 5e-3), and the BatchNorm statistics of the global batch within
    1e-3 and 2e-3 of their move; the ranks' states equal bit for bit.
+3. The same fp32 step on 2 x 2 ranks (``--model_parallel 2``: 2 data
+   ranks of 2 clips, each a model group of 2 that splits the four
+   attention projections by column), against the same JAX step at the same
+   tolerances; each rank gathers the split leaves and their moments before
+   it writes its state, and the ranks' whole states equal bit for bit.
+   Launched with the 2 ranks above, so the JAX step compiles once for both.
 """
 
 import json
@@ -50,6 +56,7 @@ sys.path.insert(0, ROOT)
 
 LIMIT_S = 240
 WORLD = 2
+LAYOUTS = {"2x1": (2, 1), "2x2": (4, 2)}  # name: (world, model_parallel)
 B, W, HW = 4, 20, 32  # 2 clips a rank
 LENGTHS = [W, W - 6, W - 3, W]
 
@@ -97,29 +104,36 @@ def make_batch():
     )
 
 
-def rank_main(rank, port, out):
-    """One rank: one fp32 step of the problem in ``out`` on its rows."""
+def rank_main(rank, port, out, world=WORLD, model_parallel=1):
+    """One rank: one fp32 step of the problem in ``out`` on its rows; the
+    split leaves and their moments gathered before the state is written."""
     from vcagan_torch.configs import ModelConfig, TrainConfig
     from vcagan_torch.parallel import initialize_distributed, make_layout
     from vcagan_torch.parallel.dryrun import state_digest
+    from vcagan_torch.parallel.shard import ModelSplit
     from vcagan_torch.train import Batch, VCAGANModules, create_train_state, make_train_step
 
     torch.set_num_threads(1)
     problem = torch.load(os.path.join(out, "problem.pt"), weights_only=False)
-    assert initialize_distributed("gloo", f"tcp://localhost:{port}", WORLD, rank)
-    layout = make_layout(batch_size=B, device="cpu")
+    assert initialize_distributed("gloo", f"tcp://localhost:{port}", world, rank)
+    layout = make_layout(model_parallel, batch_size=B, device="cpu")
     modules = VCAGANModules.create(ModelConfig(**problem["model"])).load_state_dicts(
         problem["state_dicts"])
+    split = ModelSplit(modules, layout)
+    split.split_()
     cfg = TrainConfig(**problem["train"])
     state, g_tx, d_tx = create_train_state(modules, cfg, steps_per_epoch=1, device="cpu")
     step = make_train_step(modules, g_tx, d_tx, cfg, mesh=layout)
     rows = layout.batch_slice(B)
     batch = Batch(**{k: torch.from_numpy(v[rows]) for k, v in problem["batch"].items()})
     state, metrics = step(state, batch, torch.Generator().manual_seed(problem["noise_seed"]))
-    torch.save(dict(metrics={k: v.item() for k, v in metrics.items()},
-                    g_mu=state.g_opt_state.mu, d_mu=state.d_opt_state.mu,
-                    state_dicts=modules.state_dicts(), digest=state_digest(state)),
-               os.path.join(out, f"rank{rank}.pt"))
+    with split.full(state):
+        result = dict(metrics={k: v.item() for k, v in metrics.items()},
+                      digest=state_digest(state))
+        if rank == 0:  # the others' whole states equal it (the digests)
+            result.update(g_mu=state.g_opt_state.mu, d_mu=state.d_opt_state.mu,
+                          state_dicts=modules.state_dicts())
+        torch.save(result, os.path.join(out, f"mp{model_parallel}_rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
 
@@ -151,9 +165,11 @@ def runs(tmp_path_factory):
         batch = make_batch()
         torch.save(dict(model=ref.NARROW, train=ref.TRAIN, state_dicts=from_jax(params, stats),
                         batch=batch, noise_seed=ref.NOISE_SEED), out / "problem.pt")
-        port = free_port()
-        ranks = [popen([sys.executable, __file__, str(r), str(port), str(out)])
-                 for r in range(WORLD)]
+        ranks = []
+        for world, model_parallel in LAYOUTS.values():
+            port = str(free_port())
+            ranks += [popen([sys.executable, __file__, str(r), port, str(out), str(world),
+                             str(model_parallel)]) for r in range(world)]
         try:
             # the port's noise at the global batch's shape, as each rank draws it
             noise = torch.randn((B, 20, W, ref.NARROW["noise_dim"]),
@@ -165,8 +181,9 @@ def runs(tmp_path_factory):
         gate_result = finish(gate)
     for rc, log in logs:
         assert rc == 0, log[-3000:]
-    results = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
-    return dict(gate=gate_result, ranks=results, params=params,
+    results = {name: [torch.load(out / f"mp{mp}_rank{r}.pt", weights_only=False)
+                      for r in range(world)] for name, (world, mp) in LAYOUTS.items()}
+    return dict(gate=gate_result, ranks=results["2x1"], ranks_2x2=results["2x2"], params=params,
                 stats=stats, jax_state=jax_state, jax_metrics=jax_metrics,
                 jax_moments=jax_moments)
 
@@ -207,11 +224,11 @@ def port_state(ref, rank_result):
                                  d_opt_state=types.SimpleNamespace(mu=rank_result["d_mu"]))
 
 
-def test_two_ranks_match_the_jax_step_metrics(runs):
+def check_jax_step_metrics(runs, key):
     ref = jax_reference()
-    ranks, want = runs["ranks"], runs["jax_metrics"]
-    assert ranks[0]["digest"] == ranks[1]["digest"]
-    assert ranks[0]["metrics"] == ranks[1]["metrics"]
+    ranks, want = runs[key], runs["jax_metrics"]
+    assert all(r["digest"] == ranks[0]["digest"] for r in ranks)
+    assert all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
     got = ranks[0]["metrics"]
     assert sorted(got) == sorted(want) and len(want) == 9
     for k in want:
@@ -219,38 +236,63 @@ def test_two_ranks_match_the_jax_step_metrics(runs):
         np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=1e-6, err_msg=k)
 
 
+def test_two_ranks_match_the_jax_step_metrics(runs):
+    check_jax_step_metrics(runs, "ranks")
+
+
+def test_two_by_two_ranks_match_the_jax_step_metrics(runs):
+    check_jax_step_metrics(runs, "ranks_2x2")
+
+
 MODULES = ["v_front", "gen", "post", "dis1", "dis2", "dis3", "s_dis"]
 
 
-@pytest.mark.parametrize("name", MODULES)
-def test_two_ranks_match_the_jax_first_moment(runs, name):
+def check_jax_first_moment(runs, key, name):
     """The reduced gradient, through the first moment (1 - b1) (g + wd p)."""
     ref = jax_reference()
-    got = ref.first_moments(port_state(ref, runs["ranks"][0]))[name]
+    got = ref.first_moments(port_state(ref, runs[key][0]))[name]
     g, w = ref.flat(got), ref.flat(runs["jax_moments"][name])
     rel = np.linalg.norm(g - w) / np.linalg.norm(w)
-    print(f"{name}: first moment {rel:.2e} relative L2 from the JAX step's")
+    print(f"{key} {name}: first moment {rel:.2e} relative L2 from the JAX step's")
     assert rel <= 1e-2, rel
 
 
 @pytest.mark.parametrize("name", MODULES)
-def test_two_ranks_match_the_jax_update(runs, name):
+def test_two_ranks_match_the_jax_first_moment(runs, name):
+    check_jax_first_moment(runs, "ranks", name)
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_two_by_two_ranks_match_the_jax_first_moment(runs, name):
+    check_jax_first_moment(runs, "ranks_2x2", name)
+
+
+def check_jax_update(runs, key, name):
     from vcagan_torch.configs import TrainConfig
 
     ref = jax_reference()
-    got = ref.as_jax_trees(port_state(ref, runs["ranks"][0]))[0][name]
+    got = ref.as_jax_trees(port_state(ref, runs[key][0]))[0][name]
     jax_state = runs["jax_state"]
     want = {**jax_state.g_params, **jax_state.d_params}[name]
     flipped = ref.flipped_share(runs["params"][name], got, want, TrainConfig().lr)
     assert flipped < 5e-3, flipped
 
 
-@pytest.mark.parametrize("name", ["v_front", "gen", "post", "s_dis"])
-def test_two_ranks_match_the_jax_batch_statistics(runs, name):
+@pytest.mark.parametrize("name", MODULES)
+def test_two_ranks_match_the_jax_update(runs, name):
+    check_jax_update(runs, "ranks", name)
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_two_by_two_ranks_match_the_jax_update(runs, name):
+    check_jax_update(runs, "ranks_2x2", name)
+
+
+def check_jax_batch_statistics(runs, key, name):
     """The running statistics move with the global batch's statistics, as
     flax's BatchNorm over the JAX step's whole batch."""
     ref = jax_reference()
-    got = ref.as_jax_trees(port_state(ref, runs["ranks"][0]))[1][name]
+    got = ref.as_jax_trees(port_state(ref, runs[key][0]))[1][name]
     g, w = ref.flat(got), ref.flat(runs["jax_state"].batch_stats[name])
     s = ref.flat(runs["stats"][name])
     assert np.abs(g - w).max() <= 1e-3
@@ -258,5 +300,16 @@ def test_two_ranks_match_the_jax_batch_statistics(runs, name):
     assert np.abs(g - s).min() > 0  # every statistic moved
 
 
+@pytest.mark.parametrize("name", ["v_front", "gen", "post", "s_dis"])
+def test_two_ranks_match_the_jax_batch_statistics(runs, name):
+    check_jax_batch_statistics(runs, "ranks", name)
+
+
+@pytest.mark.parametrize("name", ["v_front", "gen", "post", "s_dis"])
+def test_two_by_two_ranks_match_the_jax_batch_statistics(runs, name):
+    check_jax_batch_statistics(runs, "ranks_2x2", name)
+
+
 if __name__ == "__main__":
-    rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], int(sys.argv[4]),
+              int(sys.argv[5]))

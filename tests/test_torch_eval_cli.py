@@ -20,8 +20,9 @@ vcagan_torch.cli.test`` (GRID) and ``python -m vcagan_torch.cli.test_lrs``.
   model patched in: the JAX CLIs' artifact paths, npz keys and shapes, the
   ``metric.txt`` format, ``--time_breakdown``'s keys; ``asr_grid`` on
   ``test``'s own ``spec_mel``; the argv equal to the JAX CLIs'; an orbax
-  checkpoint (with the exporter's name) and ``--model_parallel`` above 1
-  refused by name; ``--max_timesteps`` past 512 keys parses.
+  checkpoint (with the exporter's name) refused by name; ``test_lrs
+  --model_parallel 2`` parsed and without effect, as in the JAX CLI;
+  ``--max_timesteps`` past 512 keys parses.
 - bf16 evaluation: the eval step on bf16 modules equals the bf16
   ``Synthesizer`` (the same modules and operations: bit for bit).
 """
@@ -276,12 +277,22 @@ def test_test_lrs_cli_argv_equals_the_jax_cli(argv):
 
 
 @pytest.mark.parametrize("cli,argv,words", [
-    (cli_lrs, ["--model_parallel", "2"], "multi-GPU"),
+    # ported since (the case keeps its id): parsed and without effect, as the
+    # JAX CLI's (vcagan/cli/test_lrs.py:56), the evaluation on one device
+    (cli_lrs, ["--model_parallel", "2"], None),
 ], ids=["test_lrs model_parallel"])
-def test_what_the_port_does_not_run_stops_the_parse(cli, argv, words, capsys):
-    with pytest.raises(SystemExit):
-        cli.parse_args(argv)
-    assert words in capsys.readouterr().err
+def test_what_the_port_does_not_run_stops_the_parse(cli, argv, words, capsys, tmp_path,
+                                                     narrow_clis):
+    args = cli.parse_args(argv)
+    assert vars(args) == vars(jax_cli_lrs.parse_args(argv)) and args.model_parallel == 2
+    out = tmp_path / "test"
+    with pytest.warns(UserWarning, match="not found under /nonexistent"):
+        cli.main(["--data", "/nonexistent", "--synthetic_clips", "2", "--batch_size", "2",
+                  "--max_timesteps", "40", "--max_batches", "1", "--out_dir", str(out),
+                  "--platform", "cpu", *argv])
+    assert not torch.distributed.is_initialized()
+    assert METRIC.fullmatch((out / "LRS2" / "metric.txt").read_text())
+    assert len(os.listdir(out / "LRS2" / "wav")) == 2
 
 
 @pytest.mark.parametrize("cli", [cli_test, cli_lrs], ids=["test max_timesteps",

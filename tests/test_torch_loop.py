@@ -224,12 +224,15 @@ def test_parse_args_and_config_equal_the_jax_clis(argv):
     pytest.param(["--bf16"], None, id="argv0-bf16 training"),
     (["--remat", "r1"], "TPU-compiler knobs"),
     (["--d_phase", "batched"], "TPU-compiler knobs"),
-    (["--model_parallel", "2"], "multi-GPU"),
+    pytest.param(["--model_parallel", "2"], None, id="argv3-multi-GPU"),
     pytest.param(["--collate_process"], None, id="argv4-ProcessEpoch"),
 ])
 def test_unported_flags_stop_the_parse(argv, item, capsys):
     if item is None:
         cfg = cli.build_config(cli.parse_args(argv))
+        if argv == ["--model_parallel", "2"]:  # the model axis: M ranks a model group
+            assert cfg.mesh.model_parallel == 2
+            return
         assert cfg.model.use_bfloat16 if argv == ["--bf16"] else cfg.data.collate_process
         return
     with pytest.raises(SystemExit):
@@ -244,12 +247,16 @@ def test_unported_flags_stop_the_parse(argv, item, capsys):
     pytest.param({"model.use_bfloat16": True}, None, id="override2-bf16 training"),
     ({"train.remat": "stem"}, "TPU-compiler knobs"),
     ({"train.d_phase": "batched"}, "TPU-compiler knobs"),
-    ({"mesh.model_parallel": 2}, "multi-GPU"),
+    # ported since: one process cannot hold a model group of 2, as make_mesh
+    # cannot lay 1 device out as (data, 2) (the case keeps its id)
+    pytest.param({"mesh.model_parallel": 2}, "^1 processes not divisible by model_parallel=2$",
+                 id="override5-multi-GPU"),
     pytest.param({"data.collate_process": True}, None, id="override6-ProcessEpoch"),
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, override, item):
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        error = ValueError if "mesh.model_parallel" in override else NotImplementedError
+        with pytest.raises(error, match=item):
             small_trainer(tmp_path, "refused", **override)
         return
     if "data.dataset" in override:  # the LRS recipe on its synthetic clips

@@ -3,9 +3,9 @@
 - ``local_batch_slice`` against the JAX package's at 3 ranks (slices and
   the indivisible batch's message), ``DataLayout.batch_slice`` the same;
   ``initialize_distributed`` a no-op without a multi-process environment;
-  ``make_layout`` refuses the model axis (naming its ROADMAP item) and a
-  world that does not divide the batch (giving the gcd the JAX Trainer
-  would have used); ``unported`` still refuses ``model_parallel=2``.
+  ``make_layout`` refuses a model group of 2 in one process and a world
+  that does not divide the batch (giving the gcd the JAX Trainer would
+  have used); ``unported`` takes ``model_parallel=2``.
 - The GRID and LRS epochs with ``process_slice``: ranks 0 and 1 of a
   global batch of 4, concatenated, equal the unsliced epoch bit for bit
   (shuffle, window draws, the padded tail's ``n_valid``), and each rank's
@@ -95,10 +95,11 @@ def test_single_process_layout_and_refusals(monkeypatch):
     layout = make_layout(batch_size=7, device="cpu")
     assert (layout.world, layout.rank, layout.group) == (1, 0, None)
     assert layout.batch_slice(7) == slice(0, 7)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 5, multi-GPU on the model axis"):
+    # ported since: the model axis; one process cannot hold a model group of 2
+    # (make_mesh: "1 devices not divisible by model_parallel=2")
+    with pytest.raises(ValueError, match="^1 processes not divisible by model_parallel=2$"):
         make_layout(model_parallel=2, device="cpu")
-    (refusal,) = unported(grid_config(**{"mesh.model_parallel": 2}))
-    assert "multi-GPU" in refusal and "Queue 1 item 5" in refusal and "att1/q" in refusal
+    assert unported(grid_config(**{"mesh.model_parallel": 2})) == []
     assert unported(grid_config()) == []
 
 

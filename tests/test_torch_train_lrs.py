@@ -15,7 +15,7 @@
   directly on the LRS pipeline's batch, one validation batch, a
   checkpoint round trip bit for bit.
 - ``python -m vcagan_torch.cli.train_lrs``: its argv and config equal the
-  JAX CLI's, ``--model_parallel`` above 1 stops the parse, and ``main``
+  JAX CLI's, ``--model_parallel 2`` among them, and ``main``
   runs one bf16 step on the CPU and raises without ``--platform cpu``
   where CUDA is absent.
 """
@@ -161,9 +161,13 @@ def test_train_lrs_parse_args_and_config_equal_the_jax_clis(argv):
 
 
 def test_train_lrs_refuses_model_parallel(capsys):
-    with pytest.raises(SystemExit):
-        cli_lrs.parse_args(["--model_parallel", "2"])
-    assert "multi-GPU" in capsys.readouterr().err
+    """Ported since (the test keeps its name): ``--model_parallel 2`` parses
+    into ``mesh.model_parallel`` as the JAX CLI's, for a world of 2 x N
+    ranks under ``torchrun``."""
+    args = cli_lrs.parse_args(["--model_parallel", "2"])
+    assert vars(args) == vars(jax_cli_lrs.parse_args(["--model_parallel", "2"]))
+    assert cli_lrs.build_config(args).mesh.model_parallel == 2
+    assert capsys.readouterr().err == ""
 
 
 def test_train_lrs_main_trains_bf16_on_the_cpu(tmp_path, monkeypatch, capsys):

@@ -13,8 +13,9 @@ clip's name with ``/`` as ``_``; each wav trimmed to its length) and
 under ``./data/<data_name>`` it runs on ``--synthetic_clips`` synthetic
 clips and warns.  ``--time_breakdown`` prints one JSON line of wall
 seconds: the vocoding (from the queued forward to the waveforms on the
-host), STOI/ESTOI, PESQ, the dump and the rest.  ``--model_parallel``
-above 1 stops the parse (ROADMAP: multi-GPU).
+host), STOI/ESTOI, PESQ, the dump and the rest.  ``--model_parallel`` is
+parsed and has no effect, as in the JAX CLI (``vcagan/cli/test_lrs.py:56``):
+the evaluation runs on one device.
 """
 
 from __future__ import annotations
@@ -32,7 +33,6 @@ import torch
 from vcagan_torch.cli.test import (
     load_modules, score, write_clip, write_metrics)
 from vcagan_torch.cli.train_lrs import build_config
-from vcagan_torch.configs import unported
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -79,13 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None):
-    """The JAX CLI's argv; a setting the port does not run stops the parse."""
-    p = build_parser()
-    args = p.parse_args(argv)
-    missing = unported(build_config(args))
-    if missing:
-        p.error("not ported: " + "; ".join(missing))
-    return args
+    """The JAX CLI's argv (each of its settings runs)."""
+    return build_parser().parse_args(argv)
 
 
 def vocode_lrs(pipe, gs: torch.Tensor, wav, mel_len: torch.Tensor, hop: int,

@@ -3,10 +3,15 @@ train.py (reference: train.py:25-50) and with ``python -m vcagan.cli.train``.
 
     python -m vcagan_torch.cli.train --grid <GRID_root> --subject overlap ...
     torchrun --nproc_per_node 4 -m vcagan_torch.cli.train ...   # one rank a card
+    torchrun --nproc_per_node 4 -m vcagan_torch.cli.train --model_parallel 2 ...
 
-Under ``torchrun`` each rank trains on its slice of the global
-``--batch_size`` on ``cuda:LOCAL_RANK`` (gloo on the CPU with
-``--platform cpu``); rank 0 validates, logs and checkpoints.
+Under ``torchrun`` each rank trains on its data index's slice of the
+global ``--batch_size`` on ``cuda:LOCAL_RANK`` (NCCL; gloo on the CPU with
+``--platform cpu``, or where ``VCAGAN_DIST_BACKEND=gloo`` lets ranks share
+a card); ``--model_parallel M`` makes M ranks a model group, which splits
+the four attention projections by column (the world over M is the data
+axis; M must divide the world).  Rank 0 validates, logs and checkpoints,
+on the whole state.
 
 Runs on CUDA; ``--platform cpu`` runs on the CPU (plain versions of the
 kernels).  Without the corpus under ``--grid`` it trains on the synthetic
@@ -17,8 +22,8 @@ checkpoint exported to ``.npz`` by ``tools/export_jax_train_state.py``.
 ``--bf16`` computes the modules in bf16 (parameters and losses stay fp32).
 ``--collate_process`` collates in a worker process (``ProcessEpoch``).
 The JAX CLI's flags that the port does not run (``--remat`` other than
-none, ``--d_phase batched``, ``--model_parallel`` above 1) stop the parse
-with an error that names their ROADMAP item.  ``--dataparallel``, ``--gpu``
+none, ``--d_phase batched``) stop the parse with an error that names
+their ROADMAP item.  ``--dataparallel``, ``--gpu``
 and ``--synthetic`` are accepted and do nothing, as in the JAX CLI (the
 ranks come from ``torchrun``).
 """
@@ -127,7 +132,8 @@ def run(args, cfg) -> None:
         if args.checkpoint is not None:  # a port checkpoint, or an exported JAX train state
             from vcagan_torch.io.jax_state import restore_train_state
 
-            restore_train_state(trainer.state, args.checkpoint, generator=trainer.generator)
+            with trainer.split.full(trainer.state):  # whole tensors in, this rank's columns kept
+                restore_train_state(trainer.state, args.checkpoint, generator=trainer.generator)
 
         def smoke_validate():  # before training (reference train.py:121)
             logs = trainer.validate(fast=True, max_batches=1)

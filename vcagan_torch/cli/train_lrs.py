@@ -12,8 +12,9 @@ CUDA; ``--platform cpu`` runs on the CPU (plain versions of the kernels).
 Without the corpus's split and crop tables under ``./data/<data_name>`` it
 trains on ``data.synthetic_clips`` synthetic clips and warns, naming the
 root.  ``--bf16`` computes the modules in bf16 (parameters and losses stay
-fp32).  ``--model_parallel`` above 1 stops the parse with an error that
-names its ROADMAP item.  ``--dataparallel``, ``--gpu`` and ``--synthetic``
+fp32).  ``--model_parallel M`` splits the four attention projections by
+column over M ranks of the ``torchrun`` world (``cli.train``).
+``--dataparallel``, ``--gpu`` and ``--synthetic``
 are accepted and do nothing, as in the JAX CLI.
 """
 
@@ -22,7 +23,7 @@ from __future__ import annotations
 import argparse
 
 from vcagan_torch.cli.train import run
-from vcagan_torch.configs import lrs_config, unported
+from vcagan_torch.configs import lrs_config
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,13 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None):
-    """The JAX CLI's argv; a setting the port does not run stops the parse."""
-    p = build_parser()
-    args = p.parse_args(argv)
-    missing = unported(build_config(args))
-    if missing:
-        p.error("not ported: " + "; ".join(missing))
-    return args
+    """The JAX CLI's argv (each of its settings runs)."""
+    return build_parser().parse_args(argv)
 
 
 def build_config(args):

@@ -121,16 +121,11 @@ class TrainConfig:
     d_phase: str = "ref"
 
 
-MODEL_AXIS_ITEM = (
-    "ROADMAP Queue 1 item 5, multi-GPU on the model axis: the column-sharded att1/q, att2/q, "
-    "att1/mel and att2/mel kernels of vcagan/parallel/mesh.py:60-75")
-
-
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device layout: data-parallel ranks, one device each
-    (``vcagan_torch.parallel``); ``model_parallel`` stays 1 (the model axis
-    is not ported)."""
+    """Process layout, one device a rank (``vcagan_torch.parallel``):
+    ``model_parallel`` ranks a model group, over which the four attention
+    projections are split by column; the world over it is the data axis."""
 
     model_parallel: int = 1
 
@@ -155,9 +150,6 @@ def unported(config: VCAGANConfig) -> list[str]:
     if c.train.d_phase != "ref":
         found.append(f"train.d_phase={c.train.d_phase!r} / --d_phase (ROADMAP: the JAX "
                      "step's TPU-compiler knobs)")
-    if c.mesh.model_parallel != 1:
-        found.append(f"mesh.model_parallel={c.mesh.model_parallel} / --model_parallel "
-                     f"({MODEL_AXIS_ITEM})")
     return found
 
 

@@ -13,15 +13,43 @@ Flatten orders follow the reference state dict, which the converter
 input rows are c-major (index c*F + f, the converter permutes them to the
 JAX f-major order), while ``mel``'s output rows are not permuted, so they
 stay f-major (index f*c_out + c) as in JAX.
+
+Under a layout with a model axis (``vcagan_torch.parallel``), ``q`` and
+``mel`` hold their rank's output columns (``vcagan_torch/parallel/shard.py``,
+the JAX package's ``vcagan/parallel/mesh.py:60-86``).  Each such product
+takes its input through ``copy_to_model``, gathers its columns over the
+model group and adds the full, replicated bias after the gather, so the
+attention kernel gets the whole ``q`` (D wide, as the JAX kernel's
+partitioning rule keeps it) and ``mel``'s output leaves the module whole,
+as the JAX step pins it to the batch's sharding.  ``k`` and ``v`` stay
+whole.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vcagan_torch.kernels.masked_attention import masked_cross_attention
 from vcagan_torch.nn.common import fp32_or_wider
+from vcagan_torch.parallel.collectives import copy_to_model, gather_columns
+from vcagan_torch.parallel.mesh import active_layout
+
+
+def column_parallel(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``linear(x)``; where ``linear`` holds a slice of its output columns,
+    the slice's product gathered over the active layout's model group, then
+    the whole bias."""
+    if linear.weight.shape[0] == linear.out_features:
+        return linear(x)
+    layout = active_layout()
+    if layout is None or layout.model_group is None:
+        raise RuntimeError(f"{linear} holds {linear.weight.shape[0]} of its "
+                           f"{linear.out_features} output columns: it runs under the active "
+                           "layout of its model group")
+    group = layout.model_group
+    return gather_columns(F.linear(copy_to_model(x, group), linear.weight), group) + linear.bias
 
 
 class AVAttention(nn.Module):
@@ -38,7 +66,8 @@ class AVAttention(nn.Module):
         b, c, f, t = g.shape
         k = self.k(sent)
         v = self.v(sent)
-        q = self.q(fp32_or_wider(g).permute(0, 3, 1, 2).reshape(b, t, c * f))  # c-major rows
+        q_in = fp32_or_wider(g).permute(0, 3, 1, 2).reshape(b, t, c * f)  # c-major rows
+        q = column_parallel(self.q, q_in)
         ctx = masked_cross_attention(q, k, v, lengths)  # (B, T, D)
-        out = self.mel(ctx).reshape(b, t, f, -1)  # f-major rows
+        out = column_parallel(self.mel, ctx).reshape(b, t, f, -1)  # f-major rows
         return out.permute(0, 3, 2, 1)

@@ -73,12 +73,14 @@ class _FlaxBatchNorm:
     running variance with that same biased variance, where PyTorch's own
     moves it with the unbiased one.  Eval mode is PyTorch's.
 
-    Under an active data-parallel layout of more than one rank
-    (``vcagan_torch.parallel``) the batch is the global one, as in the JAX
-    package's sharded step: one differentiable all-reduce of the
-    per-channel [count, sum, sum of squares] in the statistics' dtype
-    (fp32), and the variance E[x^2] - E[x]^2 (flax's
-    ``use_fast_variance``)."""
+    Under an active layout of more than one rank (``vcagan_torch.parallel``)
+    the batch is the global one, as in the JAX package's sharded step: one
+    differentiable all-reduce over the world of the per-channel [count,
+    sum, sum of squares] in the statistics' dtype (fp32), and the variance
+    E[x^2] - E[x]^2 (flax's ``use_fast_variance``).  The model ranks of a
+    data index hold the same rows: their copies add to the counts as to
+    the sums, so they cancel (and their gradients too), and every rank
+    holds the same statistics."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -142,8 +144,8 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     """Inverted dropout as flax's ``nn.Dropout``: each element kept with
     probability 1 - rate and scaled by 1 / (1 - rate), the mask drawn from
     ``generator`` (required whenever a mask is drawn), at the global batch's
-    shape under a data-parallel layout (``draw_rows``; the leading axis is
-    the batch's, or batch x time's)."""
+    shape under a layout of several data ranks (``draw_rows``; the leading
+    axis is the batch's, or batch x time's)."""
     if not training or rate == 0.0:
         return x
     if generator is None:

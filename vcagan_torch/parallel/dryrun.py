@@ -1,13 +1,20 @@
-"""The data-parallel equivalence gate: N ranks against one process.
+"""The parallel equivalence gate: D x M ranks against one process.
 
-Port of ``vcagan/parallel/dryrun.py:51-233``.  One train step on N ranks,
-each on its rows of the global batch, must reproduce one step of a single
-process on the whole batch, up to reassociation: the same problem (the JAX
-gate's shapes: 20 frames of 24 x 24, the default ``TrainConfig``, the batch
-made with numpy from the seed, at least 2 clips a rank), the same weights
-(``VCAGANModules.create(seed=...)``) and the same step generator.
+Port of ``vcagan/parallel/dryrun.py:51-233``.  One train step on a world
+of D data x M model ranks (``--model_parallel M``; by default the JAX
+gate's choice, ``vcagan/parallel/dryrun.py:64``: 2 where the world is at
+least 4 and even, else 1), each data rank on its rows of the global batch
+and each model rank holding its columns of the four split attention
+projections (``vcagan_torch/parallel/shard.py``), must reproduce one step
+of a single process on the whole batch, up to reassociation: the same
+problem (the JAX gate's shapes: 20 frames of 24 x 24, the default
+``TrainConfig``, the batch made with numpy from the seed, 2 clips a data
+rank unless ``--batch`` says otherwise), the same weights
+(``VCAGANModules.create(seed=...)``, split after the init) and the same
+step generator.
 
     python -m vcagan_torch.parallel.dryrun --world 2 --device cpu --backend gloo
+    python -m vcagan_torch.parallel.dryrun --world 4 --model_parallel 2 --device cpu --backend gloo
 
 runs the single process in a process of its own (on the card first, so
 that its memory is given back before the ranks start; on the CPU beside
@@ -26,9 +33,17 @@ the deltas and exits 0 when ``compare`` passes:
   moments ((1 - b1)(g + wd p) after one step from the same p): each
   module's to ``MODULE_GRAD_RTOL`` relative L2, and in the float64 step
   each leaf's to ``GRAD_RTOL``;
-- the parameters, BatchNorm statistics and optimizer states of all ranks
-  equal bit for bit;
-- the attention: 2 calls a rank at the rank's batch.
+- the split leaves: each rank's columns, concatenated in model-rank
+  order, are the leaf held to the bounds above (its mean|p| and its first
+  moment);
+- the replicated parameters, BatchNorm statistics and optimizer states of
+  all ranks equal bit for bit, and the split leaves and their moments of
+  the ranks of one model index equal bit for bit;
+- the attention: 2 calls a rank at the rank's batch (B / D).
+
+``--profile`` times one more step on each rank under ``torch.profiler``:
+the wall ms of the step and the host and device ms of the collectives'
+``model_axis.*`` and ``data_axis.*`` ranges (``collectives.py``).
 
 Nothing compiles here, so the comparison runs live each time: the JAX
 gate's XLA machinery (``canonical_hash`` of the lowered program, the golden
@@ -47,7 +62,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,8 +71,12 @@ from vcagan_torch.configs import ModelConfig, TrainConfig
 from vcagan_torch.kernels import masked_attention as attn
 from vcagan_torch.nn.attention import AVAttention
 from vcagan_torch.nn.generator import Decoder
+from vcagan_torch.parallel.shard import ModelSplit
 from vcagan_torch.train import Batch, VCAGANModules, create_train_state, make_train_step
 from vcagan_torch.train.models import DISCRIMINATOR_SIDE, GENERATOR_SIDE
+
+AXIS_RANGES = ("model_axis.gather_columns", "model_axis.input_gradient_sum",
+               "model_axis.norm_sum", "data_axis.all_reduce_sum", "data_axis.gradient_mean")
 
 METRIC_RTOL = 5e-4
 LEAF_LR_BOUND = 2.5  # x lr, per leaf of mean|p|
@@ -69,7 +88,7 @@ GRAD_RTOL = 1e-5
 # ahead of a train-mode BatchNorm), which a leaf's bound cannot in fp32.
 MODULE_GRAD_RTOL = 2e-2
 FRAMES, IMAGE = 20, 24
-CLIPS_PER_RANK = 2
+CLIPS_PER_RANK = 2  # a data rank
 STEP_SEED = 1  # the step generator's seed (the JAX gate's PRNGKey(1))
 # The narrow widths of the port's CPU tests (tests/test_torch_train_step.py).
 NARROW = dict(stem_channels=16, gru_hidden=32, noise_dim=16, attention_dim=32,
@@ -92,17 +111,25 @@ def to_float64(modules: VCAGANModules) -> VCAGANModules:
 
 def build_problem(world: int, seed: int = 0, batch: Optional[int] = None,
                   frames: int = FRAMES, image: int = IMAGE, model: Optional[dict] = None,
-                  device="cpu", float64: bool = False) -> dict:
+                  device="cpu", float64: bool = False, model_parallel: int = 1,
+                  layout=None) -> dict:
     """Modules, train state, optimizers and the global batch (numpy) of the
     gate; the same arguments give the same problem in every process.
-    ``batch`` defaults to ``CLIPS_PER_RANK`` clips a rank."""
+    ``batch`` defaults to ``CLIPS_PER_RANK`` clips a data rank.  Under
+    ``layout`` the modules keep this rank's columns of the split leaves,
+    cut after the seeded init (``problem["split"]``)."""
     cfg = TrainConfig()
-    b = batch or CLIPS_PER_RANK * world
-    if b % world:
-        raise ValueError(f"batch {b} is not divisible by {world} ranks")
+    data = world // model_parallel
+    b = batch or CLIPS_PER_RANK * data
+    if b % data:
+        raise ValueError(f"batch {b} is not divisible by {data} data ranks")
     modules = VCAGANModules.create(ModelConfig(**(model or {})), seed=seed)
     if float64:
         to_float64(modules)
+    split = None
+    if layout is not None:
+        split = ModelSplit(modules, layout)
+        split.split_()
     state, g_tx, d_tx = create_train_state(modules, cfg, steps_per_epoch=10, device=device)
     rng = np.random.default_rng(seed)
     real = np.float64 if float64 else np.float32
@@ -114,7 +141,7 @@ def build_problem(world: int, seed: int = 0, batch: Optional[int] = None,
         mel_len=np.full((b,), 4 * frames, np.int32),
     )
     return dict(modules=modules, cfg=cfg, state=state, g_tx=g_tx, d_tx=d_tx, arrays=arrays,
-                device=torch.device(device))
+                device=torch.device(device), split=split)
 
 
 def problem_batch(problem: dict, rows: slice = slice(None)) -> Batch:
@@ -130,27 +157,80 @@ def g_param_leaf_stats(modules: VCAGANModules) -> Dict[str, float]:
             for key, p in module.named_parameters()}
 
 
-def state_digest(state) -> str:
-    """sha256 over every tensor of the train state: parameters, BatchNorm
-    statistics, both optimizers' moments, and the counts."""
+def state_tensors(state, split: Optional[ModelSplit] = None) -> List[torch.Tensor]:
+    """Every tensor of the train state (parameters, BatchNorm statistics and
+    both optimizers' moments) but ``split``'s leaves and their moments."""
+    names = {f"{leaf.module}.{leaf.key}" for leaf in split.leaves} if split else set()
+    index = set(split.index) if split else set()
+    tensors = [t for m, sd in sorted(state.modules.state_dicts().items())
+               for k, t in sorted(sd.items()) if f"{m}.{k}" not in names]
+    for opt, skip in ((state.g_opt_state, index), (state.d_opt_state, set())):
+        for moments in (opt.mu, opt.nu, opt.nu_max or []):
+            tensors += [t for i, t in enumerate(moments) if i not in skip]
+    return tensors
+
+
+def split_tensors(state, split: Optional[ModelSplit]) -> List[torch.Tensor]:
+    """The split leaves of the train state and their moments."""
+    if split is None:
+        return []
+    g = state.g_opt_state
+    return [t for leaf, i in zip(split.leaves, split.index)
+            for t in (leaf.linear.weight, g.mu[i], g.nu[i], *([g.nu_max[i]] if g.nu_max else []))]
+
+
+def digest(tensors: Sequence[torch.Tensor], *extra) -> str:
+    """sha256 over the tensors' bytes and ``extra``'s strings."""
     h = hashlib.sha256()
-    tensors = [t for _, sd in sorted(state.modules.state_dicts().items()) for _, t in
-               sorted(sd.items())]
-    for opt in (state.g_opt_state, state.d_opt_state):
-        tensors += opt.mu + opt.nu + (opt.nu_max or [])
-        h.update(str(opt.count).encode())
+    for x in extra:
+        h.update(str(x).encode())
     for t in tensors:
         h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
-    h.update(str(state.step).encode())
     return h.hexdigest()
 
 
-def run_step(problem: dict, rows: slice = slice(None), layout=None) -> dict:
+def state_digest(state, split: Optional[ModelSplit] = None) -> str:
+    """sha256 over ``state_tensors(state, split)`` and the counts."""
+    counts = (state.g_opt_state.count, state.d_opt_state.count, state.step)
+    return digest(state_tensors(state, split), *counts)
+
+
+def profile_step(step, state, batch, generator, device) -> dict:
+    """One more step under ``torch.profiler``: its wall ms, and the host and
+    device ms of each of ``AXIS_RANGES``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, generator)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    out = {"step_ms": wall * 1e3, **{name: None for name in AXIS_RANGES}}
+    for e in prof.key_averages():  # a range is a host entry and, on the card, a device one
+        if e.key not in out or e.key == "step_ms":
+            continue
+        r = out[e.key] or dict(calls=0, host_ms=0.0, device_ms=0.0)
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            r["calls"] += e.count
+            r["host_ms"] += e.cpu_time_total / 1e3
+        r["device_ms"] = max(r["device_ms"], getattr(e, "device_time_total", 0.0) / 1e3)
+        out[e.key] = r
+    return out
+
+
+def run_step(problem: dict, rows: slice = slice(None), layout=None,
+             profile: bool = False) -> dict:
     """One step of the problem on ``rows`` of its batch (under ``layout``
     where given); its metrics, leaf statistics, first moments (on the
-    host), state digest and the attention's calls (kernel shape (B, T, S,
-    D) each) and kernel launches."""
-    modules = problem["modules"]
+    host), the split leaves' columns (``split``), the digests of the
+    replicated state and of the split leaves with their moments, the
+    attention's calls (kernel shape (B, T, S, D) each), kernel launches and,
+    on the card, the peak of allocated memory; with ``profile``,
+    ``profile_step``'s readings of one more step."""
+    modules, split = problem["modules"], problem["split"]
     calls: List[list] = []
 
     def count(module, inputs, _):
@@ -169,12 +249,26 @@ def run_step(problem: dict, rows: slice = slice(None), layout=None) -> dict:
     finally:
         for hook in hooks:
             hook.remove()
-    moments = [t.detach().cpu() for t in state.g_opt_state.mu + state.d_opt_state.mu]
+    launches = attn.LAUNCHES
+    moments = [t.detach().to("cpu", copy=True)
+               for t in state.g_opt_state.mu + state.d_opt_state.mu]
     names = [f"{n}.{k}" for side in (GENERATOR_SIDE, DISCRIMINATOR_SIDE)
              for n, module in modules.named(side) for k, _ in module.named_parameters()]
-    return dict(metrics=metrics, g_stats=g_param_leaf_stats(modules),
-                moments=dict(zip(names, moments)), digest=state_digest(state),
-                attention=calls, launches=attn.LAUNCHES, lr=problem["cfg"].lr)
+    split_names = [f"{leaf.module}.{leaf.key}" for leaf in split.leaves] if split else []
+    sliced = split_tensors(state, split)
+    out = dict(metrics=metrics, g_stats=g_param_leaf_stats(modules),
+               moments=dict(zip(names, moments)),
+               split={n: getattr(modules, n.split(".", 1)[0]).get_parameter(
+                   n.split(".", 1)[1]).detach().to("cpu", copy=True) for n in split_names},
+               digest=state_digest(state, split), split_digest=digest(sliced),
+               attention=calls, launches=launches, lr=problem["cfg"].lr,
+               model=1 if layout is None else layout.model,
+               peak_bytes=(torch.cuda.max_memory_allocated(problem["device"])
+                           if problem["device"].type == "cuda" else None))
+    if profile:
+        out["profile"] = profile_step(step, state, problem_batch(problem, rows), generator,
+                                      problem["device"])
+    return out
 
 
 class GateFailed(AssertionError):
@@ -202,32 +296,44 @@ def compare(reference: dict, ranks: List[dict], grad_rtol: Optional[float] = Non
     train-mode BatchNorm has no gradient but that noise), so there a leaf's
     is only reported."""
     lr, world, first = reference["lr"], len(ranks), ranks[0]
+    model = first["model"]
+    data = world // model
     for r, res in enumerate(ranks):
         _require(res["metrics"] == first["metrics"], f"rank {r}'s metrics differ from rank 0's")
-        _require(res["digest"] == first["digest"], f"rank {r}'s state differs from rank 0's")
+        _require(res["digest"] == first["digest"],
+                 f"rank {r}'s replicated state differs from rank 0's")
+        _require(res["split_digest"] == ranks[r % model]["split_digest"],
+                 f"rank {r}'s split leaves differ from rank {r % model}'s")
+    # each split leaf whole: the columns of data index 0's model ranks, in order
+    stats, moments = dict(first["g_stats"]), dict(first["moments"])
+    for name in first["split"]:
+        stats[name] = float(torch.cat([ranks[m]["split"][name] for m in range(model)])
+                            .double().abs().mean())
+        moments[name] = torch.cat([ranks[m]["moments"][name] for m in range(model)])
     metric_delta = 0.0
     for k, rv in reference["metrics"].items():
         v = first["metrics"][k]
         d = abs(v - rv) / max(abs(rv), 1e-6)
         _require(np.isfinite(v) and d < METRIC_RTOL,
-                 f"data-parallel {k}={v} vs single process {rv} (rel {d:.2e})")
+                 f"{data} x {model} ranks' {k}={v} vs single process {rv} (rel {d:.2e})")
         metric_delta = max(metric_delta, d)
-    _require(set(reference["g_stats"]) == set(first["g_stats"]), "g_param leaves differ")
-    stat_delta = max(abs(first["g_stats"][k] - rv) for k, rv in reference["g_stats"].items())
+    _require(set(reference["g_stats"]) == set(stats), "g_param leaves differ")
+    stat_delta = max(abs(stats[k] - rv) for k, rv in reference["g_stats"].items())
     _require(stat_delta <= LEAF_LR_BOUND * lr,
              f"g_param leaf mean|p| {stat_delta:.3e} apart, bound {LEAF_LR_BOUND * lr:.3e}")
-    want = [[b // world, *rest] for b, *rest in reference["attention"]]
+    want = [[b // data, *rest] for b, *rest in reference["attention"]]
     _require(len(want) == 2, f"single process: attention calls {reference['attention']}")
     for r, res in enumerate(ranks):
         _require(res["attention"] == want,
                  f"rank {r}: attention calls {res['attention']}, want {want}")
-    _require(set(reference["moments"]) == set(first["moments"]), "gradient leaves differ")
-    grad_rel = {k: _rel_l2([first["moments"][k]], [ref])
-                for k, ref in reference["moments"].items()}
+    _require(set(reference["moments"]) == set(moments)
+             and all(moments[k].shape == t.shape for k, t in reference["moments"].items()),
+             "gradient leaves differ")
+    grad_rel = {k: _rel_l2([moments[k]], [ref]) for k, ref in reference["moments"].items()}
     modules: Dict[str, List[str]] = {}
     for k in reference["moments"]:
         modules.setdefault(k.split(".", 1)[0], []).append(k)
-    module_rel = {m: _rel_l2([first["moments"][k] for k in keys],
+    module_rel = {m: _rel_l2([moments[k] for k in keys],
                              [reference["moments"][k] for k in keys])
                   for m, keys in modules.items()}
     worst_module = max(module_rel, key=module_rel.get)
@@ -238,12 +344,15 @@ def compare(reference: dict, ranks: List[dict], grad_rtol: Optional[float] = Non
     _require(grad_rtol is None or grad_rel[worst] <= grad_rtol,
              f"reduced gradient of {worst}: {grad_rel[worst]:.3e} relative from the single "
              f"process's, bound {grad_rtol}")
-    return dict(world=world, metric_rel=metric_delta, leaf_stat=stat_delta,
+    return dict(world=world, data=data, model=model, split_leaves=sorted(first["split"]),
+                metric_rel=metric_delta, leaf_stat=stat_delta,
                 leaf_stat_bound=LEAF_LR_BOUND * lr, grad_rel=grad_rel[worst],
                 grad_rel_leaf=worst, module_grad_rel=module_rel,
                 module_grad_bound=MODULE_GRAD_RTOL, digest=first["digest"],
                 attention=[res["attention"] for res in ranks],
-                launches=[res["launches"] for res in ranks])
+                launches=[res["launches"] for res in ranks],
+                peak_bytes=[res["peak_bytes"] for res in ranks],
+                profile=[res.get("profile") for res in ranks])
 
 
 # ------------------------------------------------------------------ runner
@@ -256,8 +365,9 @@ def _free_port() -> int:
 
 
 def _problem_args(args) -> dict:
-    return dict(world=args.world, batch=args.batch, frames=args.frames,
-                image=args.image, model=NARROW if args.narrow else None, float64=args.float64)
+    return dict(world=args.world, batch=args.batch, frames=args.frames, image=args.image,
+                model=NARROW if args.narrow else None, float64=args.float64,
+                model_parallel=args.model_parallel)
 
 
 def _device(args, rank: int):
@@ -280,12 +390,14 @@ def _role_rank(args) -> None:
     device = _device(args, rank)
     if not initialize_distributed(backend=args.backend):
         raise RuntimeError("the rank found no process group in its environment")
-    layout = make_layout(batch_size=args.batch, device=device)
-    problem = build_problem(**_problem_args(args), device=device)
-    b = problem["arrays"]["video"].shape[0]
-    result = run_step(problem, layout.batch_slice(b), layout)
-    if rank:
-        del result["moments"]  # rank 0's stand for all: the states are equal
+    batch = args.batch or CLIPS_PER_RANK * (args.world // args.model_parallel)
+    layout = make_layout(args.model_parallel, batch_size=batch, device=device)
+    problem = build_problem(**_problem_args(args), device=device, layout=layout)
+    result = run_step(problem, layout.batch_slice(batch), layout, profile=args.profile)
+    if rank:  # rank 0's stand for all (the replicated states are equal), but the split
+        # leaves' of data index 0's other model ranks
+        result["moments"] = {k: result["moments"][k] for k in result["split"]
+                             if rank < layout.model}
     torch.save(result, os.path.join(args.out, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -342,7 +454,8 @@ def run(args) -> dict:
         deltas = compare(reference, ranks, GRAD_RTOL if args.float64 else None)
         deltas.update(single_process_s=ref_s, ranks_s=ranks_s,
                       reference_attention=reference["attention"],
-                      reference_launches=reference["launches"])
+                      reference_launches=reference["launches"],
+                      reference_peak_bytes=reference["peak_bytes"])
         return deltas
     finally:
         shutil.rmtree(out, ignore_errors=True)
@@ -351,10 +464,13 @@ def run(args) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--world", type=int, default=2)
+    p.add_argument("--model_parallel", type=int, default=None,
+                   help="ranks a model group (default: 2 where the world is at least 4 and "
+                        "even, else 1, as the JAX gate)")
     p.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     p.add_argument("--backend", choices=("gloo", "nccl"), default="nccl")
     p.add_argument("--batch", type=int, default=None,
-                   help=f"global batch (default {CLIPS_PER_RANK} clips a rank)")
+                   help=f"global batch (default {CLIPS_PER_RANK} clips a data rank)")
     p.add_argument("--frames", type=int, default=FRAMES)
     p.add_argument("--image", type=int, default=IMAGE)
     p.add_argument("--narrow", action="store_true",
@@ -364,6 +480,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--threads", type=int, default=0, help="torch threads a process (0: torch's)")
     p.add_argument("--timeout", type=float, default=900.0,
                    help="seconds for the whole run; every process is killed past it")
+    p.add_argument("--profile", action="store_true",
+                   help="time one more step on each rank under torch.profiler")
     p.add_argument("--role", choices=("main", "reference", "rank"), default="main")
     p.add_argument("--out", default=None)
     return p
@@ -372,6 +490,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    if args.model_parallel is None:
+        args.model_parallel = 2 if args.world >= 4 and args.world % 2 == 0 else 1
     if args.threads:
         torch.set_num_threads(args.threads)
     if args.role == "reference":

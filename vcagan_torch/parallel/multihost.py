@@ -44,6 +44,13 @@ def local_rank() -> int:
     return _env_int("LOCAL_RANK", default=0)
 
 
+def local_device() -> torch.device:
+    """The rank's card: ``cuda:LOCAL_RANK``, wrapped round the host's cards
+    where gloo ranks share them (``VCAGAN_DIST_BACKEND=gloo``; NCCL refuses
+    two ranks on one card)."""
+    return torch.device("cuda", local_rank() % max(torch.cuda.device_count(), 1))
+
+
 def initialize_distributed(
     backend: Optional[str] = None,
     init_method: Optional[str] = None,
@@ -55,7 +62,9 @@ def initialize_distributed(
     JAX function does.
 
     ``backend``: "nccl" (the default; the rank's card is made current
-    first, ``cuda:LOCAL_RANK``) or "gloo" (the CPU).  ``init_method``
+    first, ``local_device``) or "gloo" (the CPU, or ranks that share a
+    card); where it is not given, the environment's ``VCAGAN_DIST_BACKEND``
+    names it.  ``init_method``
     defaults to ``tcp://MASTER_ADDR:MASTER_PORT``, else
     ``tcp://COORDINATOR_ADDRESS``."""
     if dist.is_initialized():
@@ -71,9 +80,9 @@ def initialize_distributed(
             init_method = f"tcp://{env['COORDINATOR_ADDRESS']}"
     if not init_method or world <= 1 or rank < 0:
         return False
-    backend = backend or "nccl"
+    backend = backend or os.environ.get("VCAGAN_DIST_BACKEND") or "nccl"
     if backend == "nccl":
-        torch.cuda.set_device(local_rank())
+        torch.cuda.set_device(local_device())
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             timeout=GROUP_TIMEOUT)
     return True

@@ -21,19 +21,22 @@ the corpus the loop runs on ``data.synthetic_clips`` synthetic clips.
 ``data.collate_process`` feeds from a forked collate worker process
 (``ProcessEpoch``) instead of the producer thread (``ParallelEpoch``).
 
-Data parallel (``layout``, ``vcagan_torch.parallel``; the JAX Trainer's
-mesh and multi-host feed, ``vcagan/train/loop.py:66-79, 169-235``): one
-process a device, each feeding its slice of the global batch
-(``train.batch_size``, which also sets ``steps_per_epoch`` and so the
-learning-rate schedule) to a step that reduces over the ranks.  The state
-stays replicated, so validation, checkpoints, the metric stream and the
-media run on rank 0 alone; the others wait at the broadcast of rank 0's
-generator state that follows, which keeps every rank's generator where one
-process's would be.
+Data and model parallel (``layout``, ``vcagan_torch.parallel``; the JAX
+Trainer's mesh and multi-host feed, ``vcagan/train/loop.py:66-79,
+169-235``): one process a device, each feeding its data index's slice of
+the global batch (``train.batch_size``, which also sets ``steps_per_epoch``
+and so the learning-rate schedule) to a step that reduces over the data
+group.  With ``mesh.model_parallel`` > 1 each rank keeps only its columns
+of the four split attention projections (``ModelSplit``, cut after the
+seeded init); the rest of the state is replicated.  Validation,
+checkpoints, the metric stream and the media run on rank 0 alone, on the
+whole state: every rank first gathers the split leaves (``on_rank0``),
+then the others wait at the broadcast of rank 0's generator state that
+follows, which keeps every rank's generator where one process's would be.
 
 Not ported: the JAX step's TPU-compiler knobs (``remat``,
-``d_phase="batched"``) and the model axis (``mesh.model_parallel`` > 1).
-The Trainer raises on each, naming the ROADMAP item that holds it.
+``d_phase="batched"``).  The Trainer raises on each, naming the ROADMAP
+item that holds it.
 """
 
 from __future__ import annotations
@@ -60,15 +63,18 @@ from vcagan_torch.eval.stoi import stoi_estoi_batch
 from vcagan_torch.io.checkpoint import CheckpointManager
 from vcagan_torch.io.metrics import MetricWriter
 from vcagan_torch.parallel.mesh import DataLayout, make_layout
+from vcagan_torch.parallel.shard import ModelSplit
 from vcagan_torch.train.models import VCAGANModules
 from vcagan_torch.train.state import create_train_state
 from vcagan_torch.train.step import make_eval_step, make_train_step
 
 
 class Trainer:
-    """``layout``: the data-parallel layout (``make_layout``'s by default:
-    the process group's ranks where one is initialised, else one process on
-    ``device``).  ``writer`` and ``ckpt`` are None on the ranks past 0."""
+    """``layout``: the process layout (``make_layout``'s by default, with
+    ``mesh.model_parallel`` ranks a model group: the process group's ranks
+    where one is initialised, else one process on ``device``).
+    ``split``: this rank's share of the split leaves.  ``writer`` and
+    ``ckpt`` are None on the ranks past 0."""
 
     def __init__(self, config: VCAGANConfig, log_dir: str = "./runs", device=None,
                  layout: Optional[DataLayout] = None):
@@ -81,6 +87,8 @@ class Trainer:
         self.device = self.layout.device
         self.is_main = self.layout.rank == 0
         self.modules = VCAGANModules.create(config.model, seed=tc.seed)
+        self.split = ModelSplit(self.modules, self.layout)
+        self.split.split_()
         self.pipeline = MelPipeline(config.audio)
         self.writer = MetricWriter(log_dir) if self.is_main else None
         self.ckpt = CheckpointManager(tc.checkpoint_dir) if self.is_main else None
@@ -117,11 +125,15 @@ class Trainer:
     # --------------------------------------------------------------- datasets
 
     def on_rank0(self, work) -> None:
-        """``work()`` on rank 0 alone; then every rank takes rank 0's
-        generator state (a broadcast, which holds the other ranks until
-        rank 0 is done), so the ranks draw on as one process would."""
-        if self.is_main:
-            work()
+        """``work()`` on rank 0 alone, on the whole state (every rank
+        gathers the split leaves first, ``ModelSplit.full``: a collective
+        inside work that rank 0 runs alone would hang); then every rank
+        takes rank 0's generator state (a broadcast, which holds the other
+        ranks until rank 0 is done), so the ranks draw on as one process
+        would."""
+        with self.split.full(self.state):
+            if self.is_main:
+                work()
         if self.layout.group is not None:
             state = self.generator.get_state().to(self.device)
             torch.distributed.broadcast(state, src=0, group=self.layout.group)

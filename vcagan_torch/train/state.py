@@ -102,7 +102,10 @@ def create_train_state(modules: VCAGANModules, config: TrainConfig | None = None
                        ) -> tuple[GANTrainState, Optimizer, Optimizer]:
     """Put ``modules`` (initialised by ``VCAGANModules.create(seed=...)`` or
     loaded) on the device, CUDA unless ``device="cpu"``, in train mode with
-    TF32 off, and build both optimizers.  Returns (state, g_tx, d_tx)."""
+    TF32 off, and build both optimizers.  Returns (state, g_tx, d_tx).
+    Where the model axis has cut the split leaves first
+    (``vcagan_torch.parallel.shard.ModelSplit.split_``), their moments are
+    built on the slices: Adam and weight decay are elementwise."""
     cfg = config or TrainConfig()
     dev = resolve_device(device)
     if dev.type == "cuda":

@@ -37,7 +37,10 @@ import contextlib
 from typing import Callable, Dict, List, NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch import nn
+from torch.profiler import record_function
 
 from vcagan_torch.configs import TrainConfig
 from vcagan_torch.dsp.audio import mel_denormalize
@@ -88,8 +91,29 @@ def _l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (fp32_or_wider(a) - fp32_or_wider(b)).abs().mean()
 
 
-def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def _global_norm(grads: Sequence[torch.Tensor], split: Sequence[bool] = (),
+                 model_group=None) -> torch.Tensor:
+    """The L2 norm over all of ``grads``.  Where ``split[i]`` marks a leaf
+    that holds only this rank's columns, its squared norm is summed over
+    ``model_group`` first, so the norm is the whole gradient's."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if model_group is None or not any(split):
+        return torch.linalg.vector_norm(norms)
+    squares = norms.square()
+    mask = torch.tensor(split, device=norms.device)
+    split_sum = squares[mask].sum()
+    with record_function("model_axis.norm_sum"):
+        dist.all_reduce(split_sum, group=model_group)
+    return torch.sqrt(squares[~mask].sum() + split_sum)
+
+
+def _split_mask(modules: VCAGANModules, params: Sequence[torch.Tensor]) -> List[bool]:
+    """For each of ``params``, whether it holds only some of its ``Linear``'s
+    output columns (the model axis's split, ``vcagan_torch/parallel/shard.py``)."""
+    sliced = {id(m.weight) for _, module in modules.named(GENERATOR_SIDE)
+              for m in module.modules()
+              if isinstance(m, nn.Linear) and m.weight.shape[0] != m.out_features}
+    return [id(p) in sliced for p in params]
 
 
 def _grads(outputs: Sequence[torch.Tensor], params: List[torch.Tensor],
@@ -124,14 +148,22 @@ def make_train_step(
     "g_backward", "g_update" (the D phase is d_loss + d_backward, the G
     phase g_loss + g_backward).
 
-    ``mesh``: a data-parallel layout (``vcagan_torch.parallel.DataLayout``)
-    with a process group, each rank stepping on its rows of the global
-    batch.  The step then runs under the layout (BatchNorm over the global
-    batch, draws at its shape), takes the mean over the ranks of the D
-    gradients and of the G gradients (the leaked ``phon`` gradient joined
-    in; ``dphon`` itself is local), so the gradient norms are the reduced
-    gradients', and returns the metrics' means; ``on_phase`` is then also
-    called with "d_reduce" and "g_reduce" after each reduction.
+    ``mesh``: a layout (``vcagan_torch.parallel.DataLayout``) with a
+    process group, each rank stepping on its data index's rows of the
+    global batch.  The step then runs under the layout (BatchNorm over the
+    global batch, draws at its shape, the split attention projections over
+    the model group), takes the mean of the D gradients and of the G
+    gradients (the leaked ``phon`` gradient joined in; ``dphon`` itself is
+    local), so the gradient norms are the reduced gradients' (a split
+    leaf's square summed over the model group), and returns the metrics'
+    means; ``on_phase`` is then also called with "d_reduce" and "g_reduce"
+    after each reduction.  A split leaf's gradient is averaged over the
+    data group; every other gradient, and the metrics, over the world.
+    Over the world the model ranks' copies of one data index's gradient
+    add M times and the mean divides by M: the data group's mean in exact
+    arithmetic, and the same bits on every rank where the copies differ in
+    their last bits (the card's backward convolutions sum in no fixed
+    order), so the replicated leaves stay equal.
 
     ``d_phase="batched"``, ``remat``, ``compiler_options`` and ``donate``
     are the JAX step's TPU-compiler knobs and are not ported: setting one
@@ -147,6 +179,8 @@ def make_train_step(
         raise ValueError(f"mesh={mesh!r} is not ported: the port's mesh is a DataLayout "
                          "with a process group (vcagan_torch.parallel.make_layout)")
     group = None if mesh is None else mesh.group
+    data_group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
     mark = on_phase or (lambda name: None)
     dis = (modules.dis1, modules.dis2, modules.dis3)
     g_params = modules.parameters(GENERATOR_SIDE)  # v_front's first
@@ -228,10 +262,13 @@ def make_train_step(
         else:
             g_grads = _grads([gen_loss], g_params)
         mark("g_backward")
+        split = _split_mask(modules, g_params)
         if group is not None:
-            all_reduce_mean_(g_grads, group)
+            all_reduce_mean_([g for g, s in zip(g_grads, split) if not s], group)
+            if any(split):
+                all_reduce_mean_([g for g, s in zip(g_grads, split) if s], data_group)
             mark("g_reduce")
-        g_grad_norm = _global_norm(g_grads)
+        g_grad_norm = _global_norm(g_grads, split, model_group)
         g_tx.update(g_grads, state.g_opt_state, g_params)
         mark("g_update")
 
