@@ -98,16 +98,15 @@ Phases, in order; any failure raises and exits non-zero:
      and ``cli.asr_lrw`` on them, and the ASR models' ms a batch;
  12. past 512 keys, the collate worker process, JAX train states and
      serving npz: (a) the key-blocked attention kernel (S > 512, keys in
-     blocks of 256 with an online softmax) at (B, T, S) = (4, 750, 750),
-     (4, 1500, 750), (8, 1026, 513), (2, 1280, 640) and (1, 4096, 4096)
-     with lengths 0 and S among them, against its plain version, float64
-     and its arithmetic in plain PyTorch, a length-0 row against the mean
-     of its values, the launch counted, timed beside its bound, plain and
-     sdpa; its gradient at S = 640; the serving rows (S <= 512) timed
-     again; (b) ``Synthesizer`` on B=4 clips of 750 frames (30 s), fp32 and
-     bf16, card against CPU, 2 attention launches a forward; (c)
-     ``Trainer.fit`` in bf16 on GRID and LRS2 with the thread producer and
-     with ``ProcessEpoch``, first epoch and cached: ms a step, idle share,
+     blocks of 256 with an online softmax) at (B, T, S) = (4, 750, 750)
+     and (4, 1500, 750) with lengths 0 and S among them, against its plain
+     version, float64 and its arithmetic in plain PyTorch, a length-0 row
+     against the mean of its values, the launch counted, timed beside its
+     bound, plain and sdpa; its gradient at S = 640; (b) ``Synthesizer``
+     on B=2 clips of 750 frames (30 s), fp32 against the CPU, bf16 against
+     fp32 on the card, 2 attention launches a forward; (c) ``Trainer.fit``
+     in bf16 on GRID and LRS2 with the thread producer (first epoch and
+     cached) and with ``ProcessEpoch`` (cached): ms a step, idle share,
      collate ms; (d) a train state in the exporter's format loaded on the
      card, every tensor equal, and scored by ``cli.test`` for one batch;
      (e) phase 9's Trainer written as serving npz (q8) and served by
@@ -136,6 +135,19 @@ Phases, in order; any failure raises and exits non-zero:
      --nproc_per_node 2 -m vcagan_torch.cli.train --model_parallel 2`` with
      gloo ranks on the card, 2 steps at B=8, its checkpoint held to one
      process's keys, shapes and dtypes and loaded into one process;
+ 15. the train step's knobs (``make_train_step``'s ``d_phase`` and
+     ``remat``): (a) from one state, batch and generator seed, one fp32
+     step at the GRID shape (B=88 x 40, dropout on) under "ref"/"none",
+     "batched"/"none", "ref"/"stem", "ref"/"vfront", "ref"/"r1" and
+     "batched"/"stem,r1", each held to "ref"/"none" (run twice: the card's
+     own spread beside): metrics, gradient norms, each module's first
+     moment, the BatchNorm statistics and their counts, the generator's
+     state, the regions' recomputes and 2 attention launches a step;
+     (b) ms a step (3 counted after the first), the parts' CUDA events,
+     peak memory and kernel launches in one profiled step under each knob,
+     GRID fp32 and bf16, and LRS2 (B=16 x 50) bf16 under "batched" against
+     "ref"; (c) phase 9 (f)'s ``cli.train`` runs with ``--remat stem,r1
+     --d_phase batched``;
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -1568,7 +1580,8 @@ def phase_trainer_checkpoint(card, trainer):
 # Phase 9 (f) and 10 (d): the two training CLIs, "{tmp}" their own
 # directory, 2 steps each after the pre-train validation.
 CLI_RUNS = (("vcagan_torch.cli.train", ["--grid", "{tmp}/no_corpus", "--batch_size", "8",
-                                        "--eval_step", "0"]),
+                                        "--eval_step", "0", "--remat", "stem,r1",
+                                        "--d_phase", "batched"]),
             ("vcagan_torch.cli.train_lrs", ["--data", "{tmp}/no_corpus", "--bf16"]))
 
 
@@ -1601,9 +1614,10 @@ def run_clis(runs, what, card):
 
 
 def phase_clis(card):
-    """Phase 9 (f) and 10 (d): ``python3 -m vcagan_torch.cli.train`` (B=8)
-    and ``python3 -m vcagan_torch.cli.train_lrs --bf16`` (its recipe's
-    B=16) on the card (their default device) as a user runs them, both at
+    """Phase 9 (f) and 10 (d): ``python3 -m vcagan_torch.cli.train`` (B=8,
+    with phase 15 (c)'s ``--remat stem,r1 --d_phase batched``) and
+    ``python3 -m vcagan_torch.cli.train_lrs --bf16`` (its recipe's B=16) on
+    the card (their default device) as a user runs them, both at
     once, so that their start-ups overlap (they share the card and the
     host's cores: neither's time is a pace); each metric stream must hold
     2 train lines."""
@@ -2059,7 +2073,7 @@ def phase_eval_grid_batch(card, states, raw, bf16):
 def phase_eval_clis(card, states):
     """(d) ``python3 -m vcagan_torch.cli.test`` (B=100, 2 batches asked; the
     64 synthetic clips make one) and ``cli.test_lrs --time_breakdown`` (B=8,
-    4 batches of 32 synthetic clips) at once, on a port checkpoint of the
+    2 batches of 16 synthetic clips) at once, on a port checkpoint of the
     trained generator; their artifact trees and ``metric.txt`` read back;
     then ``cli.asr_grid`` on ``test``'s ``spec_mel`` (B=160) and
     ``cli.asr_lrw`` on a tree of 120 116-frame mels (B=120), both random
@@ -2091,13 +2105,13 @@ def phase_eval_clis(card, states):
             ("vcagan_torch.cli.test", ["--grid", no_corpus, "--checkpoint", ckpts["grid"],
                                        "--max_batches", "2", "--out_dir", grid_out], grid_out),
             ("vcagan_torch.cli.test_lrs", ["--data", no_corpus, "--checkpoint", ckpts["lrs"],
-                                           "--time_breakdown", "--max_batches", "4",
-                                           "--synthetic_clips", "32", "--out_dir", lrs_out],
+                                           "--time_breakdown", "--max_batches", "2",
+                                           "--synthetic_clips", "16", "--out_dir", lrs_out],
              lrs_out)], "two test CLIs", card)
         metric = re.compile(r"STOI : \S+ESTOI : \S+PESQ : \S+")
         lrs_base = os.path.join(lrs_out, "LRS2")
         for what, base, tree, n in (("test", grid_out, ("spec_mel/synthetic", "wav/synthetic"), 64),
-                                    ("test_lrs", lrs_base, ("mel", "wav"), 32)):
+                                    ("test_lrs", lrs_base, ("mel", "wav"), 16)):
             npz = sorted(glob.glob(os.path.join(base, tree[0], "*.npz")))
             wavs = sorted(glob.glob(os.path.join(base, tree[1], "*.wav")))
             check(len(npz) == len(wavs) == n,
@@ -2169,17 +2183,19 @@ def phase_eval(card, states):
         parts = phase_eval_grid_batch(card, states, raw, bf16)
         launches["grid_test_batch" + ("_bf16" if bf16 else "")] = parts["launches"]
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     phase_eval_clis(card, states)
+    print(f"phase 11 (d), the four CLIs and the ASR timings: {time.perf_counter() - t0:.1f} s")
     return rows, worst, launches
 
 
 # Phase 12: past 512 keys, the collate worker process, JAX train states and
 # serving npz.  (a) The key-blocked attention at the shapes of 30 s clips
-# (750 frames: att1 (4, 750, 750), att2 (4, 1500, 750)), LRS buckets past
-# 512 frames, and 4096 keys; (B, T, S).
-LONG_CASES = (("30 s att1", 4, 750, 750), ("30 s att2", 4, 1500, 750),
-              ("513 att2", 8, 1026, 513), ("640 att2", 2, 1280, 640),
-              ("4096", 1, 4096, 4096))
+# (750 frames: att1 (4, 750, 750) with lengths 0, 750 and two between,
+# att2 (4, 1500, 750)); (B, T, S).  The LRS buckets past 512 frames and
+# 4096 keys left the script to make room for phase 15 (their last times:
+# PERF.md).
+LONG_CASES = (("30 s att1", 4, 750, 750), ("30 s att2", 4, 1500, 750))
 LONG_FRAMES = 750  # a 30 s clip at 25 fps
 
 
@@ -2198,9 +2214,8 @@ def phase_long_attention(card):
     (the key-blocked 3xTF32), a length-0 row's output against the mean of
     its S values, the launch counted on each shape; timed by CUDA-graph
     replay beside its bound, plain and sdpa.  Then its autograd.Function's
-    gradient at S = 640 against float64, and the serving rows (S <= 512,
-    the strip plan) timed again.  Returns the rows, the worst forward and
-    gradient errors."""
+    gradient at S = 640 against float64.  Returns the rows, the worst
+    forward and gradient errors."""
     side = torch.cuda.Stream()
     rng = np.random.default_rng(12)
     d = 256
@@ -2279,30 +2294,24 @@ def phase_long_attention(card):
         errs.append(e64)
     print(f"attention long B={b} T={t} S={s_} D={d} through MaskedAttention: dq, dk, dv vs "
           f"float64 {', '.join(f'{e:.3e}' for e in errs)} ok [{card}]")
-
-    # The strip plan's serving rows, timed again beside the key-blocked ones.
-    for name, b, t, s_ in (("att1", 48, 75, 75), ("att2", 48, 150, 75)):
-        q, k, v, lens = attention_inputs(b, t, s_, d, [s_] * b, seed=7)
-        ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side)
-        print(f"attention {name} B={b} T={t} S={s_} D={d} (strip plan) again: {ms:.4f} ms "
-              f"[{card}]")
     return rows, worst, max(errs)
 
 
 def phase_synth_long(card, states):
-    """(b) ``Synthesizer`` on B=4 clips of 750 frames (30 s; lengths 750,
-    600, 513 and 1), fp32 and bf16, on the trained weights: 2 attention
-    launches (both key-blocked) a forward, the card held to the CPU with the
-    same noise and Griffin-Lim phase (fp32: ``PATH_TOL`` and ``WAV_REL_L2``;
-    bf16: the JAX package's bf16 bounds), one forward timed on the card.
+    """(b) ``Synthesizer`` on B=2 clips of 750 frames (30 s; lengths 750
+    and 513), fp32 and bf16, on the trained weights: 2 attention launches
+    (both key-blocked) a forward; the fp32 forward held to the CPU's with
+    the same noise and Griffin-Lim phase (``PATH_TOL`` and ``WAV_REL_L2``),
+    the bf16 one to the fp32 one on the card (the JAX package's bf16
+    bounds, as phase 4 holds bf16 to fp32); one forward timed on the card.
     Returns the launches of the two card forwards."""
-    b, t = 4, LONG_FRAMES
+    b, t = 2, LONG_FRAMES
     rng = np.random.default_rng(13)
     video = rng.standard_normal((b, t, 112, 112, 1)).astype(np.float32)
-    lengths = np.asarray([t, 600, 513, 1], np.int32)
+    lengths = np.asarray([t, 513], np.int32)
     noise = rng.standard_normal((b, 20, t, 128)).astype(np.float32)
     phase = rng.uniform(-np.pi, np.pi, (b, 4 * t, 321)).astype(np.float32)
-    launches = {}
+    launches, fp32 = {}, None
     for bf16 in (False, True):
         mode = "bf16" if bf16 else "fp32"
         config = ModelConfig(use_bfloat16=bf16)
@@ -2320,19 +2329,21 @@ def phase_synth_long(card, states):
               f"30 s clips {mode}: {attn.LAUNCHES} attention launches a forward, not 2")
         check(got["wav"].shape == (b, 160 * (4 * t - 1)), f"wav shape {tuple(got['wav'].shape)}")
         del on_card
-        t0 = time.perf_counter()
-        want = Synthesizer(config, device="cpu").load_state_dicts(states)(
-            video, lengths, noise=noise, init_phase=phase)
-        cpu_s = time.perf_counter() - t0
         if bf16:
-            compare_bf16(f"30 s clips {mode}, card vs CPU", got, want)
+            compare_bf16(f"30 s clips {mode}, against fp32 on the card", got, fp32)
+            against = "bf16 against fp32 on the card ok"
         else:
+            t0 = time.perf_counter()
+            want = Synthesizer(config, device="cpu").load_state_dicts(states)(
+                video, lengths, noise=noise, init_phase=phase)
+            against = f"card vs CPU ok (the CPU's forward {time.perf_counter() - t0:.1f} s)"
             compare_outputs(f"30 s clips {mode}, card vs CPU", got, want, PATH_TOL, WAV_REL_L2)
+            fp32 = got
         print(f"serve 30 s clips {mode} B={b} x {t} frames (lengths {lengths.tolist()}; the "
-              f"attention at (4, {t}, {t}) and (4, {2 * t}, {t}), key-blocked): one forward "
+              f"attention at ({b}, {t}, {t}) and ({b}, {2 * t}, {t}), key-blocked): one forward "
               f"{ev[0].elapsed_time(ev[1]):.1f} ms on the card, {launches[mode]} attention "
-              f"launches; card vs CPU ok (the CPU's forward {cpu_s:.1f} s) [{card}]")
-        del got, want
+              f"launches; {against} [{card}]")
+        del got
         torch.cuda.empty_cache()
     return launches
 
@@ -2392,9 +2403,10 @@ def phase_fit_producers(card):
     50) over FIT_BATCHES batches of synthetic clips an epoch: the thread
     producer (``ParallelEpoch``) on its first epoch (each clip rendered on
     first use) and on the next (cached), then the collate worker process
-    (``ProcessEpoch``) on the cached clips (the worker inherits them) and
-    on a fresh source (the worker renders every clip; what it renders does
-    not come back).  Returns the readings by run."""
+    (``ProcessEpoch``) on the cached clips (the worker inherits them).  Its
+    first epoch on a fresh source (the worker rendering every clip) left
+    the script to make room for phase 15 (its last times: PERF.md).
+    Returns the readings by run."""
     import shutil
     import tempfile
 
@@ -2428,13 +2440,7 @@ def phase_fit_producers(card):
                 config, data=dataclasses.replace(config.data, collate_process=True))
             runs[f"{name} process, cached"] = fit_epoch(
                 trainer, f"{name} bf16 B={b}, ProcessEpoch, clips cached", card)
-            source = RENDERED_SOURCES[name] = trainer.train_ds.source  # phase 13 (a) reuses it
-            trainer.train_ds.source = (
-                SyntheticLRSSource(num_clips=len(source)) if name == "LRS2"
-                else dataclasses.replace(source, _cache={}))
-            runs[f"{name} process, first epoch"] = fit_epoch(
-                trainer, f"{name} bf16 B={b}, ProcessEpoch, first epoch (rendered in the "
-                "worker)", card)
+            RENDERED_SOURCES[name] = trainer.train_ds.source  # phase 13 (a) reuses it
             del trainer
             torch.cuda.empty_cache()
     finally:
@@ -2609,14 +2615,20 @@ def phase_serving_npz(card, trained_states):
 def phase_twelve(card, states, trained_states):
     """Phase 12.  Returns the attention's rows and errors and the launches
     of each path, each read just after it ran with the counts set to 0."""
+    t0 = time.perf_counter()
     rows, long_worst, long_grad = phase_long_attention(card)
+    t1 = time.perf_counter()
     synth_launches = phase_synth_long(card, states)
     torch.cuda.empty_cache()
+    t2 = time.perf_counter()
     fit_runs = phase_fit_producers(card)
     torch.cuda.empty_cache()
+    t3 = time.perf_counter()
     test_launches = phase_jax_state(card, states)
     torch.cuda.empty_cache()
     npz_launches = phase_serving_npz(card, trained_states)
+    print(f"phase 12 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, (d) "
+          f"and (e) {time.perf_counter() - t3:.1f} s")
     return {"long_shapes": rows, "long_max_abs_err": long_worst,
             "long_grad_max_abs_err": long_grad,
             "launches_long": {"synth_750_forward": synth_launches,
@@ -2672,8 +2684,8 @@ def phase_dp_fit_world1(card, cached_ms):
                 marks.append((name, torch.cuda.Event(enable_timing=True)))
                 marks[-1][1].record()
 
-        trainer.train_step = make_train_step(trainer.modules, trainer.g_tx, trainer.d_tx,
-                                             config.train, mesh=layout, on_phase=mark)
+        trainer.rebuild_train_step(on_phase=mark)
+        check(trainer.mesh is layout, "the Trainer's step runs without the one-rank layout")
         trainer.state, _ = trainer.train_step(
             trainer.state, train_batch(TRAIN_BATCH, TRAIN_WINDOW, 0, "cuda"), trainer.generator)
         torch.cuda.synchronize()
@@ -2999,6 +3011,244 @@ def phase_fourteen(card):
             "model_axis_cli": cli, "per_rank_shapes_model_axis": rows}
 
 
+# Phase 15: the train step's knobs (``d_phase`` and the remat sites).  (a)
+# From one state, batch and generator seed, one fp32 step under each knob,
+# held to "ref"/"none": metrics and gradient norms (relative), each
+# module's first moment (STEP_GRAD_REL, relative L2), the BatchNorm
+# statistics within KNOB_STATS_REL of their move and num_batches_tracked
+# equal, the generator's state equal.  "ref"/"none" runs twice: the second
+# is the card's own spread (its backward convolutions sum in no fixed
+# order).  (b) ms a step, peak memory and kernel launches a step under
+# each knob, GRID fp32 and bf16, and LRS2 bf16 under "batched" and "ref".
+KNOB_RUNS = (("ref", "none"), ("batched", "none"), ("ref", "stem"), ("ref", "vfront"),
+             ("ref", "r1"), ("batched", "stem,r1"))
+KNOB_STEPS = 3  # counted, after the first step (the warm-up, and in (a) the compared one)
+KNOB_METRIC_RTOL, KNOB_NORM_RTOL = 1e-4, 2e-4
+KNOB_STATS_REL = 1e-5
+
+
+def knob_name(knobs):
+    return "/".join(knobs)
+
+
+def live_tensors(state):
+    """Every tensor a step writes: parameters, buffers, optimizer moments."""
+    tensors = [t for _, m in state.modules.named() for t in [*m.parameters(), *m.buffers()]]
+    for opt in (state.g_opt_state, state.d_opt_state):
+        tensors += [*opt.mu, *opt.nu, *(opt.nu_max or [])]
+    return tensors
+
+
+def module_moments(state):
+    """Each module's first moments (device tensors, by module name)."""
+    out = {}
+    for side, opt in ((GENERATOR_SIDE, state.g_opt_state), (DISCRIMINATOR_SIDE, state.d_opt_state)):
+        first = 0
+        for name in side:
+            n = len(list(getattr(state.modules, name).parameters()))
+            out[name] = opt.mu[first:first + n]
+            first += n
+    return out
+
+
+def foreach_rel(got, want):
+    num = torch.stack(torch._foreach_norm(torch._foreach_sub(got, want))).square().sum()
+    return (num.sqrt() / torch.stack(torch._foreach_norm(want)).square().sum().sqrt()).item()
+
+
+def kernel_launches(device):
+    """Kernels among the profiler's device activities (copies and fills
+    left out)."""
+    return sum(not name.startswith(("Memcpy", "Memset")) for name, _, _ in device)
+
+
+def knob_steps(card, what, model_config, train_config, batch, runs, compare=False,
+               timed=None, profile=()):
+    """One bundle from seed 0 on the card, its state reset to the same
+    start before each of ``runs``: the first step (with ``compare``, held
+    to the first run's; a run named twice is only compared, the card's own
+    spread), then, for the runs named in ``timed`` (all where None),
+    KNOB_STEPS counted steps (one sync) with the parts' CUDA events and
+    peak memory over them, and for those named in ``profile`` one step
+    under torch.profiler for the kernel launches a step.  Returns the
+    readings by run."""
+    from vcagan_torch.nn.common import RECOMPUTES
+
+    modules = VCAGANModules.create(model_config, seed=0)
+    state, g_tx, d_tx = create_train_state(modules, train_config, device="cuda")
+    tensors = live_tensors(state)
+    start = [t.detach().clone() for t in tensors]
+    buffers = {(n, k): t for n, m in modules.named() for k, t in m.named_buffers()}
+    initial = {key: t.detach().clone() for key, t in buffers.items()}
+    b, w = batch.video.shape[:2]
+    marks = []
+
+    def on_phase(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks[-1].append(event)
+
+    first = None
+    out = {}
+    for knobs in runs:
+        name = knob_name(knobs)
+        again = name in out
+        name += " again" if again else ""
+        with torch.no_grad():
+            for t, t0 in zip(tensors, start):
+                t.copy_(t0)
+        state.step = state.g_opt_state.count = state.d_opt_state.count = 0
+        step = make_train_step(modules, g_tx, d_tx, train_config, d_phase=knobs[0],
+                               remat=knobs[1], on_phase=on_phase)
+        generator = torch.Generator("cuda").manual_seed(0)
+        RECOMPUTES.clear()
+        reset_launches()
+        marks.append([])
+        on_phase("start")
+        metrics = {k: v.item() for k, v in step(state, batch, generator)[1].items()}
+        recomputes = dict(RECOMPUTES)
+        sites = [site for site in knobs[1].split(",") if site != "none"]
+        want = {site: 2 * 3 if site == "r1" else 1 for site in sites}
+        check(recomputes == want, f"knobs {what} {name}: recomputes {recomputes} in a step, not "
+              f"{want} (r1: each discriminator twice)")
+        check(attn.LAUNCHES == 2 and fb.LAUNCHES == 0,
+              f"knobs {what} {name}: {attn.LAUNCHES} attention and {fb.LAUNCHES} fused-block "
+              "launches in a step, not 2 and 0")
+        for k, v in metrics.items():
+            check(np.isfinite(v), f"knobs {what} {name}: {k} = {v}")
+        reading = {"recomputes_first_step": recomputes}
+        if compare:
+            mine = dict(metrics=metrics, generator=generator.get_state(),
+                        moments={k: [t.clone() for t in v]
+                                 for k, v in module_moments(state).items()},
+                        buffers={key: t.detach().clone() for key, t in buffers.items()})
+            if first is None:
+                first = mine
+            else:
+                reading.update(knob_against(card, what, name, mine, first, initial))
+            del mine
+        if again or (timed is not None and name not in timed):
+            out[name] = reading
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the phase's own copies (the start, ref/none's moments and statistics)
+        held = sum(t.numel() * t.element_size() for t in start)
+        if first is not None:
+            held += sum(t.numel() * t.element_size()
+                        for ts in first["moments"].values() for t in ts)
+            held += sum(t.numel() * t.element_size() for t in first["buffers"].values())
+        marks.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        counted = []
+        for _ in range(KNOB_STEPS):
+            marks.append([])
+            on_phase("start")
+            counted.append(step(state, batch, generator)[1])
+        table = {k: torch.stack([m[k] for m in counted]).cpu() for k in counted[0]}
+        elapsed = time.perf_counter() - t0
+        check(attn.LAUNCHES == 2 * KNOB_STEPS and fb.LAUNCHES == 0,
+              f"knobs {what} {name}: {attn.LAUNCHES} attention launches in {KNOB_STEPS} steps")
+        for k, v in table.items():
+            check(bool(torch.isfinite(v).all()), f"knobs {what} {name}: {k} {v.tolist()}")
+        parts = {p: statistics.median(m[i].elapsed_time(m[i + 1]) for m in marks)
+                 for i, p in enumerate(TRAIN_PHASES)}
+        peak = torch.cuda.max_memory_allocated()
+        reading.update(ms_a_step=elapsed / KNOB_STEPS * 1e3, peak_gb=(peak - held) / 1e9,
+                       peak_with_copies_gb=peak / 1e9,
+                       attention_launches_a_step=attn.LAUNCHES / KNOB_STEPS, parts_ms=parts)
+        if name in profile:
+            marks.append([])
+            on_phase("start")
+            device, _ = profiled(lambda: step(state, batch, generator))
+            reading["kernel_launches_a_step"] = kernel_launches(device)
+            reading["device_activities_a_step"] = len(device)
+        print(f"knobs {what} B={b} x {w} {name}: {reading['ms_a_step']:.1f} ms a step "
+              f"({KNOB_STEPS} counted after the first, one sync), peak "
+              f"{reading['peak_gb']:.2f} GB ({reading['peak_with_copies_gb']:.2f} with this "
+              f"phase's copies), {reading['attention_launches_a_step']:g} attention "
+              f"launches a step, "
+              + (f"{reading['kernel_launches_a_step']} kernel launches in one profiled step, "
+                 if name in profile else "")
+              + f"recomputes in a step {recomputes}; parts " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in parts.items()) + f" ms [{card}]")
+        out[name] = reading
+    del start, tensors, buffers, state, modules, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def knob_against(card, what, name, mine, first, initial):
+    """(a) One step under a knob against the first run's ("ref"/"none");
+    ``initial``: the BatchNorm buffers before the step."""
+    worst = 0.0
+    for k, want in first["metrics"].items():
+        got = mine["metrics"][k]
+        rtol = KNOB_NORM_RTOL if k in ("g_grad_norm", "d_grad_norm") else KNOB_METRIC_RTOL
+        rel = abs(got - want) / max(abs(want), 1e-12)
+        check(rel <= rtol, f"knobs {what} {name}: {k} {got} against {want} (relative {rel:.2e}, "
+              f"bound {rtol:g})")
+        worst = max(worst, rel)
+    grads = {m: foreach_rel(mine["moments"][m], first["moments"][m]) for m in first["moments"]}
+    for m, rel in grads.items():
+        check(rel <= STEP_GRAD_REL, f"knobs {what} {name}: {m}'s gradient {rel:.3e} from ref/none")
+    stats = {}
+    for m in ("v_front", "gen", "post", "s_dis"):
+        keys = [key for key in initial if key[0] == m and "running" in key[1]]
+        moved = torch.cat([(first["buffers"][key] - initial[key]).flatten() for key in keys])
+        off = torch.cat([(mine["buffers"][key] - first["buffers"][key]).flatten() for key in keys])
+        stats[m] = (torch.linalg.vector_norm(off) / torch.linalg.vector_norm(moved)).item()
+        check(stats[m] <= KNOB_STATS_REL, f"knobs {what} {name}: {m}'s BatchNorm statistics "
+              f"{stats[m]:.3e} of their move from ref/none's")
+        counts = [key for key in initial if key[0] == m and key[1].endswith("num_batches_tracked")]
+        check(all(torch.equal(mine["buffers"][key], first["buffers"][key]) for key in counts),
+              f"knobs {what} {name}: {m}'s num_batches_tracked differ from ref/none's")
+    check(torch.equal(mine["generator"], first["generator"]),
+          f"knobs {what} {name}: the generator's state differs from ref/none's")
+    print(f"knobs {what} {name} against ref/none, one step: metrics within {worst:.2e} "
+          f"relative (bounds {KNOB_METRIC_RTOL:g}, gradient norms {KNOB_NORM_RTOL:g}), first "
+          "moments " + ", ".join(f"{m} {r:.2e}" for m, r in grads.items())
+          + f" (bound {STEP_GRAD_REL:g}), BatchNorm statistics " + ", ".join(
+              f"{m} {r:.2e}" for m, r in stats.items())
+          + f" of their move (bound {KNOB_STATS_REL:g}); counts and the generator's state "
+          f"equal [{card}]")
+    return {"metric_rel": worst, "moment_rel": grads, "stats_rel": stats}
+
+
+def phase_fifteen(card):
+    """Phase 15: the train step's knobs on the card.  (a) and (b) at the
+    GRID shape, B=88 x 40 frames, fp32 with dropout on (the compared
+    steps; "batched"/"stem,r1" is compared and not timed) and bf16 (the
+    five single knobs); (b) at the LRS2 shape, B=16 x 50, bf16, "batched"
+    against "ref".  The kernel launches a step are counted in bf16, under
+    "ref" and "batched" (a profiled step takes seconds).  Returns the
+    readings for the kernels line."""
+    grid = train_batch(TRAIN_BATCH, TRAIN_WINDOW, seed=5, device="cuda")
+    single = KNOB_RUNS[:5]
+    phases = ("ref/none", "batched/none")
+    runs = {
+        "GRID fp32": knob_steps(card, "GRID fp32", ModelConfig(), TrainConfig(), grid,
+                                KNOB_RUNS[:1] + KNOB_RUNS, compare=True,
+                                timed={knob_name(k) for k in single}),
+        "GRID bf16": knob_steps(card, "GRID bf16", ModelConfig(use_bfloat16=True),
+                                TrainConfig(), grid, single, profile=phases),
+    }
+    del grid
+    lrs = train_batch(LRS_BATCH, LRS_WINDOW, seed=6, device="cuda")
+    runs["LRS2 bf16"] = knob_steps(
+        card, "LRS2 bf16", dataclasses.replace(LRS_CONFIG.model, use_bfloat16=True),
+        LRS_CONFIG.train, lrs, KNOB_RUNS[:2], profile=phases)
+    for what, readings in runs.items():
+        print(f"knobs {what}: " + "; ".join(
+            f"{name} {r['ms_a_step']:.1f} ms, {r['peak_gb']:.2f} GB"
+            + (f", {r['kernel_launches_a_step']} kernels" if "kernel_launches_a_step" in r else "")
+            for name, r in readings.items() if "ms_a_step" in r) + f" [{card}]")
+    launches = {what: {name: r["attention_launches_a_step"] for name, r in readings.items()
+                       if "ms_a_step" in r} for what, readings in runs.items()}
+    return {"launches_train_knobs": launches, "train_knobs": runs}
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3083,6 +3333,10 @@ def main() -> None:
     t14 = time.perf_counter()
     fourteen = phase_fourteen(card)
     print(f"phase 14 (the model axis): {time.perf_counter() - t14:.1f} s")
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    fifteen = phase_fifteen(card)
+    print(f"phase 15 (the train step's knobs): {time.perf_counter() - t15:.1f} s")
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -3136,7 +3390,8 @@ def main() -> None:
                      launches_trainer_lrs=lrs_loop_launches, lrs_shapes=lrs_rows,
                      lrs_max_abs_err=lrs_worst, lrs_grad_max_abs_err=lrs_grad_worst,
                      launches_eval=eval_launches, eval_shapes=eval_rows,
-                     eval_max_abs_err=eval_worst, **twelve, **thirteen, **fourteen)
+                     eval_max_abs_err=eval_worst, **twelve, **thirteen, **fourteen,
+                     **fifteen)
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

@@ -37,6 +37,16 @@ processes, so a rank left waiting in a collective fails the test:
    tolerances; each rank gathers the split leaves and their moments before
    it writes its state, and the ranks' whole states equal bit for bit.
    Launched with the 2 ranks above, so the JAX step compiles once for both.
+4. The gate's float64 problem (``vcagan_torch/parallel/dryrun.py``
+   ``build_problem`` and ``run_step``, through their Python entry) with
+   the train step's knobs: 2 gloo ranks under ``remat="stem,r1",
+   d_phase="batched"`` against one process without them, held by the
+   gate's ``compare`` at its float64 bounds.  Dropout is on (the gate's
+   default rates).  Under the layout the stem's BatchNorm all-reduce runs
+   again inside the recompute, during the G backward: every rank must
+   reach it at the same point, and the recomputed statistics must be the
+   forward's, or the gradients are of another function.  This file, run
+   as a script with ``knobs``, is one of those processes.
 """
 
 import json
@@ -59,6 +69,7 @@ WORLD = 2
 LAYOUTS = {"2x1": (2, 1), "2x2": (4, 2)}  # name: (world, model_parallel)
 B, W, HW = 4, 20, 32  # 2 clips a rank
 LENGTHS = [W, W - 6, W - 3, W]
+KNOBS = dict(remat="stem,r1", d_phase="batched")
 
 
 def jax_reference():
@@ -137,6 +148,29 @@ def rank_main(rank, port, out, world=WORLD, model_parallel=1):
     torch.distributed.destroy_process_group()
 
 
+def knob_main(rank, port, out):
+    """The knob gate's process: rank -1 the single process on the whole
+    batch without knobs, else a rank of two on its rows under ``KNOBS``."""
+    from vcagan_torch.nn.common import RECOMPUTES
+    from vcagan_torch.parallel import initialize_distributed, make_layout
+    from vcagan_torch.parallel.dryrun import NARROW, build_problem, run_step
+
+    torch.set_num_threads(1)
+    args = dict(world=WORLD, model=NARROW, float64=True)
+    if rank < 0:
+        result = run_step(build_problem(**args))
+    else:
+        assert initialize_distributed("gloo", f"tcp://localhost:{port}", WORLD, rank)
+        layout = make_layout(1, batch_size=2 * WORLD, device="cpu")
+        result = run_step(build_problem(**args, layout=layout), layout.batch_slice(2 * WORLD),
+                          layout, knobs=KNOBS)
+        if rank:  # rank 0's moments stand for both (compare holds the states equal)
+            result["moments"] = {}
+        torch.distributed.destroy_process_group()
+    result["recomputes"] = dict(RECOMPUTES)
+    torch.save(result, os.path.join(out, f"knobs{rank}.pt"))
+
+
 def jax_step(ref, params, stats, batch, noise):
     """One step of the JAX package's ``make_train_step`` on the whole
     batch, its decoder fed ``noise``: ``ref.FixedNoiseDecoder`` injects
@@ -209,6 +243,37 @@ def test_two_ranks_reproduce_the_single_process_step(runs):
         assert calls == [[2, 20, 20, 32], [2, 40, 20, 32]]
     assert r["reference_attention"] == [[4, 20, 20, 32], [4, 40, 20, 32]]
     assert r["launches"] == [0, 0]  # the plain version on CPU tensors: no kernel
+
+
+@pytest.fixture(scope="module")
+def knob_gate(tmp_path_factory):
+    """The single process and the 2 ranks at once, after the checks above
+    (the tests' order), so that their processes and these do not share the
+    CPU."""
+    out = tmp_path_factory.mktemp("ddp_knobs")
+    port = str(free_port())
+    procs = [popen([sys.executable, __file__, "knobs", str(r), port, str(out)])
+             for r in (-1, *range(WORLD))]
+    logs = [finish(p) for p in procs]
+    for rc, log in logs:
+        assert rc == 0, log[-3000:]
+    return [torch.load(out / f"knobs{r}.pt", weights_only=False) for r in (-1, *range(WORLD))]
+
+
+def test_two_ranks_under_the_knobs_reproduce_the_single_process_step(knob_gate):
+    from vcagan_torch.parallel.dryrun import GRAD_RTOL, METRIC_RTOL, MODULE_GRAD_RTOL, compare
+
+    reference, *ranks = knob_gate
+    r = compare(reference, ranks, GRAD_RTOL)
+    print(f"float64 under {KNOBS}: metrics {r['metric_rel']:.2e} relative, leaf mean|p| "
+          f"{r['leaf_stat']:.2e}, gradients {r['grad_rel']:.2e} ({r['grad_rel_leaf']}), modules "
+          f"{max(r['module_grad_rel'].values()):.2e}")
+    assert r["metric_rel"] < METRIC_RTOL and r["grad_rel"] <= GRAD_RTOL
+    assert max(r["module_grad_rel"].values()) <= MODULE_GRAD_RTOL
+    assert r["attention"] == [[[2, 20, 20, 32], [2, 40, 20, 32]]] * WORLD
+    # the stem once in the G backward, each discriminator's 2B forward twice
+    assert reference["recomputes"] == {}
+    assert [rank["recomputes"] for rank in ranks] == [{"stem": 1, "r1": 6}] * WORLD
 
 
 def port_state(ref, rank_result):
@@ -311,5 +376,8 @@ def test_two_by_two_ranks_match_the_jax_batch_statistics(runs, name):
 
 
 if __name__ == "__main__":
-    rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], int(sys.argv[4]),
-              int(sys.argv[5]))
+    if sys.argv[1] == "knobs":
+        knob_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], int(sys.argv[4]),
+                  int(sys.argv[5]))

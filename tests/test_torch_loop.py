@@ -13,10 +13,12 @@ A narrow model (the widths of ``tests/test_torch_train_step.py``), B = 2,
   improves and links its checkpoint's files; save, restore into a Trainer
   of another seed (its weights, optimizer states and generator) and one
   more step equals three steps straight, bit for bit.
-- The CLI's argv equals the JAX CLI's; what the port does not run raises,
-  naming its ROADMAP item; ``main`` runs on the CPU with ``--platform cpu``.
-  ``--bf16`` parses, and the Trainer builds on LRS2, LRS3 and in bf16
-  (LRS2 training itself: ``tests/test_torch_train_lrs.py``).
+- The CLI's argv equals the JAX CLI's, ``--remat`` and ``--d_phase``
+  included; ``main`` runs on the CPU with ``--platform cpu``.  ``--bf16``
+  parses, and the Trainer builds on LRS2, LRS3 and in bf16 (LRS2 training
+  itself: ``tests/test_torch_train_lrs.py``), and takes a step with
+  ``train.remat="stem"`` and with ``train.d_phase="batched"`` (the knobs'
+  equivalence: ``tests/test_torch_step_knobs.py``).
 """
 
 import json
@@ -33,6 +35,7 @@ from vcagan_torch.cli import train as cli
 from vcagan_torch.configs import grid_config, lrs_config
 from vcagan_torch.data.lrs import LRSDataset, SyntheticLRSSource
 from vcagan_torch.io.checkpoint import CheckpointManager
+from vcagan_torch.nn.common import RECOMPUTES
 from vcagan_torch.train.loop import Trainer
 
 NARROW = dict(stem_channels=16, gru_hidden=32, noise_dim=16, attention_dim=32,
@@ -208,6 +211,7 @@ def test_restore_then_one_step_equals_three_steps(tmp_path):
      "--gpu", "0", "--workers", "2", "--start_epoch", "4", "--log_dir", "runs/x"],
     ["--checkpoint", "ck", "--checkpoint_dir", "cd", "--max_steps", "9", "--media_every", "0",
      "--synthetic", "--platform", "cpu", "--weight_decay", "0.0", "--augmentations", ""],
+    ["--remat", "stem,r1", "--d_phase", "batched", "--bf16", "--collate_process"],
 ])
 def test_parse_args_and_config_equal_the_jax_clis(argv):
     got, want = cli.parse_args(argv), jax_cli.parse_args(argv)
@@ -222,8 +226,8 @@ def test_parse_args_and_config_equal_the_jax_clis(argv):
 @pytest.mark.parametrize("argv,item", [
     # ported since: the flag parses into the config (the case keeps its id)
     pytest.param(["--bf16"], None, id="argv0-bf16 training"),
-    (["--remat", "r1"], "TPU-compiler knobs"),
-    (["--d_phase", "batched"], "TPU-compiler knobs"),
+    pytest.param(["--remat", "r1"], None, id="argv1-TPU-compiler knobs"),
+    pytest.param(["--d_phase", "batched"], None, id="argv2-TPU-compiler knobs"),
     pytest.param(["--model_parallel", "2"], None, id="argv3-multi-GPU"),
     pytest.param(["--collate_process"], None, id="argv4-ProcessEpoch"),
 ])
@@ -232,6 +236,10 @@ def test_unported_flags_stop_the_parse(argv, item, capsys):
         cfg = cli.build_config(cli.parse_args(argv))
         if argv == ["--model_parallel", "2"]:  # the model axis: M ranks a model group
             assert cfg.mesh.model_parallel == 2
+            return
+        if argv[0] in ("--remat", "--d_phase"):  # the train step's knobs
+            assert (cfg.train.remat, cfg.train.d_phase) == (
+                ("r1", "ref") if argv[0] == "--remat" else ("none", "batched"))
             return
         assert cfg.model.use_bfloat16 if argv == ["--bf16"] else cfg.data.collate_process
         return
@@ -245,8 +253,9 @@ def test_unported_flags_stop_the_parse(argv, item, capsys):
     pytest.param({"data.dataset": "LRS2"}, None, id="override0-LRS data"),
     pytest.param({"data.dataset": "LRS3"}, None, id="override1-LRS data"),
     pytest.param({"model.use_bfloat16": True}, None, id="override2-bf16 training"),
-    ({"train.remat": "stem"}, "TPU-compiler knobs"),
-    ({"train.d_phase": "batched"}, "TPU-compiler knobs"),
+    # ported since: the Trainer builds and takes a step (the cases keep their ids)
+    pytest.param({"train.remat": "stem"}, None, id="override3-TPU-compiler knobs"),
+    pytest.param({"train.d_phase": "batched"}, None, id="override4-TPU-compiler knobs"),
     # ported since: one process cannot hold a model group of 2, as make_mesh
     # cannot lay 1 device out as (data, 2) (the case keeps its id)
     pytest.param({"mesh.model_parallel": 2}, "^1 processes not divisible by model_parallel=2$",
@@ -255,9 +264,26 @@ def test_unported_flags_stop_the_parse(argv, item, capsys):
 ])
 def test_trainer_refuses_what_is_not_ported(tmp_path, override, item):
     if item is not None:
-        error = ValueError if "mesh.model_parallel" in override else NotImplementedError
-        with pytest.raises(error, match=item):
+        with pytest.raises(ValueError, match=item):
             small_trainer(tmp_path, "refused", **override)
+        return
+    if "train.remat" in override or "train.d_phase" in override:
+        trainer = small_trainer(tmp_path, "built", **override)
+        rows = []
+        trainer.modules.dis1.register_forward_pre_hook(lambda m, args: rows.append(len(args[0])))
+        raw = next(iter(trainer.train_ds.epoch(trainer.config.train.batch_size)))
+        RECOMPUTES.clear()
+        trainer.state, metrics = trainer.train_step(
+            trainer.state, trainer.process_train(raw, trainer.generator), trainer.generator)
+        assert trainer.state.step == 1 and all(np.isfinite(v.item()) for v in metrics.values())
+        if "train.remat" in override:  # the stem recomputed once, in the G backward
+            assert dict(RECOMPUTES) == {"stem": 1} and rows == [2, 2, 2]
+            step = trainer.train_step
+            trainer.rebuild_train_step(d_phase="batched")  # the config's knobs kept
+            assert trainer._step_kwargs == {"remat": "stem", "d_phase": "batched"}
+            assert trainer.train_step is not step
+        else:  # the D phase's 2B forward and R1's B forward, the G phase's B forward
+            assert not RECOMPUTES and rows == [4, 2, 2]
         return
     if "data.dataset" in override:  # the LRS recipe on its synthetic clips
         with pytest.warns(UserWarning, match="not found under /nonexistent"):

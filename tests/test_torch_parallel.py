@@ -5,7 +5,7 @@
   ``initialize_distributed`` a no-op without a multi-process environment;
   ``make_layout`` refuses a model group of 2 in one process and a world
   that does not divide the batch (giving the gcd the JAX Trainer would
-  have used); ``unported`` takes ``model_parallel=2``.
+  have used); the config carries ``model_parallel=2``.
 - The GRID and LRS epochs with ``process_slice``: ranks 0 and 1 of a
   global batch of 4, concatenated, equal the unsliced epoch bit for bit
   (shuffle, window draws, the padded tail's ``n_valid``), and each rank's
@@ -29,7 +29,7 @@ from vcagan.data.grid import GridDataset as JaxGridDataset
 from vcagan.data.lrs import LRSDataset as JaxLRSDataset
 from vcagan.data.lrs import SyntheticLRSSource as JaxSyntheticLRS
 from vcagan.data.synthetic import SyntheticLipSpeech as JaxSynthetic
-from vcagan_torch.configs import AudioConfig, DataConfig, grid_config, unported
+from vcagan_torch.configs import AudioConfig, DataConfig, grid_config
 from vcagan_torch.data.grid import GridDataset
 from vcagan_torch.data.lrs import LRSDataset, SyntheticLRSSource
 from vcagan_torch.data.prefetch import ParallelEpoch, ProcessEpoch
@@ -99,8 +99,8 @@ def test_single_process_layout_and_refusals(monkeypatch):
     # (make_mesh: "1 devices not divisible by model_parallel=2")
     with pytest.raises(ValueError, match="^1 processes not divisible by model_parallel=2$"):
         make_layout(model_parallel=2, device="cpu")
-    assert unported(grid_config(**{"mesh.model_parallel": 2})) == []
-    assert unported(grid_config()) == []
+    assert grid_config(**{"mesh.model_parallel": 2}).mesh.model_parallel == 2
+    assert grid_config().mesh.model_parallel == 1
 
 
 def jax_data(data):

@@ -209,10 +209,16 @@ def test_serving_only_and_unported_modes_raise():
                                              postnet_channels=8, disc_base_channels=8,
                                              disc_max_channels=8))
     state, g_tx, d_tx = create_train_state(small, TrainConfig(), device="cpu")
-    for knobs in ({"d_phase": "batched"}, {"remat": "r1"}, {"mesh": "data"},
-                  {"compiler_options": "auto"}, {"donate": True}):
-        with pytest.raises(ValueError, match="not ported"):
-            make_train_step(small, g_tx, d_tx, **knobs)
+    # ported since: the JAX step's knobs build a step (their equivalence:
+    # tests/test_torch_step_knobs.py); a mesh that is no DataLayout, and XLA
+    # compiler options, still raise
+    for knobs in ({"d_phase": "batched"}, {"remat": "r1"}, {"compiler_options": "auto"},
+                  {"donate": True}):
+        assert callable(make_train_step(small, g_tx, d_tx, **knobs))
+    with pytest.raises(ValueError, match="not ported"):
+        make_train_step(small, g_tx, d_tx, mesh="data")
+    with pytest.raises(ValueError, match="XLA compiler options"):
+        make_train_step(small, g_tx, d_tx, compiler_options={"xla_tpu_scoped_vmem_limit_kib": "1"})
     with pytest.raises(TypeError, match="sync_leek"):
         make_train_step(small, g_tx, d_tx, sync_leek=False)
 

@@ -128,7 +128,8 @@ def mixed(create, config, model, bf16):
     return dataclasses.replace(modules, **{name: getattr(half, name) for name in bf16})
 
 
-def jax_steps(params, stats, batch, sync_leak, steps, model=NARROW, train=TRAIN, bf16=()):
+def jax_steps(params, stats, batch, sync_leak, steps, model=NARROW, train=TRAIN, bf16=(),
+              **knobs):
     modules = mixed(JaxModules.create, JaxModelConfig, model, bf16)
     modules = dataclasses.replace(modules, gen=FixedNoiseDecoder(**{
         f.name: getattr(modules.gen, f.name) for f in dataclasses.fields(JaxDecoder)
@@ -141,7 +142,7 @@ def jax_steps(params, stats, batch, sync_leak, steps, model=NARROW, train=TRAIN,
     state = JaxState(step=jnp.zeros((), jnp.int32), g_params=g_params, d_params=d_params,
                      batch_stats=stats, g_opt_state=txs[0].init(g_params),
                      d_opt_state=txs[1].init(d_params))
-    step = jax_make_train_step(modules, *txs, cfg, donate=False, sync_leak=sync_leak)
+    step = jax_make_train_step(modules, *txs, cfg, donate=False, sync_leak=sync_leak, **knobs)
     jbatch = JaxBatch(**{k: jnp.asarray(v) for k, v in batch.items()})
     metrics, moments = [], []
     for i in range(steps):
@@ -152,12 +153,13 @@ def jax_steps(params, stats, batch, sync_leak, steps, model=NARROW, train=TRAIN,
     return state, metrics, moments
 
 
-def port_steps(params, stats, batch, sync_leak, steps, model=NARROW, train=TRAIN, bf16=()):
+def port_steps(params, stats, batch, sync_leak, steps, model=NARROW, train=TRAIN, bf16=(),
+               **knobs):
     modules = mixed(VCAGANModules.create, ModelConfig, model, bf16).load_state_dicts(
         from_jax(params, stats))
     cfg = TrainConfig(**train)
     state, g_tx, d_tx = create_train_state(modules, cfg, steps_per_epoch=1, device="cpu")
-    step = make_train_step(modules, g_tx, d_tx, cfg, sync_leak=sync_leak)
+    step = make_train_step(modules, g_tx, d_tx, cfg, sync_leak=sync_leak, **knobs)
     tbatch = Batch(**{k: torch.from_numpy(v) for k, v in batch.items()})
     metrics, moments = [], []
     for _ in range(steps):

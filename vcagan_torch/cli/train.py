@@ -21,18 +21,18 @@ one of the port's checkpoints, or the train state from a JAX package's
 checkpoint exported to ``.npz`` by ``tools/export_jax_train_state.py``.
 ``--bf16`` computes the modules in bf16 (parameters and losses stay fp32).
 ``--collate_process`` collates in a worker process (``ProcessEpoch``).
-The JAX CLI's flags that the port does not run (``--remat`` other than
-none, ``--d_phase batched``) stop the parse with an error that names
-their ROADMAP item.  ``--dataparallel``, ``--gpu``
-and ``--synthetic`` are accepted and do nothing, as in the JAX CLI (the
-ranks come from ``torchrun``).
+``--remat`` (remat sites: none, r1, stem, vfront, comma-separated) and
+``--d_phase`` (ref or batched) go to the train step; an unknown site
+raises where the Trainer builds it, as in the JAX CLI.  ``--dataparallel``,
+``--gpu`` and ``--synthetic`` are accepted and do nothing, as in the JAX
+CLI (the ranks come from ``torchrun``).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from vcagan_torch.configs import grid_config, unported
+from vcagan_torch.configs import grid_config
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,9 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bfloat16 compute in the convolution-heavy modules "
                         "(parameters and losses stay fp32)")
     p.add_argument("--remat", type=str, default="none",
-                   help="none only (ROADMAP: the JAX step's TPU-compiler knobs)")
+                   help="selective remat sites (none|r1|stem|vfront, comma-separable)")
     p.add_argument("--d_phase", type=str, default="ref", choices=("ref", "batched"),
-                   help="ref only (ROADMAP: the JAX step's TPU-compiler knobs)")
+                   help="D-phase program structure (ref|batched), math-identical; "
+                        "batched = one 2B real+fake forward per scale + joint R1")
     p.add_argument("--collate_process", action="store_true",
                    help="decode and collate in a forked worker process (shared-memory "
                         "batches) instead of a producer thread")
@@ -79,13 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None):
-    """The JAX CLI's argv; a setting the port does not run stops the parse."""
-    p = build_parser()
-    args = p.parse_args(argv)
-    missing = unported(build_config(args))
-    if missing:
-        p.error("not ported: " + "; ".join(missing))
-    return args
+    """The JAX CLI's argv."""
+    return build_parser().parse_args(argv)
 
 
 def build_config(args):

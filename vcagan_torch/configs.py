@@ -98,9 +98,9 @@ class DataConfig:
 class TrainConfig:
     """Optimisation and loop parameters (``vcagan/configs/base.py:126-171``;
     GRID defaults; LRS: no amsgrad, milestones (100, 150), sync_dis_weight
-    0.5, recon on normalised mels).  ``remat`` other than "none" and
-    ``d_phase`` "batched" are the JAX step's TPU-compiler knobs and are not
-    ported: the Trainer raises on them."""
+    0.5, recon on normalised mels).  ``remat`` (remat sites, comma-separated)
+    and ``d_phase`` ("ref" or "batched") go to ``make_train_step``
+    (``vcagan_torch/train/step.py``)."""
 
     batch_size: int = 88
     epochs: int = 1000
@@ -137,20 +137,6 @@ class VCAGANConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
-
-
-def unported(config: VCAGANConfig) -> list[str]:
-    """The settings of ``config`` that the port does not run, each with the
-    ROADMAP item (Queue 1) that holds it."""
-    c = config
-    found = []
-    if c.train.remat != "none":
-        found.append(f"train.remat={c.train.remat!r} / --remat (ROADMAP: the JAX step's "
-                     "TPU-compiler knobs)")
-    if c.train.d_phase != "ref":
-        found.append(f"train.d_phase={c.train.d_phase!r} / --d_phase (ROADMAP: the JAX "
-                     "step's TPU-compiler knobs)")
-    return found
 
 
 def grid_config(**overrides) -> VCAGANConfig:

@@ -1,6 +1,7 @@
 """Shared layers: per-channel PReLU, LeakyReLU(0.2), BatchNorm (eval, and
 train mode as flax's), dropout from an explicit generator, convolutions
-that compute in a given dtype and a dense layer that computes in fp32.
+that compute in a given dtype and a dense layer that computes in fp32;
+and ``recomputed``, a call whose activations the backward recomputes.
 
 The port keeps PyTorch's channels-first layout inside its modules (NCHW,
 NCDHW, (B, C, T)); public inputs and outputs keep the JAX package's layout.
@@ -17,14 +18,25 @@ a bf16 array is weakly typed, so it is rounded to bf16 first
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import contextvars
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from vcagan_torch.parallel.collectives import all_reduce_sum
 from vcagan_torch.parallel.mesh import active_layout, draw_rows
+
+_RECOMPUTING: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "vcagan_torch_recomputing", default=False)
+# recomputes of each remat site since the count was last cleared (the tests
+# and chip_smoke.py read it; nothing in the step does)
+RECOMPUTES: collections.Counter = collections.Counter()
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 BN_EPS = 1e-5
@@ -80,7 +92,11 @@ class _FlaxBatchNorm:
     E[x^2] - E[x]^2 (flax's ``use_fast_variance``).  The model ranks of a
     data index hold the same rows: their copies add to the counts as to
     the sums, so they cancel (and their gradients too), and every rank
-    holds the same statistics."""
+    holds the same statistics.
+
+    Inside a recompute (``recomputed``) the running statistics and
+    ``num_batches_tracked`` stay where the forward moved them: train mode
+    never reads them, so the output is the forward's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -89,13 +105,17 @@ class _FlaxBatchNorm:
         layout = active_layout()
         if layout is not None and layout.world > 1:
             return self._global_forward(x, layout.group)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.to(self.running_mean.dtype), dim=[0, *range(2, x.dim())],
-                                       correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+        if not _RECOMPUTING.get():
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.to(self.running_mean.dtype),
+                                           dim=[0, *range(2, x.dim())], correction=0)
+                self._move_statistics(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _move_statistics(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
+        self.num_batches_tracked.add_(1)
 
     def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
         dims = [0, *range(2, x.dim())]
@@ -104,10 +124,9 @@ class _FlaxBatchNorm:
         stats = all_reduce_sum(torch.stack([count, xf.sum(dims), xf.square().sum(dims)]), group)
         mean = stats[1] / stats[0]
         var = torch.clamp(stats[2] / stats[0] - mean.square(), min=0.0)
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+        if not _RECOMPUTING.get():
+            with torch.no_grad():
+                self._move_statistics(mean, var)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         scale = torch.rsqrt(var + self.eps) * self.weight
         shift = self.bias - mean * scale
@@ -154,6 +173,58 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
         1.0 - rate, generator=generator), x.shape[0])
     # flax divides by the keep probability, a constant rounded to x's dtype
     return torch.where(keep.bool(), x / rounded(1.0 - rate, x.dtype), 0.0)
+
+
+class _Recompute:
+    """The context of one checkpointed call's recomputes: the call's
+    generator set to its state at the forward (and given back the state
+    found), the layout that was active at the forward active again (the
+    backward may run on another thread, where it is not), and BatchNorm
+    told not to move its statistics a second time.  It is entered once for
+    each recompute."""
+
+    def __init__(self, site: str, generator: torch.Generator | None):
+        self.site = site
+        self.generator = generator
+        self.state = None if generator is None else generator.get_state()
+        self.layout = active_layout()
+
+    def __enter__(self):
+        RECOMPUTES[self.site] += 1
+        if self.generator is not None:
+            self.found = self.generator.get_state()
+            self.generator.set_state(self.state)
+        self.stack = contextlib.ExitStack()
+        if self.layout is not None:
+            self.stack.enter_context(self.layout.active())
+        self.token = _RECOMPUTING.set(True)
+
+    def __exit__(self, *exc) -> bool:
+        _RECOMPUTING.reset(self.token)
+        self.stack.close()
+        if self.generator is not None:
+            self.generator.set_state(self.found)
+        return False
+
+
+def recomputed(site: str, fn: Callable, *args, generator: torch.Generator | None = None):
+    """``fn(*args)`` that keeps only its inputs and outputs for the backward:
+    a backward that needs its activations runs it again first (the JAX
+    package's ``jax.checkpoint`` / ``nn.remat``), through non-reentrant
+    ``torch.utils.checkpoint``, which also works under ``create_graph``.
+
+    What a recompute must not repeat: its dropout masks come from
+    ``generator`` as at the forward, which is then left where the recompute
+    found it, so the step draws on exactly as without the recompute
+    (``checkpoint``'s ``preserve_rng_state`` keeps only the global RNGs);
+    train-mode BatchNorm normalises without moving its statistics again;
+    under a data layout its statistics' all-reduce runs again, on every
+    rank at the same point of the same backward.  A recompute that does not
+    give the forward's saved tensors back (shape, dtype, device) raises.
+    ``RECOMPUTES[site]`` counts the recomputes."""
+    ctx = _Recompute(site, generator)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, context_fn=lambda: (contextlib.nullcontext(), ctx))
 
 
 class _ComputeDtype:

@@ -1,10 +1,13 @@
 """GAN losses: the non-saturating softplus loss and the R1 gradient penalty.
 
-Port of ``vcagan/nn/losses.py:19-36`` (reference ``generator.py:363-366``
+Port of ``vcagan/nn/losses.py:19-36`` and of the joint penalties of
+``vcagan/train/step.py:254-275`` (reference ``generator.py:363-366``
 and ``train.py:188-194``).
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -24,3 +27,14 @@ def r1_penalty(logits: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     caller's forward, which also gives the real-logit loss, is shared."""
     (grad,) = torch.autograd.grad(logits.sum(), x, create_graph=True)
     return grad.flatten(1).square().sum(1).mean()
+
+
+def joint_r1_penalties(logits: Sequence[torch.Tensor],
+                       xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``r1_penalty`` of each (``logits[i]``, ``xs[i]``) pair, from one
+    gradient of the logits' total sum into all of ``xs`` jointly: each
+    ``xs[i]`` reaches only its own logits, so each gradient is the one
+    ``r1_penalty`` takes, in one backward pass instead of one a pair
+    (``d_phase="batched"``)."""
+    grads = torch.autograd.grad(sum(u.sum() for u in logits), list(xs), create_graph=True)
+    return [g.flatten(1).square().sum(1).mean() for g in grads]

@@ -18,6 +18,11 @@ the stem convolution (its folded bias cast to bf16 too, ``:50``), BatchNorm,
 PReLU, pool and trunk compute in it, so ``phon`` is bf16 in the bf16 mode;
 the biGRU takes its input in fp32 (``vcagan/nn/gru.py:104``) and ``fc`` is an
 fp32 dense, so ``sent`` is fp32.
+
+``remat_stem`` (the step's ``remat="stem"``, ``vcagan/nn/visual_front.py:
+87-99``): the stem chain (convolution, BatchNorm, PReLU, max-pool) keeps
+only its input and its pooled output for the backward, which recomputes
+the rest (``recomputed``); it applies where autograd records the forward.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 from torch import nn
 
 from vcagan_torch.configs import ModelConfig
-from vcagan_torch.nn.common import Conv3d, FoldableModule, PReLU, batch_norm, dropout
+from vcagan_torch.nn.common import (
+    Conv3d, FoldableModule, PReLU, batch_norm, dropout, recomputed)
 from vcagan_torch.nn.gru import BiGRU
 from vcagan_torch.nn.resnet import ResNetTrunk
 from vcagan_torch.runtime import compute_dtype
@@ -60,10 +66,12 @@ class VisualFront(FoldableModule):
         if fold_bn:
             self.eval()
 
-    def forward(self, video: torch.Tensor,
-                generator: torch.Generator | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, video: torch.Tensor, generator: torch.Generator | None = None,
+                remat_stem: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         b, t = video.shape[:2]
-        x = self.frontend(video.permute(0, 4, 1, 2, 3))  # (B, C, T, H', W')
+        x = video.permute(0, 4, 1, 2, 3)
+        # the stem: (B, 1, T, H, W) -> (B, C, T, H', W')
+        x = recomputed("stem", self.frontend, x) if remat_stem else self.frontend(x)
         if self.fused:
             # (B*T, H', W', C) in memory, seen as NCHW: the one copy that the
             # flatten below makes too, into the layout the fused blocks read

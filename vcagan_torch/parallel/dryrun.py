@@ -222,9 +222,10 @@ def profile_step(step, state, batch, generator, device) -> dict:
 
 
 def run_step(problem: dict, rows: slice = slice(None), layout=None,
-             profile: bool = False) -> dict:
+             profile: bool = False, knobs: Optional[dict] = None) -> dict:
     """One step of the problem on ``rows`` of its batch (under ``layout``
-    where given); its metrics, leaf statistics, first moments (on the
+    where given, with ``make_train_step``'s ``knobs``, e.g. ``remat`` and
+    ``d_phase``); its metrics, leaf statistics, first moments (on the
     host), the split leaves' columns (``split``), the digests of the
     replicated state and of the split leaves with their moments, the
     attention's calls (kernel shape (B, T, S, D) each), kernel launches and,
@@ -240,7 +241,7 @@ def run_step(problem: dict, rows: slice = slice(None), layout=None,
     hooks = [m.register_forward_hook(count) for m in modules.gen.modules()
              if isinstance(m, AVAttention)]
     step = make_train_step(modules, problem["g_tx"], problem["d_tx"], problem["cfg"],
-                           mesh=layout)
+                           mesh=layout, **(knobs or {}))
     generator = torch.Generator(problem["device"]).manual_seed(STEP_SEED)
     attn.LAUNCHES = 0
     try:

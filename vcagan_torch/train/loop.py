@@ -34,9 +34,11 @@ whole state: every rank first gathers the split leaves (``on_rank0``),
 then the others wait at the broadcast of rank 0's generator state that
 follows, which keeps every rank's generator where one process's would be.
 
-Not ported: the JAX step's TPU-compiler knobs (``remat``,
-``d_phase="batched"``).  The Trainer raises on each, naming the ROADMAP
-item that holds it.
+``train.remat`` and ``train.d_phase`` go to ``make_train_step`` under
+every layout; ``rebuild_train_step`` builds the step again with other
+knobs.  The JAX Trainer's retry of a step compiled without its TPU
+options (``_call_train_step``, which catches the TPU compile helper's
+failure) has nothing to port: no step here is compiled.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from vcagan_torch.configs import VCAGANConfig, unported
+from vcagan_torch.configs import VCAGANConfig
 from vcagan_torch.data.device_pipeline import make_device_pipeline
 from vcagan_torch.data.grid import make_grid_dataset
 from vcagan_torch.data.lrs import (
@@ -78,9 +80,6 @@ class Trainer:
 
     def __init__(self, config: VCAGANConfig, log_dir: str = "./runs", device=None,
                  layout: Optional[DataLayout] = None):
-        missing = unported(config)
-        if missing:
-            raise NotImplementedError("not ported: " + "; ".join(missing))
         self.config = config
         tc = config.train
         self.layout = layout or make_layout(config.mesh.model_parallel, tc.batch_size, device)
@@ -109,8 +108,10 @@ class Trainer:
                 device=self.device)
             self.process_eval = make_device_pipeline(
                 config.audio, config.data, augment=False, device=self.device)
-        mesh = self.layout if self.layout.group is not None else None
-        self.train_step = make_train_step(self.modules, self.g_tx, self.d_tx, tc, mesh=mesh)
+        self.mesh = self.layout if self.layout.group is not None else None
+        self._step_kwargs = dict(remat=tc.remat, d_phase=tc.d_phase)
+        self.train_step = make_train_step(self.modules, self.g_tx, self.d_tx, tc,
+                                          mesh=self.mesh, **self._step_kwargs)
         self.eval_step = make_eval_step(self.modules)
         self.generator = torch.Generator(self.device).manual_seed(tc.seed)
         # built once and reused by every validation (a dataset per call
@@ -138,6 +139,14 @@ class Trainer:
             state = self.generator.get_state().to(self.device)
             torch.distributed.broadcast(state, src=0, group=self.layout.group)
             self.generator.set_state(state.cpu())
+
+    def rebuild_train_step(self, **overrides) -> None:
+        """Build the step again with changed ``make_train_step`` keywords
+        (e.g. a remat recipe the config did not carry); they stay for later
+        rebuilds (``vcagan/train/loop.py:262-269``)."""
+        self._step_kwargs.update(overrides)
+        self.train_step = make_train_step(self.modules, self.g_tx, self.d_tx, self.config.train,
+                                          mesh=self.mesh, **self._step_kwargs)
 
     def _make_dataset(self, mode: str, seed: int = 0):
         cfg = self.config

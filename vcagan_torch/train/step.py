@@ -29,6 +29,9 @@ are fp32), and the L1 terms cast both sides.  The attention stays fp32.
 The sync critic runs in both phases, so its statistics move twice a step
 (real mel, then ``g3``), as in the reference.  Gradients are taken with
 ``torch.autograd.grad`` into lists: nothing accumulates in ``.grad``.
+``d_phase`` and ``remat`` change how the D loss is batched and which
+activations the backward recomputes, not the step's results
+(``make_train_step``).
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ from torch.profiler import record_function
 
 from vcagan_torch.configs import TrainConfig
 from vcagan_torch.dsp.audio import mel_denormalize
-from vcagan_torch.nn.common import fp32_or_wider
-from vcagan_torch.nn.losses import gan_loss, r1_penalty
+from vcagan_torch.nn.common import fp32_or_wider, recomputed
+from vcagan_torch.nn.losses import gan_loss, joint_r1_penalties, r1_penalty
 from vcagan_torch.parallel.collectives import all_reduce_mean_, mean_metrics
 from vcagan_torch.parallel.mesh import DataLayout, draw_rows
 from vcagan_torch.train.models import DISCRIMINATOR_SIDE, GENERATOR_SIDE, VCAGANModules
@@ -125,19 +128,32 @@ def _grads(outputs: Sequence[torch.Tensor], params: List[torch.Tensor],
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
+def parse_remat(remat: str) -> frozenset:
+    """The remat sites of ``remat`` as the JAX step reads them
+    (``vcagan/train/step.py:155-166``): comma-separated, blanks dropped,
+    "none" ignored; an unknown site, or "vfront" with "stem", raises."""
+    sites = {tok.strip() for tok in remat.split(",") if tok.strip()}
+    unknown = sites - {"none", "vfront", "stem", "r1"}
+    if unknown:
+        raise ValueError(f"unknown remat site(s) {sorted(unknown)}; valid: none, vfront, stem, r1")
+    if {"vfront", "stem"} <= sites:
+        raise ValueError("remat sites 'vfront' and 'stem' are mutually exclusive "
+                         "('vfront' already drops everything 'stem' drops)")
+    return frozenset(sites - {"none"})
+
+
 def make_train_step(
     modules: VCAGANModules,
     g_tx: Optimizer,
     d_tx: Optimizer,
     config: TrainConfig | None = None,
+    donate: bool = True,
     sync_leak: bool = True,
+    mesh=None,
+    remat: str = "none",
+    compiler_options="auto",
     d_phase: str = "ref",
     on_phase: Callable[[str], None] | None = None,
-    *,
-    remat: str | None = None,
-    mesh=None,
-    compiler_options=None,
-    donate: bool | None = None,
 ):
     """Returns ``step(state, batch, generator) -> (state, metrics)``, which
     updates the modules and optimizer states in place; the metrics are
@@ -165,16 +181,50 @@ def make_train_step(
     their last bits (the card's backward convolutions sum in no fixed
     order), so the replicated leaves stay equal.
 
-    ``d_phase="batched"``, ``remat``, ``compiler_options`` and ``donate``
-    are the JAX step's TPU-compiler knobs and are not ported: setting one
-    raises."""
+    ``d_phase`` (``vcagan/train/step.py:236-275``), the same mathematics
+    either way: "ref" runs a real and a fake discriminator forward a scale,
+    R1 differentiating the real one, one R1 input gradient a scale;
+    "batched" runs one forward a scale on the 2B batch [real mel;
+    fake.detach()] with ``sent`` doubled, the real and fake terms sliced
+    from its logits (the discriminators are norm-free and work per sample,
+    so slicing is exact), and R1 on a B-row forward of the real mels a
+    scale, the three penalties from one input gradient over the three
+    jointly, as the JAX step's ``_r1_terms_joint``.  Taking R1 from the
+    real rows of the 2B forward instead (one forward a scale) ran slower
+    on an H100: the penalty's double backward then runs over all 2B rows,
+    the fake half's with zero gradients (chip_smoke.py phase 15, the GRID
+    fp32 step 2755.8 ms against 2394.2 for "ref", bf16 581.8 against
+    481.1).  With bf16 modules the concatenation promotes the bf16 fake
+    mel to fp32, as ``jnp.concatenate`` does; the first convolution casts
+    both halves to bf16, as in "ref".
+
+    ``remat``: comma-separated sites whose activations the backward
+    recomputes instead of holding (``parse_remat``; ``nn.common.
+    recomputed``): "stem" the visual front's stem chain, "vfront" the whole
+    visual front call, "r1" each discriminator forward that R1
+    differentiates ("ref": the shared real forward a scale; "batched": the
+    B-row R1 forward); "r1" combines with either of the others.  The step's
+    results do not change: dropout masks are redrawn as at the forward and
+    the generator ends where it would without remat, and BatchNorm
+    statistics move once.  With the sync leak the D backward stops at
+    ``phon``, so the "stem" and "vfront" regions recompute once a step, in
+    the G backward.  An "r1" region recomputes twice a step: once for R1's
+    input gradient and once in the D backward, which needs the forward's
+    activations again (two backward passes; a checkpoint recomputes for
+    each one that reaches it).
+
+    ``donate`` is accepted either way: the step updates the state in
+    place, which is what the JAX step's buffer donation buys.
+    ``compiler_options``: "auto" and None are accepted (off the TPU the
+    JAX package's "auto" is None, ``_tpu_compiler_options``); a dict of
+    XLA options raises, there being no XLA compiler to pass it to."""
     cfg = config or TrainConfig()
-    knobs = dict(d_phase=None if d_phase == "ref" else d_phase, remat=remat,
-                 compiler_options=compiler_options, donate=donate)
-    unported = [f"{k}={v!r}" for k, v in knobs.items() if v is not None]
-    if unported:
-        raise ValueError("not ported (TPU-compiler knobs of the JAX step): "
-                         + ", ".join(unported))
+    sites = parse_remat(remat)
+    if d_phase not in ("ref", "batched"):
+        raise ValueError(f"unknown d_phase {d_phase!r}; valid: ref, batched")
+    if compiler_options not in ("auto", None):
+        raise ValueError(f"compiler_options={compiler_options!r}: XLA compiler options have "
+                         "no compiler to go to in the port; pass \"auto\" or None")
     if mesh is not None and not (isinstance(mesh, DataLayout) and mesh.group is not None):
         raise ValueError(f"mesh={mesh!r} is not ported: the port's mesh is a DataLayout "
                          "with a process group (vcagan_torch.parallel.make_layout)")
@@ -186,16 +236,42 @@ def make_train_step(
     g_params = modules.parameters(GENERATOR_SIDE)  # v_front's first
     d_params = modules.parameters(DISCRIMINATOR_SIDE)
 
-    def d_loss(phon, sent_sg, mels, gens):
+    def discriminate(d, x, sent):
+        return recomputed("r1", d, x, sent) if "r1" in sites else d(x, sent)
+
+    def visual_front(video, generator):
+        if "vfront" in sites:
+            return recomputed("vfront", modules.v_front, video, generator, generator=generator)
+        return modules.v_front(video, generator, remat_stem="stem" in sites)
+
+    def gan_terms_ref(sent_sg, mels, gens):
         real_terms, r1_terms, fake_terms = [], [], []
         for d, mel_k in zip(dis, mels):
             x = mel_k.detach().requires_grad_()
-            u, c = d(x, sent_sg)
+            u, c = discriminate(d, x, sent_sg)
             real_terms.append(gan_loss(u, real=True) + gan_loss(c, real=True))
             r1_terms.append(r1_penalty(u, x))
         for d, g_k in zip(dis, gens):
             u, c = d(g_k.detach(), sent_sg)
             fake_terms.append(gan_loss(u, real=False) + gan_loss(c, real=False))
+        return real_terms, r1_terms, fake_terms
+
+    def gan_terms_batched(sent_sg, mels, gens):
+        b = sent_sg.shape[0]
+        sent2 = torch.cat([sent_sg, sent_sg])
+        real_terms, fake_terms = [], []
+        for d, mel_k, g_k in zip(dis, mels, gens):
+            u, c = d(torch.cat([mel_k.detach(), g_k.detach()]), sent2)
+            real_terms.append(gan_loss(u[:b], real=True) + gan_loss(c[:b], real=True))
+            fake_terms.append(gan_loss(u[b:], real=False) + gan_loss(c[b:], real=False))
+        reals = [mel_k.detach().requires_grad_() for mel_k in mels]
+        logits = [discriminate(d, x, sent_sg)[0] for d, x in zip(dis, reals)]
+        return real_terms, joint_r1_penalties(logits, reals), fake_terms
+
+    gan_terms = gan_terms_batched if d_phase == "batched" else gan_terms_ref
+
+    def d_loss(phon, sent_sg, mels, gens):
+        real_terms, r1_terms, fake_terms = gan_terms(sent_sg, mels, gens)
         # the only D-phase path into the visual front (reference train.py:186,210)
         sync_loss = modules.s_dis(phon if sync_leak else phon.detach(), mels[2]).mean()
         r1 = sum(r1_terms) / 3.0
@@ -233,7 +309,7 @@ def make_train_step(
         noise = draw_rows(lambda n: torch.randn((n, gen.base_bins, w, gen.noise_dim),
                                                 generator=generator, device=batch.video.device),
                           b)
-        phon, sent = modules.v_front(batch.video, generator)
+        phon, sent = visual_front(batch.video, generator)
         gens = gen(sent, phon, batch.vid_len, noise=noise)
         sent_sg = sent.detach()
         mels = (*mel_pyramid(batch.mel), batch.mel)
