@@ -172,7 +172,7 @@ def test_plan_takes_keys_past_s_max():
     assert port.attention_plan(75, port.S_MAX, 256).key_block == 0
     plan = port.attention_plan(75, port.S_MAX + 1, 256)
     assert plan.key_block == port.KEY_BLOCK and plan.smem_bytes <= port.MAX_SMEM
-    assert plan.key_blocks() == [(0, 256), (256, 256), (512, 1)]
+    assert plan.key_blocks() == [(k0, 64) for k0 in range(0, 512, 64)] + [(512, 1)]
 
 
 def test_an_edited_shared_header_rebuilds_every_kernel(tmp_path, monkeypatch):

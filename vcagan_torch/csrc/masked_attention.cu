@@ -1,7 +1,7 @@
 // Length-masked cross-attention, forward, fp32:
 //   out[b] = softmax(q[b] k[b]^T / sqrt(D), keys >= lengths[b] -> -1e30) v[b]
 // q (B,T,D), k/v (B,S,D), lengths (B,) int32, out (B,T,D); all contiguous,
-// 16-byte aligned; D a multiple of 8, any S >= 1.
+// 16-byte aligned; D a multiple of 8 (at most 256 past 512 keys), any S >= 1.
 //
 // Replaces the TPU kernel vcagan/kernels/masked_attention.py:50-121
 // (_attention_kernel / _attention_pallas), which holds one sample's whole
@@ -20,7 +20,8 @@
 // the 67 TFLOP/s of fp32 outside the tensor cores, which made att2 bound by
 // operations; that was the bound of that design, not of the card.)
 //
-// Design (both products on the tensor cores, mma.sync m16n8k8 TF32):
+// Up to 512 keys, the strip instance (both products on the tensor cores,
+// mma.sync m16n8k8 TF32):
 // - A block is one sample and `tiles` tiles of 16 query rows (one m16
 //   fragment each).  wgmma's 64-row tile would waste up to 53 rows of a
 //   75- or 150-row sample; the 16-row tile wastes at most 15.  The plan
@@ -75,36 +76,72 @@
 //   the strip are read as rows g, columns t (stride 4 mod 8 floats); V as
 //   rows t, columns g (stride 8 or 24 mod 32 floats).
 //
-// - Past 512 keys (the key-blocked instance, BLOCKED = true).  The strip of
-//   16 x S scores a tile is what caps S: four of them, Q and the K/V ring
-//   fill the 227 KB at S = 512 and D = 256.  So for S > 512 the keys go in
-//   blocks of `key_block` (256; the plan's) through the same strip, with an
-//   online softmax: after a block's scores, each row's block maximum m_blk,
-//   m_new = max(m, m_blk), alpha = exp(m - m_new) (0 where m is still -inf,
-//   before the first block, never NaN), e = exp(s - m_new) written back in
-//   the strip, l = l * alpha + sum(e); then P.V over the block's V pieces
-//   with e as P, and at the end of each D chunk the tile's output sum in
-//   shared memory (16 x D fp32 a tile: 16 KB at D = 256, too many registers
-//   for a thread) becomes O * alpha + (this block's e.V).  The last block
-//   writes (O * alpha + e.V) / l to the output.  Every block holds a real
-//   key (blocks start at multiples of 256 < S; padding is under 8 keys and
-//   sits in the last block), so m is finite after the first block: -1e30
-//   keys average as in the strip form and -inf keys weigh exactly 0.  The
-//   K/V ring walks (block, K pieces, V pieces), so the copy of the next
-//   block's first K piece runs under the last V piece of this one.  One
-//   pass over the keys, as the strip form: each key's scores are computed
-//   once.  S <= 512 takes the strip instance (BLOCKED = false), as before.
-//   Past 512 keys the bound is the operations (4 T S D flops against
-//   4 (2 T D + 2 S D) bytes): 10.2 us at (4, 750, 750), 0.104 ms at
-//   (1, 4096, 4096).  The first version runs 35x and 16x those
-//   (chip_smoke, phase 12): (4, 750, 750) is 48 blocks of 4 tiles for 132
-//   SMs, and each tile's chain of products over all S keys is the time.
-//
-// What holds it back (9x its bound): for every 3 products a warp loads 2 B
-// values and splits them, and every warp of a block splits the same K and
-// V values again.  Later work: K/V pieces and Q split once into shared
-// memory, a grid balanced over the SMs, wgmma with A from registers, K/V by
-// TMA, a swizzled layout, a persistent grid.
+// Past 512 keys (its own plan and entry point: three launches a call).  The
+// strip of 16 x S scores a tile is what caps the strip instance at S = 512
+// (four strips, Q and the K/V ring fill the 227 KB at D = 256).  Past it the
+// bound is the operations (4 T S D flops of the keys below each length,
+// against 4 (2 T D + 2 S D) bytes): 10.2 us at (4, 750, 750) with lengths
+// 0, 750, 730, 711; 0.104 ms at (1, 4096, 4096).
+// - Key blocks of 64 (Q K^T's N).  A sample walks only the key blocks that
+//   hold a key below its length: a block at or past lengths[b] >= 1 would
+//   add exactly 0 (exp(-1e30 - m) underflows for the finite m of a real
+//   score), so it is neither split nor read; the block at the boundary is
+//   masked key by key.  A length <= 0 walks all S keys (every one -1e30, so
+//   the rows average the S values, as the JAX function); lengths[b] >= S
+//   masks nothing.  The kernels read the lengths: the host never does.
+// - Each operand is split into its TF32 hi and lo parts ONCE a call, by a
+//   first launch (split_pieces_kernel) that reads it: Q, K and V in pieces
+//   of 64 rows x 64 columns (zeros past T, S or D), each piece's two parts
+//   laid out as wgmma reads them from shared memory (K-major core matrices
+//   of 8 rows x 16 bytes, no swizzle, the fused block's layout), 32 KB a
+//   piece, in the workspace.  V is transposed there (wgmma takes TF32
+//   operands K-major only, and P.V contracts over keys).  Split in shared
+//   memory by the attention block's own warpgroup under its products, the
+//   copies and the split took several times the products' time (clock64
+//   around each phase), and every row block split the same K and V again.
+// - The attention: grid (row blocks, key splits, B); a block is ONE
+//   warpgroup (128 threads) and 64 query rows (wgmma's M; T = 750, 1026,
+//   1280, 1500 or 4096 wastes under 9% of its rows).  Shared memory holds
+//   Q's parts (128 KB at D = 256) for the whole walk and three slots of a
+//   K or V piece (hi and lo, 32 KB each): thread 0 asks the TMA unit for
+//   piece j + 2 by bulk copies counted on the slot's mbarrier as soon as
+//   piece j's products are issued (the slot piece j - 1 left).
+// - Products: wgmma.mma_async TF32, m64n64k8 for Q K^T with A (Q) and B (K)
+//   from shared memory, m64n32k8 for P.V with A (P) from registers and B
+//   (V) from shared memory.  The scores of a key block stay in the
+//   accumulator registers: scaled, masked, the online softmax (m, alpha,
+//   l by quad shuffles) and P = exp(s - m) split into its parts right
+//   there.  The accumulator gives a thread keys 2t and 2t + 1 of each 8;
+//   P.V's A fragment wants lane columns t and t + 4, so the keys of each
+//   k-step stand permuted in the transposed V (key 2i + h at k-position
+//   4h + i): no shuffle.
+// - 3xTF32 as in the strip instance: lo*hi, hi*lo, then hi*hi into a sum
+//   that is fresh every piece (8 k-steps); an ordinary fp32 add puts it on
+//   the scores or on the output.  The output of 64 rows x D stays in
+//   registers (128 a thread at D = 256: the reason for D <= 256), rescaled
+//   by alpha each key block; P.V goes 32 columns at a time, so that the
+//   output, P's parts and the fresh sum fit in 255 registers.
+// - Key splits fill the card.  A sample's walked key blocks are shared out
+//   over `splits` blocks in contiguous shares that differ by at most one
+//   key block.  With one split a block writes O / l; with more, each writes
+//   its rows' maximum m, sum l and unnormalised O (fp32) to the workspace
+//   (splits x B x T x (D + 2) floats after the pieces), and a third launch
+//   (combine_splits_kernel) writes M = max m_i, out = sum e^(m_i - M) O_i /
+//   sum e^(m_i - M) l_i.  A split with no key block (more splits than the
+//   sample walks) writes m = -inf and l = 0, and the combine skips its O.
+//   The plan (attention_plan -> LongAttentionPlan) takes the split count
+//   of least modelled time: waves of blocks x their share of key blocks,
+//   plus the combine's bytes.  A block holds 229 KB of shared memory, so an
+//   SM runs one block at a time and a wave past the first costs a whole
+//   share: at (4, 750, 750) 96 blocks (one wave of 6 key blocks) beat 192
+//   (two waves of 3) on the card.  Plans at D = 256 (229,408 of the
+//   232,448 bytes of shared memory):
+//     (4, 750, 750):   12 x 2 x 4 =  96 blocks, 1 wave;  workspace 25.1 MB
+//                      (576 pieces; 6.2 MB of partials)
+//     (4, 1500, 750):  24 x 4 x 4 = 384 blocks, 3 waves; 49.9 MB (24.8)
+//     (8, 1026, 513):  17 x 3 x 8 = 408 blocks, 4 waves; 62.1 MB (25.4)
+//     (2, 1280, 640):  20 x 3 x 2 = 120 blocks, 1 wave;  18.4 MB (7.9)
+//     (1, 4096, 4096): 64 x 2 x 1 = 128 blocks, 1 wave;  33.6 MB (8.5)
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -119,12 +156,13 @@ constexpr int kKeyTile = 32;       // keys of a piece
 constexpr int kKeyNT = kKeyTile / 8;
 constexpr int kMaxChunk = 64;      // D columns of a piece, at most
 constexpr int kMaxWarps = 8;
-constexpr int kMaxKeys = 512;       // the strip form's keys, and a key block's
+constexpr int kMaxKeys = 512;      // the strip instance's keys, at most
 constexpr int kMaxSmem = 232448;   // 227 KB a block may use
 constexpr int kPlanInts = 9;
 constexpr float kMasked = -1e30f;
 
-// key_block 0: one strip of all S <= 512 keys; else keys in blocks of it.
+// One strip of all S <= 512 keys (key_block is 0: the instance past 512
+// keys has a plan and an entry point of its own).
 struct Plan {
   int B, T, S, D, warps, d_chunk, row_tiles, key_block, smem;
 };
@@ -138,30 +176,20 @@ __host__ __device__ constexpr int q_stride(int D) { return D + 4; }
 __host__ __device__ constexpr int p_stride(int S) { return (S + 7) / 8 * 8 + 4; }
 __host__ __device__ constexpr int k_stride(int dc) { return dc + 4; }
 __host__ __device__ constexpr int v_stride(int dc) { return dc % 16 == 8 ? dc : dc + 8; }
-// The output sums (key-blocked form): float2 at rows g, columns 2t, so the
-// stride is 8 (mod 32) floats.
-__host__ __device__ constexpr int o_stride(int D) { return D + ((8 - D) % 32 + 32) % 32; }
 __host__ __device__ constexpr int buf_floats(int dc) {
   return kKeyTile * (k_stride(dc) > v_stride(dc) ? k_stride(dc) : v_stride(dc));
 }
 
-// Q rows, one score strip a 16-row tile (of S keys, or of a key block),
-// two K/V buffers; key-blocked, also the output sums and a tile's alpha
-// and l by row.
-size_t smem_bytes(int tiles, int S, int D, int dc, int key_block) {
+// Q rows, one score strip of S keys a 16-row tile, two K/V buffers.
+size_t smem_bytes(int tiles, int S, int D, int dc) {
   const size_t rows = static_cast<size_t>(kRows) * tiles;
-  size_t floats = rows * q_stride(D) + rows * p_stride(key_block ? key_block : S) +
-                  2 * static_cast<size_t>(buf_floats(dc));
-  if (key_block) floats += rows * o_stride(D) + 2 * rows;
-  return sizeof(float) * floats;
+  return sizeof(float) *
+         (rows * q_stride(D) + rows * p_stride(S) + 2 * static_cast<size_t>(buf_floats(dc)));
 }
 
 bool plan_ok(const Plan& p) {
   if (p.B < 1 || p.B > 65535 || p.T < 1 || p.S < 1) return false;
-  if (p.key_block == 0 ? p.S > kMaxKeys
-                       : p.key_block % kKeyTile != 0 || p.key_block < kKeyTile ||
-                             p.key_block > kMaxKeys)
-    return false;
+  if (p.S > kMaxKeys || p.key_block != 0) return false;
   if (p.D < 8 || p.D % 8 != 0) return false;
   if (p.d_chunk != 8 && p.d_chunk != kMaxChunk) return false;
   if (p.D % p.d_chunk != 0) return false;
@@ -169,7 +197,7 @@ bool plan_ok(const Plan& p) {
   if (p.warps < 1 || p.warps > kMaxWarps || p.warps % split != 0) return false;
   const int rows = kRows * (p.warps / split);
   if (p.row_tiles != (p.T + rows - 1) / rows) return false;
-  const size_t smem = smem_bytes(p.warps / split, p.S, p.D, p.d_chunk, p.key_block);
+  const size_t smem = smem_bytes(p.warps / split, p.S, p.D, p.d_chunk);
   return smem == static_cast<size_t>(p.smem) && smem <= static_cast<size_t>(kMaxSmem);
 }
 
@@ -241,9 +269,8 @@ __device__ __forceinline__ void add_fresh(float (&sum)[N][4], const float (&hihi
 
 // SPLIT warps compute a 16-row tile; warp `part` of them takes the n-tiles
 // part, part + SPLIT, ... of every product (its i-th is n = i * SPLIT + part).
-// BLOCKED: the keys in blocks of p.key_block with an online softmax (S > 512);
-// else one block of all S keys, P normalised in the strip.
-template <int DC, bool BLOCKED, int SPLIT = split_of(DC)>
+// One strip of all S keys, P normalised in it.
+template <int DC, int SPLIT = split_of(DC)>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const int* __restrict__ lengths,
@@ -254,15 +281,11 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   static_assert(kMV >= 1, "a D chunk of 8 is not split");
   extern __shared__ __align__(16) float smem[];
   const int T = p.T, S = p.S, D = p.D;
-  const int KB = BLOCKED ? p.key_block : S;        // keys of a block (the last: the rest)
   const int tiles = p.warps / SPLIT;               // 16-row tiles of the block
-  const int qst = q_stride(D), pst = p_stride(KB), ost = o_stride(D);
+  const int qst = q_stride(D), pst = p_stride(S);
   float* qs = smem;                                // 16 tiles x qst
   float* strips = qs + kRows * tiles * qst;        // tiles x 16 x pst
   float* ring = strips + kRows * tiles * pst;      // 2 x buf
-  float* osum = ring + 2 * buf;                    // BLOCKED: tiles x 16 x ost
-  float* alpha_s = osum + kRows * tiles * ost;     // BLOCKED: a row's rescale
-  float* l_s = alpha_s + kRows * tiles;            // BLOCKED: a row's running sum
 
   const int tid = threadIdx.x, nthreads = 32 * p.warps;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
@@ -278,34 +301,24 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   const float* kb_ptr = k + static_cast<size_t>(b) * S * D;
   const float* vb_ptr = v + static_cast<size_t>(b) * S * D;
   const int chunks = D / DC;
-  const int blocks = BLOCKED ? (S + KB - 1) / KB : 1;
-  const int kt_full = (KB + kKeyTile - 1) / kKeyTile;  // key tiles of a block
-  const int kt_last = (S - (blocks - 1) * KB + kKeyTile - 1) / kKeyTile;
-  const int per_block = 2 * kt_full * chunks;           // K then V pieces of a block
-  const int pieces = (blocks - 1) * per_block + 2 * kt_last * chunks;
+  const int kt = (S + kKeyTile - 1) / kKeyTile;  // key tiles
+  const int pieces = 2 * kt * chunks;            // K then V pieces
 
-  // Piece pc: its key block kb, the block's key tiles kt, K or V, its key
-  // tile j within the block and its D chunk c.  K pieces walk (j, c), V
-  // pieces (c, j).
+  // Piece pc: K or V, its key tile j and its D chunk c.  K pieces walk
+  // (j, c), V pieces (c, j).
   struct Piece {
-    int kb, kt, i;
+    int i;
     bool is_v;
     int j, c;
   };
   auto piece_of = [&](int pc) {
     Piece x;
-    x.kb = 0;
     x.i = pc;
-    if constexpr (BLOCKED) {
-      x.kb = min(pc / per_block, blocks - 1);
-      x.i = pc - x.kb * per_block;
-    }
-    x.kt = x.kb == blocks - 1 ? kt_last : kt_full;
-    const int kp = x.kt * chunks;
+    const int kp = kt * chunks;
     x.is_v = x.i >= kp;
     if (x.is_v) x.i -= kp;
-    x.j = x.is_v ? x.i % x.kt : x.i / chunks;
-    x.c = x.is_v ? x.i / x.kt : x.i % chunks;
+    x.j = x.is_v ? x.i % kt : x.i / chunks;
+    x.c = x.is_v ? x.i / kt : x.i % chunks;
     return x;
   };
 
@@ -322,7 +335,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   // Piece `pc` into its ring buffer: 32 keys x DC columns, zeros past S.
   auto load_piece = [&](int pc) {
     const Piece x = piece_of(pc);
-    const int key0 = x.kb * KB + x.j * kKeyTile;
+    const int key0 = x.j * kKeyTile;
     const float* src = (x.is_v ? vb_ptr : kb_ptr) + static_cast<size_t>(key0) * D + x.c * DC;
     float* dst = ring + (pc & 1) * buf;
     const int st = x.is_v ? vst : kst;
@@ -336,9 +349,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   };
 
   float score[kMK][4];   // a key tile's scores, summed over the D chunks
-  float acc[kMV][4];     // a D chunk of the output, summed over a block's keys
-  float m_run[2] = {-INFINITY, -INFINITY};  // BLOCKED: rows g, g + 8: max so far
-  float l_run[2] = {0.f, 0.f};              // and the sum of exp(s - max)
+  float acc[kMV][4];     // a D chunk of the output, summed over the keys
 
   load_piece(0);
   cp_async_commit();  // with the query rows
@@ -349,8 +360,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
     __syncthreads();  // piece pc (and the query rows) visible to all warps
     const float* piece = ring + (pc & 1) * buf;
     const Piece x = piece_of(pc);
-    const int kbase = x.kb * KB;                  // the block's first key
-    const int key0 = kbase + x.j * kKeyTile;      // the piece's first key
+    const int key0 = x.j * kKeyTile;              // the piece's first key
     if (!x.is_v) {
       // ---- scores: 16 rows x (up to) 4 n-tiles of keys, over DC columns
       const int j = x.j, c = x.c;
@@ -384,10 +394,9 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
             if (i < m) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                const int col = j * kKeyTile + 8 * (i * SPLIT + part) + 2 * t4 + (e & 1);
-                const int key = kbase + col;
+                const int key = j * kKeyTile + 8 * (i * SPLIT + part) + 2 * t4 + (e & 1);
                 const float sc = score[i][e] / sqrt_d;
-                strip[(g + 8 * (e >> 1)) * pst + col] =
+                strip[(g + 8 * (e >> 1)) * pst + key] =
                     key >= S ? -INFINITY : (key < length ? sc : kMasked);
               }
             }
@@ -399,7 +408,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
       if (x.i == 0) {
         // ---- softmax of the tile's strip; lane 4g + t: rows g, g + 8 (one
         // of them each if the tile has two warps)
-        const int cols = (min(KB, S - kbase) + 7) / 8 * 8;
+        const int cols = (S + 7) / 8 * 8;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (!active || h % SPLIT != part) continue;
@@ -408,37 +417,17 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
           for (int xx = t4; xx < cols; xx += 4) m = fmaxf(m, row[xx]);
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-          if constexpr (BLOCKED) {
-            // m is finite: the block holds a real key (score or -1e30)
-            const float m_new = fmaxf(m_run[h], m);
-            const float alpha = m_run[h] == -INFINITY ? 0.f : expf(m_run[h] - m_new);
-            float sum = 0.f;
-            for (int xx = t4; xx < cols; xx += 4) {
-              const float e = expf(row[xx] - m_new);
-              row[xx] = e;
-              sum += e;
-            }
-            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-            l_run[h] = l_run[h] * alpha + sum;
-            m_run[h] = m_new;
-            if (t4 == 0) {
-              alpha_s[kRows * tile + g + 8 * h] = alpha;
-              l_s[kRows * tile + g + 8 * h] = l_run[h];
-            }
-          } else {
-            float sum = 0.f;
-            for (int xx = t4; xx < cols; xx += 4) {
-              const float e = expf(row[xx] - m);
-              row[xx] = e;
-              sum += e;
-            }
-            sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-            for (int xx = t4; xx < cols; xx += 4) row[xx] = row[xx] / sum;
+          float sum = 0.f;
+          for (int xx = t4; xx < cols; xx += 4) {
+            const float e = expf(row[xx] - m);
+            row[xx] = e;
+            sum += e;
           }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          for (int xx = t4; xx < cols; xx += 4) row[xx] = row[xx] / sum;
         }
-        __syncthreads();  // P of the whole tile (and alpha, l) visible to its warps
+        __syncthreads();  // P of the whole tile visible to its warps
       }
       // ---- P.V: 16 rows x DC columns, over (up to) 32 keys
       if (j == 0) {
@@ -454,7 +443,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
         const float* vv = piece + t4 * vst + 8 * part + g;  // key t, column 8n + g
 #pragma unroll
         for (int ks = 0; ks < kKeyNT; ++ks) {
-          if (ks < k_steps) {  // the strip ends at the block's keys rounded up to 8
+          if (ks < k_steps) {  // the strip ends at S rounded up to 8
             uint32_t a_hi[4], a_lo[4], b_hi[kMV][2], b_lo[kMV][2];
             load_a(pa + 8 * ks, pst, a_hi, a_lo);
 #pragma unroll
@@ -466,7 +455,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
           }
         }
         add_fresh<kMV>(acc, hihi, cross);
-        if (j == x.kt - 1) {  // the chunk is complete over the block's keys
+        if (j == kt - 1) {  // the chunk is complete over all keys
 #pragma unroll
           for (int i = 0; i < kMV; ++i) {
 #pragma unroll
@@ -474,21 +463,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
               const int r = kRows * tile + g + 8 * h;  // the row within the block
               const int row = t0 + r;
               const int col = c * DC + 8 * (i * SPLIT + part) + 2 * t4;
-              float2 val = make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
-              if constexpr (BLOCKED) {
-                float2* o = reinterpret_cast<float2*>(osum + r * ost + col);
-                if (x.kb > 0) {  // O * alpha + this block's e.V
-                  const float a = alpha_s[r];
-                  const float2 prev = *o;
-                  val = make_float2(prev.x * a + val.x, prev.y * a + val.y);
-                }
-                if (x.kb < blocks - 1) {
-                  *o = val;
-                  continue;
-                }
-                const float l = l_s[r];
-                val = make_float2(val.x / l, val.y / l);
-              }
+              const float2 val = make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
               if (row < T) {
                 *reinterpret_cast<float2*>(out + (static_cast<size_t>(b) * T + row) * D + col) =
                     val;
@@ -502,15 +477,545 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <int DC, bool BLOCKED>
+template <int DC>
 cudaError_t launch(const Plan& p, const float* q, const float* k, const float* v,
                    const int* lengths, float* out, cudaStream_t stream) {
-  const auto kernel = masked_attention_kernel<DC, BLOCKED>;
+  const auto kernel = masked_attention_kernel<DC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.row_tiles, p.B);
   kernel<<<grid, 32 * p.warps, p.smem, stream>>>(q, k, v, lengths, out, p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Past 512 keys: a split pass, then one warpgroup a block of 64 query rows
+// with the keys split over the grid's y axis, on wgmma, then the combine
+// (design notes in the header).
+
+constexpr int kLongRows = 64;      // query rows a block: the wgmma tile's M
+constexpr int kLongKeys = 64;      // keys a key block: the N of Q K^T
+constexpr int kLongChunk = 64;     // D columns a piece: Q K^T's fresh sum, P.V's N
+constexpr int kLongMaxD = 256;     // the output's sums stay in registers (128 a thread)
+constexpr int kLongMaxChunks = kLongMaxD / kLongChunk;
+constexpr int kLongThreads = 128;  // one warpgroup
+constexpr int kLongSlots = 3;      // K or V pieces in shared memory: in use, arrived, arriving
+constexpr int kLongPlanInts = 9;
+constexpr int kPart = kLongKeys * kLongChunk;  // floats of a piece's hi (or lo) part
+constexpr int kPartBytes = kPart * 4;          // 16 KB
+constexpr int kKStep = 512;                    // floats a k-step: 8 groups x 2 halves x 32
+constexpr int kVStep = kLongChunk * 8;         // floats a k-step (8 keys) of a V piece
+static_assert(kLongRows == kLongKeys, "a piece is 64 rows of Q, K or V");
+
+struct LongPlan {
+  int B, T, S, D, row_blocks, splits, key_block, smem, workspace;
+};
+
+__host__ __device__ constexpr int long_chunks(int D) { return (D + kLongChunk - 1) / kLongChunk; }
+
+// Q's parts (D padded to the chunk), the slots' parts, an mbarrier for Q
+// and one a slot.
+size_t long_smem_bytes(int D) {
+  return (2 * static_cast<size_t>(long_chunks(D)) + 2 * kLongSlots) * kPartBytes +
+         8 * (kLongSlots + 1);
+}
+
+// Pieces of the split pass: Q's (B x row blocks x chunks), then K's and V's
+// (B x key blocks x chunks each); each a hi part and a lo part.
+long long long_pieces(const LongPlan& p) {
+  const long long blocks_k = (p.S + kLongKeys - 1) / kLongKeys;
+  return static_cast<long long>(long_chunks(p.D)) * p.B * (p.row_blocks + 2 * blocks_k);
+}
+
+// Floats of the workspace: the split pieces; then, for more than one
+// split, each split's unnormalised output rows, each row's maximum, its sum.
+long long long_workspace(const LongPlan& p) {
+  const long long partials =
+      p.splits == 1 ? 0 : static_cast<long long>(p.splits) * p.B * p.T * (p.D + 2);
+  return 2LL * kPart * long_pieces(p) + partials;
+}
+
+bool long_plan_ok(const LongPlan& p) {
+  if (p.B < 1 || p.B > 65535 || p.T < 1 || p.S <= kMaxKeys) return false;
+  if (p.D < 8 || p.D % 8 != 0 || p.D > kLongMaxD) return false;
+  if (p.key_block != kLongKeys || p.row_blocks != (p.T + kLongRows - 1) / kLongRows) return false;
+  if (p.splits < 1 || p.splits > (p.S + kLongKeys - 1) / kLongKeys || p.splits > 65535)
+    return false;
+  if (static_cast<size_t>(p.smem) != long_smem_bytes(p.D) || p.smem > kMaxSmem) return false;
+  return long_workspace(p) == p.workspace && p.workspace <= 0x7fffffff;
+}
+
+// Key blocks sample b walks: none at or past a length >= 1 (they weigh
+// exactly 0: exp(-1e30 - m) underflows for the finite m of a real score);
+// all S keys for a length <= 0, whose rows average the S values.
+__device__ __forceinline__ int walked_blocks(int length, int S) {
+  const int keys = length >= 1 ? min(length, S) : S;
+  return (keys + kLongKeys - 1) / kLongKeys;
+}
+
+// fp32 -> its TF32 parts (tf32.cuh), as floats.
+__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
+  uint32_t h, l;
+  split_tf32(x.x, h, l);
+  hi.x = __uint_as_float(h), lo.x = __uint_as_float(l);
+  split_tf32(x.y, h, l);
+  hi.y = __uint_as_float(h), lo.y = __uint_as_float(l);
+  split_tf32(x.z, h, l);
+  hi.z = __uint_as_float(h), lo.z = __uint_as_float(l);
+  split_tf32(x.w, h, l);
+  hi.w = __uint_as_float(h), lo.w = __uint_as_float(l);
+}
+
+__device__ __forceinline__ float4 load4(const float* base, int row, int rows, int col, int D) {
+  if (row >= rows || col >= D) return make_float4(0.f, 0.f, 0.f, 0.f);
+  return __ldg(reinterpret_cast<const float4*>(base + static_cast<size_t>(row) * D + col));
+}
+
+// The split pass: each piece of 64 rows x 64 columns (zeros past T, S or
+// D) split once into its TF32 parts, laid out as wgmma reads them from
+// shared memory: K-major core matrices of 8 rows x 4 values (16 bytes), the
+// two halves of a k-step 32 floats apart, groups of 8 rows 64 apart, a
+// k-step 512.  Q's and K's rows are the operand's rows (M or N), their
+// columns its k; V's columns are P.V's N and its keys P.V's k, so V is
+// transposed here; and key 2i + h of a k-step stands at k-position 4h + i,
+// where P's A fragment holds it (lane column i for h 0, i + 4 for h 1).
+// A block a piece (a row block of Q or a key block of K or V: both 64
+// rows); the key blocks a sample does not walk are skipped.
+__global__ void __launch_bounds__(256)
+split_pieces_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const int* __restrict__ lengths,
+                    float* __restrict__ parts, const LongPlan p) {
+  const int chunks = long_chunks(p.D), blocks_k = (p.S + kLongKeys - 1) / kLongKeys;
+  const int piece = blockIdx.x;
+  const int c = piece % chunks;
+  int blk = piece / chunks;
+  const float* src = q;
+  int rows = p.T, kind = 0;  // 0: Q, 1: K, 2: V
+  if (blk >= p.B * p.row_blocks) {
+    blk -= p.B * p.row_blocks;
+    kind = 1 + blk / (p.B * blocks_k);
+    blk %= p.B * blocks_k;
+    src = kind == 1 ? k : v;
+    rows = p.S;
+  }
+  const int per_b = kind == 0 ? p.row_blocks : blocks_k;
+  const int b = blk / per_b, rb = blk % per_b;
+  if (kind > 0 && rb >= walked_blocks(lengths[b], p.S)) return;
+  src += static_cast<size_t>(b) * rows * p.D;
+  float* hi = parts + 2 * static_cast<size_t>(kPart) * piece;
+  float* lo = hi + kPart;
+  const int row0 = rb * kLongRows, col0 = c * kLongChunk;
+  if (kind < 2) {
+#pragma unroll
+    for (int it = 0; it < kPart / 4 / 256; ++it) {
+      const int e = threadIdx.x + 256 * it;
+      const int rl = e & 7, c4 = (e >> 3) & 15, rh = e >> 7;  // row 8 rh + rl, columns 4 c4 ...
+      float4 h, l;
+      split4(load4(src, row0 + 8 * rh + rl, rows, col0 + 4 * c4, p.D), h, l);
+      const int off = (c4 >> 1) * kKStep + rh * 64 + (c4 & 1) * 32 + rl * 4;
+      *reinterpret_cast<float4*>(hi + off) = h;
+      *reinterpret_cast<float4*>(lo + off) = l;
+    }
+  } else {
+    // keys 8 (kq / 2) + kq % 2 + {0, 2, 4, 6} x columns 4 cq ...: a 4 x 4
+    // block, transposed
+    const int kq = threadIdx.x >> 4, cq = threadIdx.x & 15;
+    const int key = row0 + 8 * (kq >> 1) + (kq & 1);
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = load4(src, key + 2 * i, rows, col0 + 4 * cq, p.D);
+    const int base = (kq >> 1) * kVStep + (cq >> 1) * 64 + (kq & 1) * 32 + (cq & 1) * 16;
+    const float4 cols[4] = {make_float4(x[0].x, x[1].x, x[2].x, x[3].x),
+                            make_float4(x[0].y, x[1].y, x[2].y, x[3].y),
+                            make_float4(x[0].z, x[1].z, x[2].z, x[3].z),
+                            make_float4(x[0].w, x[1].w, x[2].w, x[3].w)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float4 h, l;
+      split4(cols[j], h, l);
+      *reinterpret_cast<float4*>(hi + base + 4 * j) = h;
+      *reinterpret_cast<float4*>(lo + base + 4 * j) = l;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// A wgmma operand in shared memory, K-major without swizzle: core matrices
+// of 8 rows x 16 bytes; the two halves of a k-step 128 bytes apart (the
+// leading offset), groups of 8 rows 256 apart (the stride offset).  The
+// fused block's weights are laid out the same way.
+__device__ __forceinline__ uint64_t core_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads of a finished sum above the wait.
+template <int N> __device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// ---- bulk copies (the TMA unit, no tensor map), counted on an mbarrier;
+// they arrive through the async proxy, the one wgmma reads through.
+__device__ __forceinline__ void mbarrier_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+__device__ __forceinline__ void mbarrier_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// D (64 x 64 fp32: a thread holds rows 16 warp + g and + 8, columns 2t and
+// 2t + 1 of every 8) = or += A (64 x 8) * B (8 x 64), both TF32 by
+// descriptor; `add` 0 starts a fresh sum.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int add) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(add));
+}
+// D (64 x 32) = or += A (64 x 8 from registers: a thread holds rows 16
+// warp + g and + 8, columns t and t + 4: a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4)) * B (8 x 32 by descriptor).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                             int add) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(add));
+}
+
+// Grid (row blocks, splits, B).  Block (r, split, b): query rows 64 r ... of
+// sample b over the split-th share of the key blocks the sample walks; with
+// one split it writes the output, else its rows' m, l and unnormalised O.
+// Shared memory: Q's parts (chunk c: hi at 2c, lo at 2c + 1 parts), three
+// slots of a K or V piece's parts, the mbarriers.
+__global__ void __launch_bounds__(kLongThreads, 1)
+long_attention_kernel(const float* __restrict__ parts, const int* __restrict__ lengths,
+                      float* __restrict__ out, float* __restrict__ ws, const LongPlan p) {
+  extern __shared__ __align__(128) unsigned char lsmem[];
+  const int T = p.T, S = p.S, D = p.D;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // The warp's number by a shuffle, so that the compiler knows it to be the
+  // same in all lanes.
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rb = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
+  const int row0 = rb * kLongRows;
+  const int length = lengths[b];
+  const int walked = walked_blocks(length, S);
+  const int kb0 = static_cast<int>(static_cast<long long>(split) * walked / p.splits);
+  const int kb1 = static_cast<int>(static_cast<long long>(split + 1) * walked / p.splits);
+  const size_t ws_rows = static_cast<size_t>(p.splits) * p.B * T;
+  const size_t part = (static_cast<size_t>(split) * p.B + b) * T;  // this split's rows
+  if (kb0 == kb1) {  // no key block (more splits than blocks): m = -inf, l = 0, O unread
+    for (int r = tid; r < kLongRows && row0 + r < T; r += kLongThreads) {
+      ws[ws_rows * D + part + row0 + r] = -INFINITY;
+      ws[ws_rows * (D + 1) + part + row0 + r] = 0.f;
+    }
+    return;
+  }
+
+  const int chunks = long_chunks(D), blocks_k = (S + kLongKeys - 1) / kLongKeys;
+  const uint32_t q_u = smem_u32(lsmem);                          // Q's parts
+  const uint32_t slots_u = q_u + 2 * chunks * kPartBytes;        // slot s at 2 s parts
+  const uint32_t bars_u = slots_u + 2 * kLongSlots * kPartBytes;  // Q's, then a slot's
+  // The split pieces of this block's Q rows, and of sample b's K and V.
+  const float* q_parts =
+      parts + 2LL * kPart * chunks * (static_cast<long long>(b) * p.row_blocks + rb);
+  const float* k_parts =
+      parts + 2LL * kPart * chunks * (static_cast<long long>(p.B) * p.row_blocks + b * blocks_k);
+  const float* v_parts = k_parts + 2LL * kPart * chunks * p.B * blocks_k;
+  const int pieces = (kb1 - kb0) * 2 * chunks;  // K then V chunks, a key block
+  // K or V piece j (of this block's walk) into slot j % 3 (thread 0).
+  auto fetch = [&](int j) {
+    if (j >= pieces) return;
+    const int r = j % (2 * chunks);
+    const float* src = (r < chunks ? k_parts : v_parts) +
+                       2LL * kPart * ((kb0 + j / (2 * chunks)) * chunks + r % chunks);
+    const uint32_t bar = bars_u + 8 * (1 + j % kLongSlots);
+    const uint32_t dst = slots_u + (j % kLongSlots) * 2 * kPartBytes;
+    mbarrier_expect(bar, 2 * kPartBytes);
+    bulk_copy(dst, src, kPartBytes, bar);
+    bulk_copy(dst + kPartBytes, src + kPart, kPartBytes, bar);
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= kLongSlots; ++i) mbarrier_init(bars_u + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbarrier_expect(bars_u, 2 * chunks * kPartBytes);
+    for (int c = 0; c < 2 * chunks; ++c)
+      bulk_copy(q_u + c * kPartBytes, q_parts + static_cast<size_t>(c) * kPart, kPartBytes, bars_u);
+    fetch(0);
+    fetch(1);
+  }
+  __syncthreads();  // the barriers initialised
+  mbarrier_wait(bars_u, 0);
+
+  float o[kLongMaxChunks][32];  // unnormalised output, chunk c: columns 64 c ...
+#pragma unroll
+  for (int c = 0; c < kLongMaxChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8: the maximum so far
+  float l_run[2] = {0.f, 0.f};              // and this thread's share of sum exp(s - m)
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  int j = 0;  // the piece in use
+  // Wait for piece j, then (thread 0, once the products are issued) fetch
+  // piece j + 2 into the slot piece j - 1 left: every warp waited for those
+  // products and passed the barrier that ends each piece.
+  auto arrive = [&]() { mbarrier_wait(bars_u + 8 * (1 + j % kLongSlots), (j / kLongSlots) & 1); };
+  auto slot_of = [&]() { return slots_u + (j % kLongSlots) * 2 * kPartBytes; };
+  auto next_piece = [&]() {
+    __syncthreads();
+    ++j;
+  };
+  for (int blk = kb0; blk < kb1; ++blk) {
+    // ---- scores of 64 rows x 64 keys, a fresh 3xTF32 sum a chunk of D
+    float s[32];
+#pragma unroll
+    for (int c = 0; c < kLongMaxChunks; ++c) {
+      if (c < chunks) {
+        arrive();
+        const uint32_t b_hi = slot_of(), b_lo = b_hi + kPartBytes;
+        const uint32_t a_hi = q_u + 2 * c * kPartBytes, a_lo = a_hi + kPartBytes;
+        float fresh[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kLongChunk / 8; ++ks) {
+          const uint32_t o_k = ks * kKStep * 4;
+          wgmma_ss_n64(fresh, core_desc(a_lo + o_k), core_desc(b_hi + o_k), ks > 0);
+          wgmma_ss_n64(fresh, core_desc(a_hi + o_k), core_desc(b_lo + o_k), 1);
+          wgmma_ss_n64(fresh, core_desc(a_hi + o_k), core_desc(b_hi + o_k), 1);
+        }
+        wgmma_commit();
+        if (tid == 0) fetch(j + 2);
+        wgmma_wait0();
+        pin(fresh);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = c == 0 ? fresh[i] : s[i] + fresh[i];
+        next_piece();
+      }
+    }
+    // ---- online softmax in registers: scale, mask, rescale to the new max
+    const int key0 = blk * kLongKeys + 2 * t4;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = key0 + 8 * (i >> 2) + (i & 1);
+      const float sc = s[i] * scale;
+      s[i] = key >= S ? -INFINITY : (key < length ? sc : kMasked);
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      // finite: a walked block holds a key < S (a score or -1e30)
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      alpha[h] = m_run[h] == -INFINITY ? 0.f : expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+      l_run[h] *= alpha[h];
+    }
+    // P = exp(s - m) as P.V's A fragments: k-step j is keys 8j ..., key
+    // 8j + 2t in lane column t, key 8j + 2t + 1 in column t + 4.
+    uint32_t p_hi[8][4], p_lo[8][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const float e = expf(s[i] - m_run[h]);
+      l_run[h] += e;
+      const int a = (i & 1) * 2 + h;  // (g, t) (g + 8, t) (g, t + 4) (g + 8, t + 4)
+      split_tf32(e, p_hi[i >> 2][a], p_lo[i >> 2][a]);
+    }
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+      for (int c = 0; c < kLongMaxChunks; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+    }
+    // ---- O += P.V, a fresh 3xTF32 sum a half of a chunk (32 columns: the
+    // output, P and a 64-column sum would leave too few registers)
+#pragma unroll
+    for (int c = 0; c < kLongMaxChunks; ++c) {
+      if (c < chunks) {
+        arrive();
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t b_hi = slot_of() + half * 4 * 256, b_lo = b_hi + kPartBytes;
+          float fresh[16];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) fresh[i] = 0.f;
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kLongKeys / 8; ++ks) {
+            const uint32_t o_k = ks * kVStep * 4;
+            wgmma_rs_n32(fresh, p_lo[ks], core_desc(b_hi + o_k), ks > 0);
+            wgmma_rs_n32(fresh, p_hi[ks], core_desc(b_lo + o_k), 1);
+            wgmma_rs_n32(fresh, p_hi[ks], core_desc(b_hi + o_k), 1);
+          }
+          wgmma_commit();
+          if (half == 0 && tid == 0) fetch(j + 2);
+          wgmma_wait0();
+          pin(fresh);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) o[c][16 * half + i] += fresh[i];
+        }
+        next_piece();
+      }
+    }
+  }
+
+  // ---- the rows' sums over their quads; O / l, or the split's partials
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+  }
+  const int r0 = row0 + 16 * warp + g;
+#pragma unroll
+  for (int c = 0; c < kLongMaxChunks; ++c) {
+    if (c < chunks) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = c * kLongChunk + 8 * n + 2 * t4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 8 * h;
+          if (row >= T || col >= D) continue;
+          float2 val = make_float2(o[c][4 * n + 2 * h], o[c][4 * n + 2 * h + 1]);
+          if (p.splits == 1) {
+            val = make_float2(val.x / l_run[h], val.y / l_run[h]);
+            *reinterpret_cast<float2*>(out + (static_cast<size_t>(b) * T + row) * D + col) = val;
+          } else {
+            *reinterpret_cast<float2*>(ws + (part + row) * D + col) = val;
+          }
+        }
+      }
+    }
+  }
+  if (p.splits > 1 && t4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row < T) {
+        ws[ws_rows * D + part + row] = m_run[h];
+        ws[ws_rows * (D + 1) + part + row] = l_run[h];
+      }
+    }
+  }
+}
+
+// out = sum_i exp(m_i - M) O_i / sum_i exp(m_i - M) l_i over the splits i,
+// M = max_i m_i (finite: every sample walks at least one key block); a
+// split with m_i = -inf walked no key block and its O_i is not read.  A
+// thread: 4 columns of one of the B T rows.
+__global__ void __launch_bounds__(256)
+combine_splits_kernel(const float* __restrict__ ws, float* __restrict__ out, int rows, int D,
+                      int splits) {
+  const int per_row = D / 4, rows_block = 256 / per_row;
+  const int r = threadIdx.x / per_row, c4 = threadIdx.x % per_row;
+  const int row = blockIdx.x * rows_block + r;
+  if (r >= rows_block || row >= rows) return;
+  const size_t all = static_cast<size_t>(splits) * rows;
+  const float* ws_m = ws + all * D;
+  const float* ws_l = ws_m + all;
+  float mx = -INFINITY;
+  for (int i = 0; i < splits; ++i) mx = fmaxf(mx, ws_m[static_cast<size_t>(i) * rows + row]);
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < splits; ++i) {
+    const size_t at = static_cast<size_t>(i) * rows + row;
+    const float m = ws_m[at];
+    if (m == -INFINITY) continue;
+    const float w = expf(m - mx);
+    l += w * ws_l[at];
+    const float4 x = *reinterpret_cast<const float4*>(ws + at * D + 4 * c4);
+    acc = make_float4(acc.x + w * x.x, acc.y + w * x.y, acc.z + w * x.z, acc.w + w * x.w);
+  }
+  *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * D + 4 * c4) =
+      make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+}
+
+// The split pass, the attention, and for more than one split the combine,
+// on `stream`.  The workspace: the split pieces, then the partials.
+cudaError_t launch_long(const LongPlan& p, const float* q, const float* k, const float* v,
+                        const int* lengths, float* out, float* ws, cudaStream_t stream) {
+  const long long pieces = long_pieces(p);
+  split_pieces_kernel<<<static_cast<unsigned>(pieces), 256, 0, stream>>>(q, k, v, lengths, ws, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  float* partials = ws + 2LL * kPart * pieces;
+  err = cudaFuncSetAttribute(long_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.smem);
+  if (err != cudaSuccess) return err;
+  long_attention_kernel<<<dim3(p.row_blocks, p.splits, p.B), kLongThreads, p.smem, stream>>>(
+      ws, lengths, out, partials, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  const int rows = p.B * p.T, rows_block = 256 / (p.D / 4);
+  combine_splits_kernel<<<(rows + rows_block - 1) / rows_block, 256, 0, stream>>>(
+      partials, out, rows, p.D, p.splits);
   return cudaGetLastError();
 }
 
@@ -531,13 +1036,26 @@ int vcagan_masked_attention(const float* q, const float* k, const float* v, cons
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.key_block == 0) {
-    err = p.d_chunk == kMaxChunk ? launch<kMaxChunk, false>(p, q, k, v, lengths, out, s)
-                                 : launch<8, false>(p, q, k, v, lengths, out, s);
-  } else {
-    err = p.d_chunk == kMaxChunk ? launch<kMaxChunk, true>(p, q, k, v, lengths, out, s)
-                                 : launch<8, true>(p, q, k, v, lengths, out, s);
-  }
+  err = p.d_chunk == kMaxChunk ? launch<kMaxChunk>(p, q, k, v, lengths, out, s)
+                               : launch<8>(p, q, k, v, lengths, out, s);
+  return static_cast<int>(err);
+}
+
+// Past 512 keys: launches the split pass, the attention and, for more than
+// one split, the combine on `stream`.  `plan`: the ints of vcagan_torch/
+// kernels/masked_attention.py::LongAttentionPlan.ints(); `workspace`: that
+// plan's workspace floats, 16-byte aligned.
+int vcagan_masked_attention_long(const float* q, const float* k, const float* v,
+                                 const int* lengths, float* out, float* workspace,
+                                 const int* plan, int plan_len, int device, void* stream) {
+  if (plan_len != kLongPlanInts) return static_cast<int>(cudaErrorInvalidValue);
+  const LongPlan p{plan[0], plan[1], plan[2], plan[3], plan[4],
+                   plan[5], plan[6], plan[7], plan[8]};
+  if (!long_plan_ok(p) || workspace == nullptr || reinterpret_cast<uintptr_t>(workspace) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_long(p, q, k, v, lengths, out, workspace, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

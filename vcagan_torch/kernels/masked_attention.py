@@ -18,13 +18,18 @@ The kernel is forward only, as the TPU kernel is.  Gradients go through
 version under autograd and returns its VJP, as the JAX package's custom VJP
 does with ``_attention_xla`` (``vcagan/kernels/masked_attention.py:173-191``).
 
-The tile plan (``attention_plan``: warps a block, key tile, D chunk, key
-block, shared memory, grid) is chosen here, where the CPU tests reach it,
-and goes to the C entry point as plain ints, which refuses one that does not
-match.  The kernel takes D a multiple of 8 and any S >= 1: up to ``S_MAX``
-keys in one score strip a tile, past it in blocks of ``KEY_BLOCK`` keys
-with an online softmax (``masked_attention_reference_3xtf32(...,
-key_block=)`` is that arithmetic in plain PyTorch).  Other shapes raise.
+The plan (``attention_plan``) is chosen here, where the CPU tests reach
+it, and goes to the C entry point as plain ints, which refuses one that
+does not match.  The kernel takes D a multiple of 8 and any S >= 1.  Up to
+``S_MAX`` keys (the strip instance, ``AttentionPlan``: warps a block, key
+tile, D chunk, shared memory, grid) all keys stand in one score strip a
+tile, on ``mma.sync``.  Past it (``LongAttentionPlan``, D <= 256) a first
+launch splits Q, K and V once into their TF32 parts; then a block is one
+warpgroup's 64 query rows on ``wgmma`` over one split's share of the key
+blocks of ``KEY_BLOCK`` keys that hold a key below the sample's length,
+with an online softmax; the splits fill the card and a third launch
+combines them (``masked_attention_reference_3xtf32(..., key_block=,
+key_splits=)`` is that arithmetic in plain PyTorch).  Other shapes raise.
 """
 
 from __future__ import annotations
@@ -40,7 +45,10 @@ from vcagan_torch.kernels import _build, refuse_grad
 from vcagan_torch.kernels._tf32 import split_tf32
 
 NEG_INF = -1e30  # mask value; not -inf, so an all-masked row stays finite
-LAUNCHES = 0  # kernel launches so far; reset by the caller that counts
+# Calls that launched the kernel so far; reset by the caller that counts.  One
+# a call: past S_MAX keys a call is two or three launches (the split pass,
+# the attention, the combine of more than one split) and still counts one.
+LAUNCHES = 0
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
 TILES = 4  # 16-row query tiles a block, at most
@@ -51,8 +59,25 @@ KEY_TILE = 32  # keys of one streamed K or V piece
 N_TILE = 8  # keys (QK^T) or columns (PV) of one tensor-core product
 D_CHUNKS = (64, 8)  # the D chunk: 64 where it divides D (the model's 256), else 8
 S_MAX = 512  # keys of the one-strip plan: the score strips of 4 tiles at D = 256 fit
-KEY_BLOCK = 256  # keys of a block past S_MAX (a multiple of KEY_TILE)
 PLAN_INTS = 9
+
+# Past S_MAX keys (``LongAttentionPlan``): a block is one warpgroup's 64 query
+# rows over a share of the key blocks, on wgmma.
+KEY_BLOCK = 64  # keys a key block: the N of Q K^T's wgmma
+LONG_ROWS = 64  # query rows a block: the wgmma tile's M
+LONG_CHUNK = 64  # D columns a piece of Q, K or V
+LONG_MAX_D = 256  # the output's sums stay in registers, 128 a thread
+LONG_SLOTS = 3  # K or V pieces in shared memory: in use, arrived, arriving
+PART_FLOATS = KEY_BLOCK * LONG_CHUNK  # a piece's hi (or lo) part
+SMS = 132  # streaming multiprocessors of an H100 SXM
+LONG_PLAN_INTS = 9
+# The split model's costs (``LongAttentionPlan.cost_us``), fitted to the
+# kernel's times on an NVIDIA H100 80GB HBM3 at 700 W (``python3 -m
+# vcagan_torch.kernels.tune_attention``): a block's time a key block, its
+# fixed time (Q's copy, the epilogue), and the combine's bytes rate.
+KEY_BLOCK_US = 7.5
+BLOCK_US = 4.0
+COMBINE_BYTES_PER_US = 2.5e6
 
 
 def masked_attention_reference(
@@ -69,7 +94,7 @@ def masked_attention_reference(
 
 def masked_attention_reference_3xtf32(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
-    passes: int = 3, key_pad: int = 1, key_block: int = 0,
+    passes: int = 3, key_pad: int = 1, key_block: int = 0, key_splits: int = 1,
 ) -> torch.Tensor:
     """The fp32 function with both products done as the kernel does them:
     operands split into TF32 parts, lo*hi + hi*lo first, then hi*hi, summed
@@ -79,13 +104,17 @@ def masked_attention_reference_3xtf32(
     to a multiple of it, as the kernel's tiles do, and give the padded keys
     weight exactly 0 (score -inf), so the result does not change.
 
-    ``key_block`` > 0: the key-blocked kernel's arithmetic (S > ``S_MAX``).
-    The keys go in blocks of ``key_block`` (the last one padded to
-    ``key_pad``); each row keeps its running maximum m, the sum l of
-    exp(s - m) and the unnormalised output O: a block with maximum m_blk
-    sets m_new = max(m, m_blk), alpha = exp(m - m_new) (0 before the first
-    block), e = exp(s - m_new), l = l alpha + sum e, O = O alpha + e V; the
-    result is O / l."""
+    ``key_block`` > 0: the arithmetic of the kernel past ``S_MAX`` keys, a
+    sample at a time.  A sample walks the key blocks of ``key_block`` keys
+    (the last one padded to ``key_pad``) that hold a key below its length
+    (all of them for a length <= 0), shared out over ``key_splits`` splits
+    as ``LongAttentionPlan.key_ranges`` shares them.  In each split a row
+    keeps its running maximum m, the sum l of exp(s - m) and the
+    unnormalised output O: a block with maximum m_blk sets m_new = max(m,
+    m_blk), alpha = exp(m - m_new) (0 before the first block), e = exp(s -
+    m_new), l = l alpha + sum e, O = O alpha + e V.  The splits that walked
+    a block combine: M = max m_i, the result is sum exp(m_i - M) O_i / sum
+    exp(m_i - M) l_i."""
 
     def product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a_hi, a_lo = split_tf32(a)
@@ -96,7 +125,8 @@ def masked_attention_reference_3xtf32(
             eq, a_hi, b_hi
         )
 
-    def scores(k_blk: torch.Tensor, start: int) -> torch.Tensor:
+    def scores(q: torch.Tensor, k_blk: torch.Tensor, lengths: torch.Tensor,
+               start: int) -> torch.Tensor:
         """Scaled, masked scores of keys start..., padded to ``key_pad``."""
         n = k_blk.shape[1]
         sc = product("btd,bsd->bts", q, k_blk) / math.sqrt(q.shape[-1])
@@ -109,26 +139,39 @@ def masked_attention_reference_3xtf32(
         extra = -x.shape[1] % key_pad
         return torch.cat([x, x.new_zeros(x.shape[0], extra, x.shape[2])], 1) if extra else x
 
+    def split_sums(i: int, first: int, n: int):
+        """m, l and O of sample i's keys first ... first + n - 1."""
+        m = l = o = None
+        for start in range(first, first + n, key_block):
+            end = min(start + key_block, s)
+            k_blk, v_blk = pad(k[i:i + 1, start:end]), pad(v[i:i + 1, start:end])
+            sc = scores(q[i:i + 1], k_blk, lengths[i:i + 1], start)
+            m_blk = sc.amax(-1, keepdim=True)
+            m_new = m_blk if m is None else torch.maximum(m, m_blk)
+            e = torch.exp(sc - m_new)
+            pv = product("bts,bsd->btd", e, v_blk)
+            if m is None:
+                l, o = e.sum(-1, keepdim=True), pv
+            else:
+                alpha = torch.exp(m - m_new)
+                l, o = l * alpha + e.sum(-1, keepdim=True), o * alpha + pv
+            m = m_new
+        return m, l, o
+
     s = k.shape[1]
     if not key_block:
         k, v = pad(k), pad(v)
-        probs = torch.softmax(scores(k, 0), dim=-1)
+        probs = torch.softmax(scores(q, k, lengths, 0), dim=-1)
         return product("bts,bsd->btd", probs, v)
-    m = l = o = None
-    for start in range(0, s, key_block):
-        k_blk, v_blk = pad(k[:, start:start + key_block]), pad(v[:, start:start + key_block])
-        sc = scores(k_blk, start)
-        m_blk = sc.amax(-1, keepdim=True)
-        m_new = m_blk if m is None else torch.maximum(m, m_blk)
-        e = torch.exp(sc - m_new)
-        pv = product("bts,bsd->btd", e, v_blk)
-        if m is None:
-            l, o = e.sum(-1, keepdim=True), pv
-        else:
-            alpha = torch.exp(m - m_new)
-            l, o = l * alpha + e.sum(-1, keepdim=True), o * alpha + pv
-        m = m_new
-    return o / l
+    out = []
+    for i, length in enumerate(lengths.tolist()):
+        parts = [split_sums(i, first, n)
+                 for first, n in key_ranges(s, length, key_block, key_splits) if n]
+        top = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.exp(m - top) for m, _, _ in parts]
+        out.append(sum(wi * o for wi, (_, _, o) in zip(w, parts))
+                   / sum(wi * l for wi, (_, l, _) in zip(w, parts)))
+    return torch.cat(out)
 
 
 # ---- the tile plan
@@ -141,17 +184,16 @@ def _split(d_chunk: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class AttentionPlan:
-    """One launch's tiling.  A block is one sample and ``tiles`` tiles of 16
-    query rows, each computed by ``split`` warps (``warps`` in all, which
-    share the n-tiles of every product); the grid is (``row_tiles``, B).
-    K, then V, stream through a ring of two buffers in pieces of
-    ``key_tile`` keys x ``d_chunk`` columns.  ``key_block`` 0: all S keys
-    in one score strip a tile; else the keys in blocks of ``key_block``
-    (``key_blocks``), K then V pieces a block, with an online softmax and
-    the output sums in shared memory.  Row strides in floats (``*_stride``)
-    are padded so that the rows of a tensor-core fragment fall on different
-    shared-memory banks.  ``split`` and ``key_tile`` are fixed by the kernel
-    (its D-chunk instance and a constant), not chosen."""
+    """One launch's tiling up to ``S_MAX`` keys (the strip instance).  A
+    block is one sample and ``tiles`` tiles of 16 query rows, each computed
+    by ``split`` warps (``warps`` in all, which share the n-tiles of every
+    product); the grid is (``row_tiles``, B).  K, then V, stream through a
+    ring of two buffers in pieces of ``key_tile`` keys x ``d_chunk``
+    columns; all S keys stand in one score strip a tile (``key_block`` 0).
+    Row strides in floats (``*_stride``) are padded so that the rows of a
+    tensor-core fragment fall on different shared-memory banks.  ``split``
+    and ``key_tile`` are fixed by the kernel (its D-chunk instance and a
+    constant), not chosen."""
 
     t: int
     s: int
@@ -159,7 +201,10 @@ class AttentionPlan:
     warps: int
     d_chunk: int
     row_tiles: int
-    key_block: int = 0
+
+    @property
+    def key_block(self) -> int:
+        return 0
 
     @property
     def split(self) -> int:
@@ -179,12 +224,7 @@ class AttentionPlan:
 
     @property
     def p_stride(self) -> int:
-        keys = self.key_block or self.s
-        return -(-keys // N_TILE) * N_TILE + 4  # the strip's keys padded to the n-tile
-
-    @property
-    def o_stride(self) -> int:
-        return self.d + (8 - self.d) % 32  # float2 at rows g, cols 2t: 8 (mod 32)
+        return -(-self.s // N_TILE) * N_TILE + 4  # the strip's keys padded to the n-tile
 
     @property
     def k_stride(self) -> int:
@@ -197,18 +237,19 @@ class AttentionPlan:
 
     @property
     def smem_bytes(self) -> int:
-        """Q rows, one score strip a tile, two K/V buffers, and key-blocked
-        the output sums and each row's alpha and l (the formula of
+        """Q rows, one score strip a tile, two K/V buffers (the formula of
         ``smem_bytes`` in the CUDA source)."""
         rows = ROWS * self.tiles
         ring = 2 * self.key_tile * max(self.k_stride, self.v_stride)
-        blocked = rows * self.o_stride + 2 * rows if self.key_block else 0
-        return 4 * (rows * self.q_stride + rows * self.p_stride + ring + blocked)
+        return 4 * (rows * self.q_stride + rows * self.p_stride + ring)
 
     def key_blocks(self) -> list[tuple[int, int]]:
-        """(first key, keys) of each block the kernel walks, in order."""
-        step = self.key_block or self.s
-        return [(k0, min(step, self.s - k0)) for k0 in range(0, self.s, step)]
+        """(first key, keys) of each block the kernel walks: the one strip."""
+        return [(0, self.s)]
+
+    def describe(self) -> str:
+        return (f"{self.row_tiles} x {self.tiles} tiles of 16 rows, {self.split} warps a tile, "
+                f"D chunk {self.d_chunk}")
 
     def ints(self, b: int) -> list[int]:
         """What the C entry point takes, in its order."""
@@ -216,26 +257,147 @@ class AttentionPlan:
                 self.key_block, self.smem_bytes]
 
 
+def key_ranges(s: int, length: int, key_block: int, splits: int) -> list[tuple[int, int]]:
+    """(first key, keys) each split walks, as the kernel past ``S_MAX`` keys
+    shares them out (keys 0 for a split with no block): the blocks of
+    ``key_block`` keys that hold a key below ``length`` (all of them for a
+    length <= 0, whose rows average the S values), ``splits`` contiguous
+    shares of them that differ by at most one block."""
+    keys = min(length, s) if length >= 1 else s
+    blocks = -(-keys // key_block)
+    ranges = []
+    for i in range(splits):
+        b0, b1 = i * blocks // splits, (i + 1) * blocks // splits
+        ranges.append((b0 * key_block, min(b1 * key_block, s) - b0 * key_block))
+    return ranges
+
+
+@dataclasses.dataclass(frozen=True)
+class LongAttentionPlan:
+    """One call past ``S_MAX`` keys.  A first launch splits Q, K and V
+    once into their TF32 parts, in ``pieces`` pieces of 64 rows x
+    ``LONG_CHUNK`` columns laid out as wgmma reads them.  The attention's
+    grid is (``row_blocks``, ``splits``, B): a block is one warpgroup, 64
+    query rows of one sample over one split's share of its key blocks
+    (``key_ranges``), the pieces brought by bulk copies.  With one split the
+    blocks write the output; with more, each writes its rows' maximum m,
+    sum l and unnormalised output O and a third launch combines them.  The
+    workspace (``workspace_floats`` fp32 values) holds the pieces, then
+    those partials.  Shared memory holds Q's parts (D padded to
+    ``LONG_CHUNK``), ``LONG_SLOTS`` slots of a K or V piece's parts and an
+    mbarrier each (``smem_bytes``; the formula of ``long_smem_bytes`` in the
+    CUDA source)."""
+
+    t: int
+    s: int
+    d: int
+    b: int
+    splits: int
+
+    @property
+    def key_block(self) -> int:
+        return KEY_BLOCK
+
+    @property
+    def row_blocks(self) -> int:
+        return -(-self.t // LONG_ROWS)
+
+    @property
+    def key_blocks_all(self) -> int:
+        return -(-self.s // KEY_BLOCK)
+
+    @property
+    def blocks(self) -> int:
+        return self.row_blocks * self.splits * self.b
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.d // LONG_CHUNK)
+
+    @property
+    def smem_bytes(self) -> int:
+        return (2 * self.chunks + 2 * LONG_SLOTS) * 4 * PART_FLOATS + 8 * (LONG_SLOTS + 1)
+
+    @property
+    def pieces(self) -> int:
+        """Pieces of the split pass: Q's, then K's and V's."""
+        return self.chunks * self.b * (self.row_blocks + 2 * self.key_blocks_all)
+
+    @property
+    def partial_floats(self) -> int:
+        return 0 if self.splits == 1 else self.splits * self.b * self.t * (self.d + 2)
+
+    @property
+    def workspace_floats(self) -> int:
+        return 2 * PART_FLOATS * self.pieces + self.partial_floats
+
+    def key_blocks(self) -> list[tuple[int, int]]:
+        """(first key, keys) of each key block of S, in order."""
+        return [(k0, min(KEY_BLOCK, self.s - k0)) for k0 in range(0, self.s, KEY_BLOCK)]
+
+    def key_ranges(self, length: int) -> list[tuple[int, int]]:
+        return key_ranges(self.s, length, KEY_BLOCK, self.splits)
+
+    def cost_us(self) -> float:
+        """The split model: waves of blocks a key-block share long each,
+        plus the combine's bytes (each split's O read, the output written)."""
+        waves = -(-self.blocks // SMS)
+        share = -(-self.key_blocks_all // self.splits)
+        combine = 0.0
+        if self.splits > 1:
+            combine = (self.splits + 1) * self.b * self.t * self.d * 4 / COMBINE_BYTES_PER_US
+        return waves * (share * KEY_BLOCK_US + BLOCK_US) + combine
+
+    def describe(self) -> str:
+        return (f"{self.row_blocks} x {self.splits} x {self.b} = {self.blocks} blocks of "
+                f"{LONG_ROWS} rows, {self.splits} key split(s) over {self.key_blocks_all} key "
+                f"blocks of {KEY_BLOCK}, {self.smem_bytes} B shared, workspace "
+                f"{self.workspace_floats * 4 / 1e6:.2f} MB ({self.pieces} split pieces, "
+                f"{self.partial_floats * 4 / 1e6:.2f} MB of partials)")
+
+    def ints(self) -> list[int]:
+        """What the C entry point past ``S_MAX`` keys takes, in its order."""
+        return [self.b, self.t, self.s, self.d, self.row_blocks, self.splits, KEY_BLOCK,
+                self.smem_bytes, self.workspace_floats]
+
+
+def _long_plan(t: int, s: int, d: int, b: int) -> LongAttentionPlan:
+    """The split count of least modelled time (``cost_us``); ties to fewer.
+    A block takes 229 KB of shared memory, so an SM runs one at a time and
+    a wave past the first costs a whole share: (4, 750, 750) runs 96
+    blocks of 6 key blocks (one wave) faster than 192 of 3 (two)."""
+    if d > LONG_MAX_D:
+        raise ValueError(f"past {S_MAX} keys the attention kernel takes D <= {LONG_MAX_D}, "
+                         f"got D={d}")
+    plans = [LongAttentionPlan(t, s, d, b, n) for n in range(1, -(-s // KEY_BLOCK) + 1)]
+    plans = [p for p in plans if p.workspace_floats < 2**31]
+    if not plans:
+        raise ValueError(f"past {S_MAX} keys the attention's workspace for B={b} T={t} S={s} "
+                         f"D={d} passes 2**31 floats")
+    return min(plans, key=lambda p: (p.cost_us(), p.splits))
+
+
 @functools.lru_cache(maxsize=256)
-def attention_plan(t: int, s: int, d: int) -> AttentionPlan:
-    """The plan for q (B,t,d), k and v (B,s,d); raises for a shape the kernel
-    does not take.  Up to ``S_MAX`` keys one strip a tile, past it blocks of
-    ``KEY_BLOCK`` keys.  The 16-row tiles are spread evenly over the blocks
-    (75 rows: 2 blocks of 3 tiles, not 4 + 1); a plan over the
-    shared-memory budget takes fewer tiles a block."""
+def attention_plan(t: int, s: int, d: int, b: int = 1) -> AttentionPlan | LongAttentionPlan:
+    """The plan for q (b,t,d), k and v (b,s,d); raises for a shape the kernel
+    does not take.  Up to ``S_MAX`` keys one strip a tile (``b`` plays no
+    part), past it a ``LongAttentionPlan``.  The 16-row tiles are spread
+    evenly over the blocks (75 rows: 2 blocks of 3 tiles, not 4 + 1); a
+    plan over the shared-memory budget takes fewer tiles a block."""
     if d < N_TILE or d % N_TILE:
         raise ValueError(f"the attention kernel takes D a multiple of {N_TILE}, got D={d}")
     if s < 1:
         raise ValueError(f"the attention kernel takes S >= 1 keys, got S={s}")
     if t < 1:
         raise ValueError(f"no plan for T={t} query rows")
+    if s > S_MAX:
+        return _long_plan(t, s, d, b)
     d_chunk = next(c for c in D_CHUNKS if d % c == 0)
     split = _split(d_chunk)
     all_tiles = -(-t // ROWS)
     tiles = -(-all_tiles // -(-all_tiles // TILES))
     while True:
-        plan = AttentionPlan(t, s, d, tiles * split, d_chunk, -(-all_tiles // tiles),
-                             0 if s <= S_MAX else KEY_BLOCK)
+        plan = AttentionPlan(t, s, d, tiles * split, d_chunk, -(-all_tiles // tiles))
         if plan.smem_bytes <= MAX_SMEM:
             return plan
         if tiles == 1:
@@ -255,18 +417,25 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     lib.vcagan_masked_attention.restype = ctypes.c_int
+    lib.vcagan_masked_attention_long.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p
+    ]
+    lib.vcagan_masked_attention_long.restype = ctypes.c_int
     lib.vcagan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vcagan_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def masked_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+    plan: LongAttentionPlan | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; raises on any input it
     does not take and on a launch error.  Its result has no gradient, so it
     raises where autograd would need one: ``masked_cross_attention`` is the
-    differentiable entry."""
+    differentiable entry.  Past ``S_MAX`` keys ``plan`` may name the split
+    count (as a tuner does); by default ``attention_plan`` chooses it.  The
+    lengths stay on the device: the kernels read them."""
     global LAUNCHES
     refuse_grad("masked_attention", q=q, k=k, v=v)
     for name, x in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
@@ -293,13 +462,24 @@ def masked_attention_cuda(
     out = torch.empty_like(q)
     if t == 0 or b == 0:
         return out
-    ints = (ctypes.c_int * PLAN_INTS)(*attention_plan(t, s, d).ints(b))
+    plan = plan or attention_plan(t, s, d, b)
     lib = _lib()
-    err = lib.vcagan_masked_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        ctypes.addressof(ints), PLAN_INTS, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr())
+    if isinstance(plan, LongAttentionPlan):
+        if (plan.b, plan.t, plan.s, plan.d) != (b, t, s, d):
+            raise ValueError(f"the plan {plan} is not for B={b} T={t} S={s} D={d}")
+        ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=q.device)
+        ints = (ctypes.c_int * LONG_PLAN_INTS)(*plan.ints())
+        err = lib.vcagan_masked_attention_long(
+            *pointers, ws.data_ptr(), ctypes.addressof(ints), LONG_PLAN_INTS, q.device.index,
+            stream,
+        )
+    else:
+        ints = (ctypes.c_int * PLAN_INTS)(*plan.ints(b))
+        err = lib.vcagan_masked_attention(
+            *pointers, ctypes.addressof(ints), PLAN_INTS, q.device.index, stream,
+        )
     if err != 0:
         msg = lib.vcagan_cuda_error_string(err).decode()
         raise RuntimeError(f"masked_attention kernel launch failed ({err}): {msg}")
