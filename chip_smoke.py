@@ -12,8 +12,10 @@ Phases, in order; any failure raises and exits non-zero:
      PyTorch version and to a float64 evaluation on the card at the serving
      paths' shapes and at edge cases (both kernels' fp32 forms, which are
      3xTF32, also against that arithmetic in plain PyTorch; the fused block
-     in its bf16 form too; shapes a kernel does not take must raise); time
-     the fused block's kernel, plain version and bf16 library convolutions;
+     in its bf16 form too; D = 100 and D = 264 past 512 keys, once
+     refused, among the cases; the fused block's C = 16 and 48, which no
+     configuration gives it, must raise); time the fused block's kernel,
+     plain version and bf16 library convolutions;
   4. run the four serving paths (trained weights from
      data/soak_serving_q8.npz, B=2, T=75, 112x112) on the card and on the
      CPU with the same noise and Griffin-Lim phase, and compare: the
@@ -148,6 +150,22 @@ Phases, in order; any failure raises and exits non-zero:
      GRID fp32 and bf16, and LRS2 (B=16 x 50) bf16 under "batched" against
      "ref"; (c) phase 9 (f)'s ``cli.train`` runs with ``--remat stem,r1
      --d_phase batched``;
+ 16. every width the JAX package runs, with ``masked_attention_reference``
+     and ``fused_block_reference`` raising on a CUDA tensor (the phase
+     keeps them as its oracle): (a) the attention through
+     ``masked_cross_attention`` at D = 4, 12, 100 (padded to a multiple of
+     8) and S = 21, 75, 600, at D = 264, 512, 1024 (column slices of 256)
+     and S = 600, 750 with lengths 0 and S among them, at (64, 512, 4096)
+     (no strip fits) and at B = 70,000 (chunks of 65535 samples): one launch
+     counted each, against its plain version and float64, timed beside its
+     plain version, sdpa and the true shape's bound; (b) the fused block in
+     one bf16 call past 2^31 elements (two chunks of images), its first,
+     border and last images against its plain version; (c) narrow models card
+     against CPU with attention_dim 12 and 264, stem_channels 16 folded +
+     fused, and S = 600 at B = 1, their launches counted; (d) the
+     full-width ``Synthesizer`` with attention_dim 512 on B=2 clips of 750
+     frames in fp32 and bf16, its two attention calls against the plain
+     version, one forward timed;
 then print the per-kernel JSON line and, last, the device JSON line.
 Needs one card; JAX is not used.
 """
@@ -430,15 +448,10 @@ def phase_kernel_vs_plain(card):
         ("D=64", 3, 33, 21, 64, [0, 21, 9]),
         ("D=128", 3, 33, 21, 128, [0, 21, 9]),
         ("D=72", 2, 20, 21, 72, [0, 13]),
+        # once refused: D padded to 104; D past 256 past 512 keys (slices)
+        ("D=100", 2, 9, 21, 100, [21, 0]),
+        ("D=264 past 512 keys", 2, 9, 600, 264, [600, 0]),
     ]
-    # Shapes outside the kernel's limits: the wrapper says so instead of
-    # computing something else.
-    for what, (b, t, s, d), words in (
-        ("D=100", (2, 9, 21, 100), "multiple of 8"),
-        ("D=264 past 512 keys", (2, 9, 600, 264), "D <= 256"),
-    ):
-        q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=98)
-        check_refused(f"attention {what}", lambda: attn.masked_attention_cuda(q, k, v, lens), words)
 
     worst = worst_3x = 0.0
     for i, (name, b, t, s, d, lengths) in enumerate(cases):
@@ -574,8 +587,10 @@ def phase_fused_block_vs_plain(card):
           for dt in (f32, bf16)),
         *((f"bf16 {name}", 50, h, w, c, bf16, False) for name, h, w, c in TRUNK_BLOCKS[1:]),
     ]
-    # C not a multiple of the 64 channels of a tensor-core tile: the kernel
-    # does not take it, and says so instead of computing something else.
+    # C not a multiple of the 64 channels of a tensor-core tile: no
+    # configuration gives the block one (the trunk's widths are 64 ... 512
+    # whatever stem_channels is), and the kernel says so instead of
+    # computing something else.
     for c in (16, 48):
         args = fused_block_inputs(3, 5, 5, c, seed=99)
         check_refused(f"fused_block C={c}", lambda: fb.fused_basic_block(*args), "multiple of 64")
@@ -2290,8 +2305,9 @@ def phase_long_attention(card):
             device, _ = profiled(lambda: [attn.masked_attention_cuda(q, k, v, lens)
                                           for _ in range(5)])
             kernels = {}
-            for n, s0, e in device:
-                kernels.setdefault(re.search(r"(\w+)\(", n).group(1), []).append((e - s0) / 1e3)
+            for n, s0, e in device:  # the name without its namespace, template and arguments
+                short = re.search(r"(\w+)(?:<[^()]*>)?\(", n)
+                kernels.setdefault(short.group(1) if short else n, []).append((e - s0) / 1e3)
             print(f"attention long {name} under torch.profiler, five calls: " + (
                 "; ".join(f"{n} x{len(ms)} median {statistics.median(ms):.4f} ms"
                           for n, ms in kernels.items()) or "no device activity seen")
@@ -3281,6 +3297,240 @@ def phase_fifteen(card):
     return {"launches_train_knobs": launches, "train_knobs": runs}
 
 
+# Phase 16: every width the JAX package runs.  (a) The attention at D not a
+# multiple of 8 (padded to one), D past 256 past 512 keys (column slices),
+# a strip too large for shared memory (the key-blocked instance) and a batch
+# past the grid's 65535 (chunks of samples); (b) the fused block past 2^31
+# elements (chunks of images).
+WIDTH_ATTENTION = (
+    *((f"D={d} S={s_}", 3, 75, s_, d, [0, s_, s_ // 2 + 1]) for d in (4, 12, 100)
+      for s_ in (21, 75, 600)),
+    *((f"D={d} S={s_}", 4, s_, s_, d, [0, s_, s_ - 37, s_ // 3 + 1]) for d in (264, 512, 1024)
+      for s_ in (600, 750)),
+    ("(64, 512, 4096)", 2, 64, 512, 4096, [512, 0]),
+    ("B=70000", 70_000, 2, 3, 8, None),
+)
+# (c) Narrow models: the test widths (tests/test_torch_loop.py) on 48 x 48
+# frames, one width under test each.
+NARROW_MODEL = dict(gru_hidden=32, noise_dim=16, attention_inner=160, postnet_channels=32)
+WIDTH_MODELS = (  # name, ModelConfig overrides, folded + fused, B, T
+    ("attention_dim 12", dict(attention_dim=12), False, 2, 75),
+    ("attention_dim 264", dict(attention_dim=264), False, 2, 75),
+    ("stem_channels 16, folded + fused", dict(stem_channels=16), True, 2, 75),
+    ("S=600, attention_dim 264", dict(attention_dim=264), False, 1, 600),
+)
+
+
+class plain_versions_refused:
+    """Inside: ``masked_attention_reference`` and ``fused_block_reference``
+    raise on a CUDA tensor, so a dispatcher that sent one to a plain version
+    fails; ``plain`` keeps the two for this phase's oracle."""
+
+    def __enter__(self):
+        self.plain = (attn.masked_attention_reference, fb.fused_block_reference)
+
+        def refuse(fn):
+            def guarded(*args, **kw):
+                check(not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args),
+                      f"{fn.__name__} was reached with a CUDA tensor")
+                return fn(*args, **kw)
+            return guarded
+
+        attn.masked_attention_reference, fb.fused_block_reference = map(refuse, self.plain)
+        return self
+
+    def __exit__(self, *exc):
+        attn.masked_attention_reference, fb.fused_block_reference = self.plain
+
+
+def width_attention(card, oracle):
+    """(a) Each case through ``masked_cross_attention``, one launch counted,
+    against the plain version and float64 (``ATTN_TOL``), length-0 rows
+    against the mean of their values; then the kernel, the plain version and
+    sdpa timed by CUDA-graph replay beside the bound of the true shape's
+    work.  Returns the rows."""
+    side = torch.cuda.Stream()
+    rng = np.random.default_rng(16)
+    rows = []
+    for i, (name, b, t, s_, d, lengths) in enumerate(WIDTH_ATTENTION):
+        if lengths is None:
+            lengths = rng.integers(-1, s_ + 2, b).tolist()
+        q, k, v, lens = attention_inputs(b, t, s_, d, lengths, seed=1600 + i)
+        plan = attn.attention_plan(t, s_, d, b)
+        before = attn.LAUNCHES
+        got = attn.masked_cross_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        check(attn.LAUNCHES == before + 1, f"width {name}: {attn.LAUNCHES - before} launches")
+        want = oracle(q, k, v, lens)
+        want64 = oracle(q.double(), k.double(), v.double(), lens)
+        err = (got - want).abs().max().item()
+        err64 = (got.double() - want64).abs().max().item()
+        zero = [j for j, n in enumerate(lengths) if n <= 0][:64]
+        zero_err = max([(got[j].double() - v[j].double().mean(0)).abs().max().item()
+                        for j in zero], default=0.0)
+        check(got.shape == (b, t, d) and torch.isfinite(got).all().item(),
+              f"width {name}: shape {tuple(got.shape)} or non-finite output")
+        check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL) and err64 < ATTN_TOL
+              and zero_err < ATTN_TOL, f"width {name} {b, t, s_, d}: kernel vs plain {err:.3e}, "
+              f"vs float64 {err64:.3e}, length-0 rows vs the mean {zero_err:.3e}")
+        del want64
+        kw = dict(samples=5, calls=5)
+        ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side, **kw)
+        plain = graph_ms(lambda: oracle(q, k, v, lens), side, **kw)
+        mask = key_mask(k, lens)
+        lib = graph_ms(lambda: sdpa(q, k, v, mask), side, **kw)
+        nbytes, flops = attention_work_lengths(b, t, s_, d, lengths)
+        t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
+        bound, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+        print(f"width attention {name} B={b} T={t} S={s_} D={d} (kernel D {plan.d_kernel}; "
+              f"{plan.describe()}): max_abs_err {err:.3e} (vs float64 {err64:.3e}, length-0 rows "
+              f"vs the mean {zero_err:.3e}) ok; kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+              f"{lib:.4f} ms, bound {bound:.4f} ms ({bound_by}) [{card}]")
+        rows.append({"name": name, "shape": [b, t, s_, d], "d_kernel": plan.d_kernel,
+                     "plan": plan.describe(), "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound, "bound_by": bound_by, "max_abs_err": max(err, err64)})
+        del q, k, v, lens, got, want, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
+def width_blocks(card, oracle):
+    """(b) One bf16 call through ``fused_basic_block`` past 2^31 elements
+    (two chunks of images), one launch counted, timed once; its first
+    images, those around the chunks' border and its last against the plain
+    version (``FB_BF16_TOL``).  Returns its row."""
+    bf16 = torch.bfloat16
+    h = w = 28
+    c = 64
+    per_launch = (2**31 - 1) // (h * w * c)
+    n = per_launch + 100
+    g = torch.Generator(device="cuda").manual_seed(1799)
+    x = torch.randn((n, h, w, c), generator=g, device="cuda", dtype=bf16)
+    _, w1, b1, a1, w2, b2, a2 = fused_block_inputs(1, h, w, c, seed=1798)
+    before = fb.LAUNCHES
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    got = fb.fused_basic_block(x, w1, b1, a1, w2, b2, a2)
+    ev[1].record()
+    torch.cuda.synchronize()
+    check(fb.LAUNCHES == before + 1, "past 2^31: not one launch counted")
+    errs = []
+    for lo in (0, per_launch - 64, n - 128):
+        want = oracle(x[lo:lo + 128], w1, b1, a1, w2, b2, a2)
+        errs.append((got[lo:lo + 128].float() - want.float()).abs().max().item())
+        check(torch.allclose(got[lo:lo + 128].float(), want.float(), rtol=FB_BF16_TOL,
+                             atol=FB_BF16_TOL), f"past 2^31, images {lo}...: {errs[-1]:.3e}")
+    print(f"width fused_block past 2^31 elements: N={n} {h}x{w}x{c} bf16 "
+          f"({n * h * w * c} elements, chunks of {per_launch} images): one call "
+          f"{ev[0].elapsed_time(ev[1]):.2f} ms, images 0-127, {per_launch - 64}-"
+          f"{per_launch + 63} and the last 128 vs plain max abs err "
+          f"{', '.join(f'{e:.3e}' for e in errs)} ok [{card}]")
+    row = {"name": "past 2^31", "form": "bf16", "shape": [n, h, w, c],
+           "ms_one_call": ev[0].elapsed_time(ev[1]), "max_abs_err": max(errs)}
+    del x, got
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def width_models(card):
+    """(c) Narrow models card against CPU (fp32, random init from seed 0,
+    the same noise and Griffin-Lim phase) at ``PATH_TOL`` and
+    ``WAV_REL_L2``: 2 attention launches a forward, and on the folded +
+    fused path one fused-block launch for each identity-shortcut block (4
+    with stem_channels 16: the first block of the trunk then takes a
+    projection, in the JAX package too)."""
+    rng = np.random.default_rng(18)
+    for name, overrides, fused, b, t in WIDTH_MODELS:
+        config = ModelConfig(**NARROW_MODEL, **overrides)
+        video = rng.standard_normal((b, t, 48, 48, 1)).astype(np.float32)
+        lengths = np.asarray([t, t - 20][:b], np.int32)
+        noise = rng.standard_normal((b, 20, t, config.noise_dim)).astype(np.float32)
+        phase = rng.uniform(-np.pi, np.pi, (b, 4 * t, 321)).astype(np.float32)
+        kw = dict(fold_bn=fused, fused_blocks=fused)
+        on_card = Synthesizer(config, device="cuda", **kw)
+        fused_blocks = sum(isinstance(m, BasicBlock) and m.fused
+                           for m in on_card.v_front.modules())
+        check(fused_blocks == (4 if fused else 0), f"{name}: {fused_blocks} fused blocks")
+        reset_launches()
+        got = on_card(video, lengths, noise=noise, init_phase=phase)
+        torch.cuda.synchronize()
+        check(attn.LAUNCHES == 2 and fb.LAUNCHES == fused_blocks,
+              f"{name}: {attn.LAUNCHES} attention and {fb.LAUNCHES} fused-block launches")
+        want = Synthesizer(config, device="cpu", **kw)(video, lengths, noise=noise,
+                                                       init_phase=phase)
+        compare_outputs(f"width model {name}, card vs CPU", got, want, PATH_TOL, WAV_REL_L2)
+        print(f"width model {name} B={b} T={t} (48 x 48 frames): card vs CPU ok, "
+              f"{attn.LAUNCHES} attention and {fb.LAUNCHES} fused-block launches [{card}]")
+        del on_card, got, want
+
+
+def width_synth_512(card, oracle):
+    """(d) The full-width ``Synthesizer`` with attention_dim 512 on B=2 clips
+    of 750 frames (30 s; lengths 750 and 513), fp32 and bf16, on the card:
+    its two attention calls (past 512 keys, D in two column slices) held to
+    the plain version on their own inputs, one forward timed."""
+    import vcagan_torch.nn.attention as attention_module
+
+    b, t = 2, LONG_FRAMES
+    rng = np.random.default_rng(19)
+    video = rng.standard_normal((b, t, 112, 112, 1)).astype(np.float32)
+    lengths = np.asarray([t, 513], np.int32)
+    kernel = attention_module.masked_cross_attention
+    calls = []
+
+    def recorded(q, k, v, lens):
+        out = kernel(q, k, v, lens)
+        calls.append((q, k, v, lens, out))
+        return out
+
+    attention_module.masked_cross_attention = recorded
+    try:
+        for bf16 in (False, True):
+            mode = "bf16" if bf16 else "fp32"
+            synth = Synthesizer(ModelConfig(attention_dim=512, use_bfloat16=bf16), device="cuda")
+            synth(video, lengths)  # warm-up
+            torch.cuda.synchronize()
+            calls.clear()
+            reset_launches()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            got = synth(video, lengths)
+            ev[1].record()
+            torch.cuda.synchronize()
+            check(attn.LAUNCHES == 2 and len(calls) == 2,
+                  f"attention_dim 512 {mode}: {attn.LAUNCHES} attention launches a forward")
+            check(all(torch.isfinite(o).all().item() for o in got.values()),
+                  f"attention_dim 512 {mode}: non-finite output")
+            errs = []
+            for q, k, v, lens, out in calls:
+                want = oracle(q, k, v, lens)
+                errs.append((out - want).abs().max().item())
+                check(torch.allclose(out, want, rtol=ATTN_TOL, atol=ATTN_TOL),
+                      f"attention_dim 512 {mode} {tuple(q.shape)}: kernel vs plain {errs[-1]:.3e}")
+            shapes = [tuple(q.shape) + (k.shape[1],) for q, k, *_ in calls]
+            print(f"width Synthesizer attention_dim 512 {mode} B={b} x {t} frames (lengths "
+                  f"{lengths.tolist()}; attention (B, T, D, S) {shapes}): one forward "
+                  f"{ev[0].elapsed_time(ev[1]):.1f} ms on the card, 2 attention launches, "
+                  f"each vs plain max abs err {', '.join(f'{e:.3e}' for e in errs)} ok [{card}]")
+            del synth, got
+            calls.clear()
+            torch.cuda.empty_cache()
+    finally:
+        attention_module.masked_cross_attention = kernel
+
+
+def phase_sixteen(card):
+    """Phase 16: (a)-(d) with the plain versions refused on CUDA tensors.
+    Returns the rows for the kernels line."""
+    with plain_versions_refused() as guard:
+        oracle_attn, oracle_block = guard.plain
+        rows_attn = width_attention(card, oracle_attn)
+        rows_block = width_blocks(card, oracle_block)
+        width_models(card)
+        width_synth_512(card, oracle_attn)
+    return rows_attn, rows_block
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3369,6 +3619,10 @@ def main() -> None:
     t15 = time.perf_counter()
     fifteen = phase_fifteen(card)
     print(f"phase 15 (the train step's knobs): {time.perf_counter() - t15:.1f} s")
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    width_rows_attn, width_rows_block = phase_sixteen(card)
+    print(f"phase 16 (every width the JAX package runs): {time.perf_counter() - t16:.1f} s")
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -3400,7 +3654,7 @@ def main() -> None:
     fused = kernel_entry("fused_basic_block", "vcagan_torch/csrc/fused_block.cu",
                          "vcagan/kernels/fused_block.py:95", fb_worst, fb_totals["fp32"],
                          FB_FLOP_PER_S["fp32"], "events")
-    fused.update(form="3xTF32", ms_bf16=fb_totals["bf16"]["ms"],
+    fused.update(form="3xTF32", widths=width_rows_block, ms_bf16=fb_totals["bf16"]["ms"],
                  plain_ms_bf16=fb_totals["bf16"]["plain_ms"],
                  bound_ms_bf16=bound(fb_totals["bf16"], FB_FLOP_PER_S["bf16"])[0],
                  convs_ms_bf16=fb_totals["bf16"]["convs_ms"],
@@ -3423,7 +3677,7 @@ def main() -> None:
                      lrs_max_abs_err=lrs_worst, lrs_grad_max_abs_err=lrs_grad_worst,
                      launches_eval=eval_launches, eval_shapes=eval_rows,
                      eval_max_abs_err=eval_worst, **twelve, **thirteen, **fourteen,
-                     **fifteen)
+                     **fifteen, widths=width_rows_attn)
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

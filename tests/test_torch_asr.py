@@ -30,6 +30,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.dirname(__file__))
 
+from _torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 from test_torch_weights import _fill  # noqa: E402
 from tools.convert_torch_ckpt import convert_grid_asr, convert_lrw_asr  # noqa: E402
 from vcagan.cli import asr_grid as jax_cli_grid  # noqa: E402
@@ -49,6 +50,7 @@ from vcagan_torch.eval.asr_models import GridASR, LRWClassifier, load_asr  # noq
 from vcagan_torch.io.wav import write_wav  # noqa: E402
 from vcagan_torch.io.weights import as_tensors, asr_from_jax, audio_front_state  # noqa: E402
 from vcagan_torch.nn import AudioFront  # noqa: E402
+
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 MARGIN = 2e-3

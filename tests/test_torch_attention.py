@@ -147,7 +147,7 @@ def test_plan_fits_shared_memory_and_covers_every_row_once(case):
     assert plan.q_stride % 8 == 4 and plan.k_stride % 8 == 4 and plan.p_stride % 8 == 4
     assert plan.v_stride % 32 in (8, 24)
     assert plan.key_block == 0 and plan.key_blocks() == [(0, s)]  # one strip of all S keys
-    assert plan.ints(3) == [3, t, s, d, plan.warps, plan.d_chunk, plan.row_tiles, 0,
+    assert plan.ints(3) == [3, t, s, d, d, plan.warps, plan.d_chunk, plan.row_tiles, 0,
                             plan.smem_bytes]
     assert len(plan.ints(3)) == port.PLAN_INTS
 
@@ -162,8 +162,20 @@ def test_plan_spreads_the_tiles_over_the_blocks(t, tiles, blocks):
 @pytest.mark.parametrize("t,s,d", [(75, 75, 100), (75, 75, 4), (75, 0, 256), (0, 75, 256),
                                    (64, 512, 4096)])
 def test_plan_refuses_what_the_kernel_does_not_take(t, s, d):
-    with pytest.raises(ValueError):
-        port.attention_plan(t, s, d)
+    """No key (S = 0) and no query row (T = 0) have no plan.  D = 100 and 4,
+    once refused, take the strip at D padded to 104 and 8 (the scale of the
+    true D); (64, 512, 4096), whose strip does not fit shared memory, takes
+    the key-blocked instance, in column slices of 256."""
+    if s < 1 or t < 1:
+        with pytest.raises(ValueError):
+            port.attention_plan(t, s, d)
+        return
+    plan = port.attention_plan(t, s, d)
+    assert plan.d == d and plan.d_kernel == -(-d // 8) * 8 and plan.smem_bytes <= port.MAX_SMEM
+    if d == 4096:
+        assert plan.key_block == port.KEY_BLOCK and plan.slices == 16
+    else:
+        assert plan.key_block == 0 and plan.ints(1)[3:5] == [plan.d_kernel, d]
 
 
 def test_plan_takes_keys_past_s_max():

@@ -50,6 +50,8 @@ from vcagan_torch.io.weights import from_jax
 from vcagan_torch.kernels.fused_block import pack_weights
 from vcagan_torch.nn.resnet import BasicBlock
 from vcagan_torch.serve import Synthesizer
+from _torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 SERVING_NPZ = os.path.join(os.path.dirname(__file__), "..", "data", "soak_serving_q8.npz")
 B, T, HW = 2, 8, 48

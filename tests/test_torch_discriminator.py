@@ -20,6 +20,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+from _torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 from test_torch_weights import SERVING_NPZ, _assert_trees_equal, _fill  # noqa: E402
 from tools.convert_torch_ckpt import (  # noqa: E402
     convert_discriminator,
@@ -32,6 +33,7 @@ from vcagan.nn.losses import r1_penalty as jax_r1_penalty  # noqa: E402
 from vcagan.train.models import VCAGANModules as JaxModules  # noqa: E402
 from vcagan_torch.io.weights import from_jax, load_serving_npz  # noqa: E402
 from vcagan_torch.nn import Discriminator, SyncDiscriminator, gan_loss, r1_penalty  # noqa: E402
+
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 B, S = 2, 20  # batch, video frames (the discriminators' minimum window)

@@ -23,6 +23,8 @@ from vcagan.dsp.stft import STFTParams as JaxSTFTParams
 from vcagan.dsp.stft import istft_complex as jax_istft_complex
 from vcagan_torch.dsp import MelPipeline, STFTParams, deemphasis, griffin_lim, istft_complex, stft
 from vcagan_torch.dsp.mel import mel_filterbank
+from _torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 WAV_TOL = dict(atol=5e-4, rtol=1e-3)
 SPEC_TOL = dict(atol=1e-4, rtol=1e-5)

@@ -44,6 +44,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.dirname(__file__))
 
+from _torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 from test_torch_asr import speechlike  # noqa: E402
 from test_torch_discriminator import train_variables  # noqa: E402
 from test_torch_loop import NARROW  # noqa: E402
@@ -67,6 +68,7 @@ from vcagan_torch.io.checkpoint import CheckpointManager  # noqa: E402
 from vcagan_torch.io.weights import from_jax  # noqa: E402
 from vcagan_torch.serve import Synthesizer  # noqa: E402
 from vcagan_torch.train import VCAGANModules, create_train_state, make_eval_step  # noqa: E402
+
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 WAV_ATOL = 1e-4

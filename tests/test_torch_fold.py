@@ -31,6 +31,8 @@ from vcagan_torch.io.weights import from_jax
 from vcagan_torch.nn import BasicBlock, Decoder, Postnet, ResNetTrunk, VisualFront
 from vcagan_torch.nn.fold import fold_conv_bn, fold_generator_side
 from vcagan_torch.serve import Synthesizer
+from _torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 

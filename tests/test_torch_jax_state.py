@@ -34,6 +34,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.dirname(__file__))
 
+from _torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 from test_torch_discriminator import train_variables  # noqa: E402
 from test_torch_train_step import (  # noqa: E402
     CONVERTERS, GRAD_NORMS, METRIC_RTOL, NARROW, NOISE_SEED, TRAIN, FixedNoiseDecoder,
@@ -57,15 +58,6 @@ from vcagan_torch.train.models import DISCRIMINATOR_SIDE, GENERATOR_SIDE  # noqa
 from vcagan_torch.train.state import B1  # noqa: E402
 
 MOMENTS = ("mu", "nu", "nu_max")  # the GRID recipe's AMSGrad
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One thread a test: the tier-1 command runs six workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def jax_recipe():

@@ -30,18 +30,10 @@ import torch
 
 from vcagan.kernels.masked_attention import _attention_pallas, _attention_xla
 from vcagan_torch.kernels import masked_attention as port
+from _torch_threads import _one_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 T, D = 9, 64
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One thread a test: the tier-1 command runs six workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _inputs(b, t, s, d, lengths, seed):
@@ -147,8 +139,8 @@ def test_long_plans_take_the_least_modelled_time_and_send_their_ints(b, t, s):
     waves = -(-plan.blocks // port.SMS)
     share = -(-plan.key_blocks_all // plan.splits)
     assert plan.cost_us() >= waves * (share * port.KEY_BLOCK_US + port.BLOCK_US)
-    assert plan.ints() == [b, t, s, 256, plan.row_blocks, plan.splits, 64, plan.smem_bytes,
-                           plan.workspace_floats]
+    assert plan.ints() == [b, t, s, 256, 256, plan.row_blocks, plan.splits, 1, 64,
+                           plan.smem_bytes, b, 0, plan.workspace_floats]
     assert len(plan.ints()) == port.LONG_PLAN_INTS
 
 
@@ -164,8 +156,13 @@ def test_long_plans_fill_the_card_where_a_wave_allows():
 
 @pytest.mark.parametrize("d", [264, 512])
 def test_long_plans_refuse_d_past_256(d):
-    with pytest.raises(ValueError, match="D <= 256"):
-        port.attention_plan(9, 600, d)
+    """D past 256, once refused past 512 keys, takes column slices of 256
+    (each block computing the scores again over all of D) with Q streamed
+    through the ring beside K."""
+    plan = port.attention_plan(9, 600, d)
+    assert plan.key_block == port.KEY_BLOCK and plan.slices == 2 and plan.chunks == -(-d // 64)
+    assert plan.smem_bytes == 3 * 4 * 16384 + 32 <= port.MAX_SMEM
+    assert plan.ints()[3:8] == [d, d, plan.row_blocks, plan.splits, 2]
 
 
 SPLIT_LENGTHS = [0, 1, 255, 256, 257, 512]

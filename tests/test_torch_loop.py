@@ -37,6 +37,8 @@ from vcagan_torch.data.lrs import LRSDataset, SyntheticLRSSource
 from vcagan_torch.io.checkpoint import CheckpointManager
 from vcagan_torch.nn.common import RECOMPUTES
 from vcagan_torch.train.loop import Trainer
+from _torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 NARROW = dict(stem_channels=16, gru_hidden=32, noise_dim=16, attention_dim=32,
               attention_inner=160, postnet_channels=32, disc_base_channels=8,

@@ -51,6 +51,7 @@ from vcagan_torch.configs import AudioConfig, DataConfig
 from vcagan_torch.data import lrs
 from vcagan_torch.data import splits
 from vcagan_torch.data.prefetch import ParallelEpoch
+from _torch_threads import _one_thread  # noqa: F401  (autouse)
 
 LENGTHS = [30, 64, 41, 80, 35, 52]  # three clips shorter than the 50-frame window
 BATCH = 4
@@ -61,17 +62,6 @@ NORM_TOL = dict(atol=1e-4, rtol=0)
 SPEC_TOL, SPEC_CLOSE, SPEC_FAR_SHARE = dict(atol=1e-3, rtol=0), 2e-5, 1e-3
 KEYS = ("video_raw", "centers", "aud_cond", "wav", "vid_len", "mel_len", "n_valid", "idx",
         "centers_m", "vid_hw")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The tier-1 command runs six test workers on the machine's cores: this
-    file's tests take one thread each, so that they do not oversubscribe
-    the cores the other workers use."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def jax_config(cfg):

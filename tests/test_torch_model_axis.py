@@ -32,7 +32,8 @@ package.
      of each rank gives its state back bit for bit, and restored into one
      process gives the ranks' whole state, with the keys, shapes and
      dtypes of a one-process checkpoint.
-- Beside it, ``python -m vcagan_torch.parallel.dryrun --world 4
+- Before it (the two at once, beside the tier-1 command's other workers,
+  ran out of time), ``python -m vcagan_torch.parallel.dryrun --world 4
   --model_parallel 2 --float64`` at the narrow widths: the 2 x 2 gate held
   to one process at its bounds (metrics 5e-4, leaf mean|p| 2.5 x lr,
   gradients 1e-5 a leaf and 2e-2 a module), the split leaves concatenated.
@@ -310,12 +311,12 @@ def runs(tmp_path_factory):
                                                        for k in ("sent", "g", "lengths")))
     params = jax.tree.map(np.asarray, params["params"])
     torch.save(dict(state=attention_state(params, F), inputs=inputs), tmp / "attention.pt")
+    # The gate's five processes first, then the four ranks: at once, beside
+    # the tier-1 command's other workers, the gate ran out of its time.
     gate = popen([sys.executable, "-m", "vcagan_torch.parallel.dryrun", "--world", str(WORLD),
                   "--model_parallel", str(MODEL), "--device", "cpu", "--backend", "gloo",
                   "--narrow", "--float64", "--threads", "1", "--timeout", str(LIMIT_S - 20)])
-    ranks = popen([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-                   str(WORLD), "--master_addr", "localhost", "--master_port", str(free_port()),
-                   __file__, str(tmp), *cli_argv(tmp)])
+    gate_result = ranks = None
     try:
         with jax.enable_x64(True):  # the JAX module in float64, this block only
             p64 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float64), params)
@@ -328,9 +329,16 @@ def runs(tmp_path_factory):
             d_params, d_sent, d_g = vjp(jnp.asarray(inputs["cot"], jnp.float64))
             want64 = dict(out=np.asarray(want), sent=np.asarray(d_sent), g=np.asarray(d_g),
                           params=attention_state(jax.tree.map(np.asarray, d_params), F))
+        gate_result = finish(gate)
+        ranks = popen([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+                       str(WORLD), "--master_addr", "localhost", "--master_port",
+                       str(free_port()), __file__, str(tmp), *cli_argv(tmp)])
         plain = attention_pass(port_attention(attention_state(params, F)), inputs)
     finally:
-        ranks_result, gate_result = finish(ranks), finish(gate)
+        if gate_result is None:
+            gate_result = finish(gate)
+        if ranks is not None:
+            ranks_result = finish(ranks)
     rc, log = ranks_result
     assert rc == 0, log[-4000:]
     results = sorted((json.loads(line.split("RESULT ", 1)[1]) for line in log.splitlines()

@@ -29,6 +29,7 @@ from torch.overrides import TorchFunctionMode
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from _torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 from test_torch_loop import assert_same_state, small_trainer  # noqa: E402
 from vcagan.configs import AudioConfig as JaxAudioConfig  # noqa: E402
 from vcagan.configs import DataConfig as JaxDataConfig  # noqa: E402
@@ -43,15 +44,6 @@ from vcagan_torch.data.synthetic import SyntheticLipSpeech  # noqa: E402
 
 B = 2
 GRID_DATA = dict(window_size=20, max_v_timesteps=30)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One thread a test: the tier-1 command runs six workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -45,6 +45,8 @@ from vcagan_torch.cli import train as train_cli
 from vcagan_torch.configs import ModelConfig, grid_config
 from vcagan_torch.serve import Synthesizer
 from vcagan_torch.train.loop import Trainer
+from _torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SERVING_NPZ = os.path.join(ROOT, "data", "soak_serving_q8.npz")

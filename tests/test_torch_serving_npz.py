@@ -25,6 +25,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.dirname(__file__))
 
+from _torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 from test_torch_train_step import NARROW  # noqa: E402
 from tools.convert_torch_ckpt import convert_decoder, convert_postnet, convert_visual_front  # noqa: E402
 from vcagan.configs import ModelConfig as JaxModelConfig  # noqa: E402
@@ -37,15 +38,6 @@ from vcagan_torch.io.weights import load_serving_npz  # noqa: E402
 from vcagan_torch.train import VCAGANModules  # noqa: E402
 
 CONVERTERS = {"v_front": convert_visual_front, "gen": convert_decoder, "post": convert_postnet}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One thread a test: the tier-1 command runs six workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

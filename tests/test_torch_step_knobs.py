@@ -55,6 +55,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+from _torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 from vcagan_torch.configs import ModelConfig, TrainConfig  # noqa: E402
 from vcagan_torch.nn.common import RECOMPUTES  # noqa: E402
 from vcagan_torch.parallel.dryrun import to_float64  # noqa: E402
@@ -72,15 +73,6 @@ REMAT_RUNS = [("ref", "stem"), ("ref", "vfront"), ("ref", "r1"), ("ref", "stem,r
               ("ref", "vfront,r1"), ("batched", "stem,r1")]
 # a region's recomputes a step: r1 wraps each of the three discriminators
 RECOMPUTES_A_STEP = {"stem": 1, "vfront": 1, "r1": 2 * 3}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One thread a test: the tier-1 command runs six workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def make_batch(dtype):

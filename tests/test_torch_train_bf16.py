@@ -62,6 +62,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from _torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 from test_torch_discriminator import train_variables  # noqa: E402
 from test_torch_train_step import (  # noqa: E402
     CONVERTERS, GRAD_NORMS, NARROW, B, JaxModelConfig, JaxModules, as_jax_trees, flat, jax_steps,
@@ -81,17 +82,6 @@ BF16_LOSS_RTOL, BF16_NORM_RTOL = 2e-2, 1e-1
 BOUNDS = {"bf16": (4.0, (0.25, 4.0), 0.25), "fp32 front": (1.5, (0.5, 1.5), 0.03),
           "r1": (2.0, (0.5, 2.0), 0.05)}
 BF16_STATS_MAX, BF16_STATS_REL = 0.05, 0.1
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The tier-1 command runs six test workers on the machine's cores: this
-    file's tests take one thread each, so that they do not oversubscribe
-    the cores the other workers use."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def moment_readings(got, want, anchor):

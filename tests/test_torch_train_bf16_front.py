@@ -27,10 +27,10 @@ import os
 import sys
 
 import pytest
-import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from _torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 from test_torch_discriminator import train_variables  # noqa: E402
 from test_torch_train_bf16 import check_readings  # noqa: E402
 from test_torch_train_step import (  # noqa: E402
@@ -38,15 +38,6 @@ from test_torch_train_step import (  # noqa: E402
 
 BF16_FRONT = ("v_front",)
 LOOSE = ("dis1", "dis2")  # behind the conditional heads
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One thread a test: the tier-1 command runs six workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

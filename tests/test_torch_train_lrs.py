@@ -30,6 +30,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 
+from _torch_threads import _one_thread  # noqa: E402, F401  (autouse)
 from test_torch_discriminator import train_variables  # noqa: E402
 from test_torch_loop import (  # noqa: E402
     LRS_SMALL, VAL_KEYS, _drop_checkpoints, assert_same_state, records, small_lrs_trainer)
@@ -42,17 +43,6 @@ from vcagan_torch.configs import TrainConfig, lrs_config  # noqa: E402
 
 LRS_TRAIN = dict(lr_milestones=(1,), amsgrad=False, sync_dis_weight=0.5,
                  recon_on_denormalized=False)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The tier-1 command runs six test workers on the machine's cores: this
-    file's tests take one thread each, so that they do not oversubscribe
-    the cores the other workers use."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def rel_l2(a, b):

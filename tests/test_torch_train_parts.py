@@ -38,6 +38,8 @@ from vcagan_torch.train import (
 )
 from vcagan_torch.train.state import make_optimizer
 from vcagan_torch.train.step import mel_pyramid
+from _torch_threads import _one_thread  # noqa: F401  (autouse)
+
 
 SHAPES = {"a": (3, 4), "b": (7,), "c": (2, 3, 5)}
 

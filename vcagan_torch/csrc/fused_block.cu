@@ -4,7 +4,9 @@
 // x, out (N,H,W,C) channels innermost, fp32 or bf16; w1, w2 packed by
 // vcagan_torch/kernels/fused_block.py::pack_weights from (3,3,C,C); b*, a*
 // (C,) fp32.  Both convolutions pad with zeros (SAME) and sum in fp32.  C
-// must be a multiple of 64.
+// must be a multiple of 64.  Any N: where N*H*W*C passes 2^31 - 1 (the
+// kernel's element offsets are 32-bit), the entry point launches chunks of
+// images that stay below it, one after another.
 //
 // Replaces the TPU kernel vcagan/kernels/fused_block.py:78-130
 // (_block_kernel / _fused_block_pallas), which holds whole images and two
@@ -94,6 +96,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "tf32.cuh"
@@ -835,6 +838,7 @@ bool plan_ok(const Plan& p, bool bf16) {
   const bool whole = p.tiles == 1;
   if (p.XR != (whole ? p.H : p.R + 4) || p.HR != (whole ? p.H : p.R + 2)) return false;
   if (p.H >= 32768 || p.W >= 32768) return false;
+  if (static_cast<long long>(p.H) * p.W * p.C > 0x7fffffffLL) return false;  // one image
   // the 4 warps of a warpgroup stand along the pixels
   if (p.warps_m != 4 && p.warps_m != 8) return false;
   if (p.WN != 64 && !(bf16 && (p.WN == 128 || p.WN == 256))) return false;
@@ -859,12 +863,22 @@ cudaError_t launch(const Plan& p, const void* x, const void* w1p, const float* b
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = static_cast<long long>(ceil_div(p.N, p.G)) * p.tiles;
-  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, p.smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const unsigned char*>(w1p), b1, a1,
-      static_cast<const unsigned char*>(w2p), b2, a2, static_cast<T*>(out), p);
-  return cudaGetLastError();
+  // Chunks of images whose elements stay below 2^31, one launch each.
+  const long long image = static_cast<long long>(p.H) * p.W * p.C;
+  const int per_launch = static_cast<int>(std::min<long long>(p.N, 0x7fffffffLL / image));
+  for (int n0 = 0; n0 < p.N; n0 += per_launch) {
+    Plan c = p;
+    c.N = std::min(per_launch, p.N - n0);
+    const long long blocks = static_cast<long long>(ceil_div(c.N, c.G)) * c.tiles;
+    if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+    const size_t at = static_cast<size_t>(n0) * image;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, c.smem, stream>>>(
+        static_cast<const T*>(x) + at, static_cast<const unsigned char*>(w1p), b1, a1,
+        static_cast<const unsigned char*>(w2p), b2, a2, static_cast<T*>(out) + at, c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -874,7 +888,8 @@ extern "C" {
 // Launches on `stream` of `device`; returns the CUDA error (0 on success).
 // The library links its own CUDA runtime, so it selects the device itself.
 // `plan`: the ints of vcagan_torch/kernels/fused_block.py::Plan.ints().
-// N*H*W*C must be below 2^31, C a multiple of 64, pointers 16-byte aligned.
+// C a multiple of 64, H*W*C below 2^31 (N*H*W*C may pass it: the images go
+// in chunks), pointers 16-byte aligned.
 int vcagan_fused_block(const void* x, const void* w1p, const float* b1, const float* a1,
                        const void* w2p, const float* b2, const float* a2, void* out,
                        const int* plan, int plan_len, int is_bf16, int device, void* stream) {

@@ -1,7 +1,13 @@
 // Length-masked cross-attention, forward, fp32:
 //   out[b] = softmax(q[b] k[b]^T / sqrt(D), keys >= lengths[b] -> -1e30) v[b]
 // q (B,T,D), k/v (B,S,D), lengths (B,) int32, out (B,T,D); all contiguous,
-// 16-byte aligned; D a multiple of 8 (at most 256 past 512 keys), any S >= 1.
+// 16-byte aligned; D a multiple of 8, any S >= 1, T >= 1 and B >= 1.  Any
+// other D reaches the kernels padded with zero columns to a multiple of 8
+// (vcagan_torch/kernels/masked_attention.py::padded_attention): zero
+// columns add nothing to q k^T and give zero output columns, and the plan
+// carries the true D (d_scale), whose square root scales the scores.
+// Batches of more than 65535 samples (the grid's limit on its y and z axes)
+// go in chunks of samples, launched one after another by the entry point.
 //
 // Replaces the TPU kernel vcagan/kernels/masked_attention.py:50-121
 // (_attention_kernel / _attention_pallas), which holds one sample's whole
@@ -76,7 +82,8 @@
 //   the strip are read as rows g, columns t (stride 4 mod 8 floats); V as
 //   rows t, columns g (stride 8 or 24 mod 32 floats).
 //
-// Past 512 keys (its own plan and entry point: three launches a call).  The
+// Past 512 keys, and at S <= 512 where no strip plan fits shared memory
+// (its own plan and entry point: three launches a call).  The
 // strip of 16 x S scores a tile is what caps the strip instance at S = 512
 // (four strips, Q and the K/V ring fill the 227 KB at D = 256).  Past it the
 // bound is the operations (4 T S D flops of the keys below each length,
@@ -117,10 +124,19 @@
 //   4h + i): no shuffle.
 // - 3xTF32 as in the strip instance: lo*hi, hi*lo, then hi*hi into a sum
 //   that is fresh every piece (8 k-steps); an ordinary fp32 add puts it on
-//   the scores or on the output.  The output of 64 rows x D stays in
-//   registers (128 a thread at D = 256: the reason for D <= 256), rescaled
-//   by alpha each key block; P.V goes 32 columns at a time, so that the
-//   output, P's parts and the fresh sum fit in 255 registers.
+//   the scores or on the output.  The output of 64 rows x 256 columns
+//   stays in registers (128 a thread), rescaled by alpha each key block;
+//   P.V goes 32 columns at a time, so that the output, P's parts and the
+//   fresh sum fit in 255 registers.
+// - D past 256: column slices.  The grid's x axis is (row block, slice): a
+//   block computes 256 columns of O (its slice; 4 chunks of 64) and the
+//   scores again over all of D, which costs D / 256 times the Q K^T work.
+//   Q's parts (128 KB at D = 256) no longer fit beside the ring, so Q
+//   streams through it with K: a slot then holds a K piece and the Q piece
+//   of the same columns (64 KB; three slots, 192 KB), and a key block is
+//   D / 64 such pieces, then the slice's V pieces.  The softmax's m and l
+//   are the same in every slice (the same scores in the same order); slice
+//   0 writes them.
 // - Key splits fill the card.  A sample's walked key blocks are shared out
 //   over `splits` blocks in contiguous shares that differ by at most one
 //   key block.  With one split a block writes O / l; with more, each writes
@@ -131,10 +147,14 @@
 //   sample walks) writes m = -inf and l = 0, and the combine skips its O.
 //   The plan (attention_plan -> LongAttentionPlan) takes the split count
 //   of least modelled time: waves of blocks x their share of key blocks,
-//   plus the combine's bytes.  A block holds 229 KB of shared memory, so an
-//   SM runs one block at a time and a wave past the first costs a whole
-//   share: at (4, 750, 750) 96 blocks (one wave of 6 key blocks) beat 192
-//   (two waves of 3) on the card.  Plans at D = 256 (229,408 of the
+//   plus the combine's bytes.  A launch's workspace is kept below 2^31
+//   floats (8 GB) by launching the samples in chunks (`batch` a launch)
+//   that reuse it one after another on the stream; one sample alone may
+//   pass it (offsets are 64-bit; the plan sends the size as two ints).  A
+//   block holds 229 KB of shared memory, so an SM runs one block at a
+//   time and a wave past the first costs a whole share: at (4, 750, 750)
+//   96 blocks (one wave of 6 key blocks) beat 192 (two waves of 3) on the
+//   card.  Plans at D = 256 (229,408 of the
 //   232,448 bytes of shared memory):
 //     (4, 750, 750):   12 x 2 x 4 =  96 blocks, 1 wave;  workspace 25.1 MB
 //                      (576 pieces; 6.2 MB of partials)
@@ -158,13 +178,15 @@ constexpr int kMaxChunk = 64;      // D columns of a piece, at most
 constexpr int kMaxWarps = 8;
 constexpr int kMaxKeys = 512;      // the strip instance's keys, at most
 constexpr int kMaxSmem = 232448;   // 227 KB a block may use
-constexpr int kPlanInts = 9;
+constexpr int kPlanInts = 10;
+constexpr int kMaxGridB = 65535;  // samples a launch: the grid's y and z axes
 constexpr float kMasked = -1e30f;
 
 // One strip of all S <= 512 keys (key_block is 0: the instance past 512
-// keys has a plan and an entry point of its own).
+// keys has a plan and an entry point of its own).  d_scale: the true D,
+// whose square root scales the scores (D is it rounded up to 8).
 struct Plan {
-  int B, T, S, D, warps, d_chunk, row_tiles, key_block, smem;
+  int B, T, S, D, d_scale, warps, d_chunk, row_tiles, key_block, smem;
 };
 
 // Warps a 16-row tile: two share the n-tiles of a chunk of 64 columns; a
@@ -188,9 +210,10 @@ size_t smem_bytes(int tiles, int S, int D, int dc) {
 }
 
 bool plan_ok(const Plan& p) {
-  if (p.B < 1 || p.B > 65535 || p.T < 1 || p.S < 1) return false;
+  if (p.B < 1 || p.T < 1 || p.S < 1) return false;
   if (p.S > kMaxKeys || p.key_block != 0) return false;
   if (p.D < 8 || p.D % 8 != 0) return false;
+  if (p.d_scale < 1 || p.d_scale > p.D || p.d_scale <= p.D - 8) return false;
   if (p.d_chunk != 8 && p.d_chunk != kMaxChunk) return false;
   if (p.D % p.d_chunk != 0) return false;
   const int split = split_of(p.d_chunk);
@@ -295,7 +318,7 @@ masked_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int row0 = t0 + kRows * tile;              // this warp's first row
   const bool active = row0 < T;                    // warp-uniform
   const int length = lengths[b];
-  const float sqrt_d = sqrtf(static_cast<float>(D));
+  const float sqrt_d = sqrtf(static_cast<float>(p.d_scale));
   float* strip = strips + tile * kRows * pst;
 
   const float* kb_ptr = k + static_cast<size_t>(b) * S * D;
@@ -484,9 +507,17 @@ cudaError_t launch(const Plan& p, const float* q, const float* k, const float* v
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.row_tiles, p.B);
-  kernel<<<grid, 32 * p.warps, p.smem, stream>>>(q, k, v, lengths, out, p);
-  return cudaGetLastError();
+  // chunks of at most kMaxGridB samples, one launch each
+  for (int b0 = 0; b0 < p.B; b0 += kMaxGridB) {
+    Plan c = p;
+    c.B = min(kMaxGridB, p.B - b0);
+    const size_t qo = static_cast<size_t>(b0) * p.T * p.D, ko = static_cast<size_t>(b0) * p.S * p.D;
+    kernel<<<dim3(c.row_tiles, c.B), 32 * c.warps, c.smem, stream>>>(q + qo, k + ko, v + ko,
+                                                                       lengths + b0, out + qo, c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -497,39 +528,49 @@ cudaError_t launch(const Plan& p, const float* q, const float* k, const float* v
 constexpr int kLongRows = 64;      // query rows a block: the wgmma tile's M
 constexpr int kLongKeys = 64;      // keys a key block: the N of Q K^T
 constexpr int kLongChunk = 64;     // D columns a piece: Q K^T's fresh sum, P.V's N
-constexpr int kLongMaxD = 256;     // the output's sums stay in registers (128 a thread)
-constexpr int kLongMaxChunks = kLongMaxD / kLongChunk;
+constexpr int kSliceChunks = 4;    // chunks of O a block holds: 256 columns, 128 registers a thread
 constexpr int kLongThreads = 128;  // one warpgroup
-constexpr int kLongSlots = 3;      // K or V pieces in shared memory: in use, arrived, arriving
-constexpr int kLongPlanInts = 9;
+constexpr int kLongSlots = 3;      // pieces in shared memory: in use, arrived, arriving
+constexpr int kLongPlanInts = 13;
 constexpr int kPart = kLongKeys * kLongChunk;  // floats of a piece's hi (or lo) part
 constexpr int kPartBytes = kPart * 4;          // 16 KB
 constexpr int kKStep = 512;                    // floats a k-step: 8 groups x 2 halves x 32
 constexpr int kVStep = kLongChunk * 8;         // floats a k-step (8 keys) of a V piece
 static_assert(kLongRows == kLongKeys, "a piece is 64 rows of Q, K or V");
 
+// d_scale: the true D (D is it rounded up to 8); slices: column slices of
+// 256 (1 up to D = 256); batch: samples a launch; workspace floats of a
+// launch = ws_hi * 2^30 + ws_lo.
 struct LongPlan {
-  int B, T, S, D, row_blocks, splits, key_block, smem, workspace;
+  int B, T, S, D, d_scale, row_blocks, splits, slices, key_block, smem, batch, ws_hi, ws_lo;
 };
 
 __host__ __device__ constexpr int long_chunks(int D) { return (D + kLongChunk - 1) / kLongChunk; }
+__host__ __device__ constexpr int long_slices(int D) {
+  return (long_chunks(D) + kSliceChunks - 1) / kSliceChunks;
+}
 
-// Q's parts (D padded to the chunk), the slots' parts, an mbarrier for Q
-// and one a slot.
+// Up to D = 256, Q's parts (D padded to the chunk) stay for the whole walk
+// and a slot holds a K or V piece's parts; past it Q streams, and a slot
+// holds a K piece's and a Q piece's.  Then an mbarrier for Q and one a slot.
 size_t long_smem_bytes(int D) {
-  return (2 * static_cast<size_t>(long_chunks(D)) + 2 * kLongSlots) * kPartBytes +
+  const bool streamed = long_slices(D) > 1;
+  const size_t q = streamed ? 0 : 2 * static_cast<size_t>(long_chunks(D)) * kPartBytes;
+  return q + kLongSlots * (streamed ? 4 : 2) * static_cast<size_t>(kPartBytes) +
          8 * (kLongSlots + 1);
 }
 
-// Pieces of the split pass: Q's (B x row blocks x chunks), then K's and V's
-// (B x key blocks x chunks each); each a hi part and a lo part.
+// Pieces of the split pass of a launch of p.B samples: Q's (B x row blocks
+// x chunks), then K's and V's (B x key blocks x chunks each); each a hi part
+// and a lo part.
 long long long_pieces(const LongPlan& p) {
   const long long blocks_k = (p.S + kLongKeys - 1) / kLongKeys;
   return static_cast<long long>(long_chunks(p.D)) * p.B * (p.row_blocks + 2 * blocks_k);
 }
 
-// Floats of the workspace: the split pieces; then, for more than one
-// split, each split's unnormalised output rows, each row's maximum, its sum.
+// Floats of the workspace of a launch of p.B samples: the split pieces;
+// then, for more than one split, each split's unnormalised output rows,
+// each row's maximum, its sum.
 long long long_workspace(const LongPlan& p) {
   const long long partials =
       p.splits == 1 ? 0 : static_cast<long long>(p.splits) * p.B * p.T * (p.D + 2);
@@ -537,13 +578,22 @@ long long long_workspace(const LongPlan& p) {
 }
 
 bool long_plan_ok(const LongPlan& p) {
-  if (p.B < 1 || p.B > 65535 || p.T < 1 || p.S <= kMaxKeys) return false;
-  if (p.D < 8 || p.D % 8 != 0 || p.D > kLongMaxD) return false;
+  if (p.B < 1 || p.T < 1 || p.S < 1) return false;
+  if (p.D < 8 || p.D % 8 != 0) return false;
+  if (p.d_scale < 1 || p.d_scale > p.D || p.d_scale <= p.D - 8) return false;
   if (p.key_block != kLongKeys || p.row_blocks != (p.T + kLongRows - 1) / kLongRows) return false;
-  if (p.splits < 1 || p.splits > (p.S + kLongKeys - 1) / kLongKeys || p.splits > 65535)
+  if (p.slices != long_slices(p.D) ||
+      static_cast<long long>(p.row_blocks) * p.slices > 0x7fffffffLL)
     return false;
+  if (p.splits < 1 || p.splits > (p.S + kLongKeys - 1) / kLongKeys || p.splits > kMaxGridB)
+    return false;
+  if (p.batch < 1 || p.batch > p.B || p.batch > kMaxGridB) return false;
   if (static_cast<size_t>(p.smem) != long_smem_bytes(p.D) || p.smem > kMaxSmem) return false;
-  return long_workspace(p) == p.workspace && p.workspace <= 0x7fffffff;
+  if (p.ws_hi < 0 || p.ws_lo < 0 || p.ws_lo >= (1 << 30)) return false;
+  LongPlan launch = p;
+  launch.B = p.batch;
+  return long_pieces(launch) <= 0x7fffffffLL &&
+         long_workspace(launch) == (static_cast<long long>(p.ws_hi) << 30) + p.ws_lo;
 }
 
 // Key blocks sample b walks: none at or past a length >= 1 (they weigh
@@ -743,11 +793,15 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(add));
 }
 
-// Grid (row blocks, splits, B).  Block (r, split, b): query rows 64 r ... of
-// sample b over the split-th share of the key blocks the sample walks; with
-// one split it writes the output, else its rows' m, l and unnormalised O.
-// Shared memory: Q's parts (chunk c: hi at 2c, lo at 2c + 1 parts), three
-// slots of a K or V piece's parts, the mbarriers.
+// Grid (row blocks x slices, splits, B).  Block (r + row_blocks z, split,
+// b): query rows 64 r ... of sample b, output columns 256 z ..., over the
+// split-th share of the key blocks the sample walks; with one split it
+// writes the output, else its rows' m, l and unnormalised O.  Shared memory
+// (kStreamed false, one slice): Q's parts (chunk c: hi at 2c, lo at 2c + 1
+// parts), three slots of a K or V piece's parts, the mbarriers.  kStreamed
+// (D past 256): three slots of a K piece's parts and then a Q piece's (or
+// a V piece's parts), the mbarriers.
+template <bool kStreamed>
 __global__ void __launch_bounds__(kLongThreads, 1)
 long_attention_kernel(const float* __restrict__ parts, const int* __restrict__ lengths,
                       float* __restrict__ out, float* __restrict__ ws, const LongPlan p) {
@@ -758,7 +812,12 @@ long_attention_kernel(const float* __restrict__ parts, const int* __restrict__ l
   // same in all lanes.
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
   const int g = lane >> 2, t4 = lane & 3;
-  const int rb = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
+  // One slice (D <= 256): the values below are constants the compiler
+  // folds, so that no slice arithmetic stays live at 255 registers (it cost
+  // the rows past 512 keys 3-9% on the card).
+  const int rb = kStreamed ? blockIdx.x % p.row_blocks : blockIdx.x;
+  const int z = kStreamed ? blockIdx.x / p.row_blocks : 0;
+  const int split = blockIdx.y, b = blockIdx.z;
   const int row0 = rb * kLongRows;
   const int length = lengths[b];
   const int walked = walked_blocks(length, S);
@@ -767,7 +826,7 @@ long_attention_kernel(const float* __restrict__ parts, const int* __restrict__ l
   const size_t ws_rows = static_cast<size_t>(p.splits) * p.B * T;
   const size_t part = (static_cast<size_t>(split) * p.B + b) * T;  // this split's rows
   if (kb0 == kb1) {  // no key block (more splits than blocks): m = -inf, l = 0, O unread
-    for (int r = tid; r < kLongRows && row0 + r < T; r += kLongThreads) {
+    for (int r = tid; z == 0 && r < kLongRows && row0 + r < T; r += kLongThreads) {
       ws[ws_rows * D + part + row0 + r] = -INFINITY;
       ws[ws_rows * (D + 1) + part + row0 + r] = 0.f;
     }
@@ -775,54 +834,68 @@ long_attention_kernel(const float* __restrict__ parts, const int* __restrict__ l
   }
 
   const int chunks = long_chunks(D), blocks_k = (S + kLongKeys - 1) / kLongKeys;
-  const uint32_t q_u = smem_u32(lsmem);                          // Q's parts
-  const uint32_t slots_u = q_u + 2 * chunks * kPartBytes;        // slot s at 2 s parts
-  const uint32_t bars_u = slots_u + 2 * kLongSlots * kPartBytes;  // Q's, then a slot's
+  const int c0 = z * kSliceChunks;                               // the slice's first chunk of O
+  const int nv = kStreamed ? min(kSliceChunks, chunks - c0) : chunks;  // and its chunks
+  constexpr uint32_t kSlotBytes = (kStreamed ? 4 : 2) * kPartBytes;
+  const uint32_t q_u = smem_u32(lsmem);                             // Q's parts
+  const uint32_t slots_u = q_u + (kStreamed ? 0 : 2 * chunks * kPartBytes);  // slot s
+  const uint32_t bars_u = slots_u + kLongSlots * kSlotBytes;        // Q's, then a slot's
   // The split pieces of this block's Q rows, and of sample b's K and V.
   const float* q_parts =
       parts + 2LL * kPart * chunks * (static_cast<long long>(b) * p.row_blocks + rb);
   const float* k_parts =
       parts + 2LL * kPart * chunks * (static_cast<long long>(p.B) * p.row_blocks + b * blocks_k);
   const float* v_parts = k_parts + 2LL * kPart * chunks * p.B * blocks_k;
-  const int pieces = (kb1 - kb0) * 2 * chunks;  // K then V chunks, a key block
-  // K or V piece j (of this block's walk) into slot j % 3 (thread 0).
+  const int per_block = chunks + nv;  // pieces a key block: K (and Q) chunks, the slice's V
+  const int pieces = (kb1 - kb0) * per_block;
+  // Piece j (of this block's walk) into slot j % 3 (thread 0).
   auto fetch = [&](int j) {
     if (j >= pieces) return;
-    const int r = j % (2 * chunks);
-    const float* src = (r < chunks ? k_parts : v_parts) +
-                       2LL * kPart * ((kb0 + j / (2 * chunks)) * chunks + r % chunks);
+    const int blk = kb0 + j / per_block, r = j % per_block;
+    const bool is_k = r < chunks;
+    const float* src =
+        is_k ? k_parts + 2LL * kPart * (blk * chunks + r)
+             : v_parts + 2LL * kPart * (static_cast<long long>(blk) * chunks + c0 + r - chunks);
     const uint32_t bar = bars_u + 8 * (1 + j % kLongSlots);
-    const uint32_t dst = slots_u + (j % kLongSlots) * 2 * kPartBytes;
-    mbarrier_expect(bar, 2 * kPartBytes);
+    const uint32_t dst = slots_u + (j % kLongSlots) * kSlotBytes;
+    mbarrier_expect(bar, (kStreamed && is_k ? 4 : 2) * kPartBytes);
     bulk_copy(dst, src, kPartBytes, bar);
     bulk_copy(dst + kPartBytes, src + kPart, kPartBytes, bar);
+    if (kStreamed && is_k) {  // Q's piece of the same columns
+      const float* qs = q_parts + 2LL * kPart * r;
+      bulk_copy(dst + 2 * kPartBytes, qs, kPartBytes, bar);
+      bulk_copy(dst + 3 * kPartBytes, qs + kPart, kPartBytes, bar);
+    }
   };
   if (tid == 0) {
     for (int i = 0; i <= kLongSlots; ++i) mbarrier_init(bars_u + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbarrier_expect(bars_u, 2 * chunks * kPartBytes);
-    for (int c = 0; c < 2 * chunks; ++c)
-      bulk_copy(q_u + c * kPartBytes, q_parts + static_cast<size_t>(c) * kPart, kPartBytes, bars_u);
+    if (!kStreamed) {
+      mbarrier_expect(bars_u, 2 * chunks * kPartBytes);
+      for (int c = 0; c < 2 * chunks; ++c)
+        bulk_copy(q_u + c * kPartBytes, q_parts + static_cast<size_t>(c) * kPart, kPartBytes,
+                  bars_u);
+    }
     fetch(0);
     fetch(1);
   }
   __syncthreads();  // the barriers initialised
-  mbarrier_wait(bars_u, 0);
+  if (!kStreamed) mbarrier_wait(bars_u, 0);
 
-  float o[kLongMaxChunks][32];  // unnormalised output, chunk c: columns 64 c ...
+  float o[kSliceChunks][32];  // unnormalised output, chunk c: columns 64 (c0 + c) ...
 #pragma unroll
-  for (int c = 0; c < kLongMaxChunks; ++c)
+  for (int c = 0; c < kSliceChunks; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8: the maximum so far
   float l_run[2] = {0.f, 0.f};              // and this thread's share of sum exp(s - m)
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale = 1.f / sqrtf(static_cast<float>(p.d_scale));
   int j = 0;  // the piece in use
   // Wait for piece j, then (thread 0, once the products are issued) fetch
   // piece j + 2 into the slot piece j - 1 left: every warp waited for those
   // products and passed the barrier that ends each piece.
   auto arrive = [&]() { mbarrier_wait(bars_u + 8 * (1 + j % kLongSlots), (j / kLongSlots) & 1); };
-  auto slot_of = [&]() { return slots_u + (j % kLongSlots) * 2 * kPartBytes; };
+  auto slot_of = [&]() { return slots_u + (j % kLongSlots) * kSlotBytes; };
   auto next_piece = [&]() {
     __syncthreads();
     ++j;
@@ -830,31 +903,37 @@ long_attention_kernel(const float* __restrict__ parts, const int* __restrict__ l
   for (int blk = kb0; blk < kb1; ++blk) {
     // ---- scores of 64 rows x 64 keys, a fresh 3xTF32 sum a chunk of D
     float s[32];
+    auto scores_chunk = [&](int c) {
+      arrive();
+      const uint32_t b_hi = slot_of(), b_lo = b_hi + kPartBytes;
+      const uint32_t a_hi = kStreamed ? b_hi + 2 * kPartBytes : q_u + 2 * c * kPartBytes;
+      const uint32_t a_lo = a_hi + kPartBytes;
+      float fresh[32];
 #pragma unroll
-    for (int c = 0; c < kLongMaxChunks; ++c) {
-      if (c < chunks) {
-        arrive();
-        const uint32_t b_hi = slot_of(), b_lo = b_hi + kPartBytes;
-        const uint32_t a_hi = q_u + 2 * c * kPartBytes, a_lo = a_hi + kPartBytes;
-        float fresh[32];
+      for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
+      wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < kLongChunk / 8; ++ks) {
-          const uint32_t o_k = ks * kKStep * 4;
-          wgmma_ss_n64(fresh, core_desc(a_lo + o_k), core_desc(b_hi + o_k), ks > 0);
-          wgmma_ss_n64(fresh, core_desc(a_hi + o_k), core_desc(b_lo + o_k), 1);
-          wgmma_ss_n64(fresh, core_desc(a_hi + o_k), core_desc(b_hi + o_k), 1);
-        }
-        wgmma_commit();
-        if (tid == 0) fetch(j + 2);
-        wgmma_wait0();
-        pin(fresh);
-#pragma unroll
-        for (int i = 0; i < 32; ++i) s[i] = c == 0 ? fresh[i] : s[i] + fresh[i];
-        next_piece();
+      for (int ks = 0; ks < kLongChunk / 8; ++ks) {
+        const uint32_t o_k = ks * kKStep * 4;
+        wgmma_ss_n64(fresh, core_desc(a_lo + o_k), core_desc(b_hi + o_k), ks > 0);
+        wgmma_ss_n64(fresh, core_desc(a_hi + o_k), core_desc(b_lo + o_k), 1);
+        wgmma_ss_n64(fresh, core_desc(a_hi + o_k), core_desc(b_hi + o_k), 1);
       }
+      wgmma_commit();
+      if (tid == 0) fetch(j + 2);
+      wgmma_wait0();
+      pin(fresh);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = c == 0 ? fresh[i] : s[i] + fresh[i];
+      next_piece();
+    };
+    if (kStreamed) {
+#pragma unroll 1
+      for (int c = 0; c < chunks; ++c) scores_chunk(c);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kSliceChunks; ++c)
+        if (c < chunks) scores_chunk(c);
     }
     // ---- online softmax in registers: scale, mask, rescale to the new max
     const int key0 = blk * kLongKeys + 2 * t4;
@@ -890,15 +969,16 @@ long_attention_kernel(const float* __restrict__ parts, const int* __restrict__ l
     }
     if (alpha[0] != 1.f || alpha[1] != 1.f) {
 #pragma unroll
-      for (int c = 0; c < kLongMaxChunks; ++c)
+      for (int c = 0; c < kSliceChunks; ++c)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
     }
-    // ---- O += P.V, a fresh 3xTF32 sum a half of a chunk (32 columns: the
-    // output, P and a 64-column sum would leave too few registers)
+    // ---- O += P.V over the slice's chunks, a fresh 3xTF32 sum a half of a
+    // chunk (32 columns: the output, P and a 64-column sum would leave too
+    // few registers)
 #pragma unroll
-    for (int c = 0; c < kLongMaxChunks; ++c) {
-      if (c < chunks) {
+    for (int c = 0; c < kSliceChunks; ++c) {
+      if (c < nv) {
         arrive();
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -934,11 +1014,11 @@ long_attention_kernel(const float* __restrict__ parts, const int* __restrict__ l
   }
   const int r0 = row0 + 16 * warp + g;
 #pragma unroll
-  for (int c = 0; c < kLongMaxChunks; ++c) {
-    if (c < chunks) {
+  for (int c = 0; c < kSliceChunks; ++c) {
+    if (c < nv) {
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
-        const int col = c * kLongChunk + 8 * n + 2 * t4;
+        const int col = (c0 + c) * kLongChunk + 8 * n + 2 * t4;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = r0 + 8 * h;
@@ -954,7 +1034,7 @@ long_attention_kernel(const float* __restrict__ parts, const int* __restrict__ l
       }
     }
   }
-  if (p.splits > 1 && t4 == 0) {
+  if (p.splits > 1 && t4 == 0 && z == 0) {  // the same m and l in every slice
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
@@ -971,21 +1051,22 @@ long_attention_kernel(const float* __restrict__ parts, const int* __restrict__ l
 // split with m_i = -inf walked no key block and its O_i is not read.  A
 // thread: 4 columns of one of the B T rows.
 __global__ void __launch_bounds__(256)
-combine_splits_kernel(const float* __restrict__ ws, float* __restrict__ out, int rows, int D,
-                      int splits) {
-  const int per_row = D / 4, rows_block = 256 / per_row;
-  const int r = threadIdx.x / per_row, c4 = threadIdx.x % per_row;
-  const int row = blockIdx.x * rows_block + r;
-  if (r >= rows_block || row >= rows) return;
+combine_splits_kernel(const float* __restrict__ ws, float* __restrict__ out, long long rows,
+                      int D, int splits) {
+  const int per_row = D / 4;
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= rows * per_row) return;
+  const long long row = i / per_row;
+  const int c4 = static_cast<int>(i - row * per_row);
   const size_t all = static_cast<size_t>(splits) * rows;
   const float* ws_m = ws + all * D;
   const float* ws_l = ws_m + all;
   float mx = -INFINITY;
-  for (int i = 0; i < splits; ++i) mx = fmaxf(mx, ws_m[static_cast<size_t>(i) * rows + row]);
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ws_m[static_cast<size_t>(s) * rows + row]);
   float l = 0.f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = 0; i < splits; ++i) {
-    const size_t at = static_cast<size_t>(i) * rows + row;
+  for (int s = 0; s < splits; ++s) {
+    const size_t at = static_cast<size_t>(s) * rows + row;
     const float m = ws_m[at];
     if (m == -INFINITY) continue;
     const float w = expf(m - mx);
@@ -998,25 +1079,36 @@ combine_splits_kernel(const float* __restrict__ ws, float* __restrict__ out, int
 }
 
 // The split pass, the attention, and for more than one split the combine,
-// on `stream`.  The workspace: the split pieces, then the partials.
+// on `stream`, for each chunk of `batch` samples in turn.  The workspace:
+// the split pieces, then the partials, of one chunk (the chunks reuse it).
 cudaError_t launch_long(const LongPlan& p, const float* q, const float* k, const float* v,
                         const int* lengths, float* out, float* ws, cudaStream_t stream) {
-  const long long pieces = long_pieces(p);
-  split_pieces_kernel<<<static_cast<unsigned>(pieces), 256, 0, stream>>>(q, k, v, lengths, ws, p);
-  cudaError_t err = cudaGetLastError();
+  const auto kernel = p.slices > 1 ? long_attention_kernel<true> : long_attention_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  float* partials = ws + 2LL * kPart * pieces;
-  err = cudaFuncSetAttribute(long_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             p.smem);
-  if (err != cudaSuccess) return err;
-  long_attention_kernel<<<dim3(p.row_blocks, p.splits, p.B), kLongThreads, p.smem, stream>>>(
-      ws, lengths, out, partials, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || p.splits == 1) return err;
-  const int rows = p.B * p.T, rows_block = 256 / (p.D / 4);
-  combine_splits_kernel<<<(rows + rows_block - 1) / rows_block, 256, 0, stream>>>(
-      partials, out, rows, p.D, p.splits);
-  return cudaGetLastError();
+  for (int b0 = 0; b0 < p.B; b0 += p.batch) {
+    LongPlan c = p;
+    c.B = min(p.batch, p.B - b0);
+    const size_t qo = static_cast<size_t>(b0) * p.T * p.D, ko = static_cast<size_t>(b0) * p.S * p.D;
+    const long long pieces = long_pieces(c);
+    split_pieces_kernel<<<static_cast<unsigned>(pieces), 256, 0, stream>>>(
+        q + qo, k + ko, v + ko, lengths + b0, ws, c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    float* partials = ws + 2LL * kPart * pieces;
+    kernel<<<dim3(c.row_blocks * c.slices, c.splits, c.B), kLongThreads, c.smem, stream>>>(
+        ws, lengths + b0, out + qo, partials, c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    if (c.splits == 1) continue;
+    const long long rows = static_cast<long long>(c.B) * c.T;
+    combine_splits_kernel<<<static_cast<unsigned>((rows * (c.D / 4) + 255) / 256), 256, 0,
+                            stream>>>(partials, out + qo, rows, c.D, c.splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1031,7 +1123,7 @@ int vcagan_masked_attention(const float* q, const float* k, const float* v, cons
                             float* out, const int* plan, int plan_len, int device, void* stream) {
   if (plan_len != kPlanInts) return static_cast<int>(cudaErrorInvalidValue);
   const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4],
-               plan[5], plan[6], plan[7], plan[8]};
+               plan[5], plan[6], plan[7], plan[8], plan[9]};
   if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1041,16 +1133,17 @@ int vcagan_masked_attention(const float* q, const float* k, const float* v, cons
   return static_cast<int>(err);
 }
 
-// Past 512 keys: launches the split pass, the attention and, for more than
-// one split, the combine on `stream`.  `plan`: the ints of vcagan_torch/
-// kernels/masked_attention.py::LongAttentionPlan.ints(); `workspace`: that
-// plan's workspace floats, 16-byte aligned.
+// Past 512 keys (or at S <= 512 where no strip fits): launches the split
+// pass, the attention and, for more than one split, the combine on
+// `stream`, for each chunk of the plan's `batch` samples.  `plan`: the ints
+// of vcagan_torch/kernels/masked_attention.py::LongAttentionPlan.ints();
+// `workspace`: that plan's workspace floats, 16-byte aligned.
 int vcagan_masked_attention_long(const float* q, const float* k, const float* v,
                                  const int* lengths, float* out, float* workspace,
                                  const int* plan, int plan_len, int device, void* stream) {
   if (plan_len != kLongPlanInts) return static_cast<int>(cudaErrorInvalidValue);
-  const LongPlan p{plan[0], plan[1], plan[2], plan[3], plan[4],
-                   plan[5], plan[6], plan[7], plan[8]};
+  const LongPlan p{plan[0], plan[1], plan[2], plan[3], plan[4],  plan[5], plan[6],
+                   plan[7], plan[8], plan[9], plan[10], plan[11], plan[12]};
   if (!long_plan_ok(p) || workspace == nullptr || reinterpret_cast<uintptr_t>(workspace) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);

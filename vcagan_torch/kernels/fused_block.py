@@ -26,6 +26,12 @@ tensor cores read it from shared memory, and ``plan_fused_block`` chooses
 the tile (rows or whole images a block, warps along the pixels, the ring of
 weight stages) and its shared-memory size.  The plan goes to the C entry
 point as plain ints, which refuses one that does not fit.
+
+The kernel takes C a multiple of 64, the widths of both packages' ResNet
+trunks (64, 128, 256, 512, whatever ``stem_channels`` is), and any N: where
+N*H*W*C passes 2^31 - 1 (the kernel's offsets are 32-bit) the C entry point
+launches chunks of images one after another; a call is one count in
+``LAUNCHES`` however many chunks it takes.
 """
 
 from __future__ import annotations
@@ -344,7 +350,9 @@ def fused_block_cuda(x, w1_packed, b1, a1, w2_packed, b2, a2, plan=None) -> torc
     for ``x.dtype`` by ``pack_weights``.  ``plan`` (for timing tilings) takes
     the place of ``plan_fused_block``'s.  Raises on any input the kernel does
     not take, on a plan that is not of this problem and on a launch error.
-    Forward only: it raises where autograd would need its result's gradient."""
+    Forward only: it raises where autograd would need its result's gradient.
+    N*H*W*C past 2^31 - 1 goes in chunks of images (the C entry point's),
+    one count in ``LAUNCHES``."""
     global LAUNCHES
     refuse_grad("fused_block", x=x, w1_packed=w1_packed, b1=b1, a1=a1, w2_packed=w2_packed,
                 b2=b2, a2=a2)
@@ -359,8 +367,6 @@ def fused_block_cuda(x, w1_packed, b1, a1, w2_packed, b2, a2, plan=None) -> torc
         plan = plan_fused_block(n, h, w, c, x.dtype)  # raises on shapes the kernel does not take
     elif (plan.n, plan.h, plan.w, plan.c, plan.itemsize) != (n, h, w, c, x.element_size()):
         raise ValueError(f"{plan} is not a plan for {x.dtype} {(n, h, w, c)}")
-    if n * h * w * c >= 2**31:
-        raise ValueError(f"N*H*W*C must stay below 2^31, got {n * h * w * c}")
     packed = (9 * c * c * (1 if x.dtype == torch.bfloat16 else 2),)
     shapes = {"w1_packed": packed, "w2_packed": packed, "b1": (c,), "a1": (c,), "b2": (c,),
               "a2": (c,)}

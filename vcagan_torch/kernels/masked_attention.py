@@ -20,16 +20,23 @@ does with ``_attention_xla`` (``vcagan/kernels/masked_attention.py:173-191``).
 
 The plan (``attention_plan``) is chosen here, where the CPU tests reach
 it, and goes to the C entry point as plain ints, which refuses one that
-does not match.  The kernel takes D a multiple of 8 and any S >= 1.  Up to
-``S_MAX`` keys (the strip instance, ``AttentionPlan``: warps a block, key
-tile, D chunk, shared memory, grid) all keys stand in one score strip a
-tile, on ``mma.sync``.  Past it (``LongAttentionPlan``, D <= 256) a first
-launch splits Q, K and V once into their TF32 parts; then a block is one
-warpgroup's 64 query rows on ``wgmma`` over one split's share of the key
-blocks of ``KEY_BLOCK`` keys that hold a key below the sample's length,
-with an online softmax; the splits fill the card and a third launch
-combines them (``masked_attention_reference_3xtf32(..., key_block=,
-key_splits=)`` is that arithmetic in plain PyTorch).  Other shapes raise.
+does not match.  The kernels compute with D a multiple of 8 (``kernel_d``);
+``padded_attention`` gives them any other D padded with zero columns, and
+the plan carries the true D for the scale.  Up to ``S_MAX`` keys, where it
+fits shared memory (the strip instance, ``AttentionPlan``: warps a block,
+key tile, D chunk, shared memory, grid), all keys stand in one score strip
+a tile, on ``mma.sync``.  Past it, and for the shapes no strip fits
+(``LongAttentionPlan``), a first launch splits Q, K and V once into their
+TF32 parts; then a block is one warpgroup's 64 query rows and 256 output
+columns (D past 256 takes column slices, each computing the scores again)
+on ``wgmma`` over one split's share of the key blocks of ``KEY_BLOCK`` keys
+that hold a key below the sample's length, with an online softmax; the
+splits fill the card and a third launch combines them
+(``masked_attention_reference_3xtf32(..., key_block=, key_splits=)`` is
+that arithmetic in plain PyTorch).  Both instances take any B: the entry
+points launch chunks of at most 65535 samples (and, past ``S_MAX`` keys,
+of a workspace under 2^31 floats) one after another.  Only S = 0 (no key)
+and T = 0 (``masked_attention_cuda`` returns the empty output) have no plan.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from vcagan_torch.kernels import _build, refuse_grad
 from vcagan_torch.kernels._tf32 import split_tf32
@@ -51,6 +59,7 @@ NEG_INF = -1e30  # mask value; not -inf, so an all-masked row stays finite
 LAUNCHES = 0
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
+MAX_GRID_B = 65535  # samples a launch: the grid's y (strip) and z (past S_MAX) axes
 TILES = 4  # 16-row query tiles a block, at most
 SPLIT = 2  # warps a tile, each computing every other n-tile of a piece
 # (one warp where the D chunk is a single n-tile of 8 columns)
@@ -59,18 +68,21 @@ KEY_TILE = 32  # keys of one streamed K or V piece
 N_TILE = 8  # keys (QK^T) or columns (PV) of one tensor-core product
 D_CHUNKS = (64, 8)  # the D chunk: 64 where it divides D (the model's 256), else 8
 S_MAX = 512  # keys of the one-strip plan: the score strips of 4 tiles at D = 256 fit
-PLAN_INTS = 9
+PLAN_INTS = 10
 
 # Past S_MAX keys (``LongAttentionPlan``): a block is one warpgroup's 64 query
 # rows over a share of the key blocks, on wgmma.
 KEY_BLOCK = 64  # keys a key block: the N of Q K^T's wgmma
 LONG_ROWS = 64  # query rows a block: the wgmma tile's M
 LONG_CHUNK = 64  # D columns a piece of Q, K or V
-LONG_MAX_D = 256  # the output's sums stay in registers, 128 a thread
-LONG_SLOTS = 3  # K or V pieces in shared memory: in use, arrived, arriving
+SLICE_D = 256  # output columns a block: its sums stay in registers, 128 a thread
+LONG_SLOTS = 3  # pieces in shared memory: in use, arrived, arriving
 PART_FLOATS = KEY_BLOCK * LONG_CHUNK  # a piece's hi (or lo) part
 SMS = 132  # streaming multiprocessors of an H100 SXM
-LONG_PLAN_INTS = 9
+LONG_PLAN_INTS = 13
+# A launch's workspace, at most (8 GB): more samples go in chunks that reuse
+# it.  One sample may pass it (the C side's offsets are 64-bit).
+WORKSPACE_FLOATS = 2**31 - 1
 # The split model's costs (``LongAttentionPlan.cost_us``), fitted to the
 # kernel's times on an NVIDIA H100 80GB HBM3 at 700 W (``python3 -m
 # vcagan_torch.kernels.tune_attention``): a block's time a key block, its
@@ -81,7 +93,7 @@ COMBINE_BYTES_PER_US = 2.5e6
 
 
 def masked_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
 ) -> torch.Tensor:
     """Plain version: (B,T,D), (B,S,D), (B,S,D), (B,) -> (B,T,D)."""
     scores = torch.einsum("btd,bsd->bts", q, k) / math.sqrt(q.shape[-1])
@@ -174,6 +186,30 @@ def masked_attention_reference_3xtf32(
     return torch.cat(out)
 
 
+# ---- D padded to the kernels' multiple of 8
+
+
+def kernel_d(d: int) -> int:
+    """The D the kernels compute with: D rounded up to a multiple of
+    ``N_TILE`` (8), at least 8."""
+    return max(N_TILE, -(-d // N_TILE) * N_TILE)
+
+
+def padded_attention(q, k, v, lengths, attend):
+    """``attend(q', k', v', lengths)`` on q, k and v with D padded with
+    zero columns to ``kernel_d(D)``; the first D columns of its output.
+    Zero columns add nothing to q k^T and give zero output columns, so the
+    result is the unpadded one where ``attend`` scales the scores by the
+    true D (the plans carry it).  Where D needs no padding, ``attend`` gets
+    the tensors themselves."""
+    d = q.shape[-1]
+    pad = kernel_d(d) - d
+    if not pad:
+        return attend(q, k, v, lengths)
+    out = attend(*(F.pad(x, (0, pad)) for x in (q, k, v)), lengths)
+    return out[..., :d].contiguous()
+
+
 # ---- the tile plan
 
 
@@ -193,7 +229,8 @@ class AttentionPlan:
     Row strides in floats (``*_stride``) are padded so that the rows of a
     tensor-core fragment fall on different shared-memory banks.  ``split``
     and ``key_tile`` are fixed by the kernel (its D-chunk instance and a
-    constant), not chosen."""
+    constant), not chosen.  ``d`` is the true D; the kernel computes with
+    ``d_kernel`` (``kernel_d``), whose padded columns are zeros."""
 
     t: int
     s: int
@@ -205,6 +242,10 @@ class AttentionPlan:
     @property
     def key_block(self) -> int:
         return 0
+
+    @property
+    def d_kernel(self) -> int:
+        return kernel_d(self.d)
 
     @property
     def split(self) -> int:
@@ -220,7 +261,7 @@ class AttentionPlan:
 
     @property
     def q_stride(self) -> int:
-        return self.d + 4  # 4 (mod 8): A fragments read rows g, cols t
+        return self.d_kernel + 4  # 4 (mod 8): A fragments read rows g, cols t
 
     @property
     def p_stride(self) -> int:
@@ -252,9 +293,11 @@ class AttentionPlan:
                 f"D chunk {self.d_chunk}")
 
     def ints(self, b: int) -> list[int]:
-        """What the C entry point takes, in its order."""
-        return [b, self.t, self.s, self.d, self.warps, self.d_chunk, self.row_tiles,
-                self.key_block, self.smem_bytes]
+        """What the C entry point takes, in its order: B (any: the entry
+        point launches chunks of ``MAX_GRID_B`` samples), T, S, the kernel's
+        D and the true D, then the tiling."""
+        return [b, self.t, self.s, self.d_kernel, self.d, self.warps, self.d_chunk,
+                self.row_tiles, self.key_block, self.smem_bytes]
 
 
 def key_ranges(s: int, length: int, key_block: int, splits: int) -> list[tuple[int, int]]:
@@ -274,29 +317,48 @@ def key_ranges(s: int, length: int, key_block: int, splits: int) -> list[tuple[i
 
 @dataclasses.dataclass(frozen=True)
 class LongAttentionPlan:
-    """One call past ``S_MAX`` keys.  A first launch splits Q, K and V
-    once into their TF32 parts, in ``pieces`` pieces of 64 rows x
-    ``LONG_CHUNK`` columns laid out as wgmma reads them.  The attention's
-    grid is (``row_blocks``, ``splits``, B): a block is one warpgroup, 64
-    query rows of one sample over one split's share of its key blocks
-    (``key_ranges``), the pieces brought by bulk copies.  With one split the
-    blocks write the output; with more, each writes its rows' maximum m,
-    sum l and unnormalised output O and a third launch combines them.  The
-    workspace (``workspace_floats`` fp32 values) holds the pieces, then
-    those partials.  Shared memory holds Q's parts (D padded to
-    ``LONG_CHUNK``), ``LONG_SLOTS`` slots of a K or V piece's parts and an
-    mbarrier each (``smem_bytes``; the formula of ``long_smem_bytes`` in the
-    CUDA source)."""
+    """One call past ``S_MAX`` keys (or at fewer, where no strip fits).  A
+    first launch splits Q, K and V once into their TF32 parts, in
+    ``pieces`` pieces of 64 rows x ``LONG_CHUNK`` columns laid out as wgmma
+    reads them.  The attention's grid is (``row_blocks`` x ``slices``,
+    ``splits``, samples): a block is one warpgroup, 64 query rows of one
+    sample and ``SLICE_D`` output columns (its slice; D past it takes more
+    slices, each computing the scores again) over one split's share of its
+    key blocks (``key_ranges``), the pieces brought by bulk copies.  With one
+    split the blocks write the output; with more, each writes its rows'
+    maximum m, sum l and unnormalised output O and a third launch combines
+    them.  The workspace (``workspace_floats`` fp32 values) holds the
+    pieces, then those partials, of one launch of ``launch_b`` samples:
+    ``b`` samples go in ``launches`` such launches, one after another.
+    Shared memory holds Q's parts (D padded to ``LONG_CHUNK``; past
+    ``SLICE_D`` Q streams with K instead), ``LONG_SLOTS`` slots of a piece's
+    parts and an mbarrier each (``smem_bytes``; the formula of
+    ``long_smem_bytes`` in the CUDA source).  ``d`` is the true D; the
+    kernel computes with ``d_kernel`` (``kernel_d``).  ``batch``: samples a
+    launch, 0 for all of them up to ``MAX_GRID_B``."""
 
     t: int
     s: int
     d: int
     b: int
     splits: int
+    batch: int = 0
 
     @property
     def key_block(self) -> int:
         return KEY_BLOCK
+
+    @property
+    def d_kernel(self) -> int:
+        return kernel_d(self.d)
+
+    @property
+    def launch_b(self) -> int:
+        return self.batch or min(self.b, MAX_GRID_B)
+
+    @property
+    def launches(self) -> int:
+        return -(-self.b // self.launch_b)
 
     @property
     def row_blocks(self) -> int:
@@ -307,25 +369,34 @@ class LongAttentionPlan:
         return -(-self.s // KEY_BLOCK)
 
     @property
-    def blocks(self) -> int:
-        return self.row_blocks * self.splits * self.b
+    def chunks(self) -> int:
+        return -(-self.d_kernel // LONG_CHUNK)
 
     @property
-    def chunks(self) -> int:
-        return -(-self.d // LONG_CHUNK)
+    def slices(self) -> int:
+        return -(-self.d_kernel // SLICE_D)
+
+    @property
+    def blocks(self) -> int:
+        """Blocks of one launch."""
+        return self.row_blocks * self.slices * self.splits * self.launch_b
 
     @property
     def smem_bytes(self) -> int:
+        if self.slices > 1:  # a slot holds a K piece's parts and a Q piece's
+            return LONG_SLOTS * 4 * 4 * PART_FLOATS + 8 * (LONG_SLOTS + 1)
         return (2 * self.chunks + 2 * LONG_SLOTS) * 4 * PART_FLOATS + 8 * (LONG_SLOTS + 1)
 
     @property
     def pieces(self) -> int:
-        """Pieces of the split pass: Q's, then K's and V's."""
-        return self.chunks * self.b * (self.row_blocks + 2 * self.key_blocks_all)
+        """Pieces of one launch's split pass: Q's, then K's and V's."""
+        return self.chunks * self.launch_b * (self.row_blocks + 2 * self.key_blocks_all)
 
     @property
     def partial_floats(self) -> int:
-        return 0 if self.splits == 1 else self.splits * self.b * self.t * (self.d + 2)
+        if self.splits == 1:
+            return 0
+        return self.splits * self.launch_b * self.t * (self.d_kernel + 2)
 
     @property
     def workspace_floats(self) -> int:
@@ -340,70 +411,83 @@ class LongAttentionPlan:
 
     def cost_us(self) -> float:
         """The split model: waves of blocks a key-block share long each,
-        plus the combine's bytes (each split's O read, the output written)."""
+        plus the combine's bytes (each split's O read, the output written),
+        a launch; a key block's time grows with the pieces it takes past
+        the 4 + 4 of D = 256 (the scores over all of D, the slice's V)."""
         waves = -(-self.blocks // SMS)
         share = -(-self.key_blocks_all // self.splits)
+        work = max(1.0, (self.chunks + self.chunks / self.slices) / 8)
         combine = 0.0
         if self.splits > 1:
-            combine = (self.splits + 1) * self.b * self.t * self.d * 4 / COMBINE_BYTES_PER_US
-        return waves * (share * KEY_BLOCK_US + BLOCK_US) + combine
+            combine = ((self.splits + 1) * self.launch_b * self.t * self.d_kernel * 4
+                       / COMBINE_BYTES_PER_US)
+        return self.launches * (waves * (share * KEY_BLOCK_US * work + BLOCK_US) + combine)
 
     def describe(self) -> str:
-        return (f"{self.row_blocks} x {self.splits} x {self.b} = {self.blocks} blocks of "
-                f"{LONG_ROWS} rows, {self.splits} key split(s) over {self.key_blocks_all} key "
-                f"blocks of {KEY_BLOCK}, {self.smem_bytes} B shared, workspace "
-                f"{self.workspace_floats * 4 / 1e6:.2f} MB ({self.pieces} split pieces, "
-                f"{self.partial_floats * 4 / 1e6:.2f} MB of partials)")
+        launches = f"{self.launches} launches of {self.launch_b} samples, " if (
+            self.launches > 1) else ""
+        slices = f" x {self.slices} column slices" if self.slices > 1 else ""
+        return (f"{launches}{self.row_blocks}{slices} x {self.splits} x {self.launch_b} = "
+                f"{self.blocks} blocks of {LONG_ROWS} rows, {self.splits} key split(s) over "
+                f"{self.key_blocks_all} key blocks of {KEY_BLOCK}, {self.smem_bytes} B shared, "
+                f"workspace {self.workspace_floats * 4 / 1e6:.2f} MB ({self.pieces} split "
+                f"pieces, {self.partial_floats * 4 / 1e6:.2f} MB of partials)")
 
     def ints(self) -> list[int]:
-        """What the C entry point past ``S_MAX`` keys takes, in its order."""
-        return [self.b, self.t, self.s, self.d, self.row_blocks, self.splits, KEY_BLOCK,
-                self.smem_bytes, self.workspace_floats]
+        """What the C entry point past ``S_MAX`` keys takes, in its order:
+        B, T, S, the kernel's D, the true D, the grid, shared bytes, samples
+        a launch and the workspace floats as two ints (high, low 30 bits)."""
+        ws = self.workspace_floats
+        return [self.b, self.t, self.s, self.d_kernel, self.d, self.row_blocks, self.splits,
+                self.slices, KEY_BLOCK, self.smem_bytes, self.launch_b, ws >> 30,
+                ws & (2**30 - 1)]
 
 
 def _long_plan(t: int, s: int, d: int, b: int) -> LongAttentionPlan:
     """The split count of least modelled time (``cost_us``); ties to fewer.
     A block takes 229 KB of shared memory, so an SM runs one at a time and
     a wave past the first costs a whole share: (4, 750, 750) runs 96
-    blocks of 6 key blocks (one wave) faster than 192 of 3 (two)."""
-    if d > LONG_MAX_D:
-        raise ValueError(f"past {S_MAX} keys the attention kernel takes D <= {LONG_MAX_D}, "
-                         f"got D={d}")
-    plans = [LongAttentionPlan(t, s, d, b, n) for n in range(1, -(-s // KEY_BLOCK) + 1)]
-    plans = [p for p in plans if p.workspace_floats < 2**31]
-    if not plans:
-        raise ValueError(f"past {S_MAX} keys the attention's workspace for B={b} T={t} S={s} "
-                         f"D={d} passes 2**31 floats")
+    blocks of 6 key blocks (one wave) faster than 192 of 3 (two).  Where a
+    launch's workspace passes ``WORKSPACE_FLOATS``, the samples go in
+    chunks that keep it below (one sample at least)."""
+    plans = []
+    for n in range(1, min(-(-s // KEY_BLOCK), MAX_GRID_B) + 1):
+        plan = LongAttentionPlan(t, s, d, b, n)
+        if plan.workspace_floats > WORKSPACE_FLOATS:
+            per_sample = plan.workspace_floats // plan.launch_b
+            plan = dataclasses.replace(plan, batch=max(1, WORKSPACE_FLOATS // per_sample))
+            if n > 1 and plan.workspace_floats > WORKSPACE_FLOATS:
+                continue  # one sample's partials alone pass it: fewer splits do
+        plans.append(plan)
     return min(plans, key=lambda p: (p.cost_us(), p.splits))
 
 
 @functools.lru_cache(maxsize=256)
 def attention_plan(t: int, s: int, d: int, b: int = 1) -> AttentionPlan | LongAttentionPlan:
-    """The plan for q (b,t,d), k and v (b,s,d); raises for a shape the kernel
-    does not take.  Up to ``S_MAX`` keys one strip a tile (``b`` plays no
-    part), past it a ``LongAttentionPlan``.  The 16-row tiles are spread
-    evenly over the blocks (75 rows: 2 blocks of 3 tiles, not 4 + 1); a
-    plan over the shared-memory budget takes fewer tiles a block."""
-    if d < N_TILE or d % N_TILE:
-        raise ValueError(f"the attention kernel takes D a multiple of {N_TILE}, got D={d}")
+    """The plan for q (b,t,d), k and v (b,s,d), any D >= 1 and B; raises
+    for S or T < 1.  Up to ``S_MAX`` keys one strip a tile (``b`` plays no
+    part) where it fits shared memory, else (and past ``S_MAX``) a
+    ``LongAttentionPlan``.  The 16-row tiles are spread evenly over the
+    blocks (75 rows: 2 blocks of 3 tiles, not 4 + 1); a strip over the
+    shared-memory budget takes fewer tiles a block."""
+    if d < 1:
+        raise ValueError(f"the attention kernel takes D >= 1, got D={d}")
     if s < 1:
         raise ValueError(f"the attention kernel takes S >= 1 keys, got S={s}")
     if t < 1:
         raise ValueError(f"no plan for T={t} query rows")
     if s > S_MAX:
         return _long_plan(t, s, d, b)
-    d_chunk = next(c for c in D_CHUNKS if d % c == 0)
+    d_chunk = next(c for c in D_CHUNKS if kernel_d(d) % c == 0)
     split = _split(d_chunk)
     all_tiles = -(-t // ROWS)
     tiles = -(-all_tiles // -(-all_tiles // TILES))
-    while True:
+    while tiles:
         plan = AttentionPlan(t, s, d, tiles * split, d_chunk, -(-all_tiles // tiles))
         if plan.smem_bytes <= MAX_SMEM:
             return plan
-        if tiles == 1:
-            raise ValueError(f"the attention kernel does not fit D={d}, S={s}: "
-                             f"{plan.smem_bytes} bytes of shared memory, {MAX_SMEM} at most")
         tiles -= 1
+    return _long_plan(t, s, d, b)  # no strip fits (Q's rows at large D)
 
 
 # ---- the kernel
@@ -435,7 +519,11 @@ def masked_attention_cuda(
     raises where autograd would need one: ``masked_cross_attention`` is the
     differentiable entry.  Past ``S_MAX`` keys ``plan`` may name the split
     count (as a tuner does); by default ``attention_plan`` chooses it.  The
-    lengths stay on the device: the kernels read them."""
+    lengths stay on the device: the kernels read them.  D not a multiple of
+    8 goes through ``padded_attention`` (copies of q, k and v with zero
+    columns, and of the output's first D columns).  A call is one count in
+    ``LAUNCHES``, however many launches it takes: chunks of samples, and
+    past ``S_MAX`` keys the split pass and the combine."""
     global LAUNCHES
     refuse_grad("masked_attention", q=q, k=k, v=v)
     for name, x in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
@@ -457,32 +545,36 @@ def masked_attention_cuda(
             f"shapes do not match: q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} lengths {tuple(lengths.shape)}"
         )
-    if b > 65535:
-        raise ValueError(f"the kernel takes B <= 65535, got {b}")
-    out = torch.empty_like(q)
     if t == 0 or b == 0:
-        return out
+        return torch.empty_like(q)
     plan = plan or attention_plan(t, s, d, b)
+    if isinstance(plan, LongAttentionPlan) and (plan.b, plan.t, plan.s, plan.d) != (b, t, s, d):
+        raise ValueError(f"the plan {plan} is not for B={b} T={t} S={s} D={d}")
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr())
-    if isinstance(plan, LongAttentionPlan):
-        if (plan.b, plan.t, plan.s, plan.d) != (b, t, s, d):
-            raise ValueError(f"the plan {plan} is not for B={b} T={t} S={s} D={d}")
-        ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=q.device)
-        ints = (ctypes.c_int * LONG_PLAN_INTS)(*plan.ints())
-        err = lib.vcagan_masked_attention_long(
-            *pointers, ws.data_ptr(), ctypes.addressof(ints), LONG_PLAN_INTS, q.device.index,
-            stream,
-        )
-    else:
-        ints = (ctypes.c_int * PLAN_INTS)(*plan.ints(b))
-        err = lib.vcagan_masked_attention(
-            *pointers, ctypes.addressof(ints), PLAN_INTS, q.device.index, stream,
-        )
-    if err != 0:
-        msg = lib.vcagan_cuda_error_string(err).decode()
-        raise RuntimeError(f"masked_attention kernel launch failed ({err}): {msg}")
+
+    def attend(q, k, v, lengths):
+        out = torch.empty_like(q)
+        pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                    out.data_ptr())
+        if isinstance(plan, LongAttentionPlan):
+            ws = torch.empty(plan.workspace_floats, dtype=torch.float32, device=q.device)
+            ints = (ctypes.c_int * LONG_PLAN_INTS)(*plan.ints())
+            err = lib.vcagan_masked_attention_long(
+                *pointers, ws.data_ptr(), ctypes.addressof(ints), LONG_PLAN_INTS,
+                q.device.index, stream,
+            )
+        else:
+            ints = (ctypes.c_int * PLAN_INTS)(*plan.ints(b))
+            err = lib.vcagan_masked_attention(
+                *pointers, ctypes.addressof(ints), PLAN_INTS, q.device.index, stream,
+            )
+        if err != 0:
+            msg = lib.vcagan_cuda_error_string(err).decode()
+            raise RuntimeError(f"masked_attention kernel launch failed ({err}): {msg}")
+        return out
+
+    out = padded_attention(q, k, v, lengths, attend)
     LAUNCHES += 1
     return out
 
