@@ -14,8 +14,10 @@ Phases, in order; any failure raises and exits non-zero:
      3xTF32, also against that arithmetic in plain PyTorch; the fused block
      in its bf16 form too; D = 100 and D = 264 past 512 keys, once
      refused, among the cases; the fused block's C = 16 and 48, which no
-     configuration gives it, must raise); time the fused block's kernel,
-     plain version and bf16 library convolutions;
+     configuration gives it, must raise); the attention's in-block instance
+     (up to 512 keys) at every such case, forced where the planner routes
+     a case elsewhere; time the fused block's kernel, plain version and
+     bf16 library convolutions;
   4. run the four serving paths (trained weights from
      data/soak_serving_q8.npz, B=2, T=75, 112x112) on the card and on the
      CPU with the same noise and Griffin-Lim phase, and compare: the
@@ -31,14 +33,18 @@ Phases, in order; any failure raises and exits non-zero:
      two attentions inside it, with CUDA events; on the bf16 paths, profile
      one forward and the stem alone with torch.profiler (device busy share,
      the kernels that take the most time);
-  6. time the attention kernel, its plain version and sdpa, the PyTorch
-     call that computes the same function, at the serving shapes (and at
-     the LRS shape and the GRID training shapes, printed only);
+  6. time the attention kernel (and each of its instances up to 512 keys:
+     the in-block one and the strip), its plain version and sdpa, the
+     PyTorch call that computes the same function, at the serving shapes
+     (and at the LRS shape and the GRID training shapes, printed only);
+     then one call of each instance under torch.profiler, its launches
+     checked (before the profiler sessions of phases 8-11);
   7. run ``python3 -m vcagan_torch.bench`` (bf16, both variants) and print
      its JSON line;
   8. training (``vcagan_torch.train``, fp32, TF32 off): (a) the attention's
      ``autograd.Function`` at the GRID training shapes with ragged lengths,
-     its forward and dq, dk, dv against the plain version and float64;
+     its forward and dq, dk, dv against the plain version and float64 (the
+     in-block instance's forward too, where the planner routes elsewhere);
      (b) one full-width step (B=2, 40 frames, 112x112, dropout 0) on the
      card against the same step on the CPU: losses, metrics, every
      module's gradient, the updates and the BatchNorm statistics;
@@ -68,8 +74,9 @@ Phases, in order; any failure raises and exits non-zero:
      windows, plain Adam, sync weight 0.5; its synthetic clips of 30-90
      frames): (a) the attention kernel at the LRS shapes with the real
      lengths of the first training batch and of the first validation
-     bucket, against its plain version and float64, timed beside sdpa and
-     its bound, and its autograd.Function's gradient at (16, 50, 50)
+     bucket, against its plain version, float64 and its own 3xTF32
+     arithmetic, timed beside each instance up to 512 keys, plain, sdpa
+     and its bound, and its autograd.Function's gradient at (16, 50, 50)
      against float64 with the masked key rows' gradients exactly 0; (b) the
      bf16 GRID step at B=2 on the card against the CPU (the CPU test's bf16
      bounds), all modules in bf16 and then the visual front in fp32, and
@@ -85,7 +92,8 @@ Phases, in order; any failure raises and exits non-zero:
      ``test_lrs.py``, and the ASR scorers): (a) the attention kernel at the
      GRID test shapes, B=100 x 75 frames, and at the LRS test bucket of
      160 frames, B=8 with the real lengths of such a batch, against its
-     plain version and float64, timed beside sdpa and its bound, and that
+     plain version, float64 and its 3xTF32 arithmetic, timed beside each
+     instance up to 512 keys, plain, sdpa and its bound, and that
      LRS batch through the flip-TTA eval forward, 4 attention launches
      asserted; (b) the
      GRID and LRS per-batch functions card against CPU on the trained
@@ -157,8 +165,10 @@ Phases, in order; any failure raises and exits non-zero:
      8) and S = 21, 75, 600, at D = 264, 512, 1024 (column slices of 256)
      and S = 600, 750 with lengths 0 and S among them, at (64, 512, 4096)
      (no strip fits) and at B = 70,000 (chunks of 65535 samples): one launch
-     counted each, against its plain version and float64, timed beside its
-     plain version, sdpa and the true shape's bound; (b) the fused block in
+     counted each, against its plain version and float64 (and the in-block
+     instance up to 512 keys, forced where the planner routes elsewhere),
+     timed beside each instance up to 512 keys, its plain version, sdpa and
+     the true shape's bound; (b) the fused block in
      one bf16 call past 2^31 elements (two chunks of images), its first,
      border and last images against its plain version; (c) narrow models card
      against CPU with attention_dim 12 and 264, stem_channels 16 folded +
@@ -411,6 +421,49 @@ def attention_3xtf32(plan, q, k, v, lens):
                                                   key_splits=plan.splits)
 
 
+def check_in_block(name, q, k, v, lens, oracle=None):
+    """The in-block instance (the attention up to 512 keys, D up to 256) at
+    this row, its plan forced where the planner routes the row elsewhere:
+    against the plain version (``oracle``, where the plain version is
+    refused on CUDA tensors), float64 and its own 3xTF32 arithmetic, each
+    to ATTN_TOL.  Returns the worst of the three errors, or None where the
+    instance takes no such shape."""
+    b, t, d = q.shape
+    s_ = k.shape[1]
+    plan = attn.in_block_plan(t, s_, d, b)
+    if plan is None:
+        return None
+    plain = oracle or attn.masked_attention_reference
+    got = attn.masked_attention_cuda(q, k, v, lens, plan=plan)
+    want = plain(q, k, v, lens)
+    want64 = plain(q.double(), k.double(), v.double(), lens)
+    want3x = attention_3xtf32(plan, q, k, v, lens)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    err64 = (got.double() - want64).abs().max().item()
+    err3x = (got - want3x).abs().max().item()
+    check(torch.isfinite(got).all().item() and torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+          and err64 < ATTN_TOL and err3x < ATTN_TOL,
+          f"{name} {b, t, s_, d}, in-block instance ({plan.describe()}): vs plain {err:.3e}, "
+          f"vs float64 {err64:.3e}, vs its 3xTF32 arithmetic {err3x:.3e}")
+    return max(err, err64, err3x)
+
+
+def instance_ms(q, k, v, lens, side, samples=20):
+    """ms (CUDA-graph replay) of each instance that takes this row up to
+    512 keys: the in-block instance's plan and the strip's, whichever the
+    planner routes the row to."""
+    b, t, d = q.shape
+    s_ = k.shape[1]
+    times = {}
+    for name, plan in (("in_block", attn.in_block_plan(t, s_, d, b)),
+                       ("strip", attn.strip_plan(t, s_, d))):
+        if plan is not None:
+            times[name] = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens, plan=plan),
+                                   side, samples=samples, calls=samples)
+    return times
+
+
 def check_refused(what, fn, words):
     """``fn`` must raise ValueError with ``words`` in its message."""
     try:
@@ -476,11 +529,65 @@ def phase_kernel_vs_plain(card):
         zero_err = max([(got[j].double() - v[j].double().mean(0)).abs().max().item()
                         for j, n in enumerate(lengths) if n <= 0], default=0.0)
         check(zero_err < ATTN_TOL, f"{name}: a length-0 row is {zero_err:.3e} from the mean")
+        in_err = None if attn.instance(plan) == "in_block" else check_in_block(name, q, k, v, lens)
         print(f"attention {name:10s} B={b} T={t} S={s} D={d} ({plan.describe()}): "
               f"max_abs_err {err:.3e} (vs float64 {err64:.3e}, vs plain 3xTF32 {err3x:.3e}, "
-              f"length-0 rows vs the mean {zero_err:.3e}) ok")
+              f"length-0 rows vs the mean {zero_err:.3e})"
+              + ("" if in_err is None else f"; the in-block instance {in_err:.3e}") + " ok")
+        worst = max(worst, in_err or 0.0)
     print(f"attention (3xTF32) vs plain 3xTF32, worst of the cases: {worst_3x:.3e}")
+    # The in-block instance's producers and consumer share rings of slots:
+    # the same call must give the same bits every time.
+    for i, (b, t, s) in enumerate(((48, 75, 75), (48, 150, 75), (100, 150, 75), (8, 160, 160))):
+        q, k, v, lens = attention_inputs(b, t, s, 256, [s - 3 * j % s for j in range(b)], seed=90 + i)
+        first = attn.masked_attention_cuda(q, k, v, lens)
+        differ = sum(not torch.equal(attn.masked_attention_cuda(q, k, v, lens), first)
+                     for _ in range(8))
+        check(differ == 0, f"attention {b, t, s}: {differ} of 8 repeated calls differ")
+    print("attention: 8 repeated calls the same bits at four shapes ok")
     return worst
+
+
+# A call's kernel launches by instance (torch.profiler): the in-block one
+# launch (two with key splits: the combine), the strip one, the split pass
+# two (three with key splits).
+INSTANCE_KERNELS = {"in_block": ("in_block_attention_kernel",),
+                    "strip": ("masked_attention_kernel",),
+                    "split_pass": ("split_pieces_kernel", "long_attention_kernel")}
+
+
+def kernel_names(device):
+    """The device activities' kernel names without namespace, template and
+    arguments."""
+    names = []
+    for n, _, _ in device:
+        short = re.search(r"(\w+)(?:<[^()]*>)?\(", n)
+        names.append(short.group(1) if short else n)
+    return names
+
+
+def phase_instance_launches(card):
+    """Each instance's launches a call under torch.profiler, checked: here,
+    before the profiler sessions of phases 8-11 (after them the profiler
+    has seen none of this library's kernels)."""
+    cases = (("in_block", 48, 75, 75, 1), ("in_block", 48, 75, 75, 2), ("strip", 48, 75, 75, 1),
+             ("split_pass", 4, 750, 750, 2))
+    for i, (name, b, t, s_, splits) in enumerate(cases):
+        if name == "strip":
+            plan = attn.strip_plan(t, s_, 256)
+        else:
+            plan = attn.LongAttentionPlan(t, s_, 256, b, splits, in_block=name == "in_block",
+                                          key_block=attn.in_block_plan(t, s_, 256, b).key_block
+                                          if name == "in_block" else attn.KEY_BLOCK)
+        q, k, v, lens = attention_inputs(b, t, s_, 256, [s_] * b, seed=70 + i)
+        attn.masked_attention_cuda(q, k, v, lens, plan=plan)
+        torch.cuda.synchronize()
+        device, _ = profiled(lambda: attn.masked_attention_cuda(q, k, v, lens, plan=plan))
+        names = kernel_names(device)
+        want = list(INSTANCE_KERNELS[name]) + (["combine_splits_kernel"] if splits > 1 else [])
+        check(names == want, f"{name} ({plan.describe()}): torch.profiler saw {names}, not {want}")
+        print(f"attention {name} B={b} T={t} S={s_}, {splits} split(s): one call is "
+              f"{len(names)} launch(es) under torch.profiler ({', '.join(names)}) ok [{card}]")
 
 
 def phase_attention_times(card):
@@ -488,36 +595,43 @@ def phase_attention_times(card):
     of 75 frames), so no key is masked and the work is the whole product.
     Device times from CUDA-graph replays; the kernel's time_ms (events around
     back-to-back calls, host work included, as the attention was timed
-    before) stands beside as ``events_ms``.  The LRS shape and the GRID
-    training shapes (B=88, 40 frames) are printed only.
+    before) stands beside as ``events_ms``.  Each instance that takes the
+    row up to 512 keys is timed too (``instance_ms``): the in-block one,
+    which the planner routes these rows to, and the strip.  The LRS shape
+    and the GRID training shapes (B=88, 40 frames) are printed only.
     Run after the serving phases: capturing the plain version leaves cuBLAS
     a workspace for the capture stream, which would count in their peak
-    memory.  Returns the per-forward totals."""
-    totals = dict(ms=0.0, events_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
+    memory.  Returns the per-forward totals (with each instance's)."""
+    totals = dict(ms=0.0, events_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0,
+                  instances={})
     side = torch.cuda.Stream()
     for name, b, t, s, d in (("att1", 48, 75, 75, 256), ("att2", 48, 150, 75, 256),
                              ("LRS", 4, 640, 160, 256), ("train att1", 88, 40, 40, 256),
                              ("train att2", 88, 80, 40, 256)):
         q, k, v, lens = attention_inputs(b, t, s, d, [s] * b, seed=7)
-        plan = attn.attention_plan(t, s, d)
+        plan = attn.attention_plan(t, s, d, b)
         ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side)
         events_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
         plain = graph_ms(lambda: attn.masked_attention_reference(q, k, v, lens), side)
         mask = key_mask(k, lens)
         lib = graph_ms(lambda: sdpa(q, k, v, mask), side)
+        by_instance = instance_ms(q, k, v, lens, side)
         nbytes, flops = attention_work(b, t, s, d)
         t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
         bound, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
         print(f"attention {name} time B={b} T={t} S={s} D={d} (3xTF32 on the tensor cores): "
-              f"kernel {ms:.4f} ms ({plan.warps} warps a block, {plan.split} a tile; events around "
-              f"back-to-back calls {events_ms:.4f} ms), plain {plain:.4f} ms, "
-              f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+              f"kernel {ms:.4f} ms ({attn.instance(plan)}: {plan.describe()}; events around "
+              f"back-to-back calls {events_ms:.4f} ms), by instance "
+              + ", ".join(f"{n} {m:.4f} ms" for n, m in by_instance.items())
+              + f"; plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP at 495 TFLOP/s / 3) [{card}]")
         if name not in ("att1", "att2"):  # printed only
             continue
         for key, val in (("ms", ms), ("events_ms", events_ms), ("plain_ms", plain),
                          ("library_ms", lib), ("bytes", nbytes), ("flops", flops)):
             totals[key] += val
+        for n, m in by_instance.items():
+            totals["instances"][n] = totals["instances"].get(n, 0.0) + m
     return totals
 
 
@@ -693,6 +807,7 @@ def phase_fused_block_vs_plain(card):
 
 def reset_launches():
     attn.LAUNCHES = 0
+    attn.INSTANCE_LAUNCHES.update(dict.fromkeys(attn.INSTANCE_LAUNCHES, 0))
     fb.LAUNCHES = 0
 
 
@@ -804,6 +919,7 @@ def phase_serve(states, card, what, fused, bf16):
     sums = torch.stack([o["wav"].abs().sum() for o in outs]).cpu()  # the one sync
     elapsed = time.perf_counter() - t0
     launches = (attn.LAUNCHES, fb.LAUNCHES)
+    by_instance = dict(attn.INSTANCE_LAUNCHES)
     check_launches(batches, fused, what)
 
     wav = outs[-1]["wav"]
@@ -813,12 +929,15 @@ def phase_serve(states, card, what, fused, bf16):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"serve {what} B={b} T={t}: {mel_fps:.1f} mel-frames/s ({elapsed:.3f} s for "
           f"{batches} batches), peak {peak_gb:.2f} GB, {launches[0] / batches:g} attention "
+          f"({', '.join(f'{n} {c}' for n, c in by_instance.items())} in all) "
           f"and {launches[1] / batches:g} fused-block launches per forward [{card}]")
     del outs
     blocks_ms = stage_breakdown(synth, video, lengths, card, what)
     if bf16:
         device_profile(synth, video, lengths, card, what)
-    return dict(zip(("masked_cross_attention", "fused_basic_block"), launches)), blocks_ms
+    counts = dict(zip(("masked_cross_attention", "fused_basic_block"), launches))
+    counts["attention_by_instance"] = by_instance
+    return counts, blocks_ms
 
 
 def time_modules(groups):
@@ -1007,8 +1126,12 @@ def phase_train_attention(card):
                   f"train {name} {gname}: vs plain max abs err {e:.3e}")
             errs.append(f"{gname} {e:.3e} (vs float64 {e64:.3e})")
             worst = max(worst, e64)
+        in_err = None if attn.instance(attn.attention_plan(t, s_, d, b)) == "in_block" else (
+            check_in_block(f"train {name}", q.detach(), k.detach(), v.detach(), lens))
         print(f"train attention {name} B={b} T={t} S={s_} D={d} ragged: forward vs plain "
-              f"{err:.3e} (vs float64 {err64:.3e}); gradients vs plain: {', '.join(errs)} ok")
+              f"{err:.3e} (vs float64 {err64:.3e})"
+              + ("" if in_err is None else f", the in-block instance forced {in_err:.3e}")
+              + f"; gradients vs plain: {', '.join(errs)} ok")
     return worst
 
 
@@ -1739,6 +1862,11 @@ def attention_row(card, name, t, s_, d, lengths, seed, side):
     check(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
     check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL) and err64 < ATTN_TOL,
           f"{name}: kernel vs plain {err:.3e}, vs float64 {err64:.3e}")
+    plan = attn.attention_plan(t, s_, d, b)
+    err3x = (got - attention_3xtf32(plan, q, k, v, lens)).abs().max().item()
+    check(err3x < ATTN_TOL, f"{name}: kernel vs its 3xTF32 arithmetic {err3x:.3e}")
+    in_err = None if attn.instance(plan) == "in_block" else check_in_block(name, q, k, v, lens)
+    by_instance = instance_ms(q, k, v, lens, side)
     ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side)
     events_ms = time_ms(lambda: attn.masked_attention_cuda(q, k, v, lens))
     plain = graph_ms(lambda: attn.masked_attention_reference(q, k, v, lens), side)
@@ -1750,12 +1878,17 @@ def attention_row(card, name, t, s_, d, lengths, seed, side):
     masked = sum(s_ - min(int(n), s_) for n in lengths)
     print(f"attention {name} B={b} T={t} S={s_} D={d}, lengths {min(lengths)}-"
           f"{max(lengths)} ({masked} of {b * s_} keys masked): max_abs_err {err:.3e} (vs "
-          f"float64 {err64:.3e}) ok; kernel {ms:.4f} ms (events {events_ms:.4f}), plain "
-          f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+          f"float64 {err64:.3e}, vs its 3xTF32 arithmetic {err3x:.3e}"
+          + ("" if in_err is None else f", the in-block instance forced {in_err:.3e}")
+          + f") ok; kernel {ms:.4f} ms ({attn.instance(plan)}: {plan.describe()}; events "
+          f"{events_ms:.4f}), by instance "
+          + ", ".join(f"{n} {m:.4f} ms" for n, m in by_instance.items())
+          + f"; plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
           f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP of the unmasked keys) [{card}]")
-    return {"shape": [b, t, s_, d], "masked_keys": masked, "ms": ms,
-            "events_ms": events_ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err}
+    return {"shape": [b, t, s_, d], "masked_keys": masked, "instance": attn.instance(plan),
+            "ms": ms, "ms_by_instance": by_instance, "events_ms": events_ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": max(err, err3x, in_err or 0.0)}
 
 
 def phase_lrs_attention(card, train_len, val_len, val_t):
@@ -2300,8 +2433,9 @@ def phase_long_attention(card):
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
               f"{bound:.4f} ms ({bound_by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP of "
               f"the unmasked keys) [{card}]")
-        if i == 0:  # the launches of five calls by the profiler (printed, not checked:
-            # after the profiler sessions of phases 8-11 it has seen none of them)
+        if i == 0:  # the launches of five calls by the profiler, printed: after the
+            # profiler sessions of phases 8-11 it has seen none of them (the check is
+            # phase 6's phase_instance_launches, before those sessions)
             device, _ = profiled(lambda: [attn.masked_attention_cuda(q, k, v, lens)
                                           for _ in range(5)])
             kernels = {}
@@ -3374,7 +3508,10 @@ def width_attention(card, oracle):
               and zero_err < ATTN_TOL, f"width {name} {b, t, s_, d}: kernel vs plain {err:.3e}, "
               f"vs float64 {err64:.3e}, length-0 rows vs the mean {zero_err:.3e}")
         del want64
+        in_err = None if attn.instance(plan) == "in_block" else check_in_block(
+            f"width {name}", q, k, v, lens, oracle)
         kw = dict(samples=5, calls=5)
+        by_instance = instance_ms(q, k, v, lens, side, samples=5)
         ms = graph_ms(lambda: attn.masked_attention_cuda(q, k, v, lens), side, **kw)
         plain = graph_ms(lambda: oracle(q, k, v, lens), side, **kw)
         mask = key_mask(k, lens)
@@ -3383,12 +3520,18 @@ def width_attention(card, oracle):
         t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ATTN_FLOP_PER_S * 1e3
         bound, bound_by = max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
         print(f"width attention {name} B={b} T={t} S={s_} D={d} (kernel D {plan.d_kernel}; "
-              f"{plan.describe()}): max_abs_err {err:.3e} (vs float64 {err64:.3e}, length-0 rows "
-              f"vs the mean {zero_err:.3e}) ok; kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-              f"{lib:.4f} ms, bound {bound:.4f} ms ({bound_by}) [{card}]")
+              f"{attn.instance(plan)}: {plan.describe()}): max_abs_err {err:.3e} (vs float64 "
+              f"{err64:.3e}, length-0 rows vs the mean {zero_err:.3e}"
+              + ("" if in_err is None else f", the in-block instance forced {in_err:.3e}")
+              + f") ok; kernel {ms:.4f} ms, by instance "
+              + ", ".join(f"{n} {m:.4f} ms" for n, m in by_instance.items())
+              + f"; plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({bound_by}) "
+              f"[{card}]")
         rows.append({"name": name, "shape": [b, t, s_, d], "d_kernel": plan.d_kernel,
-                     "plan": plan.describe(), "ms": ms, "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bound, "bound_by": bound_by, "max_abs_err": max(err, err64)})
+                     "instance": attn.instance(plan), "plan": plan.describe(), "ms": ms,
+                     "ms_by_instance": by_instance, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "max_abs_err": max(err, err64, in_err or 0.0)})
         del q, k, v, lens, got, want, mask
         torch.cuda.empty_cache()
     return rows
@@ -3567,6 +3710,7 @@ def main() -> None:
         launches[path], blocks_ms[path] = phase_serve(states, card, path, fused, bf16)
         torch.cuda.empty_cache()
     attn_totals = phase_attention_times(card)
+    phase_instance_launches(card)
     torch.cuda.empty_cache()
     phase_bench(card)
     attn_grad_worst = phase_train_attention(card)
@@ -3678,6 +3822,15 @@ def main() -> None:
                      launches_eval=eval_launches, eval_shapes=eval_rows,
                      eval_max_abs_err=eval_worst, **twelve, **thirteen, **fourteen,
                      **fifteen, widths=width_rows_attn)
+    # The attention's instances: their kernels, the calls each took on each
+    # serving path (2 a forward in all), one forward's two calls timed on
+    # each instance that takes them (phase 6).
+    attention["instances"] = [
+        {"instance": n, "kernels": list(INSTANCE_KERNELS[n]),
+         "launches_by_path": {path: counts["attention_by_instance"][n]
+                              for path, counts in launches.items()},
+         "ms_one_forward": attn_totals["instances"].get(n)}
+        for n in attn.INSTANCE_LAUNCHES]
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

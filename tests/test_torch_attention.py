@@ -8,7 +8,8 @@ are fp32 with D <= 256 terms per dot product.  The CUDA kernel itself is
 held to the plain version on the card by ``chip_smoke.py``; here its
 arithmetic (3xTF32: both products as three TF32 products of the operands'
 high and low parts) is held to the JAX package in plain PyTorch, with the
-keys padded as the kernel's tiles pad them, and its tile plan is checked.
+keys padded as the kernel's tiles pad them, and the strip instance's tile
+plan is checked (the in-block instance's plans: ``test_torch_short_keys.py``).
 """
 
 import jax.numpy as jnp
@@ -129,7 +130,7 @@ PLAN_CASES = [("att1", 75, 75, 256), ("att2", 150, 75, 256), ("LRS max", 640, 16
 @pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
 def test_plan_fits_shared_memory_and_covers_every_row_once(case):
     _, t, s, d = case
-    plan = port.attention_plan(t, s, d)
+    plan = port.strip_plan(t, s, d)
     assert plan.smem_bytes <= port.MAX_SMEM == 232448
     assert plan.smem_bytes == 4 * (16 * plan.tiles * (plan.q_stride + plan.p_stride)
                                    + 2 * plan.key_tile * max(plan.k_stride, plan.v_stride))
@@ -155,7 +156,7 @@ def test_plan_fits_shared_memory_and_covers_every_row_once(case):
 @pytest.mark.parametrize("t,tiles,blocks", [(75, 3, 2), (150, 4, 3), (1, 1, 1), (640, 4, 10)])
 def test_plan_spreads_the_tiles_over_the_blocks(t, tiles, blocks):
     """75 rows are 2 blocks of 3 tiles, not 4 + 1."""
-    plan = port.attention_plan(t, 75, 256)
+    plan = port.strip_plan(t, 75, 256)
     assert (plan.tiles, plan.row_tiles, plan.warps) == (tiles, blocks, tiles * port.SPLIT)
 
 
@@ -163,9 +164,10 @@ def test_plan_spreads_the_tiles_over_the_blocks(t, tiles, blocks):
                                    (64, 512, 4096)])
 def test_plan_refuses_what_the_kernel_does_not_take(t, s, d):
     """No key (S = 0) and no query row (T = 0) have no plan.  D = 100 and 4,
-    once refused, take the strip at D padded to 104 and 8 (the scale of the
-    true D); (64, 512, 4096), whose strip does not fit shared memory, takes
-    the key-blocked instance, in column slices of 256."""
+    once refused, have a strip plan at D padded to 104 and 8 (the scale of
+    the true D), and the planner's plan is for the true D; (64, 512, 4096),
+    whose strip does not fit shared memory, takes the key-blocked instance,
+    in column slices of 256."""
     if s < 1 or t < 1:
         with pytest.raises(ValueError):
             port.attention_plan(t, s, d)
@@ -175,13 +177,17 @@ def test_plan_refuses_what_the_kernel_does_not_take(t, s, d):
     if d == 4096:
         assert plan.key_block == port.KEY_BLOCK and plan.slices == 16
     else:
-        assert plan.key_block == 0 and plan.ints(1)[3:5] == [plan.d_kernel, d]
+        strip = port.strip_plan(t, s, d)
+        assert strip.key_block == 0 and strip.ints(1)[3:5] == [strip.d_kernel, d]
 
 
 def test_plan_takes_keys_past_s_max():
-    """S_MAX + 1 keys, once refused, take the key-blocked plan; S_MAX keys
-    keep the one-strip plan."""
-    assert port.attention_plan(75, port.S_MAX, 256).key_block == 0
+    """S_MAX + 1 keys, once refused, take the key-blocked plan of the split
+    pass; S_MAX keys keep a one-strip plan and the in-block instance's."""
+    assert port.strip_plan(75, port.S_MAX, 256).key_block == 0
+    assert port.in_block_plan(75, port.S_MAX, 256) is not None
+    assert port.strip_plan(75, port.S_MAX + 1, 256) is None
+    assert port.in_block_plan(75, port.S_MAX + 1, 256) is None
     plan = port.attention_plan(75, port.S_MAX + 1, 256)
     assert plan.key_block == port.KEY_BLOCK and plan.smem_bytes <= port.MAX_SMEM
     assert plan.key_blocks() == [(k0, 64) for k0 in range(0, 512, 64)] + [(512, 1)]

@@ -140,7 +140,7 @@ def test_long_plans_take_the_least_modelled_time_and_send_their_ints(b, t, s):
     share = -(-plan.key_blocks_all // plan.splits)
     assert plan.cost_us() >= waves * (share * port.KEY_BLOCK_US + port.BLOCK_US)
     assert plan.ints() == [b, t, s, 256, 256, plan.row_blocks, plan.splits, 1, 64,
-                           plan.smem_bytes, b, 0, plan.workspace_floats]
+                           plan.smem_bytes, b, 0, plan.workspace_floats, 0]
     assert len(plan.ints()) == port.LONG_PLAN_INTS
 
 

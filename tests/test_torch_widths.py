@@ -135,10 +135,14 @@ def test_attention_plans_every_width_at_a_large_batch(d, s):
         assert plan.workspace_floats <= attn.WORKSPACE_FLOATS or plan.launch_b == 1
         ints = plan.ints()
         assert len(ints) == attn.LONG_PLAN_INTS and ints[:5] == [b, t, s, plan.d_kernel, d]
-        assert (ints[-2] << 30) + ints[-1] == plan.workspace_floats
-    # the shapes the strip planned before keep the strip
+        assert (ints[11] << 30) + ints[12] == plan.workspace_floats
+        assert ints[13] == int(plan.in_block) and (not plan.in_block or plan.slices == 1)
+    # the shapes the strip planned before keep a strip plan; up to 256
+    # columns the planner may route them to the in-block instance instead
     if d % 8 == 0 and s <= attn.S_MAX and d <= 1024:
-        assert isinstance(attn.attention_plan(t, s, d, 4), attn.AttentionPlan)
+        assert attn.strip_plan(t, s, d, 4) is not None
+        assert attn.instance(attn.attention_plan(t, s, d, 4)) == (
+            "strip" if d > attn.IN_MAX_D else "in_block")
 
 
 def test_attention_plan_refuses_no_key_and_no_query_row_only():

@@ -26,8 +26,57 @@
 // the 67 TFLOP/s of fp32 outside the tensor cores, which made att2 bound by
 // operations; that was the bound of that design, not of the card.)
 //
-// Up to 512 keys, the strip instance (both products on the tensor cores,
-// mma.sync m16n8k8 TF32):
+// Three instances; the planner (masked_attention.py::attention_plan) routes
+// each shape to the one its models of the card's times favour:
+// - up to 512 keys and D up to 256, the in-block instance (wgmma, one launch
+//   a call, the operands split in the block; below), but for the shapes of
+//   many blocks of few rows where the strip is faster (B = 70,000 x T = 2);
+// - up to 512 keys otherwise, the strip instance (mma.sync; below that);
+// - past 512 keys, the split pass (wgmma over operands split by a first
+//   launch; last).
+//
+// Up to 512 keys and D up to 256: the in-block instance.  The bound is the
+// bytes (above), and a call moves little: what costs is latency and the
+// shared memory's bandwidth, which the 3xTF32 products read three times.
+// - A block is 64 query rows (wgmma's M) and three warpgroups: a consumer,
+//   which runs the products and the softmax, and two producers.  Q's rows
+//   are loaded once by the whole block (global loads, zeros past T and D)
+//   and split into their TF32 hi and lo parts in shared memory, laid out as
+//   wgmma reads them (K-major core matrices, no swizzle: the split pass's
+//   layout); 128 KB at D = 256, so an SM runs one block.
+// - K, then V, of each key block of 40 keys (Q K^T's N: at 64 the
+//   consumer's registers spilled; 40 walks S = 75 in two blocks, 7% of the
+//   keys padding) come in pieces of 32 columns: the TMA unit brings a
+//   piece as fp32 (a box of 32 x 40 of a (B S, D) tensor map; zeros past D,
+//   the rows past the sample's keys zeroed by the producer) into a ring of
+//   four raw slots, one mbarrier each; producer warpgroup j mod 2 reads
+//   piece j, splits it and writes its parts into a ring of six split slots
+//   (V transposed: key 2i + h of a k-step at k-position 4h + i, where P's A
+//   fragment holds it); each thread's reads and writes of a piece fall on
+//   distinct banks.  A producer's writes are made visible to wgmma by a
+//   proxy fence (MEMBAR and FENCE.VIEW.ASYNC): no load of the thread may be
+//   in flight there, or the fence waits for it, which is why the raw pieces
+//   come by TMA (the copies of global loads or cp.async into the thread's
+//   own registers or slots made each piece wait a memory latency).
+// - The consumer: for each key block, the scores of its 64 rows x 40 keys
+//   over two pieces at a time (8 k-steps, a fresh 3xTF32 sum: lo*hi, hi*lo,
+//   hi*hi, wgmma m64n40k8 with A and B from shared memory), the online
+//   softmax in the accumulator registers (as past 512 keys), P's parts as
+//   the A fragments of P.V (m64n32k8, A from registers) over each V piece,
+//   the output's 256 columns in 128 registers.  Key blocks at or past each
+//   length >= 1 are not walked.
+// - Registers: 384 threads have 168 each at launch; setmaxnreg gives the
+//   consumer 248 and the producers 128.
+// - Grid fill: key splits over the grid's y axis and the combine launch, as
+//   past 512 keys, where a call has too few blocks (LRS rows: B = 8 or 16).
+//   The 64-row M wastes up to 41% of a block's rows (T = 75: 128 rows for
+//   75), but the rows' products do not set the pace: a key block's products
+//   at D = 256 are 2 x 64 x 40 x 256 x 2 x 3 = 7.9 MFLOP, 2.1 us of an SM's
+//   tensor cores, of the ~7.5 us a key block adds to a wave on the card
+//   (tune_attention --short); the producers' pieces take the rest.
+//
+// Up to 512 keys otherwise, the strip instance (both products on the tensor
+// cores, mma.sync m16n8k8 TF32):
 // - A block is one sample and `tiles` tiles of 16 query rows (one m16
 //   fragment each).  wgmma's 64-row tile would waste up to 53 rows of a
 //   75- or 150-row sample; the 16-row tile wastes at most 15.  The plan
@@ -82,8 +131,8 @@
 //   the strip are read as rows g, columns t (stride 4 mod 8 floats); V as
 //   rows t, columns g (stride 8 or 24 mod 32 floats).
 //
-// Past 512 keys, and at S <= 512 where no strip plan fits shared memory
-// (its own plan and entry point: three launches a call).  The
+// Past 512 keys, and at S <= 512 where D passes 256 and no strip plan fits
+// shared memory, the split pass (three launches a call).  The
 // strip of 16 x S scores a tile is what caps the strip instance at S = 512
 // (four strips, Q and the K/V ring fill the 227 KB at D = 256).  Past it the
 // bound is the operations (4 T S D flops of the keys below each length,
@@ -163,6 +212,8 @@
 //     (2, 1280, 640):  20 x 3 x 2 = 120 blocks, 1 wave;  18.4 MB (7.9)
 //     (1, 4096, 4096): 64 x 2 x 1 = 128 blocks, 1 wave;  33.6 MB (8.5)
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -531,7 +582,7 @@ constexpr int kLongChunk = 64;     // D columns a piece: Q K^T's fresh sum, P.V'
 constexpr int kSliceChunks = 4;    // chunks of O a block holds: 256 columns, 128 registers a thread
 constexpr int kLongThreads = 128;  // one warpgroup
 constexpr int kLongSlots = 3;      // pieces in shared memory: in use, arrived, arriving
-constexpr int kLongPlanInts = 13;
+constexpr int kLongPlanInts = 14;
 constexpr int kPart = kLongKeys * kLongChunk;  // floats of a piece's hi (or lo) part
 constexpr int kPartBytes = kPart * 4;          // 16 KB
 constexpr int kKStep = 512;                    // floats a k-step: 8 groups x 2 halves x 32
@@ -540,10 +591,42 @@ static_assert(kLongRows == kLongKeys, "a piece is 64 rows of Q, K or V");
 
 // d_scale: the true D (D is it rounded up to 8); slices: column slices of
 // 256 (1 up to D = 256); batch: samples a launch; workspace floats of a
-// launch = ws_hi * 2^30 + ws_lo.
+// launch = ws_hi * 2^30 + ws_lo; mode: kSplitPass (the split pass, then the
+// attention on its pieces) or kInBlock (one launch that splits in the block).
 struct LongPlan {
-  int B, T, S, D, d_scale, row_blocks, splits, slices, key_block, smem, batch, ws_hi, ws_lo;
+  int B, T, S, D, d_scale, row_blocks, splits, slices, key_block, smem, batch, ws_hi, ws_lo, mode;
 };
+constexpr int kSplitPass = 0, kInBlock = 1;
+
+// The in-block instance (design notes in the header): a block is three
+// warpgroups, the consumer's 64 query rows on wgmma and two producers that
+// split the pieces the TMA unit brings (32 columns of a key block's K or V
+// rows) into a ring the consumer reads.
+constexpr int kInKeys = 40;                  // keys a key block: the N of Q K^T
+constexpr int kInCols = 32;                  // D columns a piece
+constexpr int kInProducers = 2;              // producer warpgroups: piece j is the (j mod 2)-th's
+constexpr int kInRawSlots = 2 * kInProducers;  // raw pieces in flight: two a producer
+constexpr int kInSplitSlots = 6;             // split pieces: a pair in use, four written ahead
+constexpr int kInRawBytes = kInKeys * kInCols * 4;   // 5 KB: KB rows of 32 floats
+constexpr int kInPartBytes = kInKeys * kInCols * 4;  // a piece's hi (or lo) part
+constexpr int kInSlotBytes = 2 * kInPartBytes;
+constexpr int kInThreads = 128 * (1 + kInProducers);  // the consumer warpgroup, the producers'
+constexpr int kInChunks = 8;                 // 32-column chunks of O: D <= 256
+constexpr int kInBars = kInRawSlots + 2 * kInSplitSlots;
+// Registers a thread: 168 at launch (384 threads); the consumer's 248 hold
+// the output (128), the scores and P's parts; the producers' 128 are ample
+// (128 x 248 + 256 x 128 = 64,512 of the SM's 65,536).
+constexpr int kInConsumerRegs = 248, kInProducerRegs = 128;
+constexpr int kInQLoads = (kLongRows * kInChunks * kInCols / 4 + kInThreads - 1) / kInThreads;
+
+__host__ __device__ constexpr int in_cols(int D) { return (D + kInCols - 1) / kInCols * kInCols; }
+
+// Q's parts (D padded to the piece), the raw ring, the split ring, the
+// mbarriers (each raw slot's, each split slot's full and free).
+size_t in_smem_bytes(int D) {
+  return 2 * static_cast<size_t>(kLongRows) * in_cols(D) * 4 + kInRawSlots * kInRawBytes +
+         kInSplitSlots * kInSlotBytes + 8 * kInBars;
+}
 
 __host__ __device__ constexpr int long_chunks(int D) { return (D + kLongChunk - 1) / kLongChunk; }
 __host__ __device__ constexpr int long_slices(int D) {
@@ -564,6 +647,7 @@ size_t long_smem_bytes(int D) {
 // x chunks), then K's and V's (B x key blocks x chunks each); each a hi part
 // and a lo part.
 long long long_pieces(const LongPlan& p) {
+  if (p.mode == kInBlock) return 0;
   const long long blocks_k = (p.S + kLongKeys - 1) / kLongKeys;
   return static_cast<long long>(long_chunks(p.D)) * p.B * (p.row_blocks + 2 * blocks_k);
 }
@@ -581,14 +665,20 @@ bool long_plan_ok(const LongPlan& p) {
   if (p.B < 1 || p.T < 1 || p.S < 1) return false;
   if (p.D < 8 || p.D % 8 != 0) return false;
   if (p.d_scale < 1 || p.d_scale > p.D || p.d_scale <= p.D - 8) return false;
-  if (p.key_block != kLongKeys || p.row_blocks != (p.T + kLongRows - 1) / kLongRows) return false;
+  if (p.row_blocks != (p.T + kLongRows - 1) / kLongRows) return false;
   if (p.slices != long_slices(p.D) ||
       static_cast<long long>(p.row_blocks) * p.slices > 0x7fffffffLL)
     return false;
-  if (p.splits < 1 || p.splits > (p.S + kLongKeys - 1) / kLongKeys || p.splits > kMaxGridB)
+  const bool in_block = p.mode == kInBlock;
+  if (p.mode != kSplitPass && !in_block) return false;
+  if (in_block ? p.key_block != kInKeys || p.slices != 1
+               : p.key_block != kLongKeys)
+    return false;
+  if (p.splits < 1 || p.splits > (p.S + p.key_block - 1) / p.key_block || p.splits > kMaxGridB)
     return false;
   if (p.batch < 1 || p.batch > p.B || p.batch > kMaxGridB) return false;
-  if (static_cast<size_t>(p.smem) != long_smem_bytes(p.D) || p.smem > kMaxSmem) return false;
+  const size_t smem = in_block ? in_smem_bytes(p.D) : long_smem_bytes(p.D);
+  if (static_cast<size_t>(p.smem) != smem || p.smem > kMaxSmem) return false;
   if (p.ws_hi < 0 || p.ws_lo < 0 || p.ws_lo >= (1 << 30)) return false;
   LongPlan launch = p;
   launch.B = p.batch;
@@ -599,9 +689,9 @@ bool long_plan_ok(const LongPlan& p) {
 // Key blocks sample b walks: none at or past a length >= 1 (they weigh
 // exactly 0: exp(-1e30 - m) underflows for the finite m of a real score);
 // all S keys for a length <= 0, whose rows average the S values.
-__device__ __forceinline__ int walked_blocks(int length, int S) {
+__device__ __forceinline__ int walked_blocks(int length, int S, int key_block = kLongKeys) {
   const int keys = length >= 1 ? min(length, S) : S;
-  return (keys + kLongKeys - 1) / kLongKeys;
+  return (keys + key_block - 1) / key_block;
 }
 
 // fp32 -> its TF32 parts (tf32.cuh), as floats.
@@ -1078,27 +1168,504 @@ combine_splits_kernel(const float* __restrict__ ws, float* __restrict__ out, lon
       make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
 }
 
-// The split pass, the attention, and for more than one split the combine,
-// on `stream`, for each chunk of `batch` samples in turn.  The workspace:
-// the split pieces, then the partials, of one chunk (the chunks reuse it).
+// ---------------------------------------------------------------------------
+// The in-block instance: one launch, the operands split in the block.
+
+__device__ __forceinline__ void mbarrier_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// A box of the tensor `map` (columns x0 ..., rows y0 ...; zeros past its
+// edges) into shared memory by the TMA unit, counted on the mbarrier.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int x0, int y0,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x0), "r"(y0), "r"(bar)
+      : "memory");
+}
+// A producer warpgroup's own barrier (1 or 2; barrier 0 is __syncthreads').
+__device__ __forceinline__ void producer_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+// The warpgroup's registers a thread: the consumer's grow to hold the
+// output and the scores, the producers' shrink to make room.
+template <int N> __device__ __forceinline__ void regs_grow() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void regs_shrink() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// Writes of the generic proxy (st.shared) made visible to the async proxy,
+// through which wgmma reads its operands.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The same box into L2 only, ahead of its load.
+__device__ __forceinline__ void tma_prefetch_2d(const CUtensorMap* map, int x0, int y0) {
+  asm volatile("cp.async.bulk.prefetch.tensor.2d.L2.global.tile [%0, {%1, %2}];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(x0), "r"(y0)
+               : "memory");
+}
+
+// D (64 x 40 fp32: a thread holds rows 16 warp + g and + 8, columns 2t and
+// 2t + 1 of every 8) = or += A (64 x 8) * B (8 x 40), both TF32 by
+// descriptor: the scores of a key block.
+__device__ __forceinline__ void wgmma_ss_n40(float (&d)[20], uint64_t da, uint64_t db, int add) {
+  asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %22, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, "
+        "%20, %21, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "l"(da), "l"(db), "r"(add));
+}
+
+// Where (row, 4 c4 ... 4 c4 + 3) of a 32-column piece of `rows` rows stands
+// as a wgmma operand: K-major core matrices of 8 rows x 4 values, the two
+// halves of a k-step 32 floats apart, groups of 8 rows 64 apart, k-steps of
+// 8 columns 8 x rows floats apart (split_pieces_kernel's layout).
+__host__ __device__ constexpr int core_offset(int row, int c4, int rows) {
+  return (c4 >> 1) * (rows * 8) + (row >> 3) * 64 + (c4 & 1) * 32 + (row & 7) * 4;
+}
+
+// Piece j of a block's walk: for each key block (of KB keys from the
+// block's first, kb0), its K pieces, then its V pieces, 32 columns each (nq
+// of them cover D).  Computed from j, so that no walk state stays live.
+struct InPiece {
+  int row0;   // its first row in the (B S, D) tensor of K or V
+  int rows;   // of them that are the sample's keys (the rest are read as zeros)
+  bool is_v;
+  int c;      // its chunk of 32 columns
+  __device__ InPiece(int b, int S, int kb0, int nq, int j) {
+    const int blk = j / (2 * nq), r = j - 2 * nq * blk;
+    is_v = r >= nq;
+    c = is_v ? r - nq : r;
+    const int key0 = (kb0 + blk) * kInKeys;
+    rows = min(kInKeys, S - key0);
+    row0 = b * S + key0;
+  }
+};
+
+// A producer thread's share of a piece and its places.  Of a K piece: rows
+// 8 rh + rl, columns 4 ((rl + sh) mod 8) ... (a quarter warp reads eight
+// 16-byte columns of the raw rows and writes eight rows of a core matrix:
+// no bank conflict on either side); of a V piece: column `lane` of keys 8 ks
+// + h + {0, 2, 4, 6} for 2 ks + h = warp + 4 i (a warp reads 32 columns of
+// a raw row), written transposed (key 2 i + h of a k-step at k-position 4 h
+// + i; a quarter warp writes eight columns: no conflict).
+struct InShares {
+  int k_raw[4], k_dst[4];
+  int lane, warp;
+  __device__ void init(int ptid) {
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int e = ptid + 128 * it, rl = e & 7, row = 8 * (e >> 6) + rl, c4 = (rl + (e >> 3)) & 7;
+      k_raw[it] = row * kInCols + 4 * c4;
+      k_dst[it] = row < kInKeys ? core_offset(row, c4, kInKeys) : -1;
+    }
+    lane = ptid & 31;
+    warp = ptid >> 5;
+  }
+  // Reads this thread's share of a K or V piece from its raw slot, zeros in
+  // the rows past the sample's keys (the TMA box reads the next sample's
+  // there).
+  __device__ void read(bool is_v, const float* rp, int rows, float4 (&val)[4]) const {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      if (!is_v) {
+        val[it] = k_raw[it] < rows * kInCols ? *reinterpret_cast<const float4*>(rp + k_raw[it])
+                                             : zero;
+      } else {
+        const int u = warp + 4 * it, key = 8 * (u >> 1) + (u & 1);
+        const float* col = rp + key * kInCols + lane;
+        auto at = [&](int i) { return key + 2 * i < rows ? col[2 * i * kInCols] : 0.f; };
+        val[it] = u < kInKeys / 4 ? make_float4(at(0), at(1), at(2), at(3)) : zero;
+      }
+    }
+  }
+  // Splits a share into its TF32 parts and writes them at `hi` (and lo_off
+  // floats on).
+  __device__ void write(bool is_v, float* hi, int lo_off, const float4 (&val)[4]) const {
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      int off;
+      if (!is_v) {
+        off = k_dst[it];
+      } else {
+        const int u = warp + 4 * it;
+        off = u < kInKeys / 4
+                  ? (u >> 1) * (kInCols * 8) + (lane >> 3) * 64 + (u & 1) * 32 + (lane & 7) * 4
+                  : -1;
+      }
+      if (off < 0) continue;
+      float4 h4, l4;
+      split4(val[it], h4, l4);
+      *reinterpret_cast<float4*>(hi + off) = h4;
+      *reinterpret_cast<float4*>(hi + lo_off + off) = l4;
+    }
+  }
+};
+
+// Grid (row blocks, splits, B); 384 threads: warpgroup 0 the consumer,
+// warpgroups 1 and 2 the producers.  Block (r, split, b): query rows 64 r
+// ... of sample b over the split-th share of the key blocks of 40 keys it
+// walks.  Shared memory: Q's hi parts (64 rows x D padded to 32; k-step k
+// at 512 k floats) and then its lo parts, the raw slots (a piece's 40 rows
+// of 32 floats), the split slots (a piece's hi part, then its lo part 5 KB
+// on), the mbarriers (the raw slots', then the split slots' fills, then
+// their frees).
+__global__ void __launch_bounds__(kInThreads, 1)
+in_block_attention_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const int* __restrict__ lengths, float* __restrict__ out,
+                          float* __restrict__ ws, const LongPlan p) {
+  constexpr int KB = kInKeys;
+  extern __shared__ __align__(128) unsigned char ismem[];
+  const int T = p.T, S = p.S, D = p.D;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int rb = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
+  const int row0 = rb * kLongRows;
+  const int length = lengths[b];
+  const int walked = walked_blocks(length, S, KB);
+  const int kb0 = static_cast<int>(static_cast<long long>(split) * walked / p.splits);
+  const int kb1 = static_cast<int>(static_cast<long long>(split + 1) * walked / p.splits);
+  const size_t ws_rows = static_cast<size_t>(p.splits) * p.B * T;
+  const size_t part = (static_cast<size_t>(split) * p.B + b) * T;  // this split's rows
+  if (kb0 == kb1) {  // no key block (more splits than blocks): m = -inf, l = 0, O unread
+    for (int r = tid; r < kLongRows && row0 + r < T; r += kInThreads) {
+      ws[ws_rows * D + part + row0 + r] = -INFINITY;
+      ws[ws_rows * (D + 1) + part + row0 + r] = 0.f;
+    }
+    return;
+  }
+  const int Dp = in_cols(D), nq = Dp / kInCols;  // a key block's K (and V) pieces
+  const int pieces = (kb1 - kb0) * 2 * nq;       // the walk: K's, then V's, a key block
+  float* const qs = reinterpret_cast<float*>(ismem);  // Q's hi parts, then its lo parts
+  float* const raw = qs + 2 * kLongRows * Dp;
+  float* const slots = raw + kInRawSlots * (kInRawBytes / 4);
+  const uint32_t q_u = smem_u32(qs), slots_u = smem_u32(slots);
+  const uint32_t bars_u = slots_u + kInSplitSlots * kInSlotBytes;
+  auto raw_bar = [&](int i) { return bars_u + 8 * (i % kInRawSlots); };
+  auto full_bar = [&](int i) { return bars_u + 8 * (kInRawSlots + i % kInSplitSlots); };
+  auto free_bar = [&](int i) {
+    return bars_u + 8 * (kInRawSlots + kInSplitSlots + i % kInSplitSlots);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kInRawSlots; ++i) mbarrier_init(raw_bar(i), 1);  // the TMA's bytes
+    for (int i = 0; i < kInSplitSlots; ++i) {
+      mbarrier_init(full_bar(i), 4);  // one arrival a producer warp
+      mbarrier_init(free_bar(i), 4);  // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers initialised
+  // The producer's first thread brings the raw pieces by TMA (a box of 32
+  // columns x KB rows of K or V, counted on the raw slot's mbarrier): the
+  // first four now, piece j + 4 once every producer thread has read piece j.
+  // The TMA's copies are not the thread's own loads, so its fence (for the
+  // split parts it writes) does not wait on them.
+  auto piece = [&](int j) { return InPiece(b, S, kb0, nq, j); };
+  auto fetch = [&](int j) {
+    if (j >= pieces) return;
+    const InPiece x = piece(j);
+    mbarrier_expect(raw_bar(j), KB * kInCols * 4);
+    tma_load_2d(smem_u32(raw + (j % kInRawSlots) * (kInRawBytes / 4)), x.is_v ? &tm_v : &tm_k,
+                x.c * kInCols, x.row0, raw_bar(j));
+  };
+  if (tid == 128) {
+#pragma unroll
+    for (int j = 0; j < kInRawSlots; ++j) fetch(j);
+    for (int j = kInRawSlots; j < pieces; ++j) {  // the rest of the walk into L2
+      const InPiece x = piece(j);
+      tma_prefetch_2d(x.is_v ? &tm_v : &tm_k, x.c * kInCols, x.row0);
+    }
+  }
+  // ---- Q's 64 rows by the whole block, once: loaded (zeros past T and D),
+  // split and written where wgmma reads them (row 8 rh + rl, columns 4 ((rl
+  // + sh) mod 8) ... of each piece of 32 columns: no bank conflict)
+  {
+    const float* qb = q + (static_cast<size_t>(b) * T + row0) * D;
+    const int rows_q = min(kLongRows, T - row0);
+    float4 x[kInQLoads];
+#pragma unroll
+    for (int it = 0; it < kInQLoads; ++it) {
+      const int e = tid + kInThreads * it, f = e & 511, rl = f & 7, row = 8 * (f >> 6) + rl;
+      const int col = (e >> 9) * kInCols + 4 * ((rl + (f >> 3)) & 7);
+      x[it] = e < 512 * nq && row < rows_q && col < D
+                  ? __ldg(reinterpret_cast<const float4*>(qb + static_cast<size_t>(row) * D + col))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int it = 0; it < kInQLoads; ++it) {
+      const int e = tid + kInThreads * it, f = e & 511, rl = f & 7, row = 8 * (f >> 6) + rl;
+      if (e >= 512 * nq) continue;
+      const int off = (e >> 9) * (4 * kLongRows * 8) + core_offset(row, (rl + (f >> 3)) & 7, kLongRows);
+      float4 h4, l4;
+      split4(x[it], h4, l4);
+      *reinterpret_cast<float4*>(qs + off) = h4;
+      *reinterpret_cast<float4*>(qs + kLongRows * Dp + off) = l4;
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();  // Q's parts in place
+
+  if (tid >= 128) {
+    // ==== the producers: warpgroup 1 + w takes the pieces j = w mod 2.
+    // Piece j is read from its raw slot once the TMA's bytes landed, split
+    // into its TF32 parts and written where the consumer reads them once it
+    // has freed the split slot; the TMA brings piece j + 4 into the raw
+    // slot (a lane of one of the warpgroup's warps, in turn, asks for it).
+    regs_shrink<kInProducerRegs>();
+    const int wg = (tid >> 7) - 1, pwarp = (tid >> 5) & 3;
+    InShares sh;
+    sh.init(tid & 127);
+    for (int j = wg; j < pieces; j += kInProducers) {
+      const InPiece x = piece(j);
+      float4 val[4];
+      mbarrier_wait(raw_bar(j), (j / kInRawSlots) & 1);
+      sh.read(x.is_v, raw + (j % kInRawSlots) * (kInRawBytes / 4), x.rows, val);
+      producer_sync(1 + wg);  // every thread of the warpgroup has read the raw slot
+      if (lane == 0 && pwarp == (j / kInProducers) % 4) fetch(j + kInRawSlots);
+      mbarrier_wait(free_bar(j), ((j / kInSplitSlots) & 1) ^ 1);
+      sh.write(x.is_v, slots + (j % kInSplitSlots) * (kInSlotBytes / 4), kInPartBytes / 4, val);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbarrier_arrive(full_bar(j));
+    }
+    return;
+  }
+  regs_grow<kInConsumerRegs>();
+
+  // ==== the consumer: scores, the online softmax, P.V, on wgmma.
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int g = lane >> 2, t4 = lane & 3;
+  float o[kInChunks][16];  // unnormalised output, chunk c: columns 32 c ...
+#pragma unroll
+  for (int c = 0; c < kInChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[c][i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8: the maximum so far
+  float l_run[2] = {0.f, 0.f};              // and this thread's share of sum exp(s - m)
+  const float scale = 1.f / sqrtf(static_cast<float>(p.d_scale));
+  const uint32_t q_lo_bytes = kLongRows * Dp * 4;
+  int jc = 0;  // the consumer's piece
+  auto slot_u = [&](int i) { return slots_u + (i % kInSplitSlots) * kInSlotBytes; };
+  for (int blk = kb0; blk < kb1; ++blk) {
+    // ---- scores of 64 rows x KB keys: a fresh 3xTF32 sum over each two
+    // pieces (8 k-steps), both waited for before their products are issued
+    float s[KB / 2], fresh[KB / 2];
+#pragma unroll
+    for (int c = 0; c < kInChunks; c += 2) {
+      if (c < nq) {
+        const int two = c + 1 < nq;
+        mbarrier_wait(full_bar(jc), (jc / kInSplitSlots) & 1);
+        if (two) mbarrier_wait(full_bar(jc + 1), ((jc + 1) / kInSplitSlots) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (half == 0 || two) {
+            const uint32_t b_hi = slot_u(jc + half), b_lo = b_hi + kInPartBytes;
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) {
+              const uint32_t a_hi = q_u + (4 * (c + half) + ks) * (kLongRows * 8 * 4);
+              const uint32_t a_lo = a_hi + q_lo_bytes, o_b = ks * (KB * 8 * 4);
+              wgmma_ss_n40(fresh, core_desc(a_lo), core_desc(b_hi + o_b), half || ks);
+              wgmma_ss_n40(fresh, core_desc(a_hi), core_desc(b_lo + o_b), 1);
+              wgmma_ss_n40(fresh, core_desc(a_hi), core_desc(b_hi + o_b), 1);
+            }
+          }
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        pin(fresh);
+        if (lane == 0) {
+          mbarrier_arrive(free_bar(jc));
+          if (two) mbarrier_arrive(free_bar(jc + 1));
+        }
+        jc += 1 + two;
+#pragma unroll
+        for (int i = 0; i < KB / 2; ++i) s[i] = c == 0 ? fresh[i] : s[i] + fresh[i];
+      }
+    }
+    // ---- online softmax in registers: scale, mask, rescale to the new max
+    const int key0 = blk * KB + 2 * t4;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < KB / 2; ++i) {
+      const int key = key0 + 8 * (i >> 2) + (i & 1);
+      const float sc = s[i] * scale;
+      s[i] = key >= S ? -INFINITY : (key < length ? sc : kMasked);
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      // finite: a walked block holds a key < S (a score or -1e30)
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      alpha[h] = m_run[h] == -INFINITY ? 0.f : expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+      l_run[h] *= alpha[h];
+    }
+    // P = exp(s - m) as P.V's A fragments (key 8j + 2t in lane column t,
+    // 8j + 2t + 1 in column t + 4, as V's k-positions stand)
+    uint32_t p_hi[KB / 8][4], p_lo[KB / 8][4];
+#pragma unroll
+    for (int i = 0; i < KB / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      const float e = expf(s[i] - m_run[h]);
+      l_run[h] += e;
+      const int a = (i & 1) * 2 + h;
+      split_tf32(e, p_hi[i >> 2][a], p_lo[i >> 2][a]);
+    }
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+      for (int c = 0; c < kInChunks; ++c)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+    }
+    // ---- O += P.V, a fresh 3xTF32 sum a piece (32 columns, KB / 8 k-steps)
+#pragma unroll
+    for (int c = 0; c < kInChunks; ++c) {
+      if (c < nq) {
+        mbarrier_wait(full_bar(jc), (jc / kInSplitSlots) & 1);
+        const uint32_t b_hi = slot_u(jc), b_lo = b_hi + kInPartBytes;
+        float f16[16];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KB / 8; ++ks) {
+          const uint32_t o_k = ks * (kInCols * 8 * 4);
+          wgmma_rs_n32(f16, p_lo[ks], core_desc(b_hi + o_k), ks > 0);
+          wgmma_rs_n32(f16, p_hi[ks], core_desc(b_lo + o_k), 1);
+          wgmma_rs_n32(f16, p_hi[ks], core_desc(b_hi + o_k), 1);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        pin(f16);
+        if (lane == 0) mbarrier_arrive(free_bar(jc));
+        ++jc;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) o[c][i] += f16[i];
+      }
+    }
+  }
+
+  // ---- the rows' sums over their quads; O / l, or the split's partials
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+  }
+  const int r0 = row0 + 16 * warp + g;
+#pragma unroll
+  for (int c = 0; c < kInChunks; ++c) {
+    if (c < nq) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = c * kInCols + 8 * n + 2 * t4;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + 8 * h;
+          if (row >= T || col >= D) continue;
+          float2 val = make_float2(o[c][4 * n + 2 * h], o[c][4 * n + 2 * h + 1]);
+          if (p.splits == 1) {
+            val = make_float2(val.x / l_run[h], val.y / l_run[h]);
+            *reinterpret_cast<float2*>(out + (static_cast<size_t>(b) * T + row) * D + col) = val;
+          } else {
+            *reinterpret_cast<float2*>(ws + (part + row) * D + col) = val;
+          }
+        }
+      }
+    }
+  }
+  if (p.splits > 1 && t4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row < T) {
+        ws[ws_rows * D + part + row] = m_run[h];
+        ws[ws_rows * (D + 1) + part + row] = l_run[h];
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query
+// (no link to libcuda); null where it is missing.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  return encode;
+}
+
+// The (rows, D) fp32 tensor at `base` for TMA boxes of 32 columns x
+// `box_rows` rows, no swizzle (rows of 128 bytes), zeros past its edges.
+bool encode_rows(CUtensorMap* map, const float* base, long long rows, int D, int box_rows) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 4};
+  const cuuint32_t box[2] = {kInCols, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The split pass (or the in-block instance's TMA maps), the attention, and
+// for more than one split the combine, on `stream`, for each chunk of
+// `batch` samples in turn.  The workspace: the split pieces, then the
+// partials, of one chunk (the chunks reuse it).
 cudaError_t launch_long(const LongPlan& p, const float* q, const float* k, const float* v,
                         const int* lengths, float* out, float* ws, cudaStream_t stream) {
+  const bool in_block = p.mode == kInBlock;
   const auto kernel = p.slices > 1 ? long_attention_kernel<true> : long_attention_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  const auto in_kernel = in_block_attention_kernel;
+  cudaError_t err = in_block
+      ? cudaFuncSetAttribute(in_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem)
+      : cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
   for (int b0 = 0; b0 < p.B; b0 += p.batch) {
     LongPlan c = p;
     c.B = min(p.batch, p.B - b0);
     const size_t qo = static_cast<size_t>(b0) * p.T * p.D, ko = static_cast<size_t>(b0) * p.S * p.D;
     const long long pieces = long_pieces(c);
-    split_pieces_kernel<<<static_cast<unsigned>(pieces), 256, 0, stream>>>(
-        q + qo, k + ko, v + ko, lengths + b0, ws, c);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
     float* partials = ws + 2LL * kPart * pieces;
-    kernel<<<dim3(c.row_blocks * c.slices, c.splits, c.B), kLongThreads, c.smem, stream>>>(
-        ws, lengths + b0, out + qo, partials, c);
+    const dim3 grid(c.row_blocks * c.slices, c.splits, c.B);
+    if (in_block) {
+      CUtensorMap tm_k, tm_v;
+      const long long rows = static_cast<long long>(c.B) * c.S;
+      if (!encode_rows(&tm_k, k + ko, rows, c.D, c.key_block) ||
+          !encode_rows(&tm_v, v + ko, rows, c.D, c.key_block))
+        return cudaErrorInvalidValue;
+      in_kernel<<<grid, kInThreads, c.smem, stream>>>(q + qo, tm_k, tm_v, lengths + b0, out + qo,
+                                                      partials, c);
+    } else {
+      split_pieces_kernel<<<static_cast<unsigned>(pieces), 256, 0, stream>>>(
+          q + qo, k + ko, v + ko, lengths + b0, ws, c);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kLongThreads, c.smem, stream>>>(ws, lengths + b0, out + qo, partials, c);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     if (c.splits == 1) continue;
@@ -1133,18 +1700,22 @@ int vcagan_masked_attention(const float* q, const float* k, const float* v, cons
   return static_cast<int>(err);
 }
 
-// Past 512 keys (or at S <= 512 where no strip fits): launches the split
-// pass, the attention and, for more than one split, the combine on
-// `stream`, for each chunk of the plan's `batch` samples.  `plan`: the ints
-// of vcagan_torch/kernels/masked_attention.py::LongAttentionPlan.ints();
-// `workspace`: that plan's workspace floats, 16-byte aligned.
+// The key-blocked instances: the in-block one (mode 1: the attention and,
+// for more than one split, the combine) and the split pass (mode 0: the
+// split pass, the attention and the combine), on `stream`, for each chunk
+// of the plan's `batch` samples.  `plan`: the ints of
+// vcagan_torch/kernels/masked_attention.py::LongAttentionPlan.ints();
+// `workspace`: that plan's workspace floats, 16-byte aligned (none for the
+// in-block instance with one split).
 int vcagan_masked_attention_long(const float* q, const float* k, const float* v,
                                  const int* lengths, float* out, float* workspace,
                                  const int* plan, int plan_len, int device, void* stream) {
   if (plan_len != kLongPlanInts) return static_cast<int>(cudaErrorInvalidValue);
-  const LongPlan p{plan[0], plan[1], plan[2], plan[3], plan[4],  plan[5], plan[6],
-                   plan[7], plan[8], plan[9], plan[10], plan[11], plan[12]};
-  if (!long_plan_ok(p) || workspace == nullptr || reinterpret_cast<uintptr_t>(workspace) % 16)
+  const LongPlan p{plan[0], plan[1], plan[2],  plan[3],  plan[4],  plan[5],  plan[6],
+                   plan[7], plan[8], plan[9], plan[10], plan[11], plan[12], plan[13]};
+  const bool no_workspace = p.ws_hi == 0 && p.ws_lo == 0;
+  if (!long_plan_ok(p) || (workspace == nullptr && !no_workspace) ||
+      reinterpret_cast<uintptr_t>(workspace) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -22,21 +22,34 @@ The plan (``attention_plan``) is chosen here, where the CPU tests reach
 it, and goes to the C entry point as plain ints, which refuses one that
 does not match.  The kernels compute with D a multiple of 8 (``kernel_d``);
 ``padded_attention`` gives them any other D padded with zero columns, and
-the plan carries the true D for the scale.  Up to ``S_MAX`` keys, where it
-fits shared memory (the strip instance, ``AttentionPlan``: warps a block,
-key tile, D chunk, shared memory, grid), all keys stand in one score strip
-a tile, on ``mma.sync``.  Past it, and for the shapes no strip fits
-(``LongAttentionPlan``), a first launch splits Q, K and V once into their
-TF32 parts; then a block is one warpgroup's 64 query rows and 256 output
-columns (D past 256 takes column slices, each computing the scores again)
-on ``wgmma`` over one split's share of the key blocks of ``KEY_BLOCK`` keys
-that hold a key below the sample's length, with an online softmax; the
-splits fill the card and a third launch combines them
-(``masked_attention_reference_3xtf32(..., key_block=, key_splits=)`` is
-that arithmetic in plain PyTorch).  Both instances take any B: the entry
-points launch chunks of at most 65535 samples (and, past ``S_MAX`` keys,
-of a workspace under 2^31 floats) one after another.  Only S = 0 (no key)
-and T = 0 (``masked_attention_cuda`` returns the empty output) have no plan.
+the plan carries the true D for the scale.  Three instances, among whose
+plans (``candidate_plans``) the planner takes the least modelled time on
+the card (``routing_cost``):
+
+- up to ``S_MAX`` keys and ``IN_MAX_D`` columns, the in-block instance
+  (``LongAttentionPlan(in_block=True)``): one launch a call, a block of 64
+  query rows on ``wgmma`` whose producer warpgroups split the K and V pieces
+  the TMA unit brings into their TF32 parts in shared memory, over the key
+  blocks of ``IN_KEY_BLOCK`` keys below the sample's length with an online
+  softmax, key splits and a combine launch where a call has few blocks;
+- up to ``S_MAX`` keys, where it fits shared memory, the strip instance
+  (``AttentionPlan``: warps a block, key tile, D chunk, shared memory,
+  grid): all keys in one score strip a tile, on ``mma.sync``; the planner
+  takes it where it is far faster (many blocks of few rows) and where D
+  passes ``IN_MAX_D``;
+- past ``S_MAX`` keys, and where D passes ``IN_MAX_D`` and no strip fits,
+  the split pass (``LongAttentionPlan``): a first launch splits Q, K and V
+  once into their TF32 parts, then a block is one warpgroup's 64 query rows
+  and 256 output columns (D past 256 takes column slices, each computing
+  the scores again) on ``wgmma`` over one split's share of the key blocks of
+  ``KEY_BLOCK`` keys, and a third launch combines the splits.
+
+``masked_attention_reference_3xtf32(..., key_block=, key_splits=)`` is the
+key-blocked instances' arithmetic in plain PyTorch.  Every instance takes
+any B: the entry points launch chunks of at most 65535 samples (and, for
+the split pass and the key splits, of a workspace under 2^31 floats) one
+after another.  Only S = 0 (no key) and T = 0 (``masked_attention_cuda``
+returns the empty output) have no plan.
 """
 
 from __future__ import annotations
@@ -54,9 +67,13 @@ from vcagan_torch.kernels._tf32 import split_tf32
 
 NEG_INF = -1e30  # mask value; not -inf, so an all-masked row stays finite
 # Calls that launched the kernel so far; reset by the caller that counts.  One
-# a call: past S_MAX keys a call is two or three launches (the split pass,
-# the attention, the combine of more than one split) and still counts one.
+# a call, however many kernel launches it takes: the in-block instance one
+# (two with key splits: the combine), the strip one, the split pass two or
+# three (the split pass, the attention, the combine of more than one split);
+# and one a chunk of 65535 samples.
 LAUNCHES = 0
+# The same calls by instance: "in_block", "strip", "split_pass".
+INSTANCE_LAUNCHES = {"in_block": 0, "strip": 0, "split_pass": 0}
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
 MAX_GRID_B = 65535  # samples a launch: the grid's y (strip) and z (past S_MAX) axes
@@ -79,7 +96,7 @@ SLICE_D = 256  # output columns a block: its sums stay in registers, 128 a threa
 LONG_SLOTS = 3  # pieces in shared memory: in use, arrived, arriving
 PART_FLOATS = KEY_BLOCK * LONG_CHUNK  # a piece's hi (or lo) part
 SMS = 132  # streaming multiprocessors of an H100 SXM
-LONG_PLAN_INTS = 13
+LONG_PLAN_INTS = 14
 # A launch's workspace, at most (8 GB): more samples go in chunks that reuse
 # it.  One sample may pass it (the C side's offsets are 64-bit).
 WORKSPACE_FLOATS = 2**31 - 1
@@ -90,6 +107,34 @@ WORKSPACE_FLOATS = 2**31 - 1
 KEY_BLOCK_US = 7.5
 BLOCK_US = 4.0
 COMBINE_BYTES_PER_US = 2.5e6
+# The in-block instance (``LongAttentionPlan(in_block=True)``): one launch,
+# a consumer and two producer warpgroups a block; pieces of IN_COLS columns.
+IN_COLS = 32
+IN_RAW_SLOTS = 4
+IN_SPLIT_SLOTS = 6
+IN_KEY_BLOCK = 40  # keys a key block: Q K^T's N (the consumer's 248 registers)
+IN_MAX_D = 256  # the consumer's output registers: 256 columns
+# The instances' models of a call's microseconds, fitted to their times on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (``python3 -m
+# vcagan_torch.kernels.tune_attention --short``, the rows up to 512 keys).
+# In-block (``LongAttentionPlan.cost_us``): a call, then a wave of blocks
+# (one an SM): its Q (a part a chunk of 32 columns) and its share of key
+# blocks (a part a chunk), then the combine's bytes at COMBINE_BYTES_PER_US.
+IN_CALL_US = 2.7
+IN_WAVE_US, IN_WAVE_CHUNK_US = 1.06, 0.87
+IN_KEY_BLOCK_US, IN_KEY_BLOCK_CHUNK_US = 0.3, 0.925
+# The strip (``AttentionPlan.cost_us``): a call, then a wave of co-resident
+# blocks (blocks sharing an SM take STRIP_SHARE longer each): a fixed part
+# and the K and V pieces times the block's row tiles, a piece's time growing
+# with its D chunk.
+STRIP_CALL_US = 15.48
+STRIP_WAVE_US = 0.683
+STRIP_PIECE_US, STRIP_PIECE_CHUNK_US = 0.2634, 0.0701
+STRIP_SHARE = 0.1
+# The strip's model is within 24% of its times (the in-block one within 20%
+# where a wave is full, 35% where it is not; PERF.md section 6): the strip is
+# routed only where its model is this share of the in-block one's or less.
+STRIP_MARGIN = 0.8
 
 
 def masked_attention_reference(
@@ -116,8 +161,9 @@ def masked_attention_reference_3xtf32(
     to a multiple of it, as the kernel's tiles do, and give the padded keys
     weight exactly 0 (score -inf), so the result does not change.
 
-    ``key_block`` > 0: the arithmetic of the kernel past ``S_MAX`` keys, a
-    sample at a time.  A sample walks the key blocks of ``key_block`` keys
+    ``key_block`` > 0: the arithmetic of the key-blocked instances (past
+    ``S_MAX`` keys, and the in-block instance), all samples at once.  A
+    sample walks the key blocks of ``key_block`` keys
     (the last one padded to ``key_pad``) that hold a key below its length
     (all of them for a length <= 0), shared out over ``key_splits`` splits
     as ``LongAttentionPlan.key_ranges`` shares them.  In each split a row
@@ -151,39 +197,42 @@ def masked_attention_reference_3xtf32(
         extra = -x.shape[1] % key_pad
         return torch.cat([x, x.new_zeros(x.shape[0], extra, x.shape[2])], 1) if extra else x
 
-    def split_sums(i: int, first: int, n: int):
-        """m, l and O of sample i's keys first ... first + n - 1."""
-        m = l = o = None
-        for start in range(first, first + n, key_block):
-            end = min(start + key_block, s)
-            k_blk, v_blk = pad(k[i:i + 1, start:end]), pad(v[i:i + 1, start:end])
-            sc = scores(q[i:i + 1], k_blk, lengths[i:i + 1], start)
-            m_blk = sc.amax(-1, keepdim=True)
-            m_new = m_blk if m is None else torch.maximum(m, m_blk)
-            e = torch.exp(sc - m_new)
-            pv = product("bts,bsd->btd", e, v_blk)
-            if m is None:
-                l, o = e.sum(-1, keepdim=True), pv
-            else:
-                alpha = torch.exp(m - m_new)
-                l, o = l * alpha + e.sum(-1, keepdim=True), o * alpha + pv
-            m = m_new
-        return m, l, o
-
     s = k.shape[1]
     if not key_block:
         k, v = pad(k), pad(v)
         probs = torch.softmax(scores(q, k, lengths, 0), dim=-1)
         return product("bts,bsd->btd", probs, v)
-    out = []
-    for i, length in enumerate(lengths.tolist()):
-        parts = [split_sums(i, first, n)
-                 for first, n in key_ranges(s, length, key_block, key_splits) if n]
-        top = torch.stack([m for m, _, _ in parts]).amax(0)
-        w = [torch.exp(m - top) for m, _, _ in parts]
-        out.append(sum(wi * o for wi, (_, _, o) in zip(w, parts))
-                   / sum(wi * l for wi, (_, l, _) in zip(w, parts)))
-    return torch.cat(out)
+    # The key-blocked walk, every sample at once: block i belongs to split n
+    # of a sample that walks w blocks where n w // splits <= i < (n + 1) w //
+    # splits (``key_ranges``); a sample outside a block keeps its m, l, O.
+    lens = lengths.to(q.device).long()
+    walked = (torch.where(lens >= 1, lens.clamp(max=s), torch.full_like(lens, s))
+              + key_block - 1) // key_block
+    rows = (q.shape[0], q.shape[1], 1)
+    parts = []
+    for n in range(key_splits):
+        first, end = n * walked // key_splits, (n + 1) * walked // key_splits
+        m = torch.full(rows, -math.inf, dtype=q.dtype, device=q.device)
+        l = torch.zeros(rows, dtype=q.dtype, device=q.device)
+        o = torch.zeros_like(q[..., :v.shape[2]])
+        for i in range(-(-s // key_block)):
+            take = ((first <= i) & (i < end))[:, None, None]
+            if not take.any():
+                continue
+            start = i * key_block
+            k_blk, v_blk = pad(k[:, start:start + key_block]), pad(v[:, start:start + key_block])
+            sc = scores(q, k_blk, lengths, start)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))  # finite: a key < S
+            e = torch.exp(sc - m_new)
+            alpha = torch.exp(m - m_new)  # 0 before the first block
+            m = torch.where(take, m_new, m)
+            l = torch.where(take, l * alpha + e.sum(-1, keepdim=True), l)
+            o = torch.where(take, o * alpha + product("bts,bsd->btd", e, v_blk), o)
+        parts.append((m, l, o))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)  # finite: a split walked a block
+    w = [torch.exp(m - top) for m, _, _ in parts]  # 0 for a split without a block
+    return (sum(wi * o for wi, (_, _, o) in zip(w, parts))
+            / sum(wi * l for wi, (_, l, _) in zip(w, parts)))
 
 
 # ---- D padded to the kernels' multiple of 8
@@ -238,6 +287,7 @@ class AttentionPlan:
     warps: int
     d_chunk: int
     row_tiles: int
+    b: int = 1
 
     @property
     def key_block(self) -> int:
@@ -288,6 +338,20 @@ class AttentionPlan:
         """(first key, keys) of each block the kernel walks: the one strip."""
         return [(0, self.s)]
 
+    def cost_us(self) -> float:
+        """The strip's model: waves of co-resident blocks (as many as
+        shared memory and the SM's warps allow), each a fixed part and its K
+        and V pieces times its row tiles."""
+        b = min(self.b, MAX_GRID_B)
+        blocks = self.row_tiles * b
+        resident = max(1, min(MAX_SMEM // (self.smem_bytes + 1024), 64 // self.warps))
+        waves = -(-blocks // (SMS * resident))
+        sharing = min(-(-blocks // SMS), resident)
+        pieces = 2 * -(-self.s // self.key_tile) * (self.d_kernel // self.d_chunk)
+        wave = STRIP_WAVE_US + pieces * self.tiles * (
+            STRIP_PIECE_US + STRIP_PIECE_CHUNK_US * self.d_chunk / 64)
+        return STRIP_CALL_US + -(-self.b // b) * waves * (1 + STRIP_SHARE * (sharing - 1)) * wave
+
     def describe(self) -> str:
         return (f"{self.row_tiles} x {self.tiles} tiles of 16 rows, {self.split} warps a tile, "
                 f"D chunk {self.d_chunk}")
@@ -317,8 +381,11 @@ def key_ranges(s: int, length: int, key_block: int, splits: int) -> list[tuple[i
 
 @dataclasses.dataclass(frozen=True)
 class LongAttentionPlan:
-    """One call past ``S_MAX`` keys (or at fewer, where no strip fits).  A
-    first launch splits Q, K and V once into their TF32 parts, in
+    """One call of a key-blocked instance: the in-block one (``in_block``,
+    up to ``S_MAX`` keys and ``IN_MAX_D`` columns; below) or the split
+    pass (past ``S_MAX`` keys, or where D passes ``IN_MAX_D`` and no strip
+    fits).  The split pass: a first launch splits Q, K and V once into their
+    TF32 parts, in
     ``pieces`` pieces of 64 rows x ``LONG_CHUNK`` columns laid out as wgmma
     reads them.  The attention's grid is (``row_blocks`` x ``slices``,
     ``splits``, samples): a block is one warpgroup, 64 query rows of one
@@ -335,7 +402,16 @@ class LongAttentionPlan:
     parts and an mbarrier each (``smem_bytes``; the formula of
     ``long_smem_bytes`` in the CUDA source).  ``d`` is the true D; the
     kernel computes with ``d_kernel`` (``kernel_d``).  ``batch``: samples a
-    launch, 0 for all of them up to ``MAX_GRID_B``."""
+    launch, 0 for all of them up to ``MAX_GRID_B``.
+
+    The in-block instance (``key_block`` ``IN_KEY_BLOCK``): one launch (and
+    the combine for more than one split), no split pass, so no pieces in
+    the workspace, only the splits' partials.  A block is 64 query rows of
+    one sample and all of D: a consumer warpgroup on wgmma and two producer
+    warpgroups that split the K and V pieces of ``IN_COLS`` columns the TMA
+    unit brings (``IN_RAW_SLOTS`` raw slots, ``IN_SPLIT_SLOTS`` split
+    slots); shared memory holds Q's parts and both rings (``smem_bytes``;
+    ``in_smem_bytes`` in the CUDA source)."""
 
     t: int
     s: int
@@ -343,10 +419,8 @@ class LongAttentionPlan:
     b: int
     splits: int
     batch: int = 0
-
-    @property
-    def key_block(self) -> int:
-        return KEY_BLOCK
+    in_block: bool = False
+    key_block: int = KEY_BLOCK
 
     @property
     def d_kernel(self) -> int:
@@ -366,7 +440,7 @@ class LongAttentionPlan:
 
     @property
     def key_blocks_all(self) -> int:
-        return -(-self.s // KEY_BLOCK)
+        return -(-self.s // self.key_block)
 
     @property
     def chunks(self) -> int:
@@ -383,6 +457,10 @@ class LongAttentionPlan:
 
     @property
     def smem_bytes(self) -> int:
+        if self.in_block:  # Q's parts, the raw ring, the split ring, the mbarriers
+            return (2 * LONG_ROWS * -(-self.d_kernel // IN_COLS) * IN_COLS * 4
+                    + (IN_RAW_SLOTS + 2 * IN_SPLIT_SLOTS) * IN_KEY_BLOCK * IN_COLS * 4
+                    + 8 * (IN_RAW_SLOTS + 2 * IN_SPLIT_SLOTS))
         if self.slices > 1:  # a slot holds a K piece's parts and a Q piece's
             return LONG_SLOTS * 4 * 4 * PART_FLOATS + 8 * (LONG_SLOTS + 1)
         return (2 * self.chunks + 2 * LONG_SLOTS) * 4 * PART_FLOATS + 8 * (LONG_SLOTS + 1)
@@ -390,6 +468,8 @@ class LongAttentionPlan:
     @property
     def pieces(self) -> int:
         """Pieces of one launch's split pass: Q's, then K's and V's."""
+        if self.in_block:
+            return 0
         return self.chunks * self.launch_b * (self.row_blocks + 2 * self.key_blocks_all)
 
     @property
@@ -404,33 +484,42 @@ class LongAttentionPlan:
 
     def key_blocks(self) -> list[tuple[int, int]]:
         """(first key, keys) of each key block of S, in order."""
-        return [(k0, min(KEY_BLOCK, self.s - k0)) for k0 in range(0, self.s, KEY_BLOCK)]
+        kb = self.key_block
+        return [(k0, min(kb, self.s - k0)) for k0 in range(0, self.s, kb)]
 
     def key_ranges(self, length: int) -> list[tuple[int, int]]:
-        return key_ranges(self.s, length, KEY_BLOCK, self.splits)
+        return key_ranges(self.s, length, self.key_block, self.splits)
 
     def cost_us(self) -> float:
-        """The split model: waves of blocks a key-block share long each,
-        plus the combine's bytes (each split's O read, the output written),
-        a launch; a key block's time grows with the pieces it takes past
-        the 4 + 4 of D = 256 (the scores over all of D, the slice's V)."""
+        """The models, a launch: waves of blocks (one an SM), each a
+        key-block share long, plus the combine's bytes (each split's O read,
+        the output written).  The split pass: a key block's time grows with
+        the pieces it takes past the 4 + 4 of D = 256 (the scores over all of
+        D, the slice's V).  The in-block instance: a wave's Q and a key
+        block's pieces grow with D's chunks of ``IN_COLS``."""
         waves = -(-self.blocks // SMS)
         share = -(-self.key_blocks_all // self.splits)
-        work = max(1.0, (self.chunks + self.chunks / self.slices) / 8)
         combine = 0.0
         if self.splits > 1:
             combine = ((self.splits + 1) * self.launch_b * self.t * self.d_kernel * 4
                        / COMBINE_BYTES_PER_US)
+        if self.in_block:
+            nq = -(-self.d_kernel // IN_COLS)
+            wave = (IN_WAVE_US + IN_WAVE_CHUNK_US * nq
+                    + share * (IN_KEY_BLOCK_US + IN_KEY_BLOCK_CHUNK_US * nq))
+            return IN_CALL_US + self.launches * (waves * wave + combine)
+        work = max(1.0, (self.chunks + self.chunks / self.slices) / 8)
         return self.launches * (waves * (share * KEY_BLOCK_US * work + BLOCK_US) + combine)
 
     def describe(self) -> str:
         launches = f"{self.launches} launches of {self.launch_b} samples, " if (
             self.launches > 1) else ""
         slices = f" x {self.slices} column slices" if self.slices > 1 else ""
-        return (f"{launches}{self.row_blocks}{slices} x {self.splits} x {self.launch_b} = "
+        mode = "in-block split" if self.in_block else "split pass"
+        return (f"{mode}: {launches}{self.row_blocks}{slices} x {self.splits} x {self.launch_b} = "
                 f"{self.blocks} blocks of {LONG_ROWS} rows, {self.splits} key split(s) over "
-                f"{self.key_blocks_all} key blocks of {KEY_BLOCK}, {self.smem_bytes} B shared, "
-                f"workspace {self.workspace_floats * 4 / 1e6:.2f} MB ({self.pieces} split "
+                f"{self.key_blocks_all} key blocks of {self.key_block}, {self.smem_bytes} B "
+                f"shared, workspace {self.workspace_floats * 4 / 1e6:.2f} MB ({self.pieces} split "
                 f"pieces, {self.partial_floats * 4 / 1e6:.2f} MB of partials)")
 
     def ints(self) -> list[int]:
@@ -439,55 +528,113 @@ class LongAttentionPlan:
         a launch and the workspace floats as two ints (high, low 30 bits)."""
         ws = self.workspace_floats
         return [self.b, self.t, self.s, self.d_kernel, self.d, self.row_blocks, self.splits,
-                self.slices, KEY_BLOCK, self.smem_bytes, self.launch_b, ws >> 30,
-                ws & (2**30 - 1)]
+                self.slices, self.key_block, self.smem_bytes, self.launch_b, ws >> 30,
+                ws & (2**30 - 1), int(self.in_block)]
 
 
-def _long_plan(t: int, s: int, d: int, b: int) -> LongAttentionPlan:
-    """The split count of least modelled time (``cost_us``); ties to fewer.
-    A block takes 229 KB of shared memory, so an SM runs one at a time and
-    a wave past the first costs a whole share: (4, 750, 750) runs 96
-    blocks of 6 key blocks (one wave) faster than 192 of 3 (two).  Where a
-    launch's workspace passes ``WORKSPACE_FLOATS``, the samples go in
-    chunks that keep it below (one sample at least)."""
+def _key_blocked_plans(t: int, s: int, d: int, b: int, **kind) -> list[LongAttentionPlan]:
+    """A key-blocked instance's plans, a split count each.  Where a launch's
+    workspace passes ``WORKSPACE_FLOATS``, the samples go in chunks that
+    keep it below (one sample at least); a split count whose one sample
+    alone passes it is left out (one split always stays)."""
     plans = []
-    for n in range(1, min(-(-s // KEY_BLOCK), MAX_GRID_B) + 1):
-        plan = LongAttentionPlan(t, s, d, b, n)
+    key_block = kind.get("key_block", KEY_BLOCK)
+    for n in range(1, min(-(-s // key_block), MAX_GRID_B) + 1):
+        plan = LongAttentionPlan(t, s, d, b, n, **kind)
         if plan.workspace_floats > WORKSPACE_FLOATS:
             per_sample = plan.workspace_floats // plan.launch_b
             plan = dataclasses.replace(plan, batch=max(1, WORKSPACE_FLOATS // per_sample))
             if n > 1 and plan.workspace_floats > WORKSPACE_FLOATS:
                 continue  # one sample's partials alone pass it: fewer splits do
         plans.append(plan)
-    return min(plans, key=lambda p: (p.cost_us(), p.splits))
+    return plans
+
+
+def _long_plans(t: int, s: int, d: int, b: int) -> list[LongAttentionPlan]:
+    """The split pass's plans (``cost_us`` picks among them: a block takes
+    229 KB of shared memory, so an SM runs one at a time and a wave past
+    the first costs a whole share; (4, 750, 750) runs 96 blocks of 6 key
+    blocks, one wave, faster than 192 of 3)."""
+    return _key_blocked_plans(t, s, d, b)
+
+
+def strip_plan(t: int, s: int, d: int, b: int = 1) -> AttentionPlan | None:
+    """The one-strip plan up to ``S_MAX`` keys where one fits shared memory,
+    else None: the 16-row tiles spread evenly over the blocks (75 rows: 2
+    blocks of 3 tiles, not 4 + 1), fewer tiles a block where a strip is over
+    the budget; ``b`` counts in its cost only."""
+    if s > S_MAX:
+        return None
+    d_chunk = next(c for c in D_CHUNKS if kernel_d(d) % c == 0)
+    split = _split(d_chunk)
+    all_tiles = -(-t // ROWS)
+    tiles = -(-all_tiles // -(-all_tiles // TILES))
+    while tiles:
+        plan = AttentionPlan(t, s, d, tiles * split, d_chunk, -(-all_tiles // tiles), b)
+        if plan.smem_bytes <= MAX_SMEM:
+            return plan
+        tiles -= 1
+    return None
+
+
+def _in_block_plans(t: int, s: int, d: int, b: int) -> list[LongAttentionPlan]:
+    """The in-block instance's plans (D up to ``IN_MAX_D``)."""
+    if kernel_d(d) > IN_MAX_D:
+        return []
+    return _key_blocked_plans(t, s, d, b, in_block=True, key_block=IN_KEY_BLOCK)
+
+
+def candidate_plans(t: int, s: int, d: int, b: int = 1) -> list:
+    """Every plan ``attention_plan`` chooses among for the shape: up to
+    ``S_MAX`` keys and ``IN_MAX_D`` columns the in-block instance's (each
+    key block and split count) and the strip's; past ``IN_MAX_D`` columns
+    the strip's where one fits shared memory, else the split pass's; past
+    ``S_MAX`` keys the split pass's (each split count)."""
+    strip = strip_plan(t, s, d, b)
+    if s > S_MAX:
+        return _long_plans(t, s, d, b)
+    if kernel_d(d) > IN_MAX_D:
+        return [strip] if strip else _long_plans(t, s, d, b)
+    return _in_block_plans(t, s, d, b) + ([strip] if strip else [])
+
+
+def routing_cost(plan) -> float:
+    """What ``attention_plan`` minimises: the modelled microseconds, the
+    strip's over ``STRIP_MARGIN``."""
+    return plan.cost_us() / (STRIP_MARGIN if isinstance(plan, AttentionPlan) else 1.0)
+
+
+def instance(plan) -> str:
+    """The kernel instance a plan launches."""
+    if isinstance(plan, AttentionPlan):
+        return "strip"
+    return "in_block" if plan.in_block else "split_pass"
+
+
+def in_block_plan(t: int, s: int, d: int, b: int = 1) -> LongAttentionPlan | None:
+    """The in-block instance's plan of least modelled time for the shape,
+    whether or not ``attention_plan`` routes it there (chip_smoke and the
+    tuner hold the instance at every shape it takes); None where it takes
+    none (past ``S_MAX`` keys or ``IN_MAX_D`` columns)."""
+    plans = _in_block_plans(t, s, d, b) if s <= S_MAX else []
+    return min(plans, key=lambda p: p.cost_us()) if plans else None
 
 
 @functools.lru_cache(maxsize=256)
 def attention_plan(t: int, s: int, d: int, b: int = 1) -> AttentionPlan | LongAttentionPlan:
     """The plan for q (b,t,d), k and v (b,s,d), any D >= 1 and B; raises
-    for S or T < 1.  Up to ``S_MAX`` keys one strip a tile (``b`` plays no
-    part) where it fits shared memory, else (and past ``S_MAX``) a
-    ``LongAttentionPlan``.  The 16-row tiles are spread evenly over the
-    blocks (75 rows: 2 blocks of 3 tiles, not 4 + 1); a strip over the
-    shared-memory budget takes fewer tiles a block."""
+    for S or T < 1: the least ``routing_cost`` of ``candidate_plans`` (ties
+    to the first: the in-block instance, fewer splits).  Every main path's
+    shape up to 512 keys takes the in-block instance; the strip takes
+    shapes of many blocks of few rows (B = 70,000 x T = 2) and, up to 512
+    keys, D past ``IN_MAX_D`` where it fits."""
     if d < 1:
         raise ValueError(f"the attention kernel takes D >= 1, got D={d}")
     if s < 1:
         raise ValueError(f"the attention kernel takes S >= 1 keys, got S={s}")
     if t < 1:
         raise ValueError(f"no plan for T={t} query rows")
-    if s > S_MAX:
-        return _long_plan(t, s, d, b)
-    d_chunk = next(c for c in D_CHUNKS if kernel_d(d) % c == 0)
-    split = _split(d_chunk)
-    all_tiles = -(-t // ROWS)
-    tiles = -(-all_tiles // -(-all_tiles // TILES))
-    while tiles:
-        plan = AttentionPlan(t, s, d, tiles * split, d_chunk, -(-all_tiles // tiles))
-        if plan.smem_bytes <= MAX_SMEM:
-            return plan
-        tiles -= 1
-    return _long_plan(t, s, d, b)  # no strip fits (Q's rows at large D)
+    return min(candidate_plans(t, s, d, b), key=routing_cost)
 
 
 # ---- the kernel
@@ -576,6 +723,7 @@ def masked_attention_cuda(
 
     out = padded_attention(q, k, v, lengths, attend)
     LAUNCHES += 1
+    INSTANCE_LAUNCHES[instance(plan)] += 1
     return out
 
 
