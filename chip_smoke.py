@@ -176,7 +176,20 @@ Phases, in order; any failure raises and exits non-zero:
      full-width ``Synthesizer`` with attention_dim 512 on B=2 clips of 750
      frames in fp32 and bf16, its two attention calls against the plain
      version, one forward timed;
-then print the per-kernel JSON line and, last, the device JSON line.
+ 17. Griffin-Lim's windowed-DFT matmul form (``griffin_lim_mxu``) and
+     ``MelPipeline(gl_dtype=...)``: (a) the fp32 matmul form on the card
+     against the FFT form on the card and on the CPU at 20 rounds, each
+     beside a float64 run, and the bf16 synthesis against its bf16 operands
+     in float64 (fp32 results, not bf16 ones); (b) bf16 against fp32 by the
+     JAX package's convergence bounds on its multi-tone signal and on the
+     trained postnet's spectrogram at B=48; (c) the three forms' device ms
+     at (48, 300, 321) and (100, 300, 321) beside their bounds, which decide
+     ``dsp.pipeline.FP32_MATMUL_ON_CUDA``, and one bf16 call profiled;
+     (d) the bf16 folded + fused serving path at B=48 x 75 with
+     ``gl_dtype=bf16`` beside the default, in turns, its launches asserted
+     and its Griffin-Lim form counted, and the stages of one such forward;
+then print Griffin-Lim's JSON line, the per-kernel JSON line and, last,
+the device JSON line.
 Needs one card; JAX is not used.
 """
 
@@ -207,6 +220,10 @@ from vcagan_torch.data.lrs import LRSDataset, SyntheticLRSSource  # noqa: E402
 from vcagan_torch.data.lrs import make_lrs_device_pipeline  # noqa: E402
 from vcagan_torch.data.synthetic import SyntheticLipSpeech  # noqa: E402
 from vcagan_torch.data.transforms import augment_draws  # noqa: E402
+from vcagan_torch.dsp import STFTParams, griffin_lim, griffin_lim_mxu, stft  # noqa: E402
+from vcagan_torch.dsp import pipeline as dsp_pipeline  # noqa: E402
+from vcagan_torch.dsp.griffin_lim import dft_bases, random_phase  # noqa: E402
+from vcagan_torch.dsp.stft import _wss_correction, overlap_add  # noqa: E402
 from vcagan_torch.eval import stoi_np  # noqa: E402
 from vcagan_torch.eval.stoi import stoi_estoi_batch  # noqa: E402
 from vcagan_torch.io.weights import load_serving_npz  # noqa: E402
@@ -3674,6 +3691,263 @@ def phase_sixteen(card):
     return rows_attn, rows_block
 
 
+# Phase 17, Griffin-Lim's forms.  The card's published float32 rate
+# outside the tensor cores (the fp32 matmul form runs with TF32 off).
+FP32_FLOP_PER_S = 67e12
+GL_FORMS = (("fft fp32", None), ("matmul fp32", torch.float32), ("matmul bf16", torch.bfloat16))
+GL_SHAPES = ((48, 300), (100, 300))  # (B, mel frames): the serving and GRID test batches
+GL_PARAMS = STFTParams()  # AudioConfig's 640 / 160 / 640
+GL_ROUNDS = AudioConfig().griffin_lim_iters
+GL_CHECK_ROUNDS = 20
+# The fp32 matmul form on the card against the FFT form on the card and
+# against the FFT form on the CPU (the port's route off the card) at 20
+# rounds: the JAX package's bound for its matmul form against its FFT form
+# (tests/test_dsp.py:200-217).  bf16 with no round against the same bf16
+# operands multiplied and summed in float64: fp32 sums of 642 products,
+# about sqrt(642) x 2^-24 of their scale, held at 1e-5 of the waveform's
+# peak (a result rounded to bf16 would be 2e-3 off).
+GL_FP32_TOL = 5e-5
+GL_BF16_SYNTH_REL = 1e-5
+
+
+def gl_form(dtype, mag, rounds, phase=None, generator=None):
+    """One Griffin-Lim form on ``mag``: the FFT form for ``dtype`` None,
+    else ``griffin_lim_mxu`` in ``dtype``."""
+    if dtype is None:
+        return griffin_lim(mag, GL_PARAMS, rounds, init_phase=phase, generator=generator)
+    return griffin_lim_mxu(mag, GL_PARAMS, rounds, compute_dtype=dtype, init_phase=phase,
+                           generator=generator)
+
+
+def gl_work(b, t, dtype):
+    """(bytes, flops, flop rate, state bytes) of one 60-round call at (B, T):
+    the magnitudes and the phase read once and the waveform written once;
+    the matmul form's products, 8 B T n_bins n_fft flops a round and half
+    that for the last synthesis (the FFT form's transforms, 2.5 n log2 n
+    flops a real 640-point FFT, two a round and one at the end), at the
+    rate of the compute dtype; and the state every round must at least
+    write and read again (the spectrum as [re | im] fp32 and the signal),
+    which unfused elementwise passes multiply."""
+    k, n, hop = GL_PARAMS.n_bins, GL_PARAMS.n_fft, GL_PARAMS.hop_length
+    nbytes = 2 * b * t * k * 4 + b * hop * (t - 1) * 4
+    if dtype is None:
+        flops = (2 * GL_ROUNDS + 1) * b * t * 2.5 * n * np.log2(n)
+    else:
+        flops = (8 * GL_ROUNDS + 4) * b * t * k * n
+    rate = BF16_TC_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    state = GL_ROUNDS * 2 * (b * t * 2 * k * 4 + b * hop * (t + 3) * 4)
+    return nbytes, flops, rate, state
+
+
+def speechish(n, seed):
+    """Three amplitude-modulated partials (the JAX package's inverse-DSP
+    parity signal, tests/test_inverse_dsp_parity.py:127-134)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    x = np.zeros_like(t)
+    for f0 in (150.0, 450.0, 1200.0):
+        am = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t)
+        x += am * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 6))
+    return (0.5 * x / np.abs(x).max()).astype(np.float32)
+
+
+def gl_convergence(what, mag, recs, card):
+    """The JAX package's bf16 quality bounds (tests/test_dsp.py:231-272) on
+    two reconstructions {"fp32", "bf16"} of ``mag``: spectral convergence
+    sc32 < 0.35 and sc16 < 0.40, sc16 < 1.2 sc32 + 0.02, log-magnitude
+    correlation > 0.99."""
+    mags = {d: stft(r, GL_PARAMS).abs() for d, r in recs.items()}
+    sc = {d: (torch.linalg.vector_norm(m - mag) / torch.linalg.vector_norm(mag)).item()
+          for d, m in mags.items()}
+    corr, _ = corr_rel(torch.log(1e-5 + mags["bf16"]), torch.log(1e-5 + mags["fp32"]))
+    print(f"griffin-lim bf16 vs fp32 on {what}: sc32 {sc['fp32']:.4f}, sc16 {sc['bf16']:.4f}, "
+          f"log-magnitude correlation {corr:.5f} [{card}]")
+    check(sc["fp32"] < 0.35 and sc["bf16"] < 0.40, f"{what}: spectral convergence {sc}")
+    check(sc["bf16"] < 1.2 * sc["fp32"] + 0.02, f"{what}: bf16 converges worse {sc}")
+    check(corr > 0.99, f"{what}: log-magnitude correlation {corr:.5f}")
+    return {"sc32": sc["fp32"], "sc16": sc["bf16"], "log_mag_corr": corr}
+
+
+def gl_checks(card, states):
+    """(a) The fp32 matmul form on the card against the FFT form on the card
+    and on the CPU (the port's route there), each against a float64 run of
+    the matmul form on the CPU (printed), and the bf16 synthesis against
+    its bf16 operands in float64;
+    (b) bf16 against fp32 by the JAX package's bounds on its multi-tone
+    signal and on the postnet spectrogram of the trained weights at B=48."""
+    clips = np.stack([speechish(160 * 299, 31 + i) for i in range(4)])
+    mag = stft(torch.from_numpy(clips).cuda(), GL_PARAMS).abs()  # (4, 300, 321)
+    phase = torch.from_numpy(np.random.default_rng(17).uniform(
+        -np.pi, np.pi, mag.shape).astype(np.float32)).cuda()
+    fft = gl_form(None, mag, GL_CHECK_ROUNDS, phase)
+    mm = gl_form(torch.float32, mag, GL_CHECK_ROUNDS, phase)
+    cpu = gl_form(None, mag.cpu(), GL_CHECK_ROUNDS, phase.cpu())
+    errs = {"matmul fp32 vs fft fp32, card": (mm - fft).abs().max().item(),
+            "matmul fp32 card vs fft fp32 CPU": (mm.cpu() - cpu).abs().max().item()}
+    exact = gl_form(torch.float64, mag.cpu().double(), GL_CHECK_ROUNDS, phase.cpu().double())
+    runs = {"matmul fp32, card": mm, "fft fp32, card": fft, "fft fp32, CPU": cpu,
+            "matmul fp32, CPU": gl_form(torch.float32, mag.cpu(), GL_CHECK_ROUNDS, phase.cpu())}
+    print(f"griffin-lim {GL_CHECK_ROUNDS} rounds, (4, 300, 321), max abs err against a float64 "
+          f"matmul form on the CPU: " + ", ".join(
+              f"{what} {(run.cpu().double() - exact).abs().max().item():.3e}"
+              for what, run in runs.items()) + f" [{card}]")
+    synth16 = gl_form(torch.bfloat16, mag, 0, phase).cpu().double()
+    # the one synthesis of no round, in float64 on the bf16 operands: the
+    # spectrum rounded to bf16 as the matmul form rounds it, the fp32-rounded
+    # bases rounded to bf16 as its bases, then every step in float64
+    spectrum = (mag.repeat(1, 1, 2) * torch.cat([phase.cos(), phase.sin()], -1)).bfloat16()
+    basis = torch.as_tensor(np.concatenate(dft_bases(GL_PARAMS)[2:], 0).astype(np.float32))
+    frames = spectrum.cpu().double() @ basis.bfloat16().double()
+    corr = _wss_correction(300, GL_PARAMS, torch.device("cpu"), torch.float64)
+    exact16 = (overlap_add(frames, GL_PARAMS) * corr)[:, 320:-320]
+    bf16_rel = ((synth16 - exact16).abs().max() / exact16.abs().max()).item()
+    check(mm.shape == fft.shape == (4, 160 * 299), f"griffin-lim shapes {mm.shape} {fft.shape}")
+    for what, err in errs.items():
+        print(f"griffin-lim {what}, {GL_CHECK_ROUNDS} rounds, (4, 300, 321): max abs err "
+              f"{err:.3e} (peak {fft.abs().max().item():.3f}) [{card}]")
+        check(err < GL_FP32_TOL, f"griffin-lim {what}: {err:.3e}")
+    print(f"griffin-lim matmul bf16 synthesis (no round) on the card against its bf16 operands "
+          f"in float64: {bf16_rel:.3e} of the peak [{card}]")
+    check(bf16_rel < GL_BF16_SYNTH_REL, f"bf16 synthesis against float64 {bf16_rel:.3e}")
+
+    t = np.arange(16000) / 16000
+    tone = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 1310 * t)
+            + 0.05 * np.random.default_rng(7).standard_normal(t.shape)).astype(np.float32)
+    tone_mag = stft(torch.from_numpy(tone[None]).cuda(), GL_PARAMS).abs()
+    # the CPU test's draw of the phase (tests/test_torch_griffin_lim_mxu.py):
+    # the JAX package's correlation bound is one draw's, and spreads over
+    # draws (0.9878-0.9915 over the JAX package's own keys 0-7)
+    tone_phase = random_phase(tone_mag.shape, torch.Generator().manual_seed(3),
+                              torch.device("cpu")).cuda()
+    quality = {"multi-tone": gl_convergence("the multi-tone signal", tone_mag, {
+        d: gl_form(dtype, tone_mag, GL_ROUNDS, tone_phase)
+        for d, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}, card)}
+    synth = Synthesizer(device="cuda").load_state_dicts(states)
+    video = np.random.default_rng(2).standard_normal((48, 75, 112, 112, 1)).astype(np.float32)
+    spec = synth(video, np.full(48, 75, np.int32))["spec"]  # (48, 300, 321), fp32
+    del synth
+    quality["postnet B=48"] = gl_convergence("the trained postnet's spectrogram, B=48", spec, {
+        d: gl_form(dtype, spec, GL_ROUNDS, generator=torch.Generator("cuda").manual_seed(3))
+        for d, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))}, card)
+    return {"max_abs_err": errs, "bf16_synthesis_rel": bf16_rel, "quality": quality}
+
+
+def gl_times(card):
+    """(c) Device ms (CUDA events around one call, median of 10 after 2
+    warm-ups) of the three forms at the serving and GRID test shapes, each
+    beside its bound, and one bf16 call at the serving shape under
+    ``torch.profiler`` (busy share, the kernels that take the most time);
+    the fp32 forms' ratio decides ``dsp.pipeline.FP32_MATMUL_ON_CUDA``."""
+    rows = []
+    for b, t in GL_SHAPES:
+        mag = torch.rand((b, t, 321), generator=torch.Generator("cuda").manual_seed(b),
+                         device="cuda") * 10.0
+        for name, dtype in GL_FORMS:
+            gen = torch.Generator("cuda").manual_seed(0)
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: gl_form(dtype, mag, GL_ROUNDS, generator=gen), samples=10,
+                         calls=1, warmup=2)
+            nbytes, flops, rate, state = gl_work(b, t, dtype)
+            t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+            row = {"form": name, "shape": [b, t, 321], "rounds": GL_ROUNDS, "ms": ms,
+                   "bound_ms": max(t_bytes, t_flops),
+                   "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+                   "tflop": flops / 1e12, "state_floor_ms": state / HBM_BYTES_PER_S * 1e3,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            rows.append(row)
+            print(f"griffin-lim {name} ({b}, {t}, 321) x {GL_ROUNDS} rounds: {ms:.2f} ms, bound "
+                  f"{row['bound_ms']:.3f} ms ({row['bound_by']}; {row['tflop']:.3f} TFLOP at "
+                  f"{rate / 1e12:g} TFLOP/s), per-round state floor {row['state_floor_ms']:.2f} "
+                  f"ms, peak {row['peak_gb']:.2f} GB [{card}]")
+        del mag
+    b, t = GL_SHAPES[0]
+    mag = torch.rand((b, t, 321), generator=torch.Generator("cuda").manual_seed(b),
+                     device="cuda") * 10.0
+    device, _ = profiled(lambda: gl_form(torch.bfloat16, mag, GL_ROUNDS,
+                                         generator=torch.Generator("cuda").manual_seed(0)))
+    print(f"profile of one griffin-lim matmul bf16 call ({b}, {t}, 321) [{card}]: "
+          f"{busy_share(device, 'griffin-lim matmul bf16')}; most time: {most_time(device, 6)}")
+    del mag
+    serving = {r["form"]: r["ms"] for r in rows if r["shape"][0] == GL_SHAPES[0][0]}
+    faster = serving["fft fp32"] / serving["matmul fp32"] - 1.0
+    print(f"griffin-lim fp32 at {GL_SHAPES[0]}: the matmul form {serving['matmul fp32']:.2f} ms "
+          f"against the FFT form's {serving['fft fp32']:.2f} ms (faster by {100 * faster:+.1f}%); "
+          f"FP32_MATMUL_ON_CUDA = {dsp_pipeline.FP32_MATMUL_ON_CUDA} (the matmul form where it "
+          f"is at least 5% faster) [{card}]")
+    return rows, faster
+
+
+def gl_serve(card, states):
+    """(d) The bf16 folded + fused serving path at B=48 x 75, 8 batches in
+    flight, with the default Griffin-Lim and with ``gl_dtype=bf16``, in
+    turns (default, bf16, bf16, default): mel-frames/s and peak memory,
+    printed and not held; 2 attention and 5 fused-block launches a forward
+    asserted, and the form each run vocoded with counted; then the stages
+    of one ``gl_dtype=bf16`` forward."""
+    b, t, batches = 48, 75, SERVE_BATCHES
+    video = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (b, t, 112, 112, 1)).astype(np.float32)).cuda()
+    lengths = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    forms = {"griffin_lim": 0, "griffin_lim_mxu": 0}
+    originals = {name: getattr(dsp_pipeline, name) for name in forms}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            forms[name] += 1
+            return originals[name](*args, **kwargs)
+        return call
+
+    synths = {gl: Synthesizer(ModelConfig(use_bfloat16=True), device="cuda", fold_bn=True,
+                              fused_blocks=True, gl_dtype=dtype).load_state_dicts(states)
+              for gl, dtype in (("default", None), ("bf16", torch.bfloat16))}
+    runs = {"default": [], "bf16": []}
+    for name in forms:
+        setattr(dsp_pipeline, name, counted(name))
+    try:
+        for gl in ("default", "bf16", "bf16", "default"):
+            synth = synths[gl]
+            for _ in range(2):
+                synth(video, lengths)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            forms.update(dict.fromkeys(forms, 0))
+            t0 = time.perf_counter()
+            outs = [synth(video, lengths) for _ in range(batches)]
+            sums = torch.stack([o["wav"].abs().sum() for o in outs]).cpu()
+            elapsed = time.perf_counter() - t0
+            check_launches(batches, True, f"gl_dtype {gl} serving")
+            check(bool(torch.isfinite(sums).all()), f"gl_dtype {gl}: non-finite wav")
+            want = ("griffin_lim_mxu" if gl == "bf16" or dsp_pipeline.FP32_MATMUL_ON_CUDA
+                    else "griffin_lim")
+            check(forms[want] == batches and sum(forms.values()) == batches,
+                  f"gl_dtype {gl}: vocoded by {forms}, not {batches} x {want}")
+            runs[gl].append({"mel_frames_per_s": batches * b * 4 * t / elapsed,
+                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            print(f"serve folded+fused bf16 B={b} T={t}, gl_dtype {gl} ({want}): "
+                  f"{runs[gl][-1]['mel_frames_per_s']:.1f} mel-frames/s, peak "
+                  f"{runs[gl][-1]['peak_gb']:.2f} GB, {attn.LAUNCHES / batches:g} attention and "
+                  f"{fb.LAUNCHES / batches:g} fused-block launches per forward [{card}]")
+            del outs
+    finally:
+        for name, fn in originals.items():
+            setattr(dsp_pipeline, name, fn)
+    stage_breakdown(synths["bf16"], video, lengths, card, "folded+fused bf16, gl_dtype bf16")
+    return runs
+
+
+def phase_seventeen(card, states):
+    """Phase 17: Griffin-Lim's windowed-DFT matmul form and
+    ``MelPipeline(gl_dtype=...)`` on the card, (a)-(d)."""
+    checks = gl_checks(card, states)
+    torch.cuda.empty_cache()
+    rows, faster = gl_times(card)
+    torch.cuda.empty_cache()
+    serving = gl_serve(card, states)
+    return {"form_rows": rows, "fp32_matmul_faster": faster, "serving_gl_dtype": serving,
+            **checks}
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3767,6 +4041,10 @@ def main() -> None:
     t16 = time.perf_counter()
     width_rows_attn, width_rows_block = phase_sixteen(card)
     print(f"phase 16 (every width the JAX package runs): {time.perf_counter() - t16:.1f} s")
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    seventeen = phase_seventeen(card, states)
+    print(f"phase 17 (Griffin-Lim's matmul form and gl_dtype): {time.perf_counter() - t17:.1f} s")
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -3835,6 +4113,9 @@ def main() -> None:
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "
           f"{attention['bound_ms']:.4f} ms ({attention['bound_by']})")
+    # Griffin-Lim is no kernel (plain PyTorch products and passes, as the JAX
+    # package's einsums): its forms' figures stand on a line of their own.
+    print(json.dumps({"griffin_lim": seventeen}))
     print(json.dumps({"kernels": [attention, fused]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,16 @@ Port against port: two steps from the seeded init of the narrow model of
 ``tests/test_torch_train_step.py`` with its dropout rates left non-zero
 (0.3 in the visual front and between the biGRU's layers), B = 2 with
 unequal lengths, 20-frame windows of 24 x 24, the step's own generator.
+The init's convolution and dense biases, which the JAX package's
+initialisation leaves at 0, are drawn U(+-0.1) from a seed of their own
+(``nonzero_biases``): a bias whose exact gradient is 0 (ahead of a
+train-mode BatchNorm; the attention's key bias, which shifts all the scores
+of a row alike) would otherwise hold nothing but rounding noise in every
+leaf of the state, its parameter and moments both, and no relative bound
+could hold it (in float64 "batched" and "ref" part by 100% of such a
+leaf, 4e-13 of its module's norm); from a non-zero start its weight decay
+keeps it defined, as PyTorch's own initialisation did until the port took
+the JAX package's.
 
 - A remat site changes no arithmetic: the recompute runs the forward's
   operations on the forward's inputs, with the forward's dropout masks.
@@ -67,6 +77,7 @@ MODEL = dict(stem_channels=16, gru_hidden=32, noise_dim=16, attention_dim=32,
 B, W, HW = 2, 20, 24
 STEPS = 2
 STEP_SEED = 7
+BIAS_SEED = 11
 BATCHED_RTOL = 1e-9
 BATCHED_MOMENT_RTOL = 1e-7
 REMAT_RUNS = [("ref", "stem"), ("ref", "vfront"), ("ref", "r1"), ("ref", "stem,r1"),
@@ -98,10 +109,23 @@ def state_leaves(state):
     return out
 
 
+def nonzero_biases(modules):
+    """Every convolution and dense bias of ``modules`` drawn U(+-0.1) from
+    ``BIAS_SEED`` (see the module's docstring)."""
+    generator = torch.Generator().manual_seed(BIAS_SEED)
+    with torch.no_grad():
+        for _, module in modules.named():
+            for layer in module.modules():
+                if isinstance(layer, (torch.nn.Linear, torch.nn.modules.conv._ConvNd)) and (
+                        layer.bias is not None):
+                    layer.bias.uniform_(-0.1, 0.1, generator=generator)
+    return modules
+
+
 def run_steps(d_phase, remat, dtype, model=MODEL):
     """Two steps under the knobs; each step's metrics, generator state and
     recomputes by site, and the state's leaves after the second."""
-    modules = VCAGANModules.create(ModelConfig(**model), seed=0)
+    modules = nonzero_biases(VCAGANModules.create(ModelConfig(**model), seed=0))
     if dtype == torch.float64:
         to_float64(modules)
     cfg = TrainConfig()

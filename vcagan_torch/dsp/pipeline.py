@@ -10,16 +10,32 @@ import torch
 
 from vcagan_torch.configs import AudioConfig
 from vcagan_torch.dsp import audio as audio_ops
-from vcagan_torch.dsp.griffin_lim import griffin_lim
+from vcagan_torch.dsp.griffin_lim import griffin_lim, griffin_lim_mxu
 from vcagan_torch.dsp.mel import mel_filterbank
 from vcagan_torch.dsp.stft import STFTParams, stft_magnitude
 
 
-class MelPipeline:
-    """Stateless apart from the constant mel basis (n_mels, n_linear)."""
+# Whether fp32 Griffin-Lim on the card takes the matmul form
+# (``griffin_lim_mxu``) rather than the FFT form: only where chip_smoke
+# phase 17 measures it at least 5% faster at (48, 300, 321).  It measured
+# the matmul form at 55.17 ms against the FFT form's 31.91 ms, 60 rounds
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, "Griffin-Lim by form and dtype").
+FP32_MATMUL_ON_CUDA = False
 
-    def __init__(self, config: AudioConfig | None = None):
+
+class MelPipeline:
+    """Stateless apart from the constant mel basis (n_mels, n_linear).
+
+    ``gl_dtype``: the compute dtype of Griffin-Lim's windowed-DFT products
+    on the card (``vcagan/dsp/pipeline.py:26-43``); None is fp32.  On the
+    card bf16 (or any type but fp32) vocodes with ``griffin_lim_mxu`` in
+    that type, and fp32 with the form ``FP32_MATMUL_ON_CUDA`` names; off
+    the card the FFT form runs and ``gl_dtype`` is ignored, as the JAX
+    package ignores it off its accelerator (``pipeline.py:110-131``)."""
+
+    def __init__(self, config: AudioConfig | None = None, gl_dtype: torch.dtype | None = None):
         self.config = config or AudioConfig()
+        self.gl_dtype = torch.float32 if gl_dtype is None else gl_dtype
         c = self.config
         self.stft_params = STFTParams(c.n_fft, c.hop_length, c.win_length)
         self.mel_basis = torch.from_numpy(
@@ -61,8 +77,11 @@ class MelPipeline:
         """Linear magnitudes (B, T, n_linear) -> waveform (B, hop*(T-1)):
         Griffin-Lim, de-emphasis, clip to [-1, 1].  ``init_phase`` (B, T,
         n_linear) replaces the random phase drawn from ``generator``."""
-        wav = griffin_lim(
-            spec, self.stft_params, self.config.griffin_lim_iters, init_phase, generator
-        )
+        iters = self.config.griffin_lim_iters
+        if spec.is_cuda and (self.gl_dtype != torch.float32 or FP32_MATMUL_ON_CUDA):
+            wav = griffin_lim_mxu(spec, self.stft_params, iters, self.gl_dtype, init_phase,
+                                  generator)
+        else:
+            wav = griffin_lim(spec, self.stft_params, iters, init_phase, generator)
         wav = audio_ops.deemphasis(wav, self.config.preemphasis)
         return torch.clamp(wav, -1.0, 1.0)

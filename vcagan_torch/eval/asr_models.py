@@ -28,7 +28,7 @@ from torch import nn
 
 from vcagan_torch.io.weights import asr_from_jax
 from vcagan_torch.nn.audio_front import AudioFront
-from vcagan_torch.nn.common import Linear
+from vcagan_torch.nn.common import Linear, init_like_jax
 from vcagan_torch.nn.gru import BiGRU
 from vcagan_torch.runtime import resolve_device, use_full_fp32
 
@@ -108,13 +108,14 @@ def load_asr(kind: str, checkpoint: Optional[str] = None, num_classes: int = 500
     torch checkpoint; a directory (an orbax checkpoint) is refused with the
     command of ``tools/export_jax_train_state.py --asr`` that exports it to
     such an ``.npz``.  None:
-    PyTorch's random init from seed 0, the JAX CLIs' smoke mode."""
+    the JAX package's initialisation drawn from seed 0 (``init_like_jax``),
+    the JAX CLIs' smoke mode."""
     device = resolve_device(device)
     if device.type == "cuda":
         use_full_fp32()
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
+    with torch.random.fork_rng(devices=[]):  # construction draws PyTorch's init
         model = GridASR() if kind == "grid" else LRWClassifier(num_classes)
+    init_like_jax(model, torch.Generator().manual_seed(0))
     if checkpoint is not None:
         if os.path.isdir(checkpoint):
             raise NotImplementedError(

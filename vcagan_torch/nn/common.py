@@ -1,7 +1,8 @@
 """Shared layers: per-channel PReLU, LeakyReLU(0.2), BatchNorm (eval, and
 train mode as flax's), dropout from an explicit generator, convolutions
 that compute in a given dtype and a dense layer that computes in fp32;
-and ``recomputed``, a call whose activations the backward recomputes.
+``recomputed``, a call whose activations the backward recomputes; and
+``init_like_jax``, the JAX package's weight initialisation.
 
 The port keeps PyTorch's channels-first layout inside its modules (NCHW,
 NCDHW, (B, C, T)); public inputs and outputs keep the JAX package's layout.
@@ -39,6 +40,9 @@ _RECOMPUTING: contextvars.ContextVar[bool] = contextvars.ContextVar(
 RECOMPUTES: collections.Counter = collections.Counter()
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
+# The std of the unit normal truncated at +-2, by which flax's lecun_normal
+# divides its scale so that the truncated draw has std 1 / sqrt(fan_in).
+TRUNCATED_UNIT_STD = 0.87962566103423978
 BN_EPS = 1e-5
 LEAKY_SLOPE = 0.2
 
@@ -287,3 +291,58 @@ class FoldableModule(nn.Module):
         if mode and self.fold_bn:
             raise RuntimeError("fold_bn is an eval-only mode")
         return super().train(mode)
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel initialiser (``nn.initializers.lecun_normal``):
+    a normal truncated at +-2 of the unit normal, scaled so that its std is
+    1 / sqrt(fan_in).  Fans are counted on the JAX kernel's layout, receptive
+    field x in and receptive field x out, which are PyTorch's for an (out,
+    in, k...) weight.  Drawn as ``jax.random.truncated_normal`` draws it, by
+    the inverse of the normal's CDF on a uniform draw."""
+    fan_in, _ = nn.init._calculate_fan_in_and_fan_out(weight)
+    scale = math.sqrt(1.0 / fan_in) / TRUNCATED_UNIT_STD
+    edge = math.erf(2.0 / math.sqrt(2.0))  # the unit normal's +-2 as erf(x / sqrt(2))
+    weight.uniform_(-edge, edge, generator=generator).erfinv_().mul_(math.sqrt(2.0) * scale)
+    return weight.clamp_(-2.0 * scale, 2.0 * scale)
+
+
+def he_normal_fan_out_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """The ResNet convolutions' initialiser (``vcagan/nn/common.py:40-43``):
+    an untruncated normal of std sqrt(2 / fan_out)."""
+    _, fan_out = nn.init._calculate_fan_in_and_fan_out(weight)
+    return weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
+def init_like_jax(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every random leaf of ``module`` (on the CPU) from ``generator``
+    with the distribution that the JAX package's counterpart gives it:
+    - a convolution's or dense layer's kernel by its ``kernel_init``
+      attribute where it has one (``he_normal_fan_out_``: every ResNet
+      ``BasicBlock`` convolution, ``vcagan/nn/resnet.py:31, 96, 108, 123``),
+      else ``lecun_normal_`` (flax's ``nn.Conv`` / ``nn.Dense`` default, and
+      the stem, ``vcagan/nn/visual_front.py:40-43``);
+    - every convolution and dense bias exactly 0 (the flax default,
+      ``resnet.py:32``, ``visual_front.py:47-48``), the folded ones too;
+    - the GRU's weights and biases U(+-1 / sqrt(hidden)), as PyTorch's own
+      and ``vcagan/nn/gru.py:41-56`` draw them.
+    BatchNorm and PReLU keep the constants they were built with.  A module
+    that holds other parameters raises.  Modules that keep packed copies of
+    their weights (``repack``) refresh them.  Returns ``module``."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.GRU):
+                bound = 1.0 / math.sqrt(m.hidden_size)
+                for p in m.parameters(recurse=False):
+                    p.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, (nn.Linear, nn.modules.conv._ConvNd)):
+                getattr(m, "kernel_init", lecun_normal_)(m.weight, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif not isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.PReLU)) and next(
+                    m.parameters(recurse=False), None) is not None:
+                raise TypeError(f"init_like_jax: no rule for the parameters of {type(m).__name__}")
+        for m in module.modules():
+            if hasattr(m, "repack"):
+                m.repack()
+    return module

@@ -16,6 +16,9 @@ memory, where the kernel's (N, H, W, C) layout is a view; the projection
 blocks keep the library convolutions.  The state-dict keys are the same
 with and without ``fused``.
 
+The convolutions' kernels are drawn He-normal by fan-out
+(``vcagan/nn/common.py:40-43``; ``init_like_jax`` reads ``kernel_init``).
+
 ``dtype``: the compute dtype (``vcagan/nn/resnet.py:60-164``); in bf16 the
 convolutions, BatchNorm outputs and PReLUs are bf16 and so is the spatial
 mean (summed in fp32), while the parameters stay fp32.  The fused blocks
@@ -30,7 +33,7 @@ import torch
 from torch import nn
 
 from vcagan_torch.kernels.fused_block import fused_basic_block, pack_weights
-from vcagan_torch.nn.common import Conv2d, FoldableModule, PReLU, batch_norm
+from vcagan_torch.nn.common import Conv2d, FoldableModule, PReLU, batch_norm, he_normal_fan_out_
 
 
 def _hwio(conv: nn.Conv2d) -> torch.Tensor:
@@ -53,12 +56,15 @@ class BasicBlock(FoldableModule):
         self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=fold_bn, compute_dtype=dtype)
         self.bn2 = batch_norm(planes, folded=fold_bn)
         self.relu2 = act()
+        # vcagan/nn/resnet.py:96, 108, 123
+        self.conv1.kernel_init = self.conv2.kernel_init = he_normal_fan_out_
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(
                 Conv2d(in_planes, planes, 1, stride, bias=fold_bn, compute_dtype=dtype),
                 batch_norm(planes, folded=fold_bn),
             )
+            self.downsample[0].kernel_init = he_normal_fan_out_
         self.fused = fused and self.downsample is None
         if self.fused:
             # The kernel's weight order, repacked when weights are loaded and
@@ -74,8 +80,11 @@ class BasicBlock(FoldableModule):
 
     def repack(self) -> None:
         """Refresh the kernel's copies of the weights, packed for the compute
-        dtype; ``load_state_dict`` does it, a caller that writes
-        ``conv1``/``conv2`` weights in place must."""
+        dtype (a fused block; others keep none); ``load_state_dict`` and
+        ``init_like_jax`` do it, a caller that writes ``conv1``/``conv2``
+        weights in place must."""
+        if not self.fused:
+            return
         self.w1_hwio = _hwio(self.conv1)
         self.w2_hwio = _hwio(self.conv2)
         self.w1_packed = pack_weights(self.w1_hwio.float(), self.dtype)

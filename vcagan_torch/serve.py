@@ -11,8 +11,8 @@ serving mode (``bench.py:29``, ``VCAGANModules.create(ModelConfig(
 use_bfloat16=True))``): parameters fp32, each module computing in the dtype
 the JAX module gives it (see ``vcagan_torch/nn``), so ``phon``, ``mel1..3``
 and the postnet's output are bf16 and ``sent`` fp32; the spectrogram is
-cast to fp32 before Griffin-Lim, which stays fp32 (``bench.py:74``).
-Otherwise fp32 throughout.
+cast to fp32 before Griffin-Lim, which stays fp32 (``bench.py:74``)
+unless ``gl_dtype`` says otherwise.  Otherwise fp32 throughout.
 
 ``Synthesizer(fold_bn=True, fused_blocks=True)`` is the counterpart of
 ``VCAGANModules.create(fold_bn=True, fused_blocks=True)``: the serving
@@ -29,6 +29,7 @@ import torch
 from vcagan_torch.configs import AudioConfig, ModelConfig
 from vcagan_torch.dsp.pipeline import MelPipeline
 from vcagan_torch.io.weights import from_jax, load_serving_npz
+from vcagan_torch.nn.common import init_like_jax
 from vcagan_torch.nn.fold import fold_generator_side
 from vcagan_torch.nn.generator import Decoder, Postnet
 from vcagan_torch.nn.visual_front import VisualFront
@@ -41,14 +42,18 @@ def _tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 class Synthesizer:
     """Lip video -> waveform.  Runs on CUDA unless ``device="cpu"`` is
-    passed; without weights the modules hold PyTorch's random init drawn
-    from seed 0.  ``fold_bn``: eval-only modules with the BatchNorms folded
+    passed; without weights the modules hold the JAX package's
+    initialisation drawn from seed 0 (``init_like_jax``; the folded biases
+    0).  ``fold_bn``: eval-only modules with the BatchNorms folded
     into their convolutions; weights are given unfolded and folded once at
     load.  ``fused_blocks`` (needs ``fold_bn``): the trunk's stride-1 blocks
-    run as single launches of the fused block kernel."""
+    run as single launches of the fused block kernel.  ``gl_dtype``: the
+    compute dtype of Griffin-Lim's products on the card, None fp32
+    (``MelPipeline``; bf16 vocodes with ``griffin_lim_mxu``)."""
 
     def __init__(self, config: ModelConfig | None = None, device=None,
-                 fold_bn: bool = False, fused_blocks: bool = False):
+                 fold_bn: bool = False, fused_blocks: bool = False,
+                 gl_dtype: torch.dtype | None = None):
         if fused_blocks and not fold_bn:
             raise ValueError("fused_blocks requires fold_bn=True (serving mode)")
         self.fold_bn = fold_bn
@@ -56,14 +61,14 @@ class Synthesizer:
         if self.device.type == "cuda":
             use_full_fp32()
         self.config = config or ModelConfig()
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(0)
+        with torch.random.fork_rng(devices=[]):  # construction draws PyTorch's init
             self.v_front = VisualFront(self.config, fold_bn=fold_bn, fused=fused_blocks)
             self.gen = Decoder(self.config)
             self.post = Postnet(self.config, n_mels=AudioConfig().n_mels, fold_bn=fold_bn)
+        generator = torch.Generator().manual_seed(0)
         for m in self.modules():
-            m.to(self.device).eval()
-        self.pipe = MelPipeline()
+            init_like_jax(m, generator).to(self.device).eval()
+        self.pipe = MelPipeline(gl_dtype=gl_dtype)
         self.generator = torch.Generator(self.device).manual_seed(0)
 
     def modules(self):
@@ -85,9 +90,9 @@ class Synthesizer:
 
     @classmethod
     def from_serving_npz(cls, path: str, config=None, device=None,
-                         fold_bn: bool = False, fused_blocks: bool = False):
+                         fold_bn: bool = False, fused_blocks: bool = False, gl_dtype=None):
         """Weights from a serving npz (``vcagan/io/serving_npz.py`` format)."""
-        synth = cls(config, device, fold_bn, fused_blocks)
+        synth = cls(config, device, fold_bn, fused_blocks, gl_dtype)
         return synth.load_state_dicts(load_serving_npz(path))
 
     @torch.inference_mode()

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from vcagan_torch.configs import AudioConfig, ModelConfig
+from vcagan_torch.nn.common import init_like_jax
 from vcagan_torch.nn.discriminator import Discriminator, SyncDiscriminator
 from vcagan_torch.nn.generator import Decoder, Postnet
 from vcagan_torch.nn.visual_front import VisualFront
@@ -37,15 +38,15 @@ class VCAGANModules:
     @classmethod
     def create(cls, config: ModelConfig | None = None, seed: int = 0) -> "VCAGANModules":
         """All seven modules on the CPU, unfolded (the training modules),
-        PyTorch's default initialisation drawn from ``seed`` (the global
-        generator is left as it was).  With ``use_bfloat16`` every module
+        initialised as the JAX package's (``init_like_jax``), drawn from
+        ``seed`` alone in module order (the global generator is left as it
+        was).  With ``use_bfloat16`` every module
         computes in bf16 where the JAX package's does
         (``vcagan/train/models.py:56-101``); the parameters stay fp32.  The
         folded and fused serving variant is ``Synthesizer``'s."""
         m = config or ModelConfig()
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            return cls(
+        with torch.random.fork_rng(devices=[]):  # construction draws PyTorch's init
+            modules = cls(
                 v_front=VisualFront(m),
                 gen=Decoder(m),
                 post=Postnet(m, n_mels=AudioConfig().n_mels),
@@ -54,6 +55,10 @@ class VCAGANModules:
                 dis3=Discriminator("3", m),
                 s_dis=SyncDiscriminator(m),
             )
+        generator = torch.Generator().manual_seed(seed)
+        for _, module in modules.named():
+            init_like_jax(module, generator)
+        return modules
 
     def named(self, names: Sequence[str] = GENERATOR_SIDE + DISCRIMINATOR_SIDE
               ) -> Iterator[tuple[str, nn.Module]]:
