@@ -28,17 +28,19 @@ Phases, in order; any failure raises and exits non-zero:
      outputs must have the JAX package's dtypes;
   5. serve B=48 x 75 frames at full width on each of the four paths: 2
      warm-ups, then 8 counted batches with one sync; count the kernel
-     launches of each run; then time the stages of one more forward, the
-     visual front's parts, the five identity-shortcut ResNet blocks and the
-     two attentions inside it, with CUDA events; on the bf16 paths, profile
-     one forward and the stem alone with torch.profiler (device busy share,
-     the kernels that take the most time);
+     calls of each run (``vcagan_torch.tracing``'s counters); then time the
+     stages of one more forward, the visual front's parts, the five
+     identity-shortcut ResNet blocks and the two attentions inside it, with
+     CUDA events; on the bf16 paths, profile one forward and the stem alone
+     with torch.profiler (device busy share, the kernels that take the most
+     time; the forward's kernel launches counted against those it saw);
   6. time the attention kernel (and each of its instances up to 512 keys:
      the in-block one and the strip), its plain version and sdpa, the
      PyTorch call that computes the same function, at the serving shapes
      (and at the LRS shape and the GRID training shapes, printed only);
      then one call of each instance under torch.profiler, its launches
-     checked (before the profiler sessions of phases 8-11);
+     checked, and counted as the profiler saw them (before the profiler
+     sessions of phases 8-11);
   7. run ``python3 -m vcagan_torch.bench`` (bf16, both variants) and print
      its JSON line;
   8. training (``vcagan_torch.train``, fp32, TF32 off): (a) the attention's
@@ -49,7 +51,7 @@ Phases, in order; any failure raises and exits non-zero:
      card against the same step on the CPU: losses, metrics, every
      module's gradient, the updates and the BatchNorm statistics;
      (c) the GRID training shape, B=88 x 40 frames: 2 warm-up and 5
-     counted steps, their time, clips/s, peak memory, attention launches a
+     counted steps, their time, clips/s, peak memory, attention calls a
      step and the time of each part of a step (CUDA events);
   9. training through its entry points (``vcagan_torch.train.loop.Trainer``
      on the synthetic GRID clips, fp32): (c) ``Trainer.fit`` at the GRID
@@ -59,10 +61,10 @@ Phases, in order; any failure raises and exits non-zero:
      last 5, if it never did), the loop's pace beside phase 8 (c)'s
      fixed-batch step and the producer's collate time of the same batches,
      the consumer's waits on the feed queue, peak memory, attention
-     launches (2 a step); then 3
+     calls (2 a step); then 3
      more steps under torch.profiler, with the device's busy share and its
      longest idle gaps labelled by the loop's host range; (d) one
-     validation batch at B=88 x 75 (2 attention launches), and its parts
+     validation batch at B=88 x 75 (2 attention calls), and its parts
      timed apart; (a) the input pipeline on the card against the CPU on
      one B=88 raw batch, without and with augmentation (the same draws),
      and its time; (b) STOI/ESTOI on the card against the numpy STOI for 8
@@ -84,7 +86,7 @@ Phases, in order; any failure raises and exits non-zero:
      fixed-batch step at B=88 x 40 beside phase 8 (c)'s fp32 one; (c) the LRS2 fixed-batch step at B=16 x 50 (a batch of
      the LRS input pipeline with clips shorter than the window) in fp32
      and bf16; (d) ``Trainer.fit`` on LRS2 over 10 batches counted as in
-     phase 9 (c), one validation batch (2 attention launches), a checkpoint
+     phase 9 (c), one validation batch (2 attention calls), a checkpoint
      round trip, and ``python3 -m vcagan_torch.cli.train_lrs --bf16`` (2
      steps) as a subprocess at the same time as phase 9 (f)'s, so that
      their start-ups overlap;
@@ -94,14 +96,14 @@ Phases, in order; any failure raises and exits non-zero:
      160 frames, B=8 with the real lengths of such a batch, against its
      plain version, float64 and its 3xTF32 arithmetic, timed beside each
      instance up to 512 keys, plain, sdpa and its bound, and that
-     LRS batch through the flip-TTA eval forward, 4 attention launches
+     LRS batch through the flip-TTA eval forward, 4 attention calls
      asserted; (b) the
      GRID and LRS per-batch functions card against CPU on the trained
      weights with the same noise and Griffin-Lim phase, bf16 against fp32
      on the card, and both ASR models card against CPU at full width;
      (c) one GRID test batch at the recipe, B=100 x 75 real clips with flip TTA, in
      fp32 and bf16, each part timed (the two forwards, Griffin-Lim, STOI
-     on the card, PESQ on the host, the dump), 4 attention launches
+     on the card, PESQ on the host, the dump), 4 attention calls
      asserted; (d) ``python3 -m vcagan_torch.cli.test`` and ``test_lrs
      --time_breakdown`` as subprocesses at once on a port checkpoint of
      the trained weights, their artifacts read back, then ``cli.asr_grid``
@@ -114,7 +116,7 @@ Phases, in order; any failure raises and exits non-zero:
      against the mean of its values, the launch counted, timed beside its
      bound, plain and sdpa; its gradient at S = 640; (b) ``Synthesizer``
      on B=2 clips of 750 frames (30 s), fp32 against the CPU, bf16 against
-     fp32 on the card, 2 attention launches a forward; (c) ``Trainer.fit``
+     fp32 on the card, 2 attention calls a forward; (c) ``Trainer.fit``
      in bf16 on GRID and LRS2 with the thread producer (first epoch and
      cached) and with ``ProcessEpoch`` (cached): ms a step, idle share,
      collate ms; (d) a train state in the exporter's format loaded on the
@@ -125,12 +127,12 @@ Phases, in order; any failure raises and exits non-zero:
      group, ``Trainer.fit`` in bf16 at the GRID recipe (B=88 x 40) on phase
      12 (c)'s cached clips: ms a step beside phase 12 (c)'s without a
      group, the gradient all-reduce's ms a step (CUDA events at the step's
-     marks) and bytes, 2 attention launches a step; one fp32 step with the
+     marks) and bytes, 2 attention calls a step; one fp32 step with the
      layout against one without it on the same batch (phase 8 (b)'s
      bounds); (b) ``python3 -m vcagan_torch.parallel.dryrun`` with two gloo
      ranks on the one card at full width, B=88 x 40 frames, 44 clips a
      rank, against one process on all 88 at the gate's tolerances, each
-     rank's attention launches and shape, then the attention kernel alone
+     rank's attention calls and shape, then the attention kernel alone
      at the rank's shapes (44, 40 | 80, 40, 256), beside its bound, plain
      and sdpa;
  14. the model axis (``vcagan_torch.parallel.shard``: ``q`` and ``mel`` of
@@ -138,7 +140,7 @@ Phases, in order; any failure raises and exits non-zero:
      vcagan_torch.parallel.dryrun --world 4 --model_parallel 2`` with four
      gloo ranks on the one card at full width, B=16 x 40 frames, 8 clips a
      data rank, against one process on all 16 at the gate's tolerances,
-     each rank's attention launches, shapes, peak memory and the model
+     each rank's attention calls, shapes, peak memory and the model
      axis's ms a step (one more step profiled), then the attention kernel
      alone at the rank's shapes (8, 40 | 80, 40, 256) beside its bound,
      plain and sdpa; (b) ``python3 -m torch.distributed.run
@@ -152,7 +154,7 @@ Phases, in order; any failure raises and exits non-zero:
      "batched"/"stem,r1", each held to "ref"/"none" (run twice: the card's
      own spread beside): metrics, gradient norms, each module's first
      moment, the BatchNorm statistics and their counts, the generator's
-     state, the regions' recomputes and 2 attention launches a step;
+     state, the regions' recomputes and 2 attention calls a step;
      (b) ms a step (3 counted after the first), the parts' CUDA events,
      peak memory and kernel launches in one profiled step under each knob,
      GRID fp32 and bf16, and LRS2 (B=16 x 50) bf16 under "batched" against
@@ -226,6 +228,7 @@ from vcagan_torch.dsp.griffin_lim import dft_bases, random_phase  # noqa: E402
 from vcagan_torch.dsp.stft import _wss_correction, overlap_add  # noqa: E402
 from vcagan_torch.eval import stoi_np  # noqa: E402
 from vcagan_torch.eval.stoi import stoi_estoi_batch  # noqa: E402
+from vcagan_torch import tracing  # noqa: E402
 from vcagan_torch.io.weights import load_serving_npz  # noqa: E402
 from vcagan_torch.kernels import _build  # noqa: E402
 from vcagan_torch.kernels import fused_block as fb  # noqa: E402
@@ -334,7 +337,8 @@ TRAIN_PHASES = ("gen_forward", "d_loss", "d_backward", "d_update", "g_loss", "g_
 # one's start.  (d) validation at B=88 x 75.
 LOOP_BATCHES, LOOP_WARMUP, LOOP_STEPS, LOOP_PROFILED = 10, 2, 5, 3
 LOOP_IDLE_MS = 10.0
-LOOP_RANGES = ("feed.wait", "input_pipeline", "train_step", "readback")
+LOOP_RANGES = tuple(tracing.PREFIX + name
+                    for name in ("feed.wait", "input_pipeline", "train_step", "readback"))
 # (a) The input pipeline, card against CPU on the same raw batch: the video
 # goes through two fp32 resize products (TF32 off) and (x - 0.4136) / 0.17,
 # values up to 3.5, atol 1e-4; the spectrogram is cuFFT against pocketFFT
@@ -571,6 +575,7 @@ def phase_kernel_vs_plain(card):
 INSTANCE_KERNELS = {"in_block": ("in_block_attention_kernel",),
                     "strip": ("masked_attention_kernel",),
                     "split_pass": ("split_pieces_kernel", "long_attention_kernel")}
+ATTENTION_KERNELS = {k for ks in INSTANCE_KERNELS.values() for k in ks} | {"combine_splits_kernel"}
 
 
 def kernel_names(device):
@@ -599,12 +604,19 @@ def phase_instance_launches(card):
         q, k, v, lens = attention_inputs(b, t, s_, 256, [s_] * b, seed=70 + i)
         attn.masked_attention_cuda(q, k, v, lens, plan=plan)
         torch.cuda.synchronize()
+        before = count_of("attention.launches"), count_of(f"attention.launches.{name}")
         device, _ = profiled(lambda: attn.masked_attention_cuda(q, k, v, lens, plan=plan))
         names = kernel_names(device)
         want = list(INSTANCE_KERNELS[name]) + (["combine_splits_kernel"] if splits > 1 else [])
         check(names == want, f"{name} ({plan.describe()}): torch.profiler saw {names}, not {want}")
+        counted = (count_of("attention.launches") - before[0],
+                   count_of(f"attention.launches.{name}") - before[1])
+        check(counted == (len(names),) * 2 == (attn.kernel_launches(plan, b),) * 2,
+              f"{name}: launches counted {counted}, the profiler saw {len(names)}, the plan "
+              f"gives {attn.kernel_launches(plan, b)}")
         print(f"attention {name} B={b} T={t} S={s_}, {splits} split(s): one call is "
-              f"{len(names)} launch(es) under torch.profiler ({', '.join(names)}) ok [{card}]")
+              f"{len(names)} launch(es) under torch.profiler ({', '.join(names)}), as counted "
+              f"ok [{card}]")
 
 
 def phase_attention_times(card):
@@ -822,20 +834,35 @@ def phase_fused_block_vs_plain(card):
     return totals, worst
 
 
+def count_of(name):
+    """A counter of ``vcagan_torch.tracing`` (0 where nothing was counted):
+    ``attention.calls`` / ``fused_block.calls``, the calls of a kernel, and
+    ``*.launches``, its kernel launches."""
+    return tracing.counters().get(name, 0)
+
+
 def reset_launches():
-    attn.LAUNCHES = 0
-    attn.INSTANCE_LAUNCHES.update(dict.fromkeys(attn.INSTANCE_LAUNCHES, 0))
-    fb.LAUNCHES = 0
+    tracing.read()  # clears the counters (tracing is off: no span is held)
+
+
+def check_calls(attention, fused, what):
+    """Since ``reset_launches``: ``attention`` calls of the attention kernel
+    and ``fused`` of the fused-block kernel."""
+    got = count_of("attention.calls"), count_of("fused_block.calls")
+    check(got == (attention, fused), f"{what}: {got[0]} attention and {got[1]} fused-block "
+          f"kernel calls, not {attention} and {fused}")
 
 
 def check_launches(forwards, fused, what):
-    """Every forward launches 2 attention kernels and, with fused blocks,
-    5 fused-block kernels (else none)."""
-    check(attn.LAUNCHES == 2 * forwards,
-          f"{what}: {attn.LAUNCHES} attention launches in {forwards} forwards, not 2 each")
+    """Every forward calls the attention kernel twice and, with fused blocks,
+    the fused-block kernel 5 times (else never)."""
+    calls = count_of("attention.calls")
+    check(calls == 2 * forwards,
+          f"{what}: {calls} attention calls in {forwards} forwards, not 2 each")
     want = 5 * forwards if fused else 0
-    check(fb.LAUNCHES == want,
-          f"{what}: {fb.LAUNCHES} fused-block launches in {forwards} forwards, not {want}")
+    check(count_of("fused_block.calls") == want,
+          f"{what}: {count_of('fused_block.calls')} fused-block calls in {forwards} forwards, "
+          f"not {want}")
 
 
 def compare_outputs(what, got, want, tol, wav_tol):
@@ -935,8 +962,8 @@ def phase_serve(states, card, what, fused, bf16):
     outs = [synth(video, lengths) for _ in range(batches)]
     sums = torch.stack([o["wav"].abs().sum() for o in outs]).cpu()  # the one sync
     elapsed = time.perf_counter() - t0
-    launches = (attn.LAUNCHES, fb.LAUNCHES)
-    by_instance = dict(attn.INSTANCE_LAUNCHES)
+    launches = (count_of("attention.calls"), count_of("fused_block.calls"))
+    by_instance = {n: count_of(f"attention.launches.{n}") for n in INSTANCE_KERNELS}
     check_launches(batches, fused, what)
 
     wav = outs[-1]["wav"]
@@ -945,9 +972,9 @@ def phase_serve(states, card, what, fused, bf16):
     mel_fps = batches * b * 4 * t / elapsed
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"serve {what} B={b} T={t}: {mel_fps:.1f} mel-frames/s ({elapsed:.3f} s for "
-          f"{batches} batches), peak {peak_gb:.2f} GB, {launches[0] / batches:g} attention "
-          f"({', '.join(f'{n} {c}' for n, c in by_instance.items())} in all) "
-          f"and {launches[1] / batches:g} fused-block launches per forward [{card}]")
+          f"{batches} batches), peak {peak_gb:.2f} GB, {launches[0] / batches:g} attention calls "
+          f"(kernel launches {', '.join(f'{n} {c}' for n, c in by_instance.items())} in all) "
+          f"and {launches[1] / batches:g} fused-block calls per forward [{card}]")
     del outs
     blocks_ms = stage_breakdown(synth, video, lengths, card, what)
     if bf16:
@@ -986,7 +1013,7 @@ def stage_breakdown(synth, video, lengths, card, what):
     """Device time of each stage of one forward (the composition of
     ``Synthesizer.__call__``), from CUDA events between the stages; and,
     from events around modules, of the visual front's parts, of the trunk's
-    five identity-shortcut blocks (fused-block launches on the folded +
+    five identity-shortcut blocks (fused-block calls on the folded +
     fused paths) and of the decoder's two attentions.  Returns the
     identity blocks' sum in ms."""
     v = synth.v_front
@@ -1022,7 +1049,7 @@ def stage_breakdown(synth, video, lengths, card, what):
     print(f"inside that {what} forward [{card}]: " + ", ".join(
         f"{label} {sum(times):.2f} ms" for label, times in parts.items()))
     print(f"identity-shortcut blocks inside that {what} forward "
-          f"({'fused-block launches' if blocks[0].fused else 'library convolutions'}): "
+          f"({'fused-block calls' if blocks[0].fused else 'library convolutions'}): "
           + ", ".join(f"{m:.3f}" for m in parts["identity blocks"])
           + f" ms, sum {sum(parts['identity blocks']):.3f} ms [{card}]")
     return sum(parts["identity blocks"])
@@ -1082,8 +1109,17 @@ def device_profile(synth, video, lengths, card, what):
     union of its activities' intervals) against the span from the first
     one's start to the last one's end, and the kernels that take the most
     time; then the stem alone, the visual front's largest part.  The
-    profiler slows the host, so the idle share is an upper bound."""
+    profiler slows the host, so the idle share is an upper bound.  The
+    kernel launches counted in it (``attention.launches``,
+    ``fused_block.launches``) must be those the profiler saw."""
+    before = count_of("attention.launches"), count_of("fused_block.launches")
     device, _ = profiled(lambda: synth(video, lengths))
+    names = kernel_names(device)
+    seen = sum(n in ATTENTION_KERNELS for n in names), names.count("fused_block_kernel")
+    counted = (count_of("attention.launches") - before[0],
+               count_of("fused_block.launches") - before[1])
+    check(seen == counted and seen[0] >= 2, f"{what}: one forward's launches counted "
+          f"{counted} (attention, fused block), the profiler saw {seen}")
     print(f"profile of one {what} B={video.shape[0]} forward [{card}]: "
           f"{busy_share(device, what)}; most time: {most_time(device)}")
     stem, _ = profiled(lambda: synth.v_front.frontend(video.permute(0, 4, 1, 2, 3)))
@@ -1244,8 +1280,7 @@ def phase_train_card_vs_cpu(card, run=None, fp32_moments=None):
     start = VCAGANModules.create(config, seed=0)  # the initial weights, for the updates
     reset_launches()
     card_state, card_m = one_step("cuda", config, noise.cuda(), batch, bf16)
-    check(attn.LAUNCHES == 2 and fb.LAUNCHES == 0,
-          f"card step: {attn.LAUNCHES} attention and {fb.LAUNCHES} fused-block launches")
+    check_calls(2, 0, "card step")
     t0 = time.perf_counter()
     cpu_state, cpu_m = one_step("cpu", config, noise, batch, bf16)
     mode = run or "fp32"
@@ -1354,7 +1389,7 @@ def phase_train_fixed(card, what, model_config, train_config, batch):
     torch.profiler (busy share, the kernels that take the most time, the
     convolution backwards).  Phase 8 (c): the GRID shape, B=88 clips x 40
     frames, fp32; phase 10: the same in bf16, and LRS2 batches.  Returns
-    the attention launches of the counted steps and the ms a step."""
+    the attention calls of the counted steps and the ms a step."""
     b, w = batch.video.shape[:2]
     modules = VCAGANModules.create(model_config, seed=0)
     marks = []
@@ -1385,17 +1420,15 @@ def phase_train_fixed(card, what, model_config, train_config, batch):
     metrics = run(TRAIN_STEPS)
     table = {k: torch.stack([m[k] for m in metrics]).cpu() for k in metrics[0]}  # the one sync
     elapsed = time.perf_counter() - t0
-    launches = attn.LAUNCHES
-    check(launches == 2 * TRAIN_STEPS and fb.LAUNCHES == 0,
-          f"train {what}: {launches} attention and {fb.LAUNCHES} fused-block launches in "
-          f"{TRAIN_STEPS} steps, not 2 and 0 a step")
+    launches = count_of("attention.calls")
+    check_calls(2 * TRAIN_STEPS, 0, f"train {what}, {TRAIN_STEPS} steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms = elapsed / TRAIN_STEPS * 1e3
     lengths = batch.vid_len.tolist()
     print(f"train {what} B={b} x {w} frames (vid_len {min(lengths)}-{max(lengths)}), 112x112: "
           f"{ms:.1f} ms a step, {b * TRAIN_STEPS / elapsed:.2f} clips/s, "
           f"{b * 4 * w * TRAIN_STEPS / elapsed:.1f} mel-frames/s trained, peak {peak_gb:.2f} GB, "
-          f"{launches / TRAIN_STEPS:g} attention launches a step ({TRAIN_STEPS} counted steps "
+          f"{launches / TRAIN_STEPS:g} attention calls a step ({TRAIN_STEPS} counted steps "
           f"after {TRAIN_WARMUP} warm-ups, one sync) [{card}]")
     parts = {name: statistics.median(m[i].elapsed_time(m[i + 1]) for m in marks)
              for i, name in enumerate(TRAIN_PHASES)}
@@ -1427,11 +1460,13 @@ def phase_train_grid(card, bf16=False):
 
 
 def host_ranges(prof):
-    """The loop's host ranges (``record_function`` in ``Trainer.fit``) as
-    (name, start us, end us), in order."""
+    """The program's host ranges (``vcagan.*``: the spans of
+    ``vcagan_torch.tracing``, on in ``Trainer.fit``'s profiled stretch: the
+    loop's ``LOOP_RANGES``, the input pipeline's and the step's) as (name,
+    start us, end us), in order."""
     return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.name in LOOP_RANGES and e.device_type != _cuda_device_type()),
-                  key=lambda r: r[1])
+                   if e.name.startswith(tracing.PREFIX)
+                   and e.device_type != _cuda_device_type()), key=lambda r: r[1])
 
 
 def _cuda_device_type():
@@ -1443,12 +1478,12 @@ def device_activities(prof):
     """Kernels and copies as (name, start us, end us); the host ranges'
     mirrors on the device timeline are left out."""
     return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == _cuda_device_type() and e.name not in LOOP_RANGES]
+            if e.device_type == _cuda_device_type() and not e.name.startswith(tracing.PREFIX)]
 
 
 def idle_gaps(device, ranges, top=5):
     """The ``top`` longest stretches with no device activity, each with the
-    host range (or "between ranges") that the loop was in when it began."""
+    innermost host range (or "between ranges") open when it began."""
     spans = sorted((a, b) for _, a, b in device)
     gaps, end = [], spans[0][1]
     for a, b in spans[1:]:
@@ -1458,7 +1493,8 @@ def idle_gaps(device, ranges, top=5):
     gaps.sort(reverse=True)
     out = []
     for length, start in gaps[:top]:
-        label = next((n for n, a, b in ranges if a <= start < b), "between ranges")
+        inside = [(b - a, n) for n, a, b in ranges if a <= start < b]
+        label = min(inside)[1] if inside else "between ranges"
         out.append(f"{length / 1e3:.2f} ms in {label}")
     return ", ".join(out)
 
@@ -1486,7 +1522,7 @@ def train_lines(log_dir):
 def phase_trainer_fit(card, fixed_step_ms, tmp, config=None, what="GRID fp32"):
     """(c) ``Trainer.fit`` at the GRID recipe on the card (phase 10 (d):
     ``config`` the LRS2 recipe).  Returns the trainer and the attention
-    launches of the fit."""
+    calls of the fit."""
     config = config or loop_config(tmp, LOOP_BATCHES)
     b, w = config.train.batch_size, config.data.window_size
     log_dir = os.path.join(tmp, "log")
@@ -1527,9 +1563,8 @@ def phase_trainer_fit(card, fixed_step_ms, tmp, config=None, what="GRID fp32"):
     check(trainer.fit(epochs=1, max_steps=steps) == steps, "fit stopped early")
     elapsed = time.perf_counter() - t0
     trainer.train_step, trainer.process_train = step_fn, pipe_fn
-    launches = attn.LAUNCHES
-    check(launches == 2 * steps and fb.LAUNCHES == 0,
-          f"fit: {launches} attention and {fb.LAUNCHES} fused-block launches in {steps} steps")
+    launches = count_of("attention.calls")
+    check_calls(2 * steps, 0, f"fit, {steps} steps")
     lines = train_lines(log_dir)
     check([r["step"] for r in lines] == list(range(1, steps + 1)), "fit's metric lines")
     for r in lines:
@@ -1565,7 +1600,7 @@ def phase_trainer_fit(card, fixed_step_ms, tmp, config=None, what="GRID fp32"):
           f"{fixed_step_ms:.1f} ms, so the loop is {pace_ms / fixed_step_ms:.3f}x it; device idle "
           f"before the counted steps {idle_ms:.1f} ms of {sum(counted_ms):.1f} "
           f"({100 * idle_ms / sum(counted_ms):.1f}%); whole fit {elapsed:.1f} s for {steps} "
-          f"steps; peak {peak_gb:.2f} GB; {launches / steps:g} attention launches a step [{card}]")
+          f"steps; peak {peak_gb:.2f} GB; {launches / steps:g} attention calls a step [{card}]")
     print(f"trainer feed, first epoch (each clip rendered on first use): collate ms a batch "
           f"(producer thread, {trainer.config.train.workers} decode workers) "
           + ", ".join(f"{x:.1f}" for x in collate)
@@ -1588,7 +1623,10 @@ def phase_trainer_fit(card, fixed_step_ms, tmp, config=None, what="GRID fp32"):
     prof = trainer.last_profile
     check(prof is not None, "fit kept no profile")
     device, ranges = device_activities(prof), host_ranges(prof)
-    check(len(ranges) >= 3 * LOOP_PROFILED, f"{len(ranges)} host ranges in the profile")
+    loop = sum(n in LOOP_RANGES for n, _, _ in ranges)
+    check(loop >= 3 * LOOP_PROFILED, f"{loop} of the loop's host ranges in the profile")
+    parts = sum(n == tracing.PREFIX + "train.d_backward" for n, _, _ in ranges)
+    check(parts == LOOP_PROFILED, f"{parts} train.d_backward ranges in {LOOP_PROFILED} steps")
     by_range = {name: sum(b_ - a for n, a, b_ in ranges if n == name) / 1e3
                 for name in LOOP_RANGES}
     print(f"profile of {LOOP_PROFILED} fit steps (second epoch, clips cached; "
@@ -1603,20 +1641,19 @@ def phase_trainer_fit(card, fixed_step_ms, tmp, config=None, what="GRID fp32"):
 def phase_trainer_validate(card, trainer):
     """(d) One validation batch at B=88 x 75 through ``validate``, then its
     parts on the same batch, each timed apart.  Returns its attention
-    launches."""
+    calls."""
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     logs = trainer.validate(fast=False, max_batches=1)
     elapsed = time.perf_counter() - t0
-    launches = attn.LAUNCHES
-    check(launches == 2 and fb.LAUNCHES == 0,
-          f"validate: {launches} attention and {fb.LAUNCHES} fused-block launches")
+    launches = count_of("attention.calls")
+    check_calls(2, 0, "validate")
     check(all(np.isfinite(x) for x in logs) and logs[0] > 0, f"validate returned {logs}")
     print(f"trainer validate, one batch B={TRAIN_BATCH} x {DataConfig().max_v_timesteps} frames: "
           f"{elapsed:.2f} s (first call; its clips rendered in fit: the val set shares the synthetic source), l1 {logs[0]:.4f}, stoi "
           f"{logs[1]:.4f}, estoi {logs[2]:.4f}, pesq {logs[3]:.4f}; {launches} attention "
-          f"launches [{card}]")
+          f"calls [{card}]")
 
     from vcagan_torch.dsp.griffin_lim import random_phase
     from vcagan_torch.eval.pesq_nb import pesq_batch
@@ -1818,7 +1855,7 @@ def phase_clis(card):
 
 def phase_trainer(card, fixed_step_ms):
     """Phase 9: the Trainer, its validation, input pipeline, STOI and
-    checkpoint on the card (its CLI runs in ``phase_clis``).  Returns the attention launches of
+    checkpoint on the card (its CLI runs in ``phase_clis``).  Returns the attention calls of
     fit's steps and of one validation batch, and the Trainer's generator
     side (CPU copies; phase 12 (e) serves them)."""
     import shutil
@@ -1978,7 +2015,7 @@ def phase_lrs_trainer(card, fixed_step_ms):
     """(d) ``Trainer.fit`` on LRS2 (the recipe, fp32, its synthetic clips:
     LOOP_BATCHES batches an epoch) counted as phase 9 (c) counts it, one
     validation batch and a checkpoint round trip (``python3 -m
-    vcagan_torch.cli.train_lrs --bf16`` runs in ``phase_clis``).  Returns the attention launches
+    vcagan_torch.cli.train_lrs --bf16`` runs in ``phase_clis``).  Returns the attention calls
     of fit's steps and of the validation batch."""
     import shutil
     import tempfile
@@ -1996,15 +2033,14 @@ def phase_lrs_trainer(card, fixed_step_ms):
         t0 = time.perf_counter()
         logs = trainer.validate(fast=False, max_batches=1)
         elapsed = time.perf_counter() - t0
-        val_launches = attn.LAUNCHES
-        check(val_launches == 2 and fb.LAUNCHES == 0,
-              f"LRS validate: {val_launches} attention and {fb.LAUNCHES} fused-block launches")
+        val_launches = count_of("attention.calls")
+        check_calls(2, 0, "LRS validate")
         check(all(np.isfinite(x) for x in logs) and logs[0] > 0, f"LRS validate returned {logs}")
         raw = next(trainer._val_ds.epoch(LRS_BATCH, shuffle=False, drop_last=False))
         print(f"trainer validate LRS2, one batch B={LRS_BATCH} x {raw['video_raw'].shape[1]} "
               f"frames (the bucket; vid_len {raw['vid_len'].min()}-{raw['vid_len'].max()}): "
               f"{elapsed:.2f} s, l1 {logs[0]:.4f}, stoi {logs[1]:.4f}, estoi {logs[2]:.4f}, pesq "
-              f"{logs[3]:.4f}; {val_launches} attention launches [{card}]")
+              f"{logs[3]:.4f}; {val_launches} attention calls [{card}]")
         phase_trainer_checkpoint(card, trainer)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2012,7 +2048,7 @@ def phase_lrs_trainer(card, fixed_step_ms):
 
 
 # Phase 11: evaluation.  The GRID test recipe: B=100 clips of up to 75
-# frames, flip TTA (2 forwards, so 4 attention launches a batch); test_lrs:
+# frames, flip TTA (2 forwards, so 4 attention calls a batch); test_lrs:
 # B=8 length-sorted clips in buckets of up to 160 frames.  ASR_TOL: the ASR
 # models' logits card vs CPU (cuDNN convolutions and GRU against oneDNN, in
 # fp32 with TF32 off: sums of up to 25 x 64 terms in another order, then
@@ -2060,7 +2096,7 @@ def phase_eval_attention(card):
 def phase_eval_lrs_batch(card, states, raw):
     """One ``test_lrs`` batch at its recipe (B=8, the 160-frame bucket,
     real lengths) through the LRS input pipeline and the flip-TTA eval
-    forward on the card, after one warm-up: 4 attention launches asserted
+    forward on the card, after one warm-up: 4 attention calls asserted
     and the forwards timed by CUDA events.  Returns the launches."""
     from vcagan_torch.train.step import make_eval_step
 
@@ -2075,14 +2111,13 @@ def phase_eval_lrs_batch(card, states, raw):
     g3, gs = step(batch.video, batch.vid_len, gen)
     ev[1].record()
     ev[1].synchronize()
-    launches = attn.LAUNCHES
-    check(launches == 4 and fb.LAUNCHES == 0,
-          f"LRS test batch: {launches} attention and {fb.LAUNCHES} fused-block launches")
+    launches = count_of("attention.calls")
+    check_calls(4, 0, "LRS test batch")
     check(torch.isfinite(g3).all().item() and torch.isfinite(gs).all().item(),
           "LRS test batch: non-finite output")
     print(f"LRS test batch B={LRS_TEST_BATCH} x {batch.video.shape[1]} (lengths "
           f"{batch.vid_len.tolist()}): the two eval forwards {ev[0].elapsed_time(ev[1]):.1f} ms "
-          f"(CUDA events), {launches} attention launches [{card}]")
+          f"(CUDA events), {launches} attention calls [{card}]")
     return launches
 
 
@@ -2192,7 +2227,7 @@ def phase_eval_grid_batch(card, states, raw, bf16):
     after one warm-up on it: the input pipeline, the two eval forwards and
     Griffin-Lim timed by CUDA events, STOI/ESTOI (to its sync) and PESQ on
     the host and the artifact dump by the host's clock; 4 attention
-    launches asserted.  Returns the parts."""
+    calls asserted.  Returns the parts."""
     import shutil
     import tempfile
 
@@ -2224,7 +2259,7 @@ def phase_eval_grid_batch(card, states, raw, bf16):
         wav_pred, wav_gt = vocode_grid(pipe, gs, raw["wav"], ml0, gen)
         ev[3].record()
         ev[3].synchronize()
-        launches = attn.LAUNCHES
+        launches = count_of("attention.calls")
         times = {}
         stoi, estoi, pesq = score(wav_gt, wav_pred, nv, times=times)
         t1 = time.perf_counter()
@@ -2236,8 +2271,9 @@ def phase_eval_grid_batch(card, states, raw, bf16):
         dump = time.perf_counter() - t1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    check(launches == 4 and fb.LAUNCHES == 0,
-          f"GRID test batch {mode}: {launches} attention and {fb.LAUNCHES} fused-block launches")
+    check(launches == 4 and count_of("fused_block.calls") == 0,
+          f"GRID test batch {mode}: {launches} attention and {count_of('fused_block.calls')} "
+          "fused-block kernel calls, not 4 and 0")
     check(np.isfinite(stoi).all() and np.isfinite(estoi).all(),
           f"GRID test {mode}: STOI not finite")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2248,7 +2284,7 @@ def phase_eval_grid_batch(card, states, raw, bf16):
     print(f"GRID test batch {mode} B={EVAL_BATCH} x {EVAL_FRAMES} ({nv} scored): "
           + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
           + f"; {nv / wall:.2f} clips/s, peak {peak:.2f} GB, {launches} attention "
-          f"launches; STOI {np.nanmean(stoi):.4f} ESTOI {np.nanmean(estoi):.4f} PESQ "
+          f"calls; STOI {np.nanmean(stoi):.4f} ESTOI {np.nanmean(estoi):.4f} PESQ "
           f"{np.nanmean(pesq):.4f} [{card}]")
     return {**parts, "launches": launches, "peak_gb": peak, "clips_per_s": nv / wall}
 
@@ -2355,7 +2391,7 @@ def phase_eval_clis(card, states):
 
 def phase_eval(card, states):
     """Phase 11: evaluation on the card.  Returns the attention rows, their
-    worst error and the attention launches of one LRS and one GRID test
+    worst error and the attention calls of one LRS and one GRID test
     batch (fp32 and bf16)."""
     rows, worst, lrs_raw = phase_eval_attention(card)
     launches = {"lrs_test_batch": phase_eval_lrs_batch(card, states, lrs_raw)}
@@ -2411,10 +2447,13 @@ def phase_long_attention(card):
         q, k, v, lens = attention_inputs(b, t, s_, d, lengths, seed=500 + i)
         plan = attn.attention_plan(t, s_, d, b)
         check(plan.key_block == attn.KEY_BLOCK, f"{name}: plan {plan}")
-        before = attn.LAUNCHES
+        before = count_of("attention.calls"), count_of("attention.launches")
         got = attn.masked_attention_cuda(q, k, v, lens)
         torch.cuda.synchronize()
-        check(attn.LAUNCHES == before + 1, f"{name}: the kernel was not launched")
+        check(count_of("attention.calls") == before[0] + 1, f"{name}: the kernel was not called")
+        check(count_of("attention.launches") == before[1] + attn.kernel_launches(plan, b),
+              f"{name}: {count_of('attention.launches') - before[1]} launches counted, not "
+              f"{attn.kernel_launches(plan, b)}")
         want = attn.masked_attention_reference(q, k, v, lens)
         want64 = attn.masked_attention_reference(q.double(), k.double(), v.double(), lens)
         want3x = attention_3xtf32(plan, q, k, v, lens)
@@ -2477,10 +2516,10 @@ def phase_long_attention(card):
     grad = torch.randn(b, t, d, generator=torch.Generator(device="cuda").manual_seed(12),
                        device="cuda")
     leaves = [x.requires_grad_() for x in (q, k, v)]
-    before = attn.LAUNCHES
+    before = count_of("attention.calls")
     out = attn.masked_cross_attention(*leaves, lens)
     check(isinstance(out.grad_fn, attn.MaskedAttention._backward_cls) and
-          attn.LAUNCHES == before + 1, "long: the attention did not launch under autograd")
+          count_of("attention.calls") == before + 1, "long: the kernel was not called under autograd")
     got = torch.autograd.grad(out, leaves, grad)
     wide = [x.detach().double().requires_grad_() for x in (q, k, v)]
     want64 = torch.autograd.grad(attn.masked_attention_reference(*wide, lens), wide,
@@ -2498,7 +2537,7 @@ def phase_long_attention(card):
 
 def phase_synth_long(card, states):
     """(b) ``Synthesizer`` on B=2 clips of 750 frames (30 s; lengths 750
-    and 513), fp32 and bf16, on the trained weights: 2 attention launches
+    and 513), fp32 and bf16, on the trained weights: 2 attention calls
     (both key-blocked) a forward; the fp32 forward held to the CPU's with
     the same noise and Griffin-Lim phase (``PATH_TOL`` and ``WAV_REL_L2``),
     the bf16 one to the fp32 one on the card (the JAX package's bf16
@@ -2523,9 +2562,8 @@ def phase_synth_long(card, states):
         got = on_card(video, lengths, noise=noise, init_phase=phase)
         ev[1].record()
         torch.cuda.synchronize()
-        launches[mode] = attn.LAUNCHES
-        check(attn.LAUNCHES == 2 and fb.LAUNCHES == 0,
-              f"30 s clips {mode}: {attn.LAUNCHES} attention launches a forward, not 2")
+        launches[mode] = count_of("attention.calls")
+        check_calls(2, 0, f"30 s clips {mode}, one forward")
         check(got["wav"].shape == (b, 160 * (4 * t - 1)), f"wav shape {tuple(got['wav'].shape)}")
         del on_card
         if bf16:
@@ -2541,7 +2579,7 @@ def phase_synth_long(card, states):
         print(f"serve 30 s clips {mode} B={b} x {t} frames (lengths {lengths.tolist()}; the "
               f"attention at ({b}, {t}, {t}) and ({b}, {2 * t}, {t}), key-blocked): one forward "
               f"{ev[0].elapsed_time(ev[1]):.1f} ms on the card, {launches[mode]} attention "
-              f"launches; {against} [{card}]")
+              f"calls; {against} [{card}]")
         del got
         torch.cuda.empty_cache()
     return launches
@@ -2556,7 +2594,7 @@ def fit_epoch(trainer, what, card):
     one), each step's start and end stamped with CUDA events.  Returns its
     readings: ms a step (device ms from the first step's end to the last's,
     over the steps after it), the device's idle share over them, the
-    producer's collate ms a batch and the attention launches."""
+    producer's collate ms a batch and the attention calls."""
     starts, ends = [], []
     step_fn, pipe_fn = trainer.train_step, trainer.process_train
 
@@ -2583,17 +2621,17 @@ def fit_epoch(trainer, what, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(done == first + FIT_BATCHES, f"{what}: fit stopped at step {done}")
-    check(attn.LAUNCHES == 2 * FIT_BATCHES and fb.LAUNCHES == 0,
-          f"{what}: {attn.LAUNCHES} attention launches in {FIT_BATCHES} steps")
+    check_calls(2 * FIT_BATCHES, 0, f"{what}, {FIT_BATCHES} steps")
     step_ms = [a.elapsed_time(b_) for a, b_ in zip(ends, ends[1:])]
     idle = [a.elapsed_time(b_) for a, b_ in zip(ends, starts[1:])]
     collate = [1e3 * x for x in trainer.collate_s]
     out = {"ms_a_step": sum(step_ms) / len(step_ms), "idle_share": sum(idle) / sum(step_ms),
-           "collate_ms": statistics.mean(collate), "wall_s": wall, "launches": attn.LAUNCHES}
+           "collate_ms": statistics.mean(collate), "wall_s": wall,
+           "launches": count_of("attention.calls")}
     print(f"fit {what}: {out['ms_a_step']:.1f} ms a step (steps 2-{FIT_BATCHES}, CUDA events), "
           f"device idle {100 * out['idle_share']:.1f}%, collate {out['collate_ms']:.1f} ms a "
           f"batch (" + ", ".join(f"{x:.0f}" for x in collate) + f"), {wall:.1f} s for the "
-          f"epoch, {attn.LAUNCHES} attention launches [{card}]")
+          f"epoch, {count_of('attention.calls')} attention calls [{card}]")
     return out
 
 
@@ -2693,7 +2731,7 @@ def phase_jax_state(card, states):
     ``load_jax_train_state``: every tensor equal to its source; then
     ``python -m vcagan_torch.cli.test`` (in this process) scores one batch
     of 16 synthetic clips with it as ``--checkpoint``.  Returns the test
-    batch's attention launches."""
+    batch's attention calls."""
     import shutil
     import tempfile
 
@@ -2748,13 +2786,13 @@ def phase_jax_state(card, states):
                        "--batch_size", "16", "--max_batches", "1",
                        "--out_dir", os.path.join(tmp, "test")])
         torch.cuda.synchronize()
-        launches = attn.LAUNCHES
-        check(launches == 4, f"cli.test: {launches} attention launches in one batch, not 4")
+        launches = count_of("attention.calls")
+        check(launches == 4, f"cli.test: {launches} attention calls in one batch, not 4")
         with open(os.path.join(tmp, "test", "metric.txt")) as f:
             metric = f.read().strip()
         check(metric.startswith("STOI : "), f"cli.test wrote {metric!r}")
         print(f"cli.test with the exported state as --checkpoint, one batch of 16 clips: "
-              f"{time.perf_counter() - t0:.1f} s, {launches} attention launches; {metric} "
+              f"{time.perf_counter() - t0:.1f} s, {launches} attention calls; {metric} "
               f"[{card}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2766,7 +2804,7 @@ def phase_serving_npz(card, trained_states):
     written by ``save_serving_npz`` in q8, read back by ``Synthesizer.
     from_serving_npz`` on the card: each tensor within half a quantisation
     step of the Trainer's (fp16 where not quantised), one forward at B=2
-    x 75 finite, 2 attention launches.  Returns the launches."""
+    x 75 finite, 2 attention calls.  Returns the launches."""
     import shutil
     import tempfile
 
@@ -2798,14 +2836,14 @@ def phase_serving_npz(card, trained_states):
         reset_launches()
         out = synth(video, np.asarray([75, 60], np.int32))
         torch.cuda.synchronize()
-        launches = attn.LAUNCHES
-        check(launches == 2, f"serving npz forward: {launches} attention launches")
+        launches = count_of("attention.calls")
+        check(launches == 2, f"serving npz forward: {launches} attention calls")
         check(all(bool(torch.isfinite(v.float()).all()) for v in out.values()),
               "serving npz forward: non-finite outputs")
         print(f"serving npz (q8) of phase 9's Trainer: {os.path.getsize(path) / 1e6:.1f} MB "
               f"written in {save_s:.1f} s, read by Synthesizer.from_serving_npz on the card "
               f"(largest tensor difference {worst:.3e}, within the quantisation), one forward "
-              f"B=2 x 75 finite, {launches} attention launches [{card}]")
+              f"B=2 x 75 finite, {launches} attention calls [{card}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -2909,7 +2947,7 @@ def phase_dp_fit_world1(card, cached_ms):
               f"(phase 12 (c), cached); gradient all-reduce "
               f"{out['reduce_ms']:.2f} ms a step (" + ", ".join(f"{x:.2f}" for x in reduce_ms)
               + f") over {nbytes / 1e6:.1f} MB of fp32 gradients; "
-              f"{out['launches']} attention launches in {FIT_BATCHES} steps [{card}]")
+              f"{out['launches']} attention calls in {FIT_BATCHES} steps [{card}]")
         del trainer
         torch.cuda.empty_cache()
         out["fp32_step"] = dp_step_vs_plain(card, layout)
@@ -2971,7 +3009,7 @@ def _free_port():
 def phase_dp_two_ranks(card):
     """(b) ``python -m vcagan_torch.parallel.dryrun`` with two gloo ranks on
     the card at full width, fp32: its deltas at its tolerances, each rank's
-    attention launches and shapes; then the attention alone at the rank's
+    attention calls and shapes; then the attention alone at the rank's
     shapes.  Returns the readings and the two attention rows."""
     torch.cuda.empty_cache()
     print(f"data parallel (b): this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB "
@@ -2991,8 +3029,8 @@ def phase_dp_two_ranks(card):
     per_rank = TRAIN_BATCH // DP_WORLD
     shapes = [[per_rank, TRAIN_WINDOW, TRAIN_WINDOW, 256], [per_rank, 2 * TRAIN_WINDOW,
                                                            TRAIN_WINDOW, 256]]
-    check(r["launches"] == [2] * DP_WORLD and all(a == shapes for a in r["attention"]),
-          f"per-rank attention: launches {r['launches']}, shapes {r['attention']}")
+    check(r["attention_calls"] == [2] * DP_WORLD and all(a == shapes for a in r["attention"]),
+          f"per-rank attention: calls {r['attention_calls']}, shapes {r['attention']}")
     print(f"data parallel (b) dryrun, {DP_WORLD} gloo ranks on one card, fp32, B={TRAIN_BATCH} x "
           f"{TRAIN_WINDOW} frames (112 x 112), {per_rank} clips a rank, against one process on "
           f"all {TRAIN_BATCH}: metrics within {r['metric_rel']:.3e} relative (bound 5e-4), "
@@ -3001,15 +3039,16 @@ def phase_dp_two_ranks(card):
           f"within {r['module_grad_bound']:g} relative L2 (" + ", ".join(
               f"{m} {v:.2e}" for m, v in r["module_grad_rel"].items()) + "), a leaf's "
           f"{r['grad_rel']:.3e} at worst ({r['grad_rel_leaf']}; reported, not bounded in fp32), "
-          f"the ranks' states equal bit for bit; attention launches a rank {r['launches']} at "
-          f"{shapes}, the single process {r['reference_launches']}; the single process "
+          f"the ranks' states equal bit for bit; attention calls a rank {r['attention_calls']} at "
+          f"{shapes}, the single process {r['reference_attention_calls']}; the single process "
           f"{r['single_process_s']:.1f} s, the ranks {r['ranks_s']:.1f} s, {wall:.1f} s in all "
           f"[{card}]")
     side = torch.cuda.Stream()
     rows = [attention_row(card, f"per rank att{i + 1}", t, s_, d, [s_] * b, 400 + i, side)
             for i, (b, t, s_, d) in enumerate(shapes)]
     keep = ("world", "metric_rel", "leaf_stat", "leaf_stat_bound", "grad_rel", "grad_rel_leaf",
-            "module_grad_rel", "module_grad_bound", "launches", "attention", "reference_launches", "single_process_s", "ranks_s")
+            "module_grad_rel", "module_grad_bound", "attention_calls", "attention",
+            "reference_attention_calls", "single_process_s", "ranks_s")
     return {k: r[k] for k in keep}, rows
 
 
@@ -3052,7 +3091,7 @@ def phase_model_axis_gate(card):
     """(a) ``python -m vcagan_torch.parallel.dryrun --world 4
     --model_parallel 2`` with gloo ranks sharing the card, fp32, at its
     tolerances: the deltas, the states' equality, each rank's attention
-    launches and shapes, peak memory and the model axis's ms a step; then
+    calls and shapes, peak memory and the model axis's ms a step; then
     the attention alone at the rank's shapes.  Returns the readings and the
     two attention rows."""
     torch.cuda.empty_cache()
@@ -3075,8 +3114,8 @@ def phase_model_axis_gate(card):
     check((r["data"], r["model"]) == (MA_WORLD // MA_MODEL, MA_MODEL)
           and r["split_leaves"] == SPLIT_LEAVES, f"layout {r['data']} x {r['model']}, split "
           f"{r['split_leaves']}")
-    check(r["launches"] == [2] * MA_WORLD and all(a == shapes for a in r["attention"]),
-          f"per-rank attention: launches {r['launches']}, shapes {r['attention']}")
+    check(r["attention_calls"] == [2] * MA_WORLD and all(a == shapes for a in r["attention"]),
+          f"per-rank attention: calls {r['attention_calls']}, shapes {r['attention']}")
     axis_ms = [model_axis_ms(p) for p in r["profile"]]
     print(f"model axis (a) dryrun, {MA_WORLD} gloo ranks on one card ({MA_WORLD // MA_MODEL} "
           f"data x {MA_MODEL} model; (b) beside it), fp32, B={MA_BATCH} x {TRAIN_WINDOW} frames (112 x 112), "
@@ -3088,8 +3127,8 @@ def phase_model_axis_gate(card):
           + ", ".join(f"{m} {v:.2e}" for m, v in r["module_grad_rel"].items()) + "), a leaf's "
           f"{r['grad_rel']:.3e} at worst ({r['grad_rel_leaf']}; reported, not bounded in fp32), "
           f"the replicated states equal bit for bit and the split leaves equal within each "
-          f"model index; attention launches a rank {r['launches']} at {shapes}, the single "
-          f"process {r['reference_launches']}; peak memory a rank "
+          f"model index; attention calls a rank {r['attention_calls']} at {shapes}, the single "
+          f"process {r['reference_attention_calls']}; peak memory a rank "
           + ", ".join(f"{b / 1e9:.2f}" for b in r["peak_bytes"])
           + f" GB, the single process {r['reference_peak_bytes'] / 1e9:.2f} GB; the single "
           f"process {r['single_process_s']:.1f} s, the ranks {r['ranks_s']:.1f} s, {wall:.1f} s "
@@ -3109,7 +3148,8 @@ def phase_model_axis_gate(card):
             for i, (b, t, s_, d) in enumerate(shapes)]
     keep = ("world", "data", "model", "split_leaves", "metric_rel", "leaf_stat",
             "leaf_stat_bound", "grad_rel", "grad_rel_leaf", "module_grad_rel",
-            "module_grad_bound", "launches", "attention", "reference_launches", "peak_bytes",
+            "module_grad_bound", "attention_calls", "attention", "reference_attention_calls",
+            "peak_bytes",
             "reference_peak_bytes", "single_process_s", "ranks_s")
     out = {k: r[k] for k in keep}
     out.update(model_axis_ms=[a for a, _ in axis_ms], data_axis_ms=[b for _, b in axis_ms],
@@ -3206,7 +3246,7 @@ def phase_fourteen(card):
             proc.kill()
             proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"launches_model_axis_dryrun": gate["launches"], "model_axis_dryrun": gate,
+    return {"launches_model_axis_dryrun": gate["attention_calls"], "model_axis_dryrun": gate,
             "model_axis_cli": cli, "per_rank_shapes_model_axis": rows}
 
 
@@ -3310,9 +3350,7 @@ def knob_steps(card, what, model_config, train_config, batch, runs, compare=Fals
         want = {site: 2 * 3 if site == "r1" else 1 for site in sites}
         check(recomputes == want, f"knobs {what} {name}: recomputes {recomputes} in a step, not "
               f"{want} (r1: each discriminator twice)")
-        check(attn.LAUNCHES == 2 and fb.LAUNCHES == 0,
-              f"knobs {what} {name}: {attn.LAUNCHES} attention and {fb.LAUNCHES} fused-block "
-              "launches in a step, not 2 and 0")
+        check_calls(2, 0, f"knobs {what} {name}, a step")
         for k, v in metrics.items():
             check(np.isfinite(v), f"knobs {what} {name}: {k} = {v}")
         reading = {"recomputes_first_step": recomputes}
@@ -3347,8 +3385,7 @@ def knob_steps(card, what, model_config, train_config, batch, runs, compare=Fals
             counted.append(step(state, batch, generator)[1])
         table = {k: torch.stack([m[k] for m in counted]).cpu() for k in counted[0]}
         elapsed = time.perf_counter() - t0
-        check(attn.LAUNCHES == 2 * KNOB_STEPS and fb.LAUNCHES == 0,
-              f"knobs {what} {name}: {attn.LAUNCHES} attention launches in {KNOB_STEPS} steps")
+        check_calls(2 * KNOB_STEPS, 0, f"knobs {what} {name}, {KNOB_STEPS} steps")
         for k, v in table.items():
             check(bool(torch.isfinite(v).all()), f"knobs {what} {name}: {k} {v.tolist()}")
         parts = {p: statistics.median(m[i].elapsed_time(m[i + 1]) for m in marks)
@@ -3356,7 +3393,8 @@ def knob_steps(card, what, model_config, train_config, batch, runs, compare=Fals
         peak = torch.cuda.max_memory_allocated()
         reading.update(ms_a_step=elapsed / KNOB_STEPS * 1e3, peak_gb=(peak - held) / 1e9,
                        peak_with_copies_gb=peak / 1e9,
-                       attention_launches_a_step=attn.LAUNCHES / KNOB_STEPS, parts_ms=parts)
+                       attention_launches_a_step=count_of("attention.calls") / KNOB_STEPS,
+                       parts_ms=parts)
         if name in profile:
             marks.append([])
             on_phase("start")
@@ -3367,7 +3405,7 @@ def knob_steps(card, what, model_config, train_config, batch, runs, compare=Fals
               f"({KNOB_STEPS} counted after the first, one sync), peak "
               f"{reading['peak_gb']:.2f} GB ({reading['peak_with_copies_gb']:.2f} with this "
               f"phase's copies), {reading['attention_launches_a_step']:g} attention "
-              f"launches a step, "
+              f"calls a step, "
               + (f"{reading['kernel_launches_a_step']} kernel launches in one profiled step, "
                  if name in profile else "")
               + f"recomputes in a step {recomputes}; parts " + ", ".join(
@@ -3508,10 +3546,14 @@ def width_attention(card, oracle):
             lengths = rng.integers(-1, s_ + 2, b).tolist()
         q, k, v, lens = attention_inputs(b, t, s_, d, lengths, seed=1600 + i)
         plan = attn.attention_plan(t, s_, d, b)
-        before = attn.LAUNCHES
+        before = count_of("attention.calls"), count_of("attention.launches")
         got = attn.masked_cross_attention(q, k, v, lens)
         torch.cuda.synchronize()
-        check(attn.LAUNCHES == before + 1, f"width {name}: {attn.LAUNCHES - before} launches")
+        calls = count_of("attention.calls") - before[0]
+        launches = count_of("attention.launches") - before[1]
+        check(calls == 1 and launches == attn.kernel_launches(plan, b),
+              f"width {name}: {calls} calls, {launches} launches counted, not 1 and "
+              f"{attn.kernel_launches(plan, b)}")
         want = oracle(q, k, v, lens)
         want64 = oracle(q.double(), k.double(), v.double(), lens)
         err = (got - want).abs().max().item()
@@ -3567,13 +3609,16 @@ def width_blocks(card, oracle):
     g = torch.Generator(device="cuda").manual_seed(1799)
     x = torch.randn((n, h, w, c), generator=g, device="cuda", dtype=bf16)
     _, w1, b1, a1, w2, b2, a2 = fused_block_inputs(1, h, w, c, seed=1798)
-    before = fb.LAUNCHES
+    before = count_of("fused_block.calls"), count_of("fused_block.launches")
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
     got = fb.fused_basic_block(x, w1, b1, a1, w2, b2, a2)
     ev[1].record()
     torch.cuda.synchronize()
-    check(fb.LAUNCHES == before + 1, "past 2^31: not one launch counted")
+    calls = count_of("fused_block.calls") - before[0]
+    launches = count_of("fused_block.launches") - before[1]
+    check(calls == 1 and launches == 2, f"past 2^31: {calls} calls and {launches} launches "
+          "counted, not 1 and 2 (two chunks of images)")
     errs = []
     for lo in (0, per_launch - 64, n - 128):
         want = oracle(x[lo:lo + 128], w1, b1, a1, w2, b2, a2)
@@ -3595,7 +3640,7 @@ def width_blocks(card, oracle):
 def width_models(card):
     """(c) Narrow models card against CPU (fp32, random init from seed 0,
     the same noise and Griffin-Lim phase) at ``PATH_TOL`` and
-    ``WAV_REL_L2``: 2 attention launches a forward, and on the folded +
+    ``WAV_REL_L2``: 2 attention calls a forward, and on the folded +
     fused path one fused-block launch for each identity-shortcut block (4
     with stem_channels 16: the first block of the trunk then takes a
     projection, in the JAX package too)."""
@@ -3614,13 +3659,13 @@ def width_models(card):
         reset_launches()
         got = on_card(video, lengths, noise=noise, init_phase=phase)
         torch.cuda.synchronize()
-        check(attn.LAUNCHES == 2 and fb.LAUNCHES == fused_blocks,
-              f"{name}: {attn.LAUNCHES} attention and {fb.LAUNCHES} fused-block launches")
+        check_calls(2, fused_blocks, f"{name}, one forward")
         want = Synthesizer(config, device="cpu", **kw)(video, lengths, noise=noise,
                                                        init_phase=phase)
         compare_outputs(f"width model {name}, card vs CPU", got, want, PATH_TOL, WAV_REL_L2)
         print(f"width model {name} B={b} T={t} (48 x 48 frames): card vs CPU ok, "
-              f"{attn.LAUNCHES} attention and {fb.LAUNCHES} fused-block launches [{card}]")
+              f"{count_of('attention.calls')} attention and {count_of('fused_block.calls')} "
+              f"fused-block calls [{card}]")
         del on_card, got, want
 
 
@@ -3657,8 +3702,9 @@ def width_synth_512(card, oracle):
             got = synth(video, lengths)
             ev[1].record()
             torch.cuda.synchronize()
-            check(attn.LAUNCHES == 2 and len(calls) == 2,
-                  f"attention_dim 512 {mode}: {attn.LAUNCHES} attention launches a forward")
+            check(count_of("attention.calls") == 2 and len(calls) == 2,
+                  f"attention_dim 512 {mode}: {count_of('attention.calls')} attention calls a "
+                  "forward")
             check(all(torch.isfinite(o).all().item() for o in got.values()),
                   f"attention_dim 512 {mode}: non-finite output")
             errs = []
@@ -3670,7 +3716,7 @@ def width_synth_512(card, oracle):
             shapes = [tuple(q.shape) + (k.shape[1],) for q, k, *_ in calls]
             print(f"width Synthesizer attention_dim 512 {mode} B={b} x {t} frames (lengths "
                   f"{lengths.tolist()}; attention (B, T, D, S) {shapes}): one forward "
-                  f"{ev[0].elapsed_time(ev[1]):.1f} ms on the card, 2 attention launches, "
+                  f"{ev[0].elapsed_time(ev[1]):.1f} ms on the card, 2 attention calls, "
                   f"each vs plain max abs err {', '.join(f'{e:.3e}' for e in errs)} ok [{card}]")
             del synth, got
             calls.clear()
@@ -3881,7 +3927,7 @@ def gl_serve(card, states):
     """(d) The bf16 folded + fused serving path at B=48 x 75, 8 batches in
     flight, with the default Griffin-Lim and with ``gl_dtype=bf16``, in
     turns (default, bf16, bf16, default): mel-frames/s and peak memory,
-    printed and not held; 2 attention and 5 fused-block launches a forward
+    printed and not held; 2 attention and 5 fused-block calls a forward
     asserted, and the form each run vocoded with counted; then the stages
     of one ``gl_dtype=bf16`` forward."""
     b, t, batches = 48, 75, SERVE_BATCHES
@@ -3891,7 +3937,7 @@ def gl_serve(card, states):
     forms = {"griffin_lim": 0, "griffin_lim_mxu": 0}
     originals = {name: getattr(dsp_pipeline, name) for name in forms}
 
-    def counted(name):
+    def counting(name):
         def call(*args, **kwargs):
             forms[name] += 1
             return originals[name](*args, **kwargs)
@@ -3902,7 +3948,7 @@ def gl_serve(card, states):
               for gl, dtype in (("default", None), ("bf16", torch.bfloat16))}
     runs = {"default": [], "bf16": []}
     for name in forms:
-        setattr(dsp_pipeline, name, counted(name))
+        setattr(dsp_pipeline, name, counting(name))
     try:
         for gl in ("default", "bf16", "bf16", "default"):
             synth = synths[gl]
@@ -3926,8 +3972,9 @@ def gl_serve(card, states):
                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
             print(f"serve folded+fused bf16 B={b} T={t}, gl_dtype {gl} ({want}): "
                   f"{runs[gl][-1]['mel_frames_per_s']:.1f} mel-frames/s, peak "
-                  f"{runs[gl][-1]['peak_gb']:.2f} GB, {attn.LAUNCHES / batches:g} attention and "
-                  f"{fb.LAUNCHES / batches:g} fused-block launches per forward [{card}]")
+                  f"{runs[gl][-1]['peak_gb']:.2f} GB, {count_of('attention.calls') / batches:g} "
+                  f"attention and {count_of('fused_block.calls') / batches:g} fused-block calls "
+                  f"per forward [{card}]")
             del outs
     finally:
         for name, fn in originals.items():
@@ -4100,15 +4147,15 @@ def main() -> None:
                      launches_eval=eval_launches, eval_shapes=eval_rows,
                      eval_max_abs_err=eval_worst, **twelve, **thirteen, **fourteen,
                      **fifteen, widths=width_rows_attn)
-    # The attention's instances: their kernels, the calls each took on each
-    # serving path (2 a forward in all), one forward's two calls timed on
-    # each instance that takes them (phase 6).
+    # The attention's instances: their kernels, the kernel launches each took
+    # on each serving path (2 calls a forward in all), one forward's two calls
+    # timed on each instance that takes them (phase 6).
     attention["instances"] = [
         {"instance": n, "kernels": list(INSTANCE_KERNELS[n]),
          "launches_by_path": {path: counts["attention_by_instance"][n]
                               for path, counts in launches.items()},
          "ms_one_forward": attn_totals["instances"].get(n)}
-        for n in attn.INSTANCE_LAUNCHES]
+        for n in INSTANCE_KERNELS]
     print(f"attention one forward (2 launches) [{card}]: 3xTF32 {attention['ms']:.4f} ms "
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "

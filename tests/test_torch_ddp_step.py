@@ -242,7 +242,7 @@ def test_two_ranks_reproduce_the_single_process_step(runs):
     for calls in r["attention"]:  # each rank: two calls at its own 2 clips
         assert calls == [[2, 20, 20, 32], [2, 40, 20, 32]]
     assert r["reference_attention"] == [[4, 20, 20, 32], [4, 40, 20, 32]]
-    assert r["launches"] == [0, 0]  # the plain version on CPU tensors: no kernel
+    assert r["attention_calls"] == [0, 0]  # the plain version on CPU tensors: no kernel
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ import torch
 
 from vcagan.kernels.fused_block import _fused_block_pallas, fused_block_xla
 from vcagan.nn.resnet import ResNetTrunk as JaxResNetTrunk
+from vcagan_torch import tracing
 from vcagan_torch.kernels import fused_block as fb
 from vcagan_torch.nn import ResNetTrunk
 
@@ -114,15 +115,15 @@ def test_ring_of_h_outside_the_image_is_zero():
 
 def test_cpu_takes_the_plain_version_and_other_devices_raise():
     args = _torch_args(_mats(1, 4, 4, 16))
-    before = fb.LAUNCHES
+    before = tracing.counters()
     out = fb.fused_basic_block(*args)
-    assert fb.LAUNCHES == before  # counts kernel launches only
+    assert tracing.counters() == before  # counts kernel calls and launches only
     torch.testing.assert_close(out, fb.fused_block_reference(*args), rtol=0, atol=0)
     with pytest.raises(ValueError, match="no fused block for device meta"):
         fb.fused_basic_block(*(a.to("meta") for a in args))
     with pytest.raises(ValueError, match="must lie on a CUDA device"):
         fb.fused_block_cuda(*args)  # never a quiet fall back to the plain version
-    assert fb.LAUNCHES == before
+    assert tracing.counters() == before
 
 
 def _trunk_pair():

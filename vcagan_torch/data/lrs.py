@@ -48,6 +48,7 @@ from vcagan_torch.dsp.pipeline import MelPipeline
 from vcagan_torch.dsp.stft import stft_magnitude
 from vcagan_torch.parallel.mesh import draw_rows
 from vcagan_torch.runtime import resolve_device
+from vcagan_torch.tracing import span
 from vcagan_torch.train.step import Batch
 
 SPEC_DENORM_SCALE = 14.0  # reference vid_aud_lrs2.py:295
@@ -557,7 +558,8 @@ def make_lrs_device_pipeline(audio_config: AudioConfig, augment: bool = False, d
     made with ``DataConfig.host_crop`` holds 96^2 supersets with
     ``centers_m`` and ``vid_hw``, and is cropped as such.
     With ``augment`` each clip's jitter and flip come from ``draws``
-    (``LRSDraws``) or, where none are given, from ``generator``."""
+    (``LRSDraws``) or, where none are given, from ``generator``.  A call is
+    traced as the span ``train.input`` (``vcagan_torch.tracing``)."""
     dev = resolve_device(device)
     pipe = MelPipeline(audio_config)
 
@@ -566,33 +568,34 @@ def make_lrs_device_pipeline(audio_config: AudioConfig, augment: bool = False, d
 
     def process(raw: dict, generator: Optional[torch.Generator] = None,
                 draws: Optional[LRSDraws] = None) -> Batch:
-        video_raw, centers = as_tensor(raw["video_raw"]), as_tensor(raw["centers"])
-        b, w = video_raw.shape[:2]
-        if augment and draws is None:
-            draws = lrs_augment_draws(b, generator, dev)
-        jitter = draws.jitter if augment else torch.zeros(b, dtype=torch.long, device=dev)
-        if "centers_m" in raw:
-            video = crop_resize_dynamic_sup(video_raw, centers, as_tensor(raw["centers_m"]),
-                                            as_tensor(raw["vid_hw"]), jitter)
-        else:
-            video = crop_resize_dynamic(video_raw, centers, jitter)
-        if augment:
-            video = torch.where(draws.flip[:, None, None, None, None], video.flip(3), video)
+        with span("train.input"):
+            video_raw, centers = as_tensor(raw["video_raw"]), as_tensor(raw["centers"])
+            b, w = video_raw.shape[:2]
+            if augment and draws is None:
+                draws = lrs_augment_draws(b, generator, dev)
+            jitter = draws.jitter if augment else torch.zeros(b, dtype=torch.long, device=dev)
+            if "centers_m" in raw:
+                video = crop_resize_dynamic_sup(video_raw, centers, as_tensor(raw["centers_m"]),
+                                                as_tensor(raw["vid_hw"]), jitter)
+            else:
+                video = crop_resize_dynamic(video_raw, centers, jitter)
+            if augment:
+                video = torch.where(draws.flip[:, None, None, None, None], video.flip(3), video)
 
-        mag, _ = stft_magnitude(as_tensor(raw["aud_cond"]), pipe.stft_params, center=False)
-        n_mel = w * audio_config.mel_per_video_frame
-        mel = mel_normalize(pipe.compress_mel(mag)[:, :n_mel])
-        mel_len = as_tensor(raw["mel_len"])
-        valid = torch.arange(n_mel, device=dev)[None, :] < mel_len[:, None]
-        spec = lrs_normalize_spec(mag[:, :n_mel], valid)
-        # pad with the reference's -1.0 (vid_aud_lrs2.py:181-182)
-        pad = ~valid[:, :, None]
-        return Batch(
-            video=video,
-            mel=mel.masked_fill(pad, -1.0).transpose(1, 2),  # (B, 80, 4W)
-            spec=spec.masked_fill(pad, -1.0).transpose(1, 2),  # (B, 321, 4W)
-            vid_len=as_tensor(raw["vid_len"]),
-            mel_len=mel_len,
-        )
+            mag, _ = stft_magnitude(as_tensor(raw["aud_cond"]), pipe.stft_params, center=False)
+            n_mel = w * audio_config.mel_per_video_frame
+            mel = mel_normalize(pipe.compress_mel(mag)[:, :n_mel])
+            mel_len = as_tensor(raw["mel_len"])
+            valid = torch.arange(n_mel, device=dev)[None, :] < mel_len[:, None]
+            spec = lrs_normalize_spec(mag[:, :n_mel], valid)
+            # pad with the reference's -1.0 (vid_aud_lrs2.py:181-182)
+            pad = ~valid[:, :, None]
+            return Batch(
+                video=video,
+                mel=mel.masked_fill(pad, -1.0).transpose(1, 2),  # (B, 80, 4W)
+                spec=spec.masked_fill(pad, -1.0).transpose(1, 2),  # (B, 321, 4W)
+                vid_len=as_tensor(raw["vid_len"]),
+                mel_len=mel_len,
+            )
 
     return process

@@ -13,6 +13,7 @@ from vcagan_torch.dsp import audio as audio_ops
 from vcagan_torch.dsp.griffin_lim import griffin_lim, griffin_lim_mxu
 from vcagan_torch.dsp.mel import mel_filterbank
 from vcagan_torch.dsp.stft import STFTParams, stft_magnitude
+from vcagan_torch.tracing import span
 
 
 # Whether fp32 Griffin-Lim on the card takes the matmul form
@@ -76,12 +77,16 @@ class MelPipeline:
     def inverse_spec(self, spec, init_phase=None, generator=None) -> torch.Tensor:
         """Linear magnitudes (B, T, n_linear) -> waveform (B, hop*(T-1)):
         Griffin-Lim, de-emphasis, clip to [-1, 1].  ``init_phase`` (B, T,
-        n_linear) replaces the random phase drawn from ``generator``."""
+        n_linear) replaces the random phase drawn from ``generator``.  Traced
+        as ``vocoder.griffin_lim`` (either form) and ``vocoder.deemphasis``
+        (de-emphasis and the clip)."""
         iters = self.config.griffin_lim_iters
-        if spec.is_cuda and (self.gl_dtype != torch.float32 or FP32_MATMUL_ON_CUDA):
-            wav = griffin_lim_mxu(spec, self.stft_params, iters, self.gl_dtype, init_phase,
-                                  generator)
-        else:
-            wav = griffin_lim(spec, self.stft_params, iters, init_phase, generator)
-        wav = audio_ops.deemphasis(wav, self.config.preemphasis)
-        return torch.clamp(wav, -1.0, 1.0)
+        with span("vocoder.griffin_lim"):
+            if spec.is_cuda and (self.gl_dtype != torch.float32 or FP32_MATMUL_ON_CUDA):
+                wav = griffin_lim_mxu(spec, self.stft_params, iters, self.gl_dtype, init_phase,
+                                      generator)
+            else:
+                wav = griffin_lim(spec, self.stft_params, iters, init_phase, generator)
+        with span("vocoder.deemphasis"):
+            wav = audio_ops.deemphasis(wav, self.config.preemphasis)
+            return torch.clamp(wav, -1.0, 1.0)

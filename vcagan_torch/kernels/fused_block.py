@@ -30,8 +30,10 @@ point as plain ints, which refuses one that does not fit.
 The kernel takes C a multiple of 64, the widths of both packages' ResNet
 trunks (64, 128, 256, 512, whatever ``stem_channels`` is), and any N: where
 N*H*W*C passes 2^31 - 1 (the kernel's offsets are 32-bit) the C entry point
-launches chunks of images one after another; a call is one count in
-``LAUNCHES`` however many chunks it takes.
+launches chunks of images one after another (``kernel_launches``).  A
+kernel call counts one in ``fused_block.calls`` and its launches in
+``fused_block.launches`` (``vcagan_torch.tracing``); a block's call is
+traced as the span ``fused_block``.
 """
 
 from __future__ import annotations
@@ -44,11 +46,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vcagan_torch import tracing
 from vcagan_torch.kernels import _build, refuse_grad
 from vcagan_torch.kernels._tf32 import round_tf32, split_tf32  # noqa: F401  (re-exported)
 
 CHANNEL_MULTIPLE = 64  # the kernel takes C = 64, 128, 192, ...
-LAUNCHES = 0  # kernel launches so far; reset by the caller that counts
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
 WARPS = 8  # a block is 256 threads
@@ -300,6 +302,13 @@ def plan_fused_block(n: int, h: int, w: int, c: int, dtype: torch.dtype) -> Plan
     return min(plans, key=lambda plan: plan.cost)  # the first of equals
 
 
+def kernel_launches(plan: Plan) -> int:
+    """The kernel launches of one call: the C entry point's chunks of
+    images whose elements stay below 2^31."""
+    per_launch = min(plan.n, (2**31 - 1) // (plan.h * plan.w * plan.c))
+    return _ceil_div(plan.n, per_launch)
+
+
 def block_pixels(plan: Plan, block: int) -> dict:
     """What one block touches, as the kernel indexes it, for the CPU tests
     that hold the plan: ``h_index`` (where phase 1 stores each of its pixels
@@ -351,9 +360,8 @@ def fused_block_cuda(x, w1_packed, b1, a1, w2_packed, b2, a2, plan=None) -> torc
     the place of ``plan_fused_block``'s.  Raises on any input the kernel does
     not take, on a plan that is not of this problem and on a launch error.
     Forward only: it raises where autograd would need its result's gradient.
-    N*H*W*C past 2^31 - 1 goes in chunks of images (the C entry point's),
-    one count in ``LAUNCHES``."""
-    global LAUNCHES
+    N*H*W*C past 2^31 - 1 goes in chunks of images (the C entry point's,
+    ``kernel_launches``)."""
     refuse_grad("fused_block", x=x, w1_packed=w1_packed, b1=b1, a1=a1, w2_packed=w2_packed,
                 b2=b2, a2=a2)
     if x.device.type != "cuda":
@@ -396,7 +404,8 @@ def fused_block_cuda(x, w1_packed, b1, a1, w2_packed, b2, a2, plan=None) -> torc
     if err != 0:
         msg = lib.vcagan_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_block kernel launch failed ({err}): {msg}; plan {plan}")
-    LAUNCHES += 1
+    tracing.count("fused_block.calls")
+    tracing.count("fused_block.launches", kernel_launches(plan))
     return out
 
 
@@ -405,10 +414,11 @@ def fused_basic_block(x, w1, b1, a1, w2, b2, a2, packed=None) -> torch.Tensor:
     CUDA tensors the kernel, with ``packed`` = (``pack_weights(w1, x.dtype)``,
     ``pack_weights(w2, x.dtype)``) if the caller packed them at load, else
     packed here; anything else raises."""
-    if x.device.type == "cpu":
-        return fused_block_reference(x, w1, b1, a1, w2, b2, a2)
-    if x.device.type == "cuda":
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no fused block for device {x.device}")
+    with tracing.span("fused_block"):
+        if x.device.type == "cpu":
+            return fused_block_reference(x, w1, b1, a1, w2, b2, a2)
         w1p, w2p = packed if packed is not None else (
             pack_weights(w1, x.dtype), pack_weights(w2, x.dtype))
         return fused_block_cuda(x, w1p, b1, a1, w2p, b2, a2)
-    raise ValueError(f"no fused block for device {x.device}")

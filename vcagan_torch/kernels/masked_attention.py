@@ -62,18 +62,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from vcagan_torch import tracing
 from vcagan_torch.kernels import _build, refuse_grad
 from vcagan_torch.kernels._tf32 import split_tf32
 
 NEG_INF = -1e30  # mask value; not -inf, so an all-masked row stays finite
-# Calls that launched the kernel so far; reset by the caller that counts.  One
-# a call, however many kernel launches it takes: the in-block instance one
-# (two with key splits: the combine), the strip one, the split pass two or
-# three (the split pass, the attention, the combine of more than one split);
-# and one a chunk of 65535 samples.
-LAUNCHES = 0
-# The same calls by instance: "in_block", "strip", "split_pass".
-INSTANCE_LAUNCHES = {"in_block": 0, "strip": 0, "split_pass": 0}
 
 MAX_SMEM = 232448  # bytes of shared memory a block may use on an H100
 MAX_GRID_B = 65535  # samples a launch: the grid's y (strip) and z (past S_MAX) axes
@@ -611,6 +604,17 @@ def instance(plan) -> str:
     return "in_block" if plan.in_block else "split_pass"
 
 
+def kernel_launches(plan, b: int) -> int:
+    """The kernel launches of one call of ``plan`` on ``b`` samples: the
+    strip one a chunk of ``MAX_GRID_B`` samples; the key-blocked instances,
+    a chunk of ``launch_b`` samples each, the in-block attention or the split
+    pass and its attention, and the combine where there is more than one
+    split."""
+    if isinstance(plan, AttentionPlan):
+        return -(-b // MAX_GRID_B)
+    return plan.launches * ((1 if plan.in_block else 2) + (plan.splits > 1))
+
+
 def in_block_plan(t: int, s: int, d: int, b: int = 1) -> LongAttentionPlan | None:
     """The in-block instance's plan of least modelled time for the shape,
     whether or not ``attention_plan`` routes it there (chip_smoke and the
@@ -668,10 +672,10 @@ def masked_attention_cuda(
     count (as a tuner does); by default ``attention_plan`` chooses it.  The
     lengths stay on the device: the kernels read them.  D not a multiple of
     8 goes through ``padded_attention`` (copies of q, k and v with zero
-    columns, and of the output's first D columns).  A call is one count in
-    ``LAUNCHES``, however many launches it takes: chunks of samples, and
-    past ``S_MAX`` keys the split pass and the combine."""
-    global LAUNCHES
+    columns, and of the output's first D columns).  Counted
+    (``vcagan_torch.tracing``): one in ``attention.calls``, and its
+    ``kernel_launches`` in ``attention.launches`` and
+    ``attention.launches.<instance>``."""
     refuse_grad("masked_attention", q=q, k=k, v=v)
     for name, x in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
         if x.device.type != "cuda" or x.device != q.device:
@@ -722,8 +726,10 @@ def masked_attention_cuda(
         return out
 
     out = padded_attention(q, k, v, lengths, attend)
-    LAUNCHES += 1
-    INSTANCE_LAUNCHES[instance(plan)] += 1
+    launches = kernel_launches(plan, b)
+    tracing.count("attention.calls")
+    tracing.count("attention.launches", launches)
+    tracing.count(f"attention.launches.{instance(plan)}", launches)
     return out
 
 
@@ -757,11 +763,12 @@ def masked_cross_attention(
     """Keys at positions >= lengths[b] get zero weight.  CPU tensors take the
     plain version; CUDA tensors the kernel; anything else raises.  Where
     autograd needs the result's gradient, both go through
-    ``MaskedAttention``."""
+    ``MaskedAttention``.  Traced as the span ``attention`` (the forward)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no masked attention for device {q.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return MaskedAttention.apply(q, k, v, lengths)
-    if q.device.type == "cpu":
-        return masked_attention_reference(q, k, v, lengths)
-    return masked_attention_cuda(q, k, v, lengths)
+    with tracing.span("attention"):
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+            return MaskedAttention.apply(q, k, v, lengths)
+        if q.device.type == "cpu":
+            return masked_attention_reference(q, k, v, lengths)
+        return masked_attention_cuda(q, k, v, lengths)

@@ -23,6 +23,10 @@ fp32 dense, so ``sent`` is fp32.
 87-99``): the stem chain (convolution, BatchNorm, PReLU, max-pool) keeps
 only its input and its pooled output for the backward, which recomputes
 the rest (``recomputed``); it applies where autograd records the forward.
+
+A call is traced (``vcagan_torch.tracing``) as ``v_front.stem``, then
+``v_front.trunk`` (the frames' layout, the trunk and its dropout), then
+``v_front.gru`` (the sentence encoder and ``fc``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from vcagan_torch.nn.common import (
 from vcagan_torch.nn.gru import BiGRU
 from vcagan_torch.nn.resnet import ResNetTrunk
 from vcagan_torch.runtime import compute_dtype
+from vcagan_torch.tracing import span
 
 
 class VisualFront(FoldableModule):
@@ -69,17 +74,20 @@ class VisualFront(FoldableModule):
     def forward(self, video: torch.Tensor, generator: torch.Generator | None = None,
                 remat_stem: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         b, t = video.shape[:2]
-        x = video.permute(0, 4, 1, 2, 3)
-        # the stem: (B, 1, T, H, W) -> (B, C, T, H', W')
-        x = recomputed("stem", self.frontend, x) if remat_stem else self.frontend(x)
-        if self.fused:
-            # (B*T, H', W', C) in memory, seen as NCHW: the one copy that the
-            # flatten below makes too, into the layout the fused blocks read
-            frames = x.permute(0, 2, 3, 4, 1).reshape(b * t, *x.shape[3:], x.shape[1])
-            frames = frames.permute(0, 3, 1, 2)
-        else:
-            frames = x.transpose(1, 2).flatten(0, 1)
-        x = dropout(self.resnet(frames), self.dropout_rate, self.training, generator)
+        with span("v_front.stem"):
+            x = video.permute(0, 4, 1, 2, 3)
+            # the stem: (B, 1, T, H, W) -> (B, C, T, H', W')
+            x = recomputed("stem", self.frontend, x) if remat_stem else self.frontend(x)
+        with span("v_front.trunk"):
+            if self.fused:
+                # (B*T, H', W', C) in memory, seen as NCHW: the one copy that the
+                # flatten below makes too, into the layout the fused blocks read
+                frames = x.permute(0, 2, 3, 4, 1).reshape(b * t, *x.shape[3:], x.shape[1])
+                frames = frames.permute(0, 3, 1, 2)
+            else:
+                frames = x.transpose(1, 2).flatten(0, 1)
+            x = dropout(self.resnet(frames), self.dropout_rate, self.training, generator)
         phon = x.reshape(b, t, self.feature_dim)  # (B*T, 512) -> (B, T, 512)
-        sent = self.fc(self.sentence_encoder(phon, generator))
+        with span("v_front.gru"):
+            sent = self.fc(self.sentence_encoder(phon, generator))
         return phon, sent

@@ -25,8 +25,9 @@ weight's output columns are split over the group
   rank, so each already holds the whole gradient (a reduce-scatter would
   multiply it by the group's size).
 
-Each runs inside a ``record_function`` range named ``model_axis.*`` or
-``data_axis.*``, which a profile of the step reads.
+Each runs inside a span (``vcagan_torch.tracing``) named ``model_axis.*`` or
+``data_axis.*``, whose range a profile of the step reads where tracing is
+on.
 
 The step takes its gradients with ``torch.autograd.grad`` into lists and
 R1 differentiates twice, so ``DistributedDataParallel``'s hooks on
@@ -39,7 +40,8 @@ from typing import Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+
+from vcagan_torch.tracing import span
 
 BUCKET_BYTES = 64 << 20  # fp32 bytes a gradient all-reduce call
 
@@ -49,7 +51,7 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group, name):
         ctx.group, ctx.name = group, name
         out = x.clone(memory_format=torch.contiguous_format)
-        with record_function(name):
+        with span(name):
             dist.all_reduce(out, group=group)
         return out
 
@@ -80,7 +82,7 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group) -> int:
 
     def reduce(items):
         flat = torch.cat([t.reshape(-1).to(_bucket_dtype(t)) for t in items])
-        with record_function("data_axis.gradient_mean"):
+        with span("data_axis.gradient_mean"):
             dist.all_reduce(flat, group=group)
         flat.div_(world)
         for t, part in zip(items, flat.split([t.numel() for t in items])):
@@ -132,7 +134,7 @@ class _GatherColumns(torch.autograd.Function):
         ctx.rank, ctx.size = dist.get_rank(group), dist.get_world_size(group)
         parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
                  for _ in range(ctx.size)]
-        with record_function("model_axis.gather_columns"):
+        with span("model_axis.gather_columns"):
             dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts, dim=-1)
 

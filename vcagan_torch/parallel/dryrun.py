@@ -68,8 +68,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from vcagan_torch import tracing
 from vcagan_torch.configs import ModelConfig, TrainConfig
-from vcagan_torch.kernels import masked_attention as attn
 from vcagan_torch.nn.attention import AVAttention
 from vcagan_torch.nn.generator import Decoder
 from vcagan_torch.parallel.shard import ModelSplit
@@ -209,13 +209,13 @@ def state_digest(state, split: Optional[ModelSplit] = None) -> str:
 
 
 def profile_step(step, state, batch, generator, device) -> dict:
-    """One more step under ``torch.profiler``: its wall ms, and the host and
-    device ms of each of ``AXIS_RANGES``."""
+    """One more step under ``torch.profiler``, tracing's ranges on: its wall
+    ms, and the host and device ms of each of ``AXIS_RANGES``."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
         torch.cuda.synchronize(device)
-    with torch.profiler.profile(activities=acts) as prof:
+    with tracing.enabled(device_events=False), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         step(state, batch, generator)
         if device.type == "cuda":
@@ -223,14 +223,15 @@ def profile_step(step, state, batch, generator, device) -> dict:
         wall = time.perf_counter() - t0
     out = {"step_ms": wall * 1e3, **{name: None for name in AXIS_RANGES}}
     for e in prof.key_averages():  # a range is a host entry and, on the card, a device one
-        if e.key not in out or e.key == "step_ms":
+        name = e.key[len(tracing.PREFIX):]
+        if not e.key.startswith(tracing.PREFIX) or name not in AXIS_RANGES:
             continue
-        r = out[e.key] or dict(calls=0, host_ms=0.0, device_ms=0.0)
+        r = out[name] or dict(calls=0, host_ms=0.0, device_ms=0.0)
         if e.device_type == torch.autograd.DeviceType.CPU:
             r["calls"] += e.count
             r["host_ms"] += e.cpu_time_total / 1e3
         r["device_ms"] = max(r["device_ms"], getattr(e, "device_time_total", 0.0) / 1e3)
-        out[e.key] = r
+        out[name] = r
     return out
 
 
@@ -241,7 +242,8 @@ def run_step(problem: dict, rows: slice = slice(None), layout=None,
     ``d_phase``); its metrics, leaf statistics, first moments (on the
     host), the split leaves' columns (``split``), the digests of the
     replicated state and of the split leaves with their moments, the
-    attention's calls (kernel shape (B, T, S, D) each), kernel launches and,
+    attention's calls (kernel shape (B, T, S, D) each), the calls that
+    launched its kernel (``attention_calls``) and,
     on the card, the peak of allocated memory; with ``profile``,
     ``profile_step``'s readings of one more step."""
     modules, split = problem["modules"], problem["split"]
@@ -256,14 +258,14 @@ def run_step(problem: dict, rows: slice = slice(None), layout=None,
     step = make_train_step(modules, problem["g_tx"], problem["d_tx"], problem["cfg"],
                            mesh=layout, **(knobs or {}))
     generator = torch.Generator(problem["device"]).manual_seed(STEP_SEED)
-    attn.LAUNCHES = 0
+    before = tracing.counters().get("attention.calls", 0)
     try:
         state, metrics = step(problem["state"], problem_batch(problem, rows), generator)
         metrics = {k: float(v) for k, v in metrics.items()}
     finally:
         for hook in hooks:
             hook.remove()
-    launches = attn.LAUNCHES
+    kernel_calls = tracing.counters().get("attention.calls", 0) - before
     moments = [t.detach().to("cpu", copy=True)
                for t in state.g_opt_state.mu + state.d_opt_state.mu]
     names = [f"{n}.{k}" for side in (GENERATOR_SIDE, DISCRIMINATOR_SIDE)
@@ -275,7 +277,7 @@ def run_step(problem: dict, rows: slice = slice(None), layout=None,
                split={n: getattr(modules, n.split(".", 1)[0]).get_parameter(
                    n.split(".", 1)[1]).detach().to("cpu", copy=True) for n in split_names},
                digest=state_digest(state, split), split_digest=digest(sliced),
-               attention=calls, launches=launches, lr=problem["cfg"].lr,
+               attention=calls, attention_calls=kernel_calls, lr=problem["cfg"].lr,
                model=1 if layout is None else layout.model,
                peak_bytes=(torch.cuda.max_memory_allocated(problem["device"])
                            if problem["device"].type == "cuda" else None))
@@ -368,7 +370,7 @@ def compare(reference: dict, ranks: List[dict], grad_rtol: Optional[float] = Non
                 grad_rel_leaf=worst, module_grad_rel=module_rel,
                 module_grad_bound=MODULE_GRAD_RTOL, digest=first["digest"],
                 attention=[res["attention"] for res in ranks],
-                launches=[res["launches"] for res in ranks],
+                attention_calls=[res["attention_calls"] for res in ranks],
                 peak_bytes=[res["peak_bytes"] for res in ranks],
                 profile=[res.get("profile") for res in ranks])
 
@@ -472,7 +474,7 @@ def run(args) -> dict:
         deltas = compare(reference, ranks, GRAD_RTOL if args.float64 else None)
         deltas.update(single_process_s=ref_s, ranks_s=ranks_s,
                       reference_attention=reference["attention"],
-                      reference_launches=reference["launches"],
+                      reference_attention_calls=reference["attention_calls"],
                       reference_peak_bytes=reference["peak_bytes"])
         return deltas
     finally:

@@ -18,6 +18,10 @@ unless ``gl_dtype`` says otherwise.  Otherwise fp32 throughout.
 ``VCAGANModules.create(fold_bn=True, fused_blocks=True)``: the serving
 variant whose conv -> BatchNorm pairs are folded at load and whose five
 identity-shortcut ResNet blocks each run as one fused kernel launch.
+
+A call is traced (``vcagan_torch.tracing``) as the span ``serve`` and, in
+turn, ``serve.inputs``, ``serve.v_front``, ``serve.decoder``,
+``serve.postnet`` and ``serve.vocoder`` inside it.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from vcagan_torch.nn.fold import fold_generator_side
 from vcagan_torch.nn.generator import Decoder, Postnet
 from vcagan_torch.nn.visual_front import VisualFront
 from vcagan_torch.runtime import resolve_device, use_full_fp32
+from vcagan_torch.tracing import span
 
 
 def _tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -113,16 +118,22 @@ class Synthesizer:
         (B, 4T, 321); ``wav`` and ``spec`` are fp32, the others of the
         dtypes the JAX modules give them."""
         gen = self.generator if generator is None else generator
-        video = _tensor(video, self.device, torch.float32)
-        lengths = _tensor(lengths, self.device, torch.int32)
-        if noise is not None:
-            noise = _tensor(noise, self.device, torch.float32)
-        if init_phase is not None:
-            init_phase = _tensor(init_phase, self.device, torch.float32)
-        phon, sent = self.v_front(video)
-        mel1, mel2, mel3 = self.gen(sent, phon, lengths, noise=noise, generator=gen)
-        spec = self.post(mel3).transpose(1, 2).float()  # (B, 4T, 321)
-        wav = self.pipe.inverse_spec(spec, init_phase=init_phase, generator=gen)
+        with span("serve"):
+            with span("serve.inputs"):
+                video = _tensor(video, self.device, torch.float32)
+                lengths = _tensor(lengths, self.device, torch.int32)
+                if noise is not None:
+                    noise = _tensor(noise, self.device, torch.float32)
+                if init_phase is not None:
+                    init_phase = _tensor(init_phase, self.device, torch.float32)
+            with span("serve.v_front"):
+                phon, sent = self.v_front(video)
+            with span("serve.decoder"):
+                mel1, mel2, mel3 = self.gen(sent, phon, lengths, noise=noise, generator=gen)
+            with span("serve.postnet"):
+                spec = self.post(mel3).transpose(1, 2).float()  # (B, 4T, 321)
+            with span("serve.vocoder"):
+                wav = self.pipe.inverse_spec(spec, init_phase=init_phase, generator=gen)
         return {
             "wav": wav, "phon": phon, "sent": sent,
             "mel1": mel1, "mel2": mel2, "mel3": mel3, "spec": spec,

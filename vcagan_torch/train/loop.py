@@ -43,14 +43,15 @@ failure) has nothing to port: no step here is compiled.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from vcagan_torch import tracing
 from vcagan_torch.configs import VCAGANConfig
 from vcagan_torch.data.device_pipeline import make_device_pipeline
 from vcagan_torch.data.grid import make_grid_dataset
@@ -182,8 +183,12 @@ class Trainer:
         ``profile_steps=(start, stop)`` traces the steps after ``start`` up
         to ``stop`` with ``torch.profiler`` (host and device), writes the
         trace to ``profile_dir`` and keeps the profile in
-        ``last_profile``.  The host's ranges are named ``feed.wait``,
-        ``input_pipeline``, ``train_step`` and ``readback``.
+        ``last_profile``.  Tracing (``vcagan_torch.tracing``) is on for that
+        stretch, its ranges only (no device events), so the trace holds the
+        loop's spans ``vcagan.feed.wait``, ``vcagan.input_pipeline``,
+        ``vcagan.train_step`` and ``vcagan.readback`` and, inside them, the
+        input pipeline's and the step's (``train.input``, ``train.step`` and
+        its parts).
 
         Under a layout of several ranks each feeds its slice of every
         global batch, and only rank 0 logs, validates and checkpoints."""
@@ -193,6 +198,7 @@ class Trainer:
         step_t0 = time.time()
         self.queue_wait_s, self.collate_s = [], []
         prof = None
+        stretch = contextlib.ExitStack()  # tracing's ranges over the profiled steps
 
         # Step N's metrics leave the device in one stacked copy queued right
         # behind step N and are read after step N + 1 is queued: the wait is
@@ -217,7 +223,7 @@ class Trainer:
                 return
             pstep, keys, host_vals, done = pending
             pending = None
-            with record_function("readback"):
+            with tracing.span("readback"):
                 if done is not None:
                     done.synchronize()
                 host = dict(zip(keys, host_vals.tolist()))
@@ -231,51 +237,56 @@ class Trainer:
             self.ckpt.save(self.state, epoch, *logs[1:], generator=self.generator)
 
         process_slice = self.layout.batch_slice(tc.batch_size)
-        for epoch in range(start_epoch, epochs):
-            t0 = time.time()
-            # the collate worker process where configured (as the JAX
-            # Trainer, vcagan/train/loop.py:204-215), else the thread
-            producer = ProcessEpoch if self.config.data.collate_process else ParallelEpoch
-            feed = producer(self.train_ds, tc.batch_size, depth=2, device=self.device,
-                            process_slice=process_slice)
-            self.collate_s = feed.collate_s
-            batches = iter(feed)
-            while True:
-                if profile_steps and step == profile_steps[0]:
-                    prof = torch.profiler.profile(activities=self._activities())
-                    prof.start()
-                wait_t0 = time.perf_counter()
-                with record_function("feed.wait"):
-                    raw = next(batches, None)
-                if raw is None:
-                    break
-                self.queue_wait_s.append(time.perf_counter() - wait_t0)
-                with record_function("input_pipeline"), self.layout.active():
-                    batch = self.process_train(raw, self.generator)
-                with record_function("train_step"):
-                    self.state, metrics = self.train_step(self.state, batch, self.generator)
-                step += 1
-                flush()  # read back step - 1's metrics while this step runs
-                pending = queue_readback(step, metrics) if self.is_main else None
-                if prof is not None and step == profile_steps[1]:
-                    flush()
-                    self._stop_profile(prof, profile_dir)
-                    prof = None
-                if media_every and step % media_every == 0:
-                    self.on_rank0(lambda: self._log_train_media(batch, step))
-                if tc.eval_step and step % tc.eval_step == 0:
-                    flush()
+        try:
+            for epoch in range(start_epoch, epochs):
+                t0 = time.time()
+                # the collate worker process where configured (as the JAX
+                # Trainer, vcagan/train/loop.py:204-215), else the thread
+                producer = ProcessEpoch if self.config.data.collate_process else ParallelEpoch
+                feed = producer(self.train_ds, tc.batch_size, depth=2, device=self.device,
+                                process_slice=process_slice)
+                self.collate_s = feed.collate_s
+                batches = iter(feed)
+                while True:
+                    if profile_steps and step == profile_steps[0]:
+                        stretch.enter_context(tracing.enabled(device_events=False))
+                        prof = torch.profiler.profile(activities=self._activities())
+                        prof.start()
+                    wait_t0 = time.perf_counter()
+                    with tracing.span("feed.wait"):
+                        raw = next(batches, None)
+                    if raw is None:
+                        break
+                    self.queue_wait_s.append(time.perf_counter() - wait_t0)
+                    with tracing.span("input_pipeline"), self.layout.active():
+                        batch = self.process_train(raw, self.generator)
+                    with tracing.span("train_step"):
+                        self.state, metrics = self.train_step(self.state, batch, self.generator)
+                    step += 1
+                    flush()  # read back step - 1's metrics while this step runs
+                    pending = queue_readback(step, metrics) if self.is_main else None
+                    if prof is not None and step == profile_steps[1]:
+                        flush()
+                        self._stop_profile(prof, profile_dir)
+                        stretch.close()
+                        prof = None
+                    if media_every and step % media_every == 0:
+                        self.on_rank0(lambda: self._log_train_media(batch, step))
+                    if tc.eval_step and step % tc.eval_step == 0:
+                        flush()
+                        self.on_rank0(lambda: validate_and_save(epoch))
+                    if max_steps is not None and step >= max_steps:
+                        flush()
+                        batches.close()  # the producer has ended when fit returns
+                        return step
+                flush()
+                if not tc.eval_step:  # per-epoch validation (LRS recipe)
                     self.on_rank0(lambda: validate_and_save(epoch))
-                if max_steps is not None and step >= max_steps:
-                    flush()
-                    batches.close()  # the producer has ended when fit returns
-                    return step
-            flush()
-            if not tc.eval_step:  # per-epoch validation (LRS recipe)
-                self.on_rank0(lambda: validate_and_save(epoch))
-            if self.is_main:
-                self.writer.scalars({"train/epoch_seconds": time.time() - t0}, step)
-        return step
+                if self.is_main:
+                    self.writer.scalars({"train/epoch_seconds": time.time() - t0}, step)
+            return step
+        finally:
+            stretch.close()  # where the stretch did not reach its stop
 
     def _activities(self):
         acts = [torch.profiler.ProfilerActivity.CPU]

@@ -43,7 +43,6 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from vcagan_torch.configs import TrainConfig
 from vcagan_torch.dsp.audio import mel_denormalize
@@ -51,6 +50,7 @@ from vcagan_torch.nn.common import fp32_or_wider, recomputed
 from vcagan_torch.nn.losses import gan_loss, joint_r1_penalties, r1_penalty
 from vcagan_torch.parallel.collectives import all_reduce_mean_, mean_metrics
 from vcagan_torch.parallel.mesh import DataLayout, draw_rows
+from vcagan_torch.tracing import span
 from vcagan_torch.train.models import DISCRIMINATOR_SIDE, GENERATOR_SIDE, VCAGANModules
 from vcagan_torch.train.state import GANTrainState, Optimizer
 
@@ -105,7 +105,7 @@ def _global_norm(grads: Sequence[torch.Tensor], split: Sequence[bool] = (),
     squares = norms.square()
     mask = torch.tensor(split, device=norms.device)
     split_sum = squares[mask].sum()
-    with record_function("model_axis.norm_sum"):
+    with span("model_axis.norm_sum"):
         dist.all_reduce(split_sum, group=model_group)
     return torch.sqrt(squares[~mask].sum() + split_sum)
 
@@ -162,7 +162,10 @@ def make_train_step(
     ``on_phase(name)``, where given, is called as each part ends:
     "gen_forward", "d_loss", "d_backward", "d_update", "g_loss",
     "g_backward", "g_update" (the D phase is d_loss + d_backward, the G
-    phase g_loss + g_backward).
+    phase g_loss + g_backward).  A step is traced (``vcagan_torch.tracing``)
+    as the span ``train.step`` and, inside it, one span a part,
+    ``train.<name>``, each ending where ``on_phase(name)`` is called, so
+    that the parts follow each other and cover the step.
 
     ``mesh``: a layout (``vcagan_torch.parallel.DataLayout``) with a
     process group, each rank stepping on its data index's rows of the
@@ -297,55 +300,64 @@ def make_train_step(
 
     def step(state: GANTrainState, batch: Batch, generator: torch.Generator
              ) -> tuple[GANTrainState, Metrics]:
-        with contextlib.nullcontext() if mesh is None else mesh.active():
+        if state.modules is not modules:
+            raise ValueError("the state holds other modules than this step's")
+        with span("train.step"), contextlib.nullcontext() if mesh is None else mesh.active():
             return local_step(state, batch, generator)
 
     def local_step(state: GANTrainState, batch: Batch, generator: torch.Generator
                    ) -> tuple[GANTrainState, Metrics]:
-        if state.modules is not modules:
-            raise ValueError("the state holds other modules than this step's")
-        b, w = batch.video.shape[:2]
-        gen = modules.gen
-        noise = draw_rows(lambda n: torch.randn((n, gen.base_bins, w, gen.noise_dim),
-                                                generator=generator, device=batch.video.device),
-                          b)
-        phon, sent = visual_front(batch.video, generator)
-        gens = gen(sent, phon, batch.vid_len, noise=noise)
-        sent_sg = sent.detach()
-        mels = (*mel_pyramid(batch.mel), batch.mel)
+        with span("train.gen_forward"):
+            b, w = batch.video.shape[:2]
+            gen = modules.gen
+            noise = draw_rows(lambda n: torch.randn((n, gen.base_bins, w, gen.noise_dim),
+                                                    generator=generator,
+                                                    device=batch.video.device), b)
+            phon, sent = visual_front(batch.video, generator)
+            gens = gen(sent, phon, batch.vid_len, noise=noise)
+            sent_sg = sent.detach()
+            mels = (*mel_pyramid(batch.mel), batch.mel)
         mark("gen_forward")
 
-        dis_loss, d_aux = d_loss(phon, sent_sg, mels, gens)
+        with span("train.d_loss"):
+            dis_loss, d_aux = d_loss(phon, sent_sg, mels, gens)
         mark("d_loss")
-        # with the leak the backward stops at phon, whose gradient the G
-        # phase's backward carries on through the visual front
-        grads = _grads([dis_loss], d_params + [phon] if sync_leak else d_params)
-        d_grads, dphon = grads[:len(d_params)], grads[len(d_params):]
-        dis_loss = dis_loss.detach()  # frees the D phase's graph
+        with span("train.d_backward"):
+            # with the leak the backward stops at phon, whose gradient the G
+            # phase's backward carries on through the visual front
+            grads = _grads([dis_loss], d_params + [phon] if sync_leak else d_params)
+            d_grads, dphon = grads[:len(d_params)], grads[len(d_params):]
+            dis_loss = dis_loss.detach()  # frees the D phase's graph
         mark("d_backward")
         if group is not None:
-            all_reduce_mean_(d_grads, group)
+            with span("train.d_reduce"):
+                all_reduce_mean_(d_grads, group)
             mark("d_reduce")
-        d_grad_norm = _global_norm(d_grads)
-        d_tx.update(d_grads, state.d_opt_state, d_params)
-        del d_grads
+        with span("train.d_update"):
+            d_grad_norm = _global_norm(d_grads)
+            d_tx.update(d_grads, state.d_opt_state, d_params)
+            del d_grads
         mark("d_update")
 
-        gen_loss, g_aux = g_loss(phon, sent_sg, mels, gens, batch.spec)
+        with span("train.g_loss"):
+            gen_loss, g_aux = g_loss(phon, sent_sg, mels, gens, batch.spec)
         mark("g_loss")
-        if sync_leak:  # reference train.py:210 "accumulate v_front grad"
-            g_grads = _grads([gen_loss, phon], g_params, [None, dphon[0]])
-        else:
-            g_grads = _grads([gen_loss], g_params)
+        with span("train.g_backward"):
+            if sync_leak:  # reference train.py:210 "accumulate v_front grad"
+                g_grads = _grads([gen_loss, phon], g_params, [None, dphon[0]])
+            else:
+                g_grads = _grads([gen_loss], g_params)
+            split = _split_mask(modules, g_params)
         mark("g_backward")
-        split = _split_mask(modules, g_params)
         if group is not None:
-            all_reduce_mean_([g for g, s in zip(g_grads, split) if not s], group)
-            if any(split):
-                all_reduce_mean_([g for g, s in zip(g_grads, split) if s], data_group)
+            with span("train.g_reduce"):
+                all_reduce_mean_([g for g, s in zip(g_grads, split) if not s], group)
+                if any(split):
+                    all_reduce_mean_([g for g, s in zip(g_grads, split) if s], data_group)
             mark("g_reduce")
-        g_grad_norm = _global_norm(g_grads, split, model_group)
-        g_tx.update(g_grads, state.g_opt_state, g_params)
+        with span("train.g_update"):
+            g_grad_norm = _global_norm(g_grads, split, model_group)
+            g_tx.update(g_grads, state.g_opt_state, g_params)
         mark("g_update")
 
         state.step += 1
