@@ -6,8 +6,9 @@
 Phases, in order; any failure raises and exits non-zero:
   1. print the card's name and power limit (nvidia-smi); require CUDA;
   2. build the kernels from ``vcagan_torch/csrc`` (one nvcc each, started
-     together), print the build time and ptxas report, and count the
-     tensor-core instructions in each kernel's library;
+     together: the attention, the fused block and the stem), print the
+     build time and ptxas report, and count the tensor-core instructions in
+     each kernel's library;
   3. hold each kernel (masked attention, fused ResNet block) to its plain
      PyTorch version and to a float64 evaluation on the card at the serving
      paths' shapes and at edge cases (both kernels' fp32 forms, which are
@@ -17,7 +18,11 @@ Phases, in order; any failure raises and exits non-zero:
      configuration gives it, must raise); the attention's in-block instance
      (up to 512 keys) at every such case, forced where the planner routes
      a case elsewhere; time the fused block's kernel, plain version and
-     bf16 library convolutions;
+     bf16 library convolutions; the stem kernel (``fused_stem``) against its
+     plain version at (B, T) = (48, 75), an LRS bucket (8, 160) and T = 3,
+     all 112x112, and at ragged H, W, T = 1 and C = 128 (C = 48 must
+     raise), timed at the first three beside its bound, the plain version
+     and the module chain's cuDNN calls;
   4. run the four serving paths (trained weights from
      data/soak_serving_q8.npz, B=2, T=75, 112x112) on the card and on the
      CPU with the same noise and Griffin-Lim phase, and compare: the
@@ -28,12 +33,14 @@ Phases, in order; any failure raises and exits non-zero:
      outputs must have the JAX package's dtypes;
   5. serve B=48 x 75 frames at full width on each of the four paths: 2
      warm-ups, then 8 counted batches with one sync; count the kernel
-     calls of each run (``vcagan_torch.tracing``'s counters); then time the
-     stages of one more forward, the visual front's parts, the five
-     identity-shortcut ResNet blocks and the two attentions inside it, with
-     CUDA events; on the bf16 paths, profile one forward and the stem alone
-     with torch.profiler (device busy share, the kernels that take the most
-     time; the forward's kernel launches counted against those it saw);
+     calls of each run (``vcagan_torch.tracing``'s counters; one stem call
+     a forward on the folded + fused bf16 path, none on the others); then
+     time the stages of one more forward, the visual front's parts (the
+     stem by its span), the five identity-shortcut ResNet blocks and the
+     two attentions inside it, with CUDA events; on the bf16 paths, profile
+     one forward and the stem alone with torch.profiler (device busy share,
+     the kernels that take the most time; the forward's kernel launches,
+     the stem's among them, counted against those it saw);
   6. time the attention kernel (and each of its instances up to 512 keys:
      the in-block one and the strip), its plain version and sdpa, the
      PyTorch call that computes the same function, at the serving shapes
@@ -41,8 +48,8 @@ Phases, in order; any failure raises and exits non-zero:
      then one call of each instance under torch.profiler, its launches
      checked, and counted as the profiler saw them (before the profiler
      sessions of phases 8-11);
-  7. run ``python3 -m vcagan_torch.bench`` (bf16, both variants) and print
-     its JSON line;
+  7. run ``python3 -m vcagan_torch.bench --fold-bn-fused`` (bf16) and
+     print its JSON line;
   8. training (``vcagan_torch.train``, fp32, TF32 off): (a) the attention's
      ``autograd.Function`` at the GRID training shapes with ragged lengths,
      its forward and dq, dk, dv against the plain version and float64 (the
@@ -232,6 +239,7 @@ from vcagan_torch import tracing  # noqa: E402
 from vcagan_torch.io.weights import load_serving_npz  # noqa: E402
 from vcagan_torch.kernels import _build  # noqa: E402
 from vcagan_torch.kernels import fused_block as fb  # noqa: E402
+from vcagan_torch.kernels import fused_stem as fs  # noqa: E402
 from vcagan_torch.kernels import masked_attention as attn  # noqa: E402
 from vcagan_torch.nn.discriminator import Discriminator  # noqa: E402
 from vcagan_torch.nn.losses import r1_penalty  # noqa: E402
@@ -261,7 +269,18 @@ ATTN_TOL = 1e-5  # atol and rtol: fp32 on both sides, D=256-term sums
 # relative each), the bound of the JAX package's own bf16 test.
 FB_TOL = 1e-4
 FB_BF16_TOL = 0.05
-KERNELS = ("masked_attention", "fused_block")
+KERNELS = ("masked_attention", "fused_block", "fused_stem")
+# The stem kernel against its plain version on the card: both round to bf16
+# at the same points, but sum the 245 products in fp32 in other orders, so a
+# sum that lies at a rounding boundary may round the other way: one bf16 ulp
+# of the sum, two of the largest output at most, in a small share of outputs
+# (measured 2.0e-5-4.7e-5 of them; 1e-3 allowed).
+STEM_ULPS, STEM_FLIP_SHARE = 2 * 2.0**-7, 1e-3
+# The stem kernel's shapes: GRID serving, an LRS bucket (B=8 x 160) and a
+# short clip, then ragged edges, T = 1 and two channel chunks.
+STEM_CASES = (("GRID serving", 48, 75, 112, 112, 64), ("LRS bucket", 8, 160, 112, 112, 64),
+              ("T=3", 48, 3, 112, 112, 64), ("ragged T=1", 3, 1, 37, 29, 64),
+              ("C=128", 2, 6, 40, 52, 128), ("odd 23x111", 1, 11, 23, 111, 64))
 # The identity-shortcut blocks of one forward: (name, H, W, C).
 TRUNK_BLOCKS = (("layer1_0", 28, 28, 64), ("layer1_1", 28, 28, 64), ("layer2_1", 14, 14, 128),
                 ("layer3_1", 7, 7, 256), ("layer4_1", 4, 4, 512))
@@ -834,6 +853,84 @@ def phase_fused_block_vs_plain(card):
     return totals, worst
 
 
+def stem_inputs(b, t, h, w, c, seed):
+    """video (B,T,H,W,1) of order 1; weights of variance 1/245, so outputs
+    stay of order 1; biases 0.3 and PReLU slopes 0.5 of either sign."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    return rand(b, t, h, w, 1), rand(c, 1, 5, 7, 7) / 245 ** 0.5, 0.3 * rand(c), 0.5 * rand(c)
+
+
+def stem_work(b, t, h, w, c):
+    """(bytes, flops) the stem needs: the fp32 video read and the bf16 pooled
+    map written once, the bf16 weights, fp32 bias and slopes; 245
+    multiply-adds an output of the convolution."""
+    ho, wo, hp, wp = fs.conv_size(h), fs.conv_size(w), fs.pooled_size(h), fs.pooled_size(w)
+    nbytes = b * t * h * w * 4 + b * t * hp * wp * c * 2 + 245 * c * 2 + 2 * c * 4
+    return nbytes, 2 * 245 * b * t * ho * wo * c
+
+
+def stem_chain(video, weight, bias, slope):
+    """The stem as the module chain runs it elsewhere: bf16 cuDNN
+    convolution with its bias, PReLU, max-pool, then the copy into the
+    trunk's channels-last layout (a yardstick; not what the plain version
+    computes, which rounds the sum before the bias)."""
+    bf16 = torch.bfloat16
+    x = F.conv3d(video.permute(0, 4, 1, 2, 3).to(bf16), weight.to(bf16), bias.to(bf16),
+                 stride=(1, 2, 2), padding=(2, 3, 3))
+    x = F.max_pool3d(F.prelu(x, slope.to(bf16)), (1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1))
+    return x.permute(0, 2, 3, 4, 1).reshape(-1, *x.shape[3:], x.shape[1]).contiguous()
+
+
+def phase_stem_vs_plain(card):
+    """Phase 3, the stem kernel: C not a multiple of 64 refused; at
+    ``STEM_CASES`` the kernel against its plain version (``STEM_ULPS``,
+    ``STEM_FLIP_SHARE``); at the three main shapes its time beside the plain
+    version, the module chain's cuDNN calls and its bound.  Returns the GRID
+    serving shape's figures and the worst error as a share of the largest
+    output."""
+    args = stem_inputs(1, 2, 16, 16, 48, seed=1)
+    check_refused("fused_stem C=48", lambda: fs.fused_stem(*args), "multiple of 64")
+    worst, out = 0.0, {}
+    kw = dict(samples=5, calls=4, warmup=1)
+    for i, (name, b, t, h, w, c) in enumerate(STEM_CASES):
+        args = stem_inputs(b, t, h, w, c, seed=200 + i)
+        got = fs.fused_stem(*args)  # packs the weights, launches the kernel
+        torch.cuda.synchronize()
+        want = fs.fused_stem_reference(*args)
+        check(got.shape == want.shape and got.dtype == torch.bfloat16, f"stem {name}: shape")
+        check(torch.isfinite(got).all().item(), f"stem {name}: non-finite kernel output")
+        diff = (got.float() - want.float()).abs()
+        scale = want.float().abs().max().item()
+        err, share = diff.max().item() / scale, (diff > 0).float().mean().item()
+        worst = max(worst, err)
+        check(err <= STEM_ULPS and share <= STEM_FLIP_SHARE,
+              f"stem {name} {(b, t, h, w, c)}: kernel vs plain {err:.3e} of the largest output, "
+              f"{share:.3e} of outputs differ")
+        plan = fs.plan_fused_stem(b, t, h, w, c)
+        line = (f"stem {name:12s} {(b, t, h, w, c)} (band {plan.p} pooled rows, {plan.tc} "
+                f"frames a block, {plan.blocks} blocks): max err {err:.3e} of the largest output, "
+                f"{share:.3e} of outputs differ ok")
+        del got, want, diff
+        if i < 3:
+            packed = fs.pack_stem_weights(args[1])
+            ms = time_ms(lambda: fs.fused_stem_cuda(args[0], packed, args[2], args[3]), **kw)
+            plain = time_ms(lambda: fs.fused_stem_reference(*args), samples=2, calls=2, warmup=1)
+            library = time_ms(lambda: stem_chain(*args), samples=3, calls=2, warmup=1)
+            nbytes, flops = stem_work(b, t, h, w, c)
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOP_PER_S) * 1e3
+            line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} "
+                     f"ms, cuDNN chain {library:.3f} ms, bound {bound:.3f} ms (flops / 989 "
+                     f"TFLOP/s; {nbytes / 1e6:.1f} MB, {flops / 1e12:.3f} TFLOP) [{card}]")
+            if i == 0:
+                out = dict(ms=ms, plain_ms=plain, library_ms=library, bytes=nbytes, flops=flops,
+                           bound_ms=bound)
+            del packed
+        print(line)
+        del args
+    return out, worst
+
+
 def count_of(name):
     """A counter of ``vcagan_torch.tracing`` (0 where nothing was counted):
     ``attention.calls`` / ``fused_block.calls``, the calls of a kernel, and
@@ -853,9 +950,15 @@ def check_calls(attention, fused, what):
           f"kernel calls, not {attention} and {fused}")
 
 
-def check_launches(forwards, fused, what):
+def check_launches(forwards, fused, what, stem=None):
     """Every forward calls the attention kernel twice and, with fused blocks,
-    the fused-block kernel 5 times (else never)."""
+    the fused-block kernel 5 times (else never); with ``stem`` given, the
+    stem kernel once where it is true (the folded + fused bf16 front), else
+    never."""
+    if stem is not None:
+        want = forwards if stem else 0
+        check(count_of("stem.calls") == want,
+              f"{what}: {count_of('stem.calls')} stem calls in {forwards} forwards, not {want}")
     calls = count_of("attention.calls")
     check(calls == 2 * forwards,
           f"{what}: {calls} attention calls in {forwards} forwards, not 2 each")
@@ -917,7 +1020,7 @@ def phase_paths_card_vs_cpu(states):
         reset_launches()
         got = on_card(video, lengths, noise=noise, init_phase=phase)
         torch.cuda.synchronize()
-        check_launches(1, fused, path)
+        check_launches(1, fused, path, stem=fused and bf16)
         check(got["wav"].shape == (b, 160 * (4 * t - 1)), f"wav shape {tuple(got['wav'].shape)}")
         want = Synthesizer(config, device="cpu", **kw).load_state_dicts(states)(
             video, lengths, noise=noise, init_phase=phase
@@ -962,9 +1065,10 @@ def phase_serve(states, card, what, fused, bf16):
     outs = [synth(video, lengths) for _ in range(batches)]
     sums = torch.stack([o["wav"].abs().sum() for o in outs]).cpu()  # the one sync
     elapsed = time.perf_counter() - t0
-    launches = (count_of("attention.calls"), count_of("fused_block.calls"))
+    launches = (count_of("attention.calls"), count_of("fused_block.calls"),
+                count_of("stem.calls"))
     by_instance = {n: count_of(f"attention.launches.{n}") for n in INSTANCE_KERNELS}
-    check_launches(batches, fused, what)
+    check_launches(batches, fused, what, stem=fused and bf16)
 
     wav = outs[-1]["wav"]
     check(wav.shape == (b, 160 * (4 * t - 1)), f"wav shape {tuple(wav.shape)}")
@@ -974,14 +1078,15 @@ def phase_serve(states, card, what, fused, bf16):
     print(f"serve {what} B={b} T={t}: {mel_fps:.1f} mel-frames/s ({elapsed:.3f} s for "
           f"{batches} batches), peak {peak_gb:.2f} GB, {launches[0] / batches:g} attention calls "
           f"(kernel launches {', '.join(f'{n} {c}' for n, c in by_instance.items())} in all) "
-          f"and {launches[1] / batches:g} fused-block calls per forward [{card}]")
+          f"and {launches[1] / batches:g} fused-block and {launches[2] / batches:g} stem calls per "
+          f"forward [{card}]")
     del outs
-    blocks_ms = stage_breakdown(synth, video, lengths, card, what)
+    parts = stage_breakdown(synth, video, lengths, card, what)
     if bf16:
         device_profile(synth, video, lengths, card, what)
-    counts = dict(zip(("masked_cross_attention", "fused_basic_block"), launches))
+    counts = dict(zip(("masked_cross_attention", "fused_basic_block", "fused_stem"), launches))
     counts["attention_by_instance"] = by_instance
-    return counts, blocks_ms
+    return counts, parts
 
 
 def time_modules(groups):
@@ -1014,19 +1119,23 @@ def stage_breakdown(synth, video, lengths, card, what):
     ``Synthesizer.__call__``), from CUDA events between the stages; and,
     from events around modules, of the visual front's parts, of the trunk's
     five identity-shortcut blocks (fused-block calls on the folded +
-    fused paths) and of the decoder's two attentions.  Returns the
-    identity blocks' sum in ms."""
+    fused paths) and of the decoder's two attentions; the stem (one
+    stem-kernel call on the folded + fused bf16 path, else the layers) by
+    its span, ``v_front.stem``.  Returns each part's sum in ms."""
     v = synth.v_front
     blocks = [m for m in v.modules() if isinstance(m, BasicBlock) and m.downsample is None]
     check(len(blocks) == 5, f"{len(blocks)} identity-shortcut blocks, not 5")
-    groups = {"stem": [v.frontend], "trunk": [v.resnet],
+    groups = {"trunk": [v.resnet],
               "biGRU+fc": [v.sentence_encoder, v.fc], "identity blocks": blocks,
               "attention (denses + kernel)": [synth.gen.att1, synth.gen.att2]}
     hooks, pairs = time_modules(groups)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     try:
         events[0].record()
-        phon, sent = v(video)
+        tracing.read()  # nothing held: the spans of the front alone
+        with tracing.enabled():
+            phon, sent = v(video)
+        stem = [s.device_ms for s in tracing.read()["spans"] if s.name == "v_front.stem"]
         events[1].record()
         mels = synth.gen(sent, phon, lengths, generator=synth.generator)
         events[2].record()
@@ -1044,7 +1153,8 @@ def stage_breakdown(synth, video, lengths, card, what):
     print(f"stages of one {what} B={video.shape[0]} forward [{card}]: " + ", ".join(
         f"{n} {m:.2f} ms ({100 * m / total:.1f}%)" for n, m in zip(names, ms)
     ) + f"; total {total:.2f} ms")
-    parts = {label: [a.elapsed_time(b) for a, b in pairs[label]] for label in groups}
+    parts = {"stem": stem, **{label: [a.elapsed_time(b) for a, b in pairs[label]]
+                               for label in groups}}
     check(len(parts["identity blocks"]) == 5 and len(parts["stem"]) == 1, f"hooks: {parts}")
     print(f"inside that {what} forward [{card}]: " + ", ".join(
         f"{label} {sum(times):.2f} ms" for label, times in parts.items()))
@@ -1052,21 +1162,32 @@ def stage_breakdown(synth, video, lengths, card, what):
           f"({'fused-block calls' if blocks[0].fused else 'library convolutions'}): "
           + ", ".join(f"{m:.3f}" for m in parts["identity blocks"])
           + f" ms, sum {sum(parts['identity blocks']):.3f} ms [{card}]")
-    return sum(parts["identity blocks"])
+    return {label: sum(times) for label, times in parts.items()}
 
 
-def profiled(fn, record_shapes=False):
+def profiled(fn, record_shapes=False, warmup=None):
     """One call of ``fn`` under ``torch.profiler``: its device activities
-    (kernels, copies) as (name, start us, end us), and the profile."""
+    (kernels, copies) as (name, start us, end us), and the profile.
+    ``warmup``, where given, is called first in a cycle of the session whose
+    events are dropped: a session can miss the kernels of its first few
+    milliseconds."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    kw = {} if warmup is None else dict(schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=record_shapes) as prof:
+                 record_shapes=record_shapes, **kw) as prof:
+        if warmup is not None:
+            warmup()
+            torch.cuda.synchronize()
+            prof.step()
         fn()
         torch.cuda.synchronize()
+        if warmup is not None:
+            prof.step()
+    # (a schedule's step is a range that the device timeline mirrors: no work)
     return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA], prof
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")], prof
 
 
 def convolution_backwards(prof, top=8):
@@ -1108,35 +1229,43 @@ def device_profile(synth, video, lengths, card, what):
     """One forward under ``torch.profiler``: the device's busy time (the
     union of its activities' intervals) against the span from the first
     one's start to the last one's end, and the kernels that take the most
-    time; then the stem alone, the visual front's largest part.  The
-    profiler slows the host, so the idle share is an upper bound.  The
-    kernel launches counted in it (``attention.launches``,
-    ``fused_block.launches``) must be those the profiler saw."""
-    before = count_of("attention.launches"), count_of("fused_block.launches")
-    device, _ = profiled(lambda: synth(video, lengths))
+    time; then the stem alone.  The profiler slows the host, so the idle
+    share is an upper bound.  The kernel launches counted in it
+    (``attention.launches``, ``fused_block.launches``, ``stem.launches``)
+    must be those the profiler saw; a forward runs before it, in a cycle
+    of the session whose events are dropped."""
+    names_counted = ("attention.launches", "fused_block.launches", "stem.launches")
+    counted = []
+
+    def forward():
+        before = [count_of(n) for n in names_counted]
+        synth(video, lengths)
+        counted.extend(count_of(n) - b for n, b in zip(names_counted, before))
+
+    device, _ = profiled(forward, warmup=lambda: synth(video, lengths))
     names = kernel_names(device)
-    seen = sum(n in ATTENTION_KERNELS for n in names), names.count("fused_block_kernel")
-    counted = (count_of("attention.launches") - before[0],
-               count_of("fused_block.launches") - before[1])
+    seen = (sum(n in ATTENTION_KERNELS for n in names), names.count("fused_block_kernel"),
+            names.count("fused_stem_kernel"))
+    counted = tuple(counted)
     check(seen == counted and seen[0] >= 2, f"{what}: one forward's launches counted "
-          f"{counted} (attention, fused block), the profiler saw {seen}")
+          f"{counted} (attention, fused block, stem), the profiler saw {seen}")
     print(f"profile of one {what} B={video.shape[0]} forward [{card}]: "
           f"{busy_share(device, what)}; most time: {most_time(device)}")
-    stem, _ = profiled(lambda: synth.v_front.frontend(video.permute(0, 4, 1, 2, 3)))
+    stem, _ = profiled(lambda: synth.v_front.stem(video))
     print(f"profile of the stem alone ({what}) [{card}]: {most_time(stem, top=5)}")
 
 
 def phase_bench(card):
-    """``python3 -m vcagan_torch.bench`` in its bf16 default, both variants;
-    each must print one JSON line with the four keys."""
-    for variant in ((), ("--fold-bn-fused",)):
-        run = subprocess.run([sys.executable, "-m", "vcagan_torch.bench", *variant], cwd=ROOT,
-                             capture_output=True, text=True, timeout=600)
-        check(run.returncode == 0, f"vcagan_torch.bench {variant} failed:\n{run.stderr[-4000:]}")
-        last = run.stdout.strip().splitlines()[-1]
-        line = json.loads(last)
-        check(set(line) == {"metric", "value", "unit", "vs_baseline"}, f"bench line {last}")
-        print(f"vcagan_torch.bench {' '.join(variant) or '(bf16, unfolded)'} [{card}]: {last}")
+    """``python3 -m vcagan_torch.bench --fold-bn-fused`` (bf16, the path of
+    every kernel; phase 5 times the unfolded one) must print one JSON line
+    with the four keys."""
+    run = subprocess.run([sys.executable, "-m", "vcagan_torch.bench", "--fold-bn-fused"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"vcagan_torch.bench --fold-bn-fused failed:\n{run.stderr[-4000:]}")
+    last = run.stdout.strip().splitlines()[-1]
+    line = json.loads(last)
+    check(set(line) == {"metric", "value", "unit", "vs_baseline"}, f"bench line {last}")
+    print(f"vcagan_torch.bench --fold-bn-fused [{card}]: {last}")
 
 
 def phase_train_attention(card):
@@ -3962,7 +4091,7 @@ def gl_serve(card, states):
             outs = [synth(video, lengths) for _ in range(batches)]
             sums = torch.stack([o["wav"].abs().sum() for o in outs]).cpu()
             elapsed = time.perf_counter() - t0
-            check_launches(batches, True, f"gl_dtype {gl} serving")
+            check_launches(batches, True, f"gl_dtype {gl} serving", stem=True)
             check(bool(torch.isfinite(sums).all()), f"gl_dtype {gl}: non-finite wav")
             want = ("griffin_lim_mxu" if gl == "bf16" or dsp_pipeline.FP32_MATMUL_ON_CUDA
                     else "griffin_lim")
@@ -4024,11 +4153,12 @@ def main() -> None:
 
     attn_worst = phase_kernel_vs_plain(card)
     fb_totals, fb_worst = phase_fused_block_vs_plain(card)
+    stem_totals, stem_worst = phase_stem_vs_plain(card)
     states = load_serving_npz(SERVING_NPZ)
     phase_paths_card_vs_cpu(states)
-    launches, blocks_ms = {}, {}
+    launches, parts_ms = {}, {}
     for path, fused, bf16 in PATHS:
-        launches[path], blocks_ms[path] = phase_serve(states, card, path, fused, bf16)
+        launches[path], parts_ms[path] = phase_serve(states, card, path, fused, bf16)
         torch.cuda.empty_cache()
     attn_totals = phase_attention_times(card)
     phase_instance_launches(card)
@@ -4127,8 +4257,8 @@ def main() -> None:
                  plain_ms_bf16=fb_totals["bf16"]["plain_ms"],
                  bound_ms_bf16=bound(fb_totals["bf16"], FB_FLOP_PER_S["bf16"])[0],
                  convs_ms_bf16=fb_totals["bf16"]["convs_ms"],
-                 in_path_ms=blocks_ms["folded+fused"],
-                 in_path_ms_bf16=blocks_ms["folded+fused bf16"])
+                 in_path_ms=parts_ms["folded+fused"]["identity blocks"],
+                 in_path_ms_bf16=parts_ms["folded+fused bf16"]["identity blocks"])
     print(f"fused_block one forward (5 launches) [{card}]: fp32 form (3xTF32) "
           f"{fused['ms']:.2f} ms alone, {fused['in_path_ms']:.2f} ms in the path, plain "
           f"{fused['plain_ms']:.2f} ms, bound {fused['bound_ms']:.2f} ms; bf16 form "
@@ -4160,10 +4290,22 @@ def main() -> None:
           f"(events {attention['events_ms']:.4f} ms), plain "
           f"{attention['plain_ms']:.4f} ms, sdpa {attention['library_ms']:.4f} ms, bound "
           f"{attention['bound_ms']:.4f} ms ({attention['bound_by']})")
+    # The stem: one launch a folded + fused bf16 forward, timed alone at the
+    # GRID serving shape and in that path (the v_front.stem span); library_ms
+    # the module chain's cuDNN calls.
+    stem = {"name": "fused_stem", "route": "cuda", "source": "vcagan_torch/csrc/fused_stem.cu",
+            "replaces": None, "form": "bf16",
+            "launches": launches["folded+fused bf16"]["fused_stem"],
+            "launches_by_path": {path: counts["fused_stem"] for path, counts in launches.items()},
+            "max_err_share_of_largest": stem_worst, "bound_by": "operations", "timer": "events",
+            "in_path_ms": parts_ms["folded+fused bf16"]["stem"], **stem_totals}
+    print(f"fused_stem one forward (1 launch) [{card}]: {stem['ms']:.3f} ms alone, "
+          f"{stem['in_path_ms']:.3f} ms in the path, plain {stem['plain_ms']:.3f} ms, cuDNN chain "
+          f"{stem['library_ms']:.3f} ms, bound {stem['bound_ms']:.3f} ms")
     # Griffin-Lim is no kernel (plain PyTorch products and passes, as the JAX
     # package's einsums): its forms' figures stand on a line of their own.
     print(json.dumps({"griffin_lim": seventeen}))
-    print(json.dumps({"kernels": [attention, fused]}))
+    print(json.dumps({"kernels": [attention, fused, stem]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -24,6 +24,14 @@ fp32 dense, so ``sent`` is fp32.
 only its input and its pooled output for the backward, which recomputes
 the rest (``recomputed``); it applies where autograd records the forward.
 
+Where the front is ``fused`` and computes in bf16, the stem chain runs as
+one launch of the fused stem kernel (``vcagan_torch/kernels/fused_stem.py``;
+on the CPU its plain version, which keeps the card's rounding points), and
+its output, (B*T, H', W', C) channels-last, is the trunk's input as it
+stands; the module keeps a packed copy of the convolution's weight for it,
+refreshed at load (``repack``).  Elsewhere (unfolded, fp32, C not a
+multiple of 64) the chain of layers runs.
+
 A call is traced (``vcagan_torch.tracing``) as ``v_front.stem``, then
 ``v_front.trunk`` (the frames' layout, the trunk and its dropout), then
 ``v_front.gru`` (the sentence encoder and ``fc``).
@@ -37,6 +45,7 @@ import torch
 from torch import nn
 
 from vcagan_torch.configs import ModelConfig
+from vcagan_torch.kernels.fused_stem import CHANNEL_MULTIPLE, fused_stem, pack_stem_weights
 from vcagan_torch.nn.common import (
     Conv3d, FoldableModule, PReLU, batch_norm, dropout, recomputed)
 from vcagan_torch.nn.gru import BiGRU
@@ -68,20 +77,47 @@ class VisualFront(FoldableModule):
         self.sentence_encoder = BiGRU(m.feature_dim, m.gru_hidden, m.gru_layers, m.gru_dropout)
         self.fc = nn.Linear(2 * m.gru_hidden, m.feature_dim)
         self.feature_dim = m.feature_dim
+        # the stem kernel's weight order, repacked when weights are loaded and
+        # not per call; not part of the state dict
+        self.kernel_stem = fused and dtype == torch.bfloat16 and c % CHANNEL_MULTIPLE == 0
+        if self.kernel_stem:
+            self.register_buffer("stem_packed", None, persistent=False)
+            self.repack()
+            self.register_load_state_dict_post_hook(VisualFront._repack_after_load)
         if fold_bn:
             self.eval()
+
+    def repack(self) -> None:
+        """Refresh the stem kernel's copy of the convolution's weight (where
+        the kernel runs); ``load_state_dict`` and ``init_like_jax`` do it, a
+        caller that writes ``frontend.0.weight`` in place must."""
+        if self.kernel_stem:
+            self.stem_packed = pack_stem_weights(self.frontend[0].weight.detach())
+
+    @staticmethod
+    def _repack_after_load(module: "VisualFront", incompatible_keys) -> None:
+        module.repack()
+
+    def stem(self, video: torch.Tensor, remat_stem: bool = False) -> torch.Tensor:
+        """(B, T, H, W, 1) -> (B, C, T, H', W'): channels-last memory where
+        the kernel computes it."""
+        if self.kernel_stem:
+            conv, act = self.frontend[0], self.frontend[2]
+            y = fused_stem(video, conv.weight, conv.bias, act.weight, packed=self.stem_packed)
+            return y.view(*video.shape[:2], *y.shape[1:]).permute(0, 4, 1, 2, 3)
+        x = video.permute(0, 4, 1, 2, 3)
+        return recomputed("stem", self.frontend, x) if remat_stem else self.frontend(x)
 
     def forward(self, video: torch.Tensor, generator: torch.Generator | None = None,
                 remat_stem: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         b, t = video.shape[:2]
         with span("v_front.stem"):
-            x = video.permute(0, 4, 1, 2, 3)
-            # the stem: (B, 1, T, H, W) -> (B, C, T, H', W')
-            x = recomputed("stem", self.frontend, x) if remat_stem else self.frontend(x)
+            x = self.stem(video, remat_stem)
         with span("v_front.trunk"):
             if self.fused:
-                # (B*T, H', W', C) in memory, seen as NCHW: the one copy that the
-                # flatten below makes too, into the layout the fused blocks read
+                # (B*T, H', W', C) in memory, seen as NCHW: a view of the stem
+                # kernel's output, else the one copy that the flatten below
+                # makes too, into the layout the fused blocks read
                 frames = x.permute(0, 2, 3, 4, 1).reshape(b * t, *x.shape[3:], x.shape[1])
                 frames = frames.permute(0, 3, 1, 2)
             else:
