@@ -6,9 +6,9 @@
 Phases, in order; any failure raises and exits non-zero:
   1. print the card's name and power limit (nvidia-smi); require CUDA;
   2. build the kernels from ``vcagan_torch/csrc`` (one nvcc each, started
-     together: the attention, the fused block and the stem), print the
-     build time and ptxas report, and count the tensor-core instructions in
-     each kernel's library;
+     together: the attention, the fused block, the stem and Griffin-Lim),
+     print the build time and ptxas report, and count the tensor-core
+     instructions in the libraries of the first three;
   3. hold each kernel (masked attention, fused ResNet block) to its plain
      PyTorch version and to a float64 evaluation on the card at the serving
      paths' shapes and at edge cases (both kernels' fp32 forms, which are
@@ -46,8 +46,8 @@ Phases, in order; any failure raises and exits non-zero:
      PyTorch call that computes the same function, at the serving shapes
      (and at the LRS shape and the GRID training shapes, printed only);
      then one call of each instance under torch.profiler, its launches
-     checked, and counted as the profiler saw them (before the profiler
-     sessions of phases 8-11);
+     checked, and counted as the profiler saw them, and phase 17 (f) (both
+     before the profiler sessions of phases 8-11);
   7. run ``python3 -m vcagan_torch.bench --fold-bn-fused`` (bf16) and
      print its JSON line;
   8. training (``vcagan_torch.train``, fp32, TF32 off): (a) the attention's
@@ -185,18 +185,24 @@ Phases, in order; any failure raises and exits non-zero:
      full-width ``Synthesizer`` with attention_dim 512 on B=2 clips of 750
      frames in fp32 and bf16, its two attention calls against the plain
      version, one forward timed;
- 17. Griffin-Lim's windowed-DFT matmul form (``griffin_lim_mxu``) and
-     ``MelPipeline(gl_dtype=...)``: (a) the fp32 matmul form on the card
-     against the FFT form on the card and on the CPU at 20 rounds, each
-     beside a float64 run, and the bf16 synthesis against its bf16 operands
-     in float64 (fp32 results, not bf16 ones); (b) bf16 against fp32 by the
-     JAX package's convergence bounds on its multi-tone signal and on the
-     trained postnet's spectrogram at B=48; (c) the three forms' device ms
-     at (48, 300, 321) and (100, 300, 321) beside their bounds, which decide
-     ``dsp.pipeline.FP32_MATMUL_ON_CUDA``, and one bf16 call profiled;
-     (d) the bf16 folded + fused serving path at B=48 x 75 with
-     ``gl_dtype=bf16`` beside the default, in turns, its launches asserted
-     and its Griffin-Lim form counted, and the stages of one such forward;
+ 17. Griffin-Lim's forms, its kernel (``vcagan_torch/kernels/griffin_lim.py``,
+     the card's fp32 form) and ``MelPipeline(gl_dtype=...)``: (a) the fp32
+     matmul form (``griffin_lim_mxu``) on the card against the FFT form on
+     the card and on the CPU at 20 rounds, each beside a float64 run, and
+     the bf16 synthesis against its bf16 operands in float64 (fp32 results,
+     not bf16 ones); (b) bf16 against fp32 by the JAX package's convergence
+     bounds on its multi-tone signal and on the trained postnet's
+     spectrogram at B=48; (c) the FFT form's and the kernel's device ms at
+     (48, 300, 321), (100, 300, 321), (8, 640, 321) and (1, 4, 321), the
+     matmul forms' at the first two, beside their bounds, and one bf16
+     call profiled; (d) the bf16 folded + fused serving path at B=48 x 75
+     with ``gl_dtype=bf16`` beside the default, in turns, its launches
+     asserted and its Griffin-Lim form counted, and the stages of one such
+     forward; (e) the kernel at those four shapes against the FFT form on
+     the card, its plain twin and a float64 FFT form, with no round and at
+     60 rounds, and from a generator; (f) one kernel call at the serving
+     shape under torch.profiler: its launches, as counted and as the plan
+     gives them, and no other device activity (run after phase 6);
 then print Griffin-Lim's JSON line, the per-kernel JSON line and, last,
 the device JSON line.
 Needs one card; JAX is not used.
@@ -240,6 +246,7 @@ from vcagan_torch.io.weights import load_serving_npz  # noqa: E402
 from vcagan_torch.kernels import _build  # noqa: E402
 from vcagan_torch.kernels import fused_block as fb  # noqa: E402
 from vcagan_torch.kernels import fused_stem as fs  # noqa: E402
+from vcagan_torch.kernels import griffin_lim as gl_kernel  # noqa: E402
 from vcagan_torch.kernels import masked_attention as attn  # noqa: E402
 from vcagan_torch.nn.discriminator import Discriminator  # noqa: E402
 from vcagan_torch.nn.losses import r1_penalty  # noqa: E402
@@ -269,7 +276,14 @@ ATTN_TOL = 1e-5  # atol and rtol: fp32 on both sides, D=256-term sums
 # relative each), the bound of the JAX package's own bf16 test.
 FB_TOL = 1e-4
 FB_BF16_TOL = 0.05
-KERNELS = ("masked_attention", "fused_block", "fused_stem")
+# The libraries whose kernels run on the tensor cores, and Griffin-Lim's
+# (cuFFT's transforms and three fp32 elementwise kernels: none there).
+TENSOR_CORE_KERNELS = ("masked_attention", "fused_block", "fused_stem")
+KERNELS = (*TENSOR_CORE_KERNELS, "griffin_lim")
+# Names of the launches of a Griffin-Lim kernel call, as torch.profiler lists
+# them: its three kernels and cuFFT's two transforms.
+GL_LAUNCH_NAMES = ("gl_project", "gl_reframe", "gl_overlap_add", "regular_fft_c2r",
+                   "regular_fft_r2c")
 # The stem kernel against its plain version on the card: both round to bf16
 # at the same points, but sum the 245 products in fp32 in other orders, so a
 # sum that lies at a rounding boundary may round the other way: one bf16 ulp
@@ -605,6 +619,45 @@ def kernel_names(device):
         short = re.search(r"(\w+)(?:<[^()]*>)?\(", n)
         names.append(short.group(1) if short else n)
     return names
+
+
+def gl_launches_seen(names):
+    """The launches of the Griffin-Lim kernel among ``kernel_names``."""
+    return sum(any(k in n for k in GL_LAUNCH_NAMES) for n in names)
+
+
+def phase_gl_launches(card):
+    """Phase 17 (f), run here, before the profiler sessions of phases 8-11:
+    one Griffin-Lim kernel call at the serving shape, (48, 300, 321), 60
+    rounds, under torch.profiler; every device activity of the call must be
+    one of its launches, as many as ``griffin_lim.launches`` counted and
+    ``kernel_launches`` gives, and no torch elementwise kernel among them.
+    Returns the launches by name."""
+    mag = torch.rand((48, 300, 321), generator=torch.Generator("cuda").manual_seed(3),
+                     device="cuda") * 10.0
+    phase = random_phase(mag.shape, torch.Generator("cuda").manual_seed(4), mag.device)
+    plan = gl_kernel.plan_griffin_lim(48, 300, GL_PARAMS, GL_ROUNDS)
+    call = lambda: gl_kernel.griffin_lim_cuda(mag, GL_PARAMS, GL_ROUNDS, init_phase=phase)  # noqa: E731
+    counted = []
+
+    def measured():
+        before = count_of("griffin_lim.launches")
+        call()
+        counted.append(count_of("griffin_lim.launches") - before)
+
+    call()
+    torch.cuda.synchronize()
+    device, _ = profiled(measured, warmup=call)
+    names = kernel_names(device)
+    by_name = {k: sum(k in n for n in names) for k in GL_LAUNCH_NAMES}
+    check(len(names) == gl_launches_seen(names) == counted[0] == gl_kernel.kernel_launches(plan),
+          f"griffin-lim (48, 300, 321) x {GL_ROUNDS}: the profiler saw {len(names)} device "
+          f"activities ({gl_launches_seen(names)} of the kernel's: {by_name}), "
+          f"{counted[0]} launches counted, the plan gives {gl_kernel.kernel_launches(plan)}")
+    print(f"griffin-lim kernel (48, 300, 321) x {GL_ROUNDS} rounds: one call is {len(names)} "
+          f"launches under torch.profiler ({', '.join(f'{k} {v}' for k, v in by_name.items())}), "
+          f"as counted, no other device activity ok [{card}]")
+    return by_name
 
 
 def phase_instance_launches(card):
@@ -950,11 +1003,15 @@ def check_calls(attention, fused, what):
           f"kernel calls, not {attention} and {fused}")
 
 
-def check_launches(forwards, fused, what, stem=None):
+def check_launches(forwards, fused, what, stem=None, gl=1):
     """Every forward calls the attention kernel twice and, with fused blocks,
     the fused-block kernel 5 times (else never); with ``stem`` given, the
     stem kernel once where it is true (the folded + fused bf16 front), else
-    never."""
+    never; the Griffin-Lim kernel ``gl`` times (once with the default fp32
+    Griffin-Lim, never with ``gl_dtype`` bf16)."""
+    check(count_of("griffin_lim.calls") == gl * forwards,
+          f"{what}: {count_of('griffin_lim.calls')} Griffin-Lim kernel calls in {forwards} "
+          f"forwards, not {gl} each")
     if stem is not None:
         want = forwards if stem else 0
         check(count_of("stem.calls") == want,
@@ -1066,7 +1123,7 @@ def phase_serve(states, card, what, fused, bf16):
     sums = torch.stack([o["wav"].abs().sum() for o in outs]).cpu()  # the one sync
     elapsed = time.perf_counter() - t0
     launches = (count_of("attention.calls"), count_of("fused_block.calls"),
-                count_of("stem.calls"))
+                count_of("stem.calls"), count_of("griffin_lim.calls"))
     by_instance = {n: count_of(f"attention.launches.{n}") for n in INSTANCE_KERNELS}
     check_launches(batches, fused, what, stem=fused and bf16)
 
@@ -1078,13 +1135,14 @@ def phase_serve(states, card, what, fused, bf16):
     print(f"serve {what} B={b} T={t}: {mel_fps:.1f} mel-frames/s ({elapsed:.3f} s for "
           f"{batches} batches), peak {peak_gb:.2f} GB, {launches[0] / batches:g} attention calls "
           f"(kernel launches {', '.join(f'{n} {c}' for n, c in by_instance.items())} in all) "
-          f"and {launches[1] / batches:g} fused-block and {launches[2] / batches:g} stem calls per "
-          f"forward [{card}]")
+          f"and {launches[1] / batches:g} fused-block, {launches[2] / batches:g} stem and "
+          f"{launches[3] / batches:g} Griffin-Lim kernel calls per forward [{card}]")
     del outs
     parts = stage_breakdown(synth, video, lengths, card, what)
     if bf16:
         device_profile(synth, video, lengths, card, what)
-    counts = dict(zip(("masked_cross_attention", "fused_basic_block", "fused_stem"), launches))
+    counts = dict(zip(("masked_cross_attention", "fused_basic_block", "fused_stem",
+                       "griffin_lim"), launches))
     counts["attention_by_instance"] = by_instance
     return counts, parts
 
@@ -1234,7 +1292,8 @@ def device_profile(synth, video, lengths, card, what):
     (``attention.launches``, ``fused_block.launches``, ``stem.launches``)
     must be those the profiler saw; a forward runs before it, in a cycle
     of the session whose events are dropped."""
-    names_counted = ("attention.launches", "fused_block.launches", "stem.launches")
+    names_counted = ("attention.launches", "fused_block.launches", "stem.launches",
+                     "griffin_lim.launches")
     counted = []
 
     def forward():
@@ -1245,10 +1304,10 @@ def device_profile(synth, video, lengths, card, what):
     device, _ = profiled(forward, warmup=lambda: synth(video, lengths))
     names = kernel_names(device)
     seen = (sum(n in ATTENTION_KERNELS for n in names), names.count("fused_block_kernel"),
-            names.count("fused_stem_kernel"))
+            names.count("fused_stem_kernel"), gl_launches_seen(names))
     counted = tuple(counted)
     check(seen == counted and seen[0] >= 2, f"{what}: one forward's launches counted "
-          f"{counted} (attention, fused block, stem), the profiler saw {seen}")
+          f"{counted} (attention, fused block, stem, Griffin-Lim), the profiler saw {seen}")
     print(f"profile of one {what} B={video.shape[0]} forward [{card}]: "
           f"{busy_share(device, what)}; most time: {most_time(device)}")
     stem, _ = profiled(lambda: synth.v_front.stem(video))
@@ -3869,8 +3928,13 @@ def phase_sixteen(card):
 # Phase 17, Griffin-Lim's forms.  The card's published float32 rate
 # outside the tensor cores (the fp32 matmul form runs with TF32 off).
 FP32_FLOP_PER_S = 67e12
-GL_FORMS = (("fft fp32", None), ("matmul fp32", torch.float32), ("matmul bf16", torch.bfloat16))
-GL_SHAPES = ((48, 300), (100, 300))  # (B, mel frames): the serving and GRID test batches
+GL_FORMS = (("fft fp32", None), ("kernel fp32", "kernel"), ("matmul fp32", torch.float32),
+            ("matmul bf16", torch.bfloat16))
+# (B, mel frames): the serving and GRID test batches, an LRS bucket of 160
+# video frames and the shortest clip the kernel takes; the matmul forms are
+# timed at the first two only.
+GL_SHAPES = ((48, 300), (100, 300), (8, 640), (1, 4))
+GL_MATMUL_SHAPES = GL_SHAPES[:2]
 GL_PARAMS = STFTParams()  # AudioConfig's 640 / 160 / 640
 GL_ROUNDS = AudioConfig().griffin_lim_iters
 GL_CHECK_ROUNDS = 20
@@ -3883,13 +3947,24 @@ GL_CHECK_ROUNDS = 20
 # peak (a result rounded to bf16 would be 2e-3 off).
 GL_FP32_TOL = 5e-5
 GL_BF16_SYNTH_REL = 1e-5
+# The Griffin-Lim kernel rounds where the FFT form rounds, on the same cuFFT
+# transforms: against the FFT form on the card, and against its plain twin,
+# it is held to the 20-round bound above at every round count; against a
+# float64 FFT form to that form's own fp32 distance plus that bound (after
+# 60 rounds the phases of near-silent bins part by more than fp32 rounding
+# in either fp32 form), and with no round (one synthesis) to 1e-6 of the
+# waveform's peak.
+GL_SYNTH_REL = 1e-6
 
 
 def gl_form(dtype, mag, rounds, phase=None, generator=None):
-    """One Griffin-Lim form on ``mag``: the FFT form for ``dtype`` None,
-    else ``griffin_lim_mxu`` in ``dtype``."""
+    """One Griffin-Lim form on ``mag``: the FFT form for ``dtype`` None, the
+    kernel for "kernel", else ``griffin_lim_mxu`` in ``dtype``."""
     if dtype is None:
         return griffin_lim(mag, GL_PARAMS, rounds, init_phase=phase, generator=generator)
+    if dtype == "kernel":
+        return gl_kernel.griffin_lim_cuda(mag, GL_PARAMS, rounds, init_phase=phase,
+                                          generator=generator)
     return griffin_lim_mxu(mag, GL_PARAMS, rounds, compute_dtype=dtype, init_phase=phase,
                            generator=generator)
 
@@ -4009,20 +4084,22 @@ def gl_checks(card, states):
 
 def gl_times(card):
     """(c) Device ms (CUDA events around one call, median of 10 after 2
-    warm-ups) of the three forms at the serving and GRID test shapes, each
-    beside its bound, and one bf16 call at the serving shape under
-    ``torch.profiler`` (busy share, the kernels that take the most time);
-    the fp32 forms' ratio decides ``dsp.pipeline.FP32_MATMUL_ON_CUDA``."""
+    warm-ups) of the FFT form and the kernel at ``GL_SHAPES`` and of the
+    matmul forms at ``GL_MATMUL_SHAPES``, each beside its bound, and one
+    bf16 matmul call at the serving shape under ``torch.profiler`` (busy
+    share, the kernels that take the most time)."""
     rows = []
     for b, t in GL_SHAPES:
         mag = torch.rand((b, t, 321), generator=torch.Generator("cuda").manual_seed(b),
                          device="cuda") * 10.0
         for name, dtype in GL_FORMS:
+            if (b, t) not in GL_MATMUL_SHAPES and name.startswith("matmul"):
+                continue
             gen = torch.Generator("cuda").manual_seed(0)
             torch.cuda.reset_peak_memory_stats()
             ms = time_ms(lambda: gl_form(dtype, mag, GL_ROUNDS, generator=gen), samples=10,
                          calls=1, warmup=2)
-            nbytes, flops, rate, state = gl_work(b, t, dtype)
+            nbytes, flops, rate, state = gl_work(b, t, None if dtype == "kernel" else dtype)
             t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
             row = {"form": name, "shape": [b, t, 321], "rounds": GL_ROUNDS, "ms": ms,
                    "bound_ms": max(t_bytes, t_flops),
@@ -4030,8 +4107,8 @@ def gl_times(card):
                    "tflop": flops / 1e12, "state_floor_ms": state / HBM_BYTES_PER_S * 1e3,
                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
             rows.append(row)
-            print(f"griffin-lim {name} ({b}, {t}, 321) x {GL_ROUNDS} rounds: {ms:.2f} ms, bound "
-                  f"{row['bound_ms']:.3f} ms ({row['bound_by']}; {row['tflop']:.3f} TFLOP at "
+            print(f"griffin-lim {name} ({b}, {t}, 321) x {GL_ROUNDS} rounds: {ms:.3f} ms, bound "
+                  f"{row['bound_ms']:.3f} ms ({row['bound_by']}; {row['tflop']:.4f} TFLOP at "
                   f"{rate / 1e12:g} TFLOP/s), per-round state floor {row['state_floor_ms']:.2f} "
                   f"ms, peak {row['peak_gb']:.2f} GB [{card}]")
         del mag
@@ -4043,22 +4120,68 @@ def gl_times(card):
     print(f"profile of one griffin-lim matmul bf16 call ({b}, {t}, 321) [{card}]: "
           f"{busy_share(device, 'griffin-lim matmul bf16')}; most time: {most_time(device, 6)}")
     del mag
-    serving = {r["form"]: r["ms"] for r in rows if r["shape"][0] == GL_SHAPES[0][0]}
-    faster = serving["fft fp32"] / serving["matmul fp32"] - 1.0
-    print(f"griffin-lim fp32 at {GL_SHAPES[0]}: the matmul form {serving['matmul fp32']:.2f} ms "
-          f"against the FFT form's {serving['fft fp32']:.2f} ms (faster by {100 * faster:+.1f}%); "
-          f"FP32_MATMUL_ON_CUDA = {dsp_pipeline.FP32_MATMUL_ON_CUDA} (the matmul form where it "
-          f"is at least 5% faster) [{card}]")
-    return rows, faster
+    for b, t in GL_SHAPES:
+        ms = {r["form"]: r["ms"] for r in rows if r["shape"][:2] == [b, t]}
+        print(f"griffin-lim fp32 at ({b}, {t}, 321): the kernel {ms['kernel fp32']:.3f} ms "
+              f"against the FFT form's {ms['fft fp32']:.3f} ms "
+              f"({ms['fft fp32'] / ms['kernel fp32']:.2f}x) [{card}]")
+    return rows
+
+
+def gl_kernel_checks(card):
+    """(e) The kernel at ``GL_SHAPES`` on speech-like magnitudes, from one
+    injected phase, against the FFT form on the card, its plain twin on the
+    card and a float64 FFT form, with no round and at 60 rounds; and from a
+    generator against the FFT form from the same generator state.  Returns
+    the errors by shape."""
+    out = {}
+    for b, t in GL_SHAPES:
+        clips = np.stack([speechish(160 * (t - 1), 41 + i) for i in range(b)])
+        mag = stft(torch.from_numpy(clips).cuda(), GL_PARAMS).abs()
+        phase = random_phase(mag.shape, torch.Generator("cuda").manual_seed(b + t), mag.device)
+        errs = {}
+        for rounds in (0, GL_ROUNDS):
+            got = gl_kernel.griffin_lim_cuda(mag, GL_PARAMS, rounds, init_phase=phase)
+            fft = griffin_lim(mag, GL_PARAMS, rounds, init_phase=phase)
+            twin = gl_kernel.griffin_lim_reference(mag, GL_PARAMS, rounds, init_phase=phase)
+            exact = griffin_lim(mag.double(), GL_PARAMS, rounds, init_phase=phase.double())
+            peak = exact.abs().max().item()
+            e = {"fft": (got - fft).abs().max().item(), "twin": (got - twin).abs().max().item(),
+                 "float64": (got.double() - exact).abs().max().item(),
+                 "fft_float64": (fft.double() - exact).abs().max().item(), "peak": peak}
+            check(got.shape == (b, 160 * (t - 1)) and bool(torch.isfinite(got).all()),
+                  f"griffin-lim kernel ({b}, {t}): {tuple(got.shape)} or non-finite")
+            check(e["fft"] < GL_FP32_TOL and e["twin"] < GL_FP32_TOL,
+                  f"griffin-lim kernel ({b}, {t}) x {rounds}: against the FFT form {e['fft']:.3e}, "
+                  f"its twin {e['twin']:.3e}")
+            check(e["float64"] < e["fft_float64"] + GL_FP32_TOL,
+                  f"griffin-lim kernel ({b}, {t}) x {rounds}: against float64 {e['float64']:.3e}, "
+                  f"the FFT form {e['fft_float64']:.3e}")
+            if rounds == 0:
+                check(e["float64"] < GL_SYNTH_REL * peak,
+                      f"griffin-lim kernel ({b}, {t}) synthesis against float64 {e['float64']:.3e}")
+            errs[rounds] = e
+            print(f"griffin-lim kernel ({b}, {t}, 321) x {rounds} rounds: max abs err against the "
+                  f"FFT form {e['fft']:.3e}, its twin {e['twin']:.3e}, float64 {e['float64']:.3e} "
+                  f"(the FFT form {e['fft_float64']:.3e}; peak {peak:.3f}), bit-equal to the FFT "
+                  f"form {torch.equal(got, fft)} ok [{card}]")
+        gens = [torch.Generator("cuda").manual_seed(b) for _ in range(2)]
+        drawn = (gl_kernel.griffin_lim_cuda(mag, GL_PARAMS, GL_CHECK_ROUNDS, generator=gens[0])
+                 - griffin_lim(mag, GL_PARAMS, GL_CHECK_ROUNDS, generator=gens[1])).abs().max().item()
+        check(drawn < GL_FP32_TOL, f"griffin-lim kernel ({b}, {t}) from a generator: {drawn:.3e}")
+        errs["generator"] = drawn
+        out[f"{b}x{t}"] = errs
+        del mag, clips
+    return out
 
 
 def gl_serve(card, states):
     """(d) The bf16 folded + fused serving path at B=48 x 75, 8 batches in
-    flight, with the default Griffin-Lim and with ``gl_dtype=bf16``, in
-    turns (default, bf16, bf16, default): mel-frames/s and peak memory,
-    printed and not held; 2 attention and 5 fused-block calls a forward
-    asserted, and the form each run vocoded with counted; then the stages
-    of one ``gl_dtype=bf16`` forward."""
+    flight, with the default Griffin-Lim (the kernel) and with
+    ``gl_dtype=bf16``, in turns (default, bf16, bf16, default):
+    mel-frames/s and peak memory, printed and not held; 2 attention and 5
+    fused-block calls a forward asserted, and the form each run vocoded
+    with counted; then the stages of one ``gl_dtype=bf16`` forward."""
     b, t, batches = 48, 75, SERVE_BATCHES
     video = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (b, t, 112, 112, 1)).astype(np.float32)).cuda()
@@ -4091,12 +4214,13 @@ def gl_serve(card, states):
             outs = [synth(video, lengths) for _ in range(batches)]
             sums = torch.stack([o["wav"].abs().sum() for o in outs]).cpu()
             elapsed = time.perf_counter() - t0
-            check_launches(batches, True, f"gl_dtype {gl} serving", stem=True)
+            check_launches(batches, True, f"gl_dtype {gl} serving", stem=True,
+                           gl=0 if gl == "bf16" else 1)
             check(bool(torch.isfinite(sums).all()), f"gl_dtype {gl}: non-finite wav")
-            want = ("griffin_lim_mxu" if gl == "bf16" or dsp_pipeline.FP32_MATMUL_ON_CUDA
-                    else "griffin_lim")
-            check(forms[want] == batches and sum(forms.values()) == batches,
-                  f"gl_dtype {gl}: vocoded by {forms}, not {batches} x {want}")
+            vocoded = dict(forms, kernel=count_of("griffin_lim.calls"))
+            want = "griffin_lim_mxu" if gl == "bf16" else "kernel"
+            check(vocoded[want] == batches and sum(vocoded.values()) == batches,
+                  f"gl_dtype {gl}: vocoded by {vocoded}, not {batches} x {want}")
             runs[gl].append({"mel_frames_per_s": batches * b * 4 * t / elapsed,
                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
             print(f"serve folded+fused bf16 B={b} T={t}, gl_dtype {gl} ({want}): "
@@ -4112,16 +4236,20 @@ def gl_serve(card, states):
     return runs
 
 
-def phase_seventeen(card, states):
-    """Phase 17: Griffin-Lim's windowed-DFT matmul form and
-    ``MelPipeline(gl_dtype=...)`` on the card, (a)-(d)."""
+def phase_seventeen(card, states, launches=None):
+    """Phase 17: Griffin-Lim's forms and ``MelPipeline(gl_dtype=...)`` on the
+    card, (a)-(f); ``launches``, (f)'s result where ``main`` ran it early
+    (it runs here otherwise)."""
+    launches = launches or phase_gl_launches(card)
+    kernel = gl_kernel_checks(card)
+    torch.cuda.empty_cache()
     checks = gl_checks(card, states)
     torch.cuda.empty_cache()
-    rows, faster = gl_times(card)
+    rows = gl_times(card)
     torch.cuda.empty_cache()
     serving = gl_serve(card, states)
-    return {"form_rows": rows, "fp32_matmul_faster": faster, "serving_gl_dtype": serving,
-            **checks}
+    return {"form_rows": rows, "serving_gl_dtype": serving, "kernel_max_abs_err": kernel,
+            "kernel_launches_by_name": launches, **checks}
 
 
 def main() -> None:
@@ -4143,7 +4271,7 @@ def main() -> None:
                 if "registers" in line or "spill" in line or "error" in line:
                     print(f"  {name}: {line.strip()}")
 
-    for name in KERNELS:
+    for name in TENSOR_CORE_KERNELS:
         sass = subprocess.run(["cuobjdump", "-sass", _build.library_path(name)],
                               capture_output=True, text=True, check=True, timeout=300).stdout
         lines = sass.splitlines()
@@ -4162,6 +4290,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     attn_totals = phase_attention_times(card)
     phase_instance_launches(card)
+    gl_launches = phase_gl_launches(card)
     torch.cuda.empty_cache()
     phase_bench(card)
     attn_grad_worst = phase_train_attention(card)
@@ -4220,8 +4349,9 @@ def main() -> None:
     print(f"phase 16 (every width the JAX package runs): {time.perf_counter() - t16:.1f} s")
     torch.cuda.empty_cache()
     t17 = time.perf_counter()
-    seventeen = phase_seventeen(card, states)
-    print(f"phase 17 (Griffin-Lim's matmul form and gl_dtype): {time.perf_counter() - t17:.1f} s")
+    seventeen = phase_seventeen(card, states, gl_launches)
+    print(f"phase 17 (Griffin-Lim's forms, its kernel and gl_dtype): "
+          f"{time.perf_counter() - t17:.1f} s")
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s
@@ -4302,10 +4432,23 @@ def main() -> None:
     print(f"fused_stem one forward (1 launch) [{card}]: {stem['ms']:.3f} ms alone, "
           f"{stem['in_path_ms']:.3f} ms in the path, plain {stem['plain_ms']:.3f} ms, cuDNN chain "
           f"{stem['library_ms']:.3f} ms, bound {stem['bound_ms']:.3f} ms")
-    # Griffin-Lim is no kernel (plain PyTorch products and passes, as the JAX
-    # package's einsums): its forms' figures stand on a line of their own.
+    # Griffin-Lim's kernel: one call a forward on the card's fp32 Griffin-Lim
+    # (every serving path's default), timed alone at the serving shape; the
+    # forms' figures stand on a line of their own.
+    gl_rows = {r["form"]: r for r in seventeen["form_rows"] if r["shape"][:2] == [48, 300]}
+    griffin = {"name": "griffin_lim", "route": "cuda", "source": "vcagan_torch/csrc/griffin_lim.cu",
+               "replaces": None, "form": "fp32", "launches": launches["folded+fused bf16"]["griffin_lim"],
+               "launches_by_path": {path: counts["griffin_lim"] for path, counts in launches.items()},
+               "kernel_launches_a_call": sum(gl_launches.values()),
+               "max_abs_err": seventeen["kernel_max_abs_err"], "ms": gl_rows["kernel fp32"]["ms"],
+               "bound_ms": gl_rows["kernel fp32"]["bound_ms"],
+               "bound_by": gl_rows["kernel fp32"]["bound_by"],
+               "library_ms": gl_rows["fft fp32"]["ms"], "timer": "events"}
+    print(f"griffin_lim one call (48, 300, 321) x {GL_ROUNDS} rounds ({griffin['kernel_launches_a_call']} "
+          f"launches) [{card}]: {griffin['ms']:.3f} ms alone, the FFT form {griffin['library_ms']:.3f} "
+          f"ms, bound {griffin['bound_ms']:.3f} ms")
     print(json.dumps({"griffin_lim": seventeen}))
-    print(json.dumps({"kernels": [attention, fused, stem]}))
+    print(json.dumps({"kernels": [attention, fused, stem, griffin]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

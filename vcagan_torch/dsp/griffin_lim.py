@@ -2,13 +2,15 @@
 
 ``griffin_lim`` ports ``vcagan/dsp/griffin_lim.py:36-79``: the phase is
 carried as a unit phasor (re, im), so each round is one ISTFT, one STFT
-(``torch.fft``) and a normalisation with no transcendental.
+(``torch.fft``) and a normalisation with no transcendental.  It is the form
+off the card and the oracle of the card's fp32 form, the Griffin-Lim kernel
+(``vcagan_torch/kernels/griffin_lim.py``), which rounds where it rounds.
 
 ``griffin_lim_mxu`` ports ``vcagan/dsp/griffin_lim.py:86-200``, the same
 function with the DFT written as products with windowed bases, in a compute
 dtype (bf16 by default, as the JAX function's) with fp32 results.  The JAX
 package runs it on its accelerator, ``MelPipeline(gl_dtype=...)`` on the
-card (``vcagan_torch/dsp/pipeline.py``).
+card for a ``gl_dtype`` other than fp32 (``vcagan_torch/dsp/pipeline.py``).
 """
 
 from __future__ import annotations

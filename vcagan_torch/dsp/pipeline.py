@@ -13,26 +13,21 @@ from vcagan_torch.dsp import audio as audio_ops
 from vcagan_torch.dsp.griffin_lim import griffin_lim, griffin_lim_mxu
 from vcagan_torch.dsp.mel import mel_filterbank
 from vcagan_torch.dsp.stft import STFTParams, stft_magnitude
+from vcagan_torch.kernels import griffin_lim as griffin_lim_kernel
 from vcagan_torch.tracing import span
-
-
-# Whether fp32 Griffin-Lim on the card takes the matmul form
-# (``griffin_lim_mxu``) rather than the FFT form: only where chip_smoke
-# phase 17 measures it at least 5% faster at (48, 300, 321).  It measured
-# the matmul form at 55.17 ms against the FFT form's 31.91 ms, 60 rounds
-# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, "Griffin-Lim by form and dtype").
-FP32_MATMUL_ON_CUDA = False
 
 
 class MelPipeline:
     """Stateless apart from the constant mel basis (n_mels, n_linear).
 
-    ``gl_dtype``: the compute dtype of Griffin-Lim's windowed-DFT products
-    on the card (``vcagan/dsp/pipeline.py:26-43``); None is fp32.  On the
-    card bf16 (or any type but fp32) vocodes with ``griffin_lim_mxu`` in
-    that type, and fp32 with the form ``FP32_MATMUL_ON_CUDA`` names; off
-    the card the FFT form runs and ``gl_dtype`` is ignored, as the JAX
-    package ignores it off its accelerator (``pipeline.py:110-131``)."""
+    ``gl_dtype``: the compute dtype of Griffin-Lim on the card
+    (``vcagan/dsp/pipeline.py:26-43``); None is fp32.  On the card fp32
+    vocodes with the Griffin-Lim kernel (``vcagan_torch/kernels/
+    griffin_lim.py``: a round in four launches, cuFFT's transforms and two
+    hand-written kernels), bf16 (or any type but fp32) with
+    ``griffin_lim_mxu`` in that type; off the card the FFT form
+    (``griffin_lim``) runs and ``gl_dtype`` is ignored, as the JAX package
+    ignores it off its accelerator (``pipeline.py:110-131``)."""
 
     def __init__(self, config: AudioConfig | None = None, gl_dtype: torch.dtype | None = None):
         self.config = config or AudioConfig()
@@ -78,15 +73,18 @@ class MelPipeline:
         """Linear magnitudes (B, T, n_linear) -> waveform (B, hop*(T-1)):
         Griffin-Lim, de-emphasis, clip to [-1, 1].  ``init_phase`` (B, T,
         n_linear) replaces the random phase drawn from ``generator``.  Traced
-        as ``vocoder.griffin_lim`` (either form) and ``vocoder.deemphasis``
+        as ``vocoder.griffin_lim`` (every form) and ``vocoder.deemphasis``
         (de-emphasis and the clip)."""
         iters = self.config.griffin_lim_iters
         with span("vocoder.griffin_lim"):
-            if spec.is_cuda and (self.gl_dtype != torch.float32 or FP32_MATMUL_ON_CUDA):
+            if not spec.is_cuda:
+                wav = griffin_lim(spec, self.stft_params, iters, init_phase, generator)
+            elif self.gl_dtype == torch.float32:
+                wav = griffin_lim_kernel.griffin_lim_cuda(spec, self.stft_params, iters,
+                                                          init_phase, generator)
+            else:
                 wav = griffin_lim_mxu(spec, self.stft_params, iters, self.gl_dtype, init_phase,
                                       generator)
-            else:
-                wav = griffin_lim(spec, self.stft_params, iters, init_phase, generator)
         with span("vocoder.deemphasis"):
             wav = audio_ops.deemphasis(wav, self.config.preemphasis)
             return torch.clamp(wav, -1.0, 1.0)

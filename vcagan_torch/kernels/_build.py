@@ -2,8 +2,8 @@
 
 Each ``vcagan_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on first use into ``vcagan_torch/_build/<name>-<hash>.so`` (the
-hash covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
-an edited source or header builds anew).
+hash covers the source, the shared headers ``csrc/*.cuh``, the flags and the
+libraries it links, so an edited source or header builds anew).
 Nothing is built when a module is imported.  A missing ``nvcc`` or a failed
 build raises.
 """
@@ -24,6 +24,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The toolkit libraries a kernel's library links beyond the CUDA runtime,
+# found at run time where the toolkit keeps them (PyTorch has usually loaded
+# the same ones already).
+LIBRARIES = {"griffin_lim": ("cufft",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -48,8 +53,18 @@ def sources(name: str) -> list[str]:
     return [os.path.join(CSRC, f) for f in (f"{name}.cu", *headers)]
 
 
+def link_flags(name: str, compiler: str) -> list[str]:
+    """The linker's part of the command: each library of ``LIBRARIES`` and
+    the toolkit's library directory as the run-time search path."""
+    libs = LIBRARIES.get(name, ())
+    if not libs:
+        return []
+    lib_dir = os.path.join(os.path.dirname(os.path.dirname(compiler)), "lib64")
+    return [*(f"-l{lib}" for lib in libs), "-Xlinker", f"-rpath={lib_dir}"]
+
+
 def library_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *LIBRARIES.get(name, ()))).encode())
     for path in sources(name):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read())
@@ -73,7 +88,8 @@ def build(names) -> None:
     try:
         for name in missing:
             tmp = f"{library_path(name)}.{os.getpid()}.{threading.get_ident()}.tmp"
-            cmd = [compiler, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+            cmd = [compiler, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu"),
+                   *link_flags(name, compiler)]
             with open(log_path(name), "w") as log:
                 proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
             running.append((name, tmp, proc))

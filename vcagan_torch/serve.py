@@ -12,7 +12,9 @@ use_bfloat16=True))``): parameters fp32, each module computing in the dtype
 the JAX module gives it (see ``vcagan_torch/nn``), so ``phon``, ``mel1..3``
 and the postnet's output are bf16 and ``sent`` fp32; the spectrogram is
 cast to fp32 before Griffin-Lim, which stays fp32 (``bench.py:74``)
-unless ``gl_dtype`` says otherwise.  Otherwise fp32 throughout.
+unless ``gl_dtype`` says otherwise: on the card the Griffin-Lim kernel
+(``vcagan_torch/kernels/griffin_lim.py``), off it the FFT form.  Otherwise
+fp32 throughout.
 
 ``Synthesizer(fold_bn=True, fused_blocks=True)`` is the counterpart of
 ``VCAGANModules.create(fold_bn=True, fused_blocks=True)``: the serving
@@ -53,8 +55,8 @@ class Synthesizer:
     into their convolutions; weights are given unfolded and folded once at
     load.  ``fused_blocks`` (needs ``fold_bn``): the trunk's stride-1 blocks
     run as single launches of the fused block kernel.  ``gl_dtype``: the
-    compute dtype of Griffin-Lim's products on the card, None fp32
-    (``MelPipeline``; bf16 vocodes with ``griffin_lim_mxu``)."""
+    compute dtype of Griffin-Lim on the card, None fp32 (``MelPipeline``:
+    fp32 vocodes with the Griffin-Lim kernel, bf16 with ``griffin_lim_mxu``)."""
 
     def __init__(self, config: ModelConfig | None = None, device=None,
                  fold_bn: bool = False, fused_blocks: bool = False,
