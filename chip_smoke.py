@@ -59,7 +59,9 @@ Phases, in order; any failure raises and exits non-zero:
      module's gradient, the updates and the BatchNorm statistics;
      (c) the GRID training shape, B=88 x 40 frames: 2 warm-up and 5
      counted steps, their time, clips/s, peak memory, attention calls a
-     step and the time of each part of a step (CUDA events);
+     step and the time of each part of a step (CUDA events), then one
+     step under torch.profiler, its kernels by call site (``call_sites``;
+     every fixed-batch step of phase 10 too);
   9. training through its entry points (``vcagan_torch.train.loop.Trainer``
      on the synthetic GRID clips, fp32): (c) ``Trainer.fit`` at the GRID
      recipe, B=88 x 40 frames over 880 clips (10 batches, one epoch, each
@@ -203,6 +205,19 @@ Phases, in order; any failure raises and exits non-zero:
      60 rounds, and from a generator; (f) one kernel call at the serving
      shape under torch.profiler: its launches, as counted and as the plan
      gives them, and no other device activity (run after phase 6);
+ 18. the discriminators' convolutions differentiated twice (``DiscConv2d``
+     on ``conv2d_twice``, ``vcagan_torch/nn/discriminator.py``): R1's
+     parameter gradients at GRID's training shapes (B=88, the three mel
+     scales of a 40-frame window, bf16 modules) against the same
+     discriminator on ``F.conv2d`` (PyTorch's double backward), both held
+     to that plain path's fp32 gradient (TF32 off) over each
+     discriminator's flat gradient: the new path within
+     ``R1_TWICE_BOUNDS[0]`` times the plain bf16 path's relative L2 to it,
+     the two bf16 paths within ``R1_TWICE_BOUNDS[1]`` times that of each
+     other.  (The profiled step of phases 8 (c) and 10 (b), (c) is read by
+     call site, ``call_sites``: no double backward, 33 graph backwards a
+     step, in bf16 no SIMT convolution in ``train.d_backward`` but over
+     one-channel maps);
 then print Griffin-Lim's JSON line, the per-kernel JSON line and, last,
 the device JSON line.
 Needs one card; JAX is not used.
@@ -210,6 +225,8 @@ Needs one card; JAX is not used.
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import dataclasses
 import json
 import os
@@ -248,7 +265,7 @@ from vcagan_torch.kernels import fused_block as fb  # noqa: E402
 from vcagan_torch.kernels import fused_stem as fs  # noqa: E402
 from vcagan_torch.kernels import griffin_lim as gl_kernel  # noqa: E402
 from vcagan_torch.kernels import masked_attention as attn  # noqa: E402
-from vcagan_torch.nn.discriminator import Discriminator  # noqa: E402
+from vcagan_torch.nn.discriminator import DiscConv2d, Discriminator  # noqa: E402
 from vcagan_torch.nn.losses import r1_penalty  # noqa: E402
 from vcagan_torch.nn.resnet import BasicBlock  # noqa: E402
 from vcagan_torch.runtime import use_full_fp32  # noqa: E402
@@ -1248,16 +1265,43 @@ def profiled(fn, record_shapes=False, warmup=None):
             if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")], prof
 
 
-def convolution_backwards(prof, top=8):
-    """The convolution backward (and double backward) calls that take the
-    most device time, grouped by their input shapes."""
-    ops = [e for e in prof.key_averages(group_by_input_shape=True)
-           if e.key in ("aten::convolution_backward", "aten::_convolution_double_backward")]
-    check(len(ops) > 0, "the profile holds no convolution backward")
-    attr = "device_time_total" if hasattr(ops[0], "device_time_total") else "cuda_time_total"
-    ops.sort(key=lambda e: getattr(e, attr), reverse=True)
-    return "; ".join(f"{e.key[6:]} x{e.count} {e.input_shapes[:3]} "
-                     f"{getattr(e, attr) / 1e3:.2f} ms" for e in ops[:top])
+# what one GRID or LRS2 step's R1 differentiates with a graph: the
+# convolutions on the path from each unconditional logit to its mel, 8 + 11 + 14
+R1_GRAPH_BACKWARDS = 33
+
+
+def call_sites(prof, counts, what, bf16, card):
+    """A profiled train step's kernels by call site (``tools/conv_sites.py``)
+    and the step's counters: no ``aten::_convolution_double_backward`` (the
+    discriminators' convolutions differentiate twice through
+    ``conv_transpose2d``) and ``R1_GRAPH_BACKWARDS`` backwards under a
+    graph; in bf16, every cuDNN convolution without tensor cores
+    (``implicit_convolve_sgemm``, ``precomputed_convolve_sgemm``) left in
+    ``train.d_backward`` one over a one-channel map, for which cuDNN has
+    no tensor-core algorithm (the discriminators' input convolution, which
+    the forward runs on the same kernel), and each named with its shapes."""
+    from tools.conv_sites import SIMT, sites
+
+    def one_channel(g):  # the op's weight (C_out, 1, k, k)
+        shapes = ast.literal_eval(g["shapes"])
+        return shapes[2 if g["chain"].endswith("convolution_backward") else 1][1] == 1
+
+    found = sites(prof, 1, top=10 ** 6)
+    left = [g for g in found["groups"] if any(k in g["kernel"] for k in SIMT)]
+    graphs = counts.get("disc_conv.graph_backwards")
+    print(f"kernels of that step by call site [{card}]: "
+          f"{found['double_backward_ops_per_step']:g} double-backward ops, disc_conv "
+          f"{counts.get('disc_conv.calls')} calls and {graphs} graph backwards; SIMT convolutions: "
+          + ("; ".join(f"{g['range']} {g['node']} {g['chain'].split(' > ')[0]} {g['shapes'][:80]} "
+                       f"{g['ms_per_step']:.2f} ms" for g in left) or "none")
+          + "; largest: " + "; ".join(f"{g['kernel'][:48]} {g['range']} {g['node']} "
+                                      f"{g['ms_per_step']:.2f} ms" for g in found["groups"][:6]))
+    check(found["double_backward_ops_per_step"] == 0,
+          f"train {what}: a convolution differentiates twice in PyTorch's generic way")
+    check(graphs == R1_GRAPH_BACKWARDS,
+          f"train {what}: disc_conv.graph_backwards {graphs} a step, not {R1_GRAPH_BACKWARDS}")
+    check(not bf16 or all(one_channel(g) for g in left if g["range"] == "train.d_backward"),
+          f"train {what}: SIMT convolutions over several channels left in train.d_backward")
 
 
 def most_time(activities, top=8):
@@ -1575,7 +1619,7 @@ def phase_train_fixed(card, what, model_config, train_config, batch):
     dropout on, the step's own generator: 2 warm-up steps, then 5 counted
     steps on the same batch with one sync; then one step under
     torch.profiler (busy share, the kernels that take the most time, the
-    convolution backwards).  Phase 8 (c): the GRID shape, B=88 clips x 40
+    kernels by call site: ``call_sites``).  Phase 8 (c): the GRID shape, B=88 clips x 40
     frames, fp32; phase 10: the same in bf16, and LRS2 batches.  Returns
     the attention calls of the counted steps and the ms a step."""
     b, w = batch.video.shape[:2]
@@ -1631,11 +1675,12 @@ def phase_train_fixed(card, what, model_config, train_config, batch):
     check(recon[-1] < recon[0],
           f"train {what}: recon_loss did not fall over the counted steps: {recon.tolist()}")
     # one more step under the profiler (it slows the host: the idle share is an upper bound)
-    device, prof = profiled(lambda: run(1), record_shapes=True)
+    tracing.read()
+    with tracing.enabled(device_events=False):
+        device, prof = profiled(lambda: run(1), record_shapes=True)
     print(f"profile of one train step {what} B={b} [{card}]: {busy_share(device, 'train step')}; "
           f"most time: {most_time(device, top=12)}")
-    print(f"convolution backwards of that step, by input shapes [{card}]: "
-          f"{convolution_backwards(prof)}")
+    call_sites(prof, tracing.read()["counters"], what, model_config.use_bfloat16, card)
     return launches, ms
 
 
@@ -4252,6 +4297,73 @@ def phase_seventeen(card, states, launches=None):
             "kernel_launches_by_name": launches, **checks}
 
 
+# phase 18's bounds: the new path's relative L2 to the fp32 gradient over
+# the plain bf16 path's, and the two bf16 paths' distance over the plain one's
+R1_TWICE_BOUNDS = (1.25, 2.0)
+
+
+@contextlib.contextmanager
+def plain_disc_convs():
+    """``DiscConv2d`` on ``nn.Conv2d``'s own ``F.conv2d`` (differentiated
+    twice by PyTorch's ``_convolution_double_backward``) inside the block."""
+    own = DiscConv2d._conv_forward
+    DiscConv2d._conv_forward = torch.nn.Conv2d._conv_forward
+    try:
+        yield
+    finally:
+        DiscConv2d._conv_forward = own
+
+
+def r1_parameter_gradient(module, real, sent):
+    """R1's gradient into ``module``'s parameters, flat in fp32, and by leaf."""
+    x = real.clone().requires_grad_()
+    logits, _ = module(x, sent)
+    grads = torch.autograd.grad(r1_penalty(logits, x), list(module.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    return torch.cat([g.float().flatten() for g in grads]), [g.float() for g in grads]
+
+
+def phase_eighteen(card):
+    """Phase 18: R1's parameter gradients through ``conv2d_twice`` against
+    PyTorch's double backward at the GRID shapes."""
+    rng = np.random.default_rng(18)
+    b, w = TRAIN_BATCH, TRAIN_WINDOW
+    sent = torch.from_numpy(rng.standard_normal((b, w, 512), np.float32)).cuda()
+    fp32, half = ModelConfig(), ModelConfig(use_bfloat16=True)
+    new_k, paths_k = R1_TWICE_BOUNDS
+    for phase, (f, t) in zip("123", ((20, w), (40, 2 * w), (80, 4 * w))):
+        real = torch.from_numpy(np.clip(rng.standard_normal((b, f, t), np.float32), -1, 1)).cuda()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            d_half = Discriminator(phase, half).cuda()
+        d_fp32 = Discriminator(phase, fp32).cuda()
+        d_fp32.load_state_dict(d_half.state_dict())
+        t0 = time.perf_counter()
+        new, new_leaves = r1_parameter_gradient(d_half, real, sent)
+        torch.cuda.synchronize()
+        new_s = time.perf_counter() - t0
+        with plain_disc_convs():
+            t0 = time.perf_counter()
+            plain, plain_leaves = r1_parameter_gradient(d_half, real, sent)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            anchor, _ = r1_parameter_gradient(d_fp32, real, sent)
+        own, was = rel_l2(new, anchor), rel_l2(plain, anchor)
+        between = rel_l2(new, plain)
+        names = [n for n, _ in d_half.named_parameters()]
+        worst = max(((rel_l2(a, p), n) for n, a, p in zip(names, new_leaves, plain_leaves)
+                     if p.any()), key=lambda x: x[0])
+        print(f"  R1 parameter gradient dis{phase} B={b} ({f} x {t} mels) bf16: conv2d_twice "
+              f"{own:.3e} from fp32, F.conv2d's double backward {was:.3e} ({own / was:.3f} x, "
+              f"bound {new_k:g}); the two bf16 paths {between:.3e} apart ({between / was:.3f} x, "
+              f"bound {paths_k:g}), worst leaf {worst[1]} {worst[0]:.3e}; first call "
+              f"{new_s * 1e3:.1f} against {plain_s * 1e3:.1f} ms")
+        check(own <= new_k * was and between <= paths_k * was,
+              f"R1 parameter gradient dis{phase}: conv2d_twice against the double backward")
+        del d_half, d_fp32
+    print(f"R1 parameter gradients through conv2d_twice ok [{card}]")
+
+
 def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4352,6 +4464,11 @@ def main() -> None:
     seventeen = phase_seventeen(card, states, gl_launches)
     print(f"phase 17 (Griffin-Lim's forms, its kernel and gl_dtype): "
           f"{time.perf_counter() - t17:.1f} s")
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    phase_eighteen(card)
+    print(f"phase 18 (the discriminators' convolutions differentiated twice): "
+          f"{time.perf_counter() - t18:.1f} s")
 
     def bound(totals, flop_per_s):
         t_bytes, t_flops = totals["bytes"] / HBM_BYTES_PER_S, totals["flops"] / flop_per_s

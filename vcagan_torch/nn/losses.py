@@ -22,7 +22,13 @@ def r1_penalty(logits: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Batch mean of ||d sum(logits) / d x||^2 per sample, ``logits`` the
     per-sample logits computed from ``x`` (which requires grad).  The
     gradient is taken with ``create_graph=True``, so the penalty
-    differentiates again into the discriminator's parameters.  The JAX
+    differentiates again into the discriminator's parameters.  The
+    discriminators' convolutions are ``DiscConv2d``
+    (``vcagan_torch/nn/discriminator.py``): this gradient runs through
+    their ``conv_transpose2d`` (cuDNN's backward-data) and takes no weight
+    gradient, and the second derivative into the weights is
+    ``conv_transpose2d``'s backward, cuDNN's weight-gradient and forward
+    convolutions, not PyTorch's ``_convolution_double_backward``.  The JAX
     function takes the logit function and runs its own forward; here the
     caller's forward, which also gives the real-logit loss, is shared."""
     (grad,) = torch.autograd.grad(logits.sum(), x, create_graph=True)
